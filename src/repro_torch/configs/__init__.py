@@ -1,0 +1,33 @@
+"""Architecture registry of the port: ``get_config("internlm2-1.8b")``.
+
+Only the architectures the port can serve are registered; the others
+of the reference join as their layers are ported (ROADMAP A5, A13).
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import ModelConfig, reduced
+
+_ARCH_MODULES = {
+    "internlm2-1.8b": "repro_torch.configs.internlm2_1p8b",
+}
+
+ARCH_IDS: List[str] = list(_ARCH_MODULES)
+
+_cache: Dict[str, ModelConfig] = {}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _cache:
+        if arch not in _ARCH_MODULES:
+            raise KeyError(f"unknown arch {arch!r} for the PyTorch port; "
+                           f"known: {ARCH_IDS} (more arrive with ROADMAP "
+                           "A5/A13)")
+        _cache[arch] = importlib.import_module(_ARCH_MODULES[arch]).config()
+    return _cache[arch]
+
+
+__all__ = ["ARCH_IDS", "ModelConfig", "get_config", "reduced"]

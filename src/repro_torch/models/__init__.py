@@ -1,0 +1,9 @@
+"""Models of the port: parameter trees, layers, paged attention and the
+decoder stack (counterpart of ``repro/models``)."""
+
+from repro_torch.models import attention, layers, module, transformer
+from repro_torch.models.transformer import (forward_decode, forward_verify,
+                                            model_defs)
+
+__all__ = ["attention", "layers", "module", "transformer", "model_defs",
+           "forward_decode", "forward_verify"]

@@ -1,0 +1,225 @@
+"""GQA attention over block-paged KV pools: the paged decode half of
+``repro/models/attention.py``.
+
+``apply`` runs in paged-decode mode only (the serving engine's fused
+chunk): projections + rope, then ``paged_decode_step`` writes the new
+KV through the page table and reads it back either by gathering each
+slot's ring (``paged_kernel=False``) or pool-direct through
+``kernels/paged_attention`` (``paged_kernel=True``: the Hopper kernel on
+the card).  Pool writes are **in place** — the reference returns new
+pools, the port mutates the cache's tensors and returns them.
+
+Every function here is free of host synchronization: no ``.item()``,
+no boolean-mask indexing, no Python branch on a tensor value.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.models.layers import rope
+from repro_torch.models.module import ParamDef
+
+NEG_INF = -1e30
+
+
+def attn_defs(cfg: ModelConfig) -> Dict:
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    return {"wq": ParamDef((d, cfg.num_heads, dh)),
+            "wk": ParamDef((d, cfg.num_kv_heads, dh)),
+            "wv": ParamDef((d, cfg.num_kv_heads, dh)),
+            "wo": ParamDef((cfg.num_heads, dh, d))}
+
+
+def _softcap(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return scores
+    return torch.tanh(scores / cap) * cap
+
+
+def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                     valid: torch.Tensor, *,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """q [B,Sq,H,dh]; cache [B,Hkv,S,dh] in ring order; ``valid`` the
+    ring-validity mask, [B,S] for Sq == 1 or per query row [B,Sq,S].
+    (The reference's position-order default mask serves its dense cache,
+    which the port does not have.)"""
+    b, sq, h, dh = q.shape
+    hkv = ck.shape[1]
+    g = h // hkv
+    scale = dh ** -0.5
+    if sq == 1:
+        q2 = q[:, 0].reshape(b, hkv, g, dh)
+        scores = torch.einsum("bkgd,bksd->bkgs", q2, ck).float() * scale
+        scores = _softcap(scores, softcap)
+        scores = torch.where(valid[:, None, None], scores, NEG_INF)
+        p = torch.softmax(scores, dim=-1).to(cv.dtype)
+        out = torch.einsum("bkgs,bksd->bkgd", p, cv)
+        return out.reshape(b, 1, h, dh)
+    if valid.dim() != 3:
+        raise ValueError("multi-query decode attention needs a per-query "
+                         "[B,Sq,S] mask")
+    q2 = q.reshape(b, sq, hkv, g, dh)
+    scores = torch.einsum("bqkgd,bksd->bkgqs", q2, ck).float()
+    scores = _softcap(scores * scale, softcap)
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(cv.dtype)
+    out = torch.einsum("bkgqs,bksd->bqkgd", p, cv)
+    return out.reshape(b, sq, h, dh)
+
+
+def ring_token_positions(cache_len: torch.Tensor, ring: int) -> torch.Tensor:
+    """Absolute token held by each ring slot ([B, ring]): slot ``r`` holds
+    the latest ``u <= t`` with ``u == r (mod ring)``; negative means never
+    written.  ``cache_len`` [B] counts tokens including the current one.
+    Floor-mod (``torch.remainder``) as in the reference: ``t - r`` is
+    often negative."""
+    t = (cache_len.long() - 1)[:, None]
+    r = torch.arange(ring, device=cache_len.device)[None, :]
+    return t - torch.remainder(t - r, ring)
+
+
+def ring_valid(cache_len: torch.Tensor, ring: int,
+               window: Optional[int]) -> torch.Tensor:
+    """[B, ring] validity of a ring-ordered KV layout: written slots only,
+    window-masked by absolute position."""
+    u = ring_token_positions(cache_len, ring)
+    valid = u >= 0
+    if window is not None:
+        valid = valid & (u > (cache_len.long() - 1)[:, None] - window)
+    return valid
+
+
+def paged_ring_blocks(window: Optional[int], max_blocks: int,
+                      page_size: int, spec_slack: int = 0) -> int:
+    """Logical ring width in pages of a paged layer; must agree with
+    ``serve/cache.CacheSpec``'s per-layer ``ring_blocks``."""
+    if window is None:
+        return max_blocks
+    return min(max_blocks, -(-(window + spec_slack) // page_size))
+
+
+def page_group_key(ring_blocks: int) -> str:
+    """Key of the pool group with the given ring width."""
+    return f"ring{ring_blocks}"
+
+
+def paged_decode_step(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
+                      cache: Dict, cache_len: torch.Tensor, *,
+                      window: Optional[int], softcap: Optional[float],
+                      paged_kernel: bool = False
+                      ) -> Tuple[torch.Tensor, Dict]:
+    """``S``-token attention against a block-paged KV pool (``S == 1``:
+    one decode token per slot; ``S > 1``: a fused chunk's prompt slice or
+    verify rows, newest last).
+
+    cache: {"pk","pv": [num_pages+1, P, Hkv, dh], "pt": [B, ring_blocks],
+    optional "wm": [B] or [B,S] bool write mask}.  Writes the new KV
+    through the page table **in place** (write-then-attend), redirecting
+    masked rows — and, for ``S > 1``, writes past a ring that must not
+    wrap — to the trash page, then attends.  Quantized pools ("ks"/"vs")
+    are ROADMAP A9."""
+    if "ks" in cache or "vs" in cache:
+        raise NotImplementedError(
+            "quantized KV pools are not ported yet (ROADMAP A9/B2)")
+    pool_k, pool_v, pt = cache["pk"], cache["pv"], cache["pt"]
+    b, s = q.shape[0], q.shape[1]
+    page_size = pool_k.shape[1]
+    trash = pool_k.shape[0] - 1
+    wm = cache.get("wm")
+    new = {"pk": pool_k, "pv": pool_v}
+
+    if s == 1:
+        blocks = paged_ring_blocks(window, pt.shape[1], page_size)
+        ring = blocks * page_size
+        table = pt[:, :blocks]
+        t = cache_len.long() - 1                              # [B]
+        lb = torch.remainder(torch.div(t, page_size, rounding_mode="floor"),
+                             blocks)
+        phys = torch.gather(table.long(), 1, lb[:, None])[:, 0]
+        if wm is not None:
+            phys = torch.where(wm, phys, trash)                # dead -> trash
+        off = torch.remainder(t, page_size)
+        pool_k[phys, off] = kk[:, 0].to(pool_k.dtype)
+        pool_v[phys, off] = vv[:, 0].to(pool_v.dtype)
+        if paged_kernel:
+            out = paged_attention(q[:, 0].contiguous(), pool_k, pool_v,
+                                  table.contiguous(), cache_len,
+                                  window=window, softcap=softcap)
+            return out[:, None], new
+        ck, cv = _gather_ring(pool_k, pool_v, table, ring)
+        return decode_attention(q, ck, cv, ring_valid(cache_len, ring, window),
+                                softcap=softcap), new
+
+    # multi-row step: the table is the layer's own group table, so its
+    # width IS the ring width
+    blocks = pt.shape[1]
+    ring = blocks * page_size
+    g_pos = ((cache_len.long() - s)[:, None]
+             + torch.arange(s, device=q.device)[None, :])       # [B,S] abs
+    lb = torch.remainder(torch.div(g_pos, page_size, rounding_mode="floor"),
+                         blocks)
+    phys = torch.gather(pt.long(), 1, lb)                      # [B,S]
+    ok = torch.ones_like(g_pos, dtype=torch.bool)
+    if not (window is not None and ring >= window + s - 1):
+        ok = ok & (g_pos < ring)        # non-wrapping ring: no write aliasing
+    if wm is not None:
+        ok = ok & (wm if wm.dim() == 2 else wm[:, None])
+    off = torch.remainder(g_pos, page_size)
+    phys = torch.where(ok, phys, trash)
+    pool_k[phys, off] = kk.to(pool_k.dtype)
+    pool_v[phys, off] = vv.to(pool_v.dtype)
+    if paged_kernel:
+        out = paged_attention(q.contiguous(), pool_k, pool_v, pt, cache_len,
+                              window=window, softcap=softcap)
+        return out, new
+    ck, cv = _gather_ring(pool_k, pool_v, pt, ring)
+    u = ring_token_positions(cache_len, ring)                  # [B, ring]
+    valid = (u >= 0)[:, None, :] & (u[:, None, :] <= g_pos[:, :, None])
+    if window is not None:
+        valid = valid & (u[:, None, :] > g_pos[:, :, None] - window)
+    return decode_attention(q, ck, cv, valid, softcap=softcap), new
+
+
+def _gather_ring(pool_k, pool_v, table, ring):
+    """Gather each slot's logical ring: -> [B, Hkv, ring, dh] K and V."""
+    b = table.shape[0]
+    idx = table.long()
+    gk = pool_k[idx].reshape(b, ring, *pool_k.shape[2:])
+    gv = pool_v[idx].reshape(b, ring, *pool_v.shape[2:])
+    return gk.transpose(1, 2), gv.transpose(1, 2)
+
+
+def apply(params, x: torch.Tensor, *, cfg: ModelConfig,
+          window: Optional[int], positions: torch.Tensor, mode: str,
+          cache: Optional[Dict] = None,
+          cache_len: Optional[torch.Tensor] = None,
+          paged_kernel: bool = False
+          ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x [B,S,d] -> (y [B,S,d], new_cache).  Only ``mode="decode"`` over
+    a paged cache is ported (the fused serving chunk); the dense, prefill
+    and ring-buffer modes are ROADMAP A13."""
+    if mode != "decode" or cache is None or "pk" not in cache:
+        raise NotImplementedError(
+            f"attention mode {mode!r} without a paged cache is not ported "
+            "yet (ROADMAP A13); the port runs paged decode only")
+    b, s, d = x.shape
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    x2 = x.reshape(b * s, d)
+    q = torch.matmul(x2, params["wq"].reshape(d, h * dh)).view(b, s, h, dh)
+    kk = torch.matmul(x2, params["wk"].reshape(d, hkv * dh)).view(
+        b, s, hkv, dh)
+    vv = torch.matmul(x2, params["wv"].reshape(d, hkv * dh)).view(
+        b, s, hkv, dh)
+    q = rope(q, positions, cfg.rope_theta)
+    kk = rope(kk, positions, cfg.rope_theta)
+    out, new_cache = paged_decode_step(
+        q, kk, vv, cache, cache_len, window=window, softcap=cfg.attn_softcap,
+        paged_kernel=paged_kernel)
+    y = torch.matmul(out.reshape(b * s, h * dh),
+                     params["wo"].reshape(h * dh, d)).view(b, s, d)
+    return y, new_cache

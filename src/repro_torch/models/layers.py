@@ -1,0 +1,75 @@
+"""Basic layers: RMS norm, rotary embeddings, token embeddings, LM head,
+SwiGLU MLP (counterparts of ``repro/models/layers.py``)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.module import ParamDef
+
+
+def rmsnorm_defs(dim: int):
+    return {"scale": ParamDef((dim,), init="ones")}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x [..., S, H, dh]; positions [..., S] (broadcastable).  Angles
+    are fp32, with the reference's frequency formula."""
+    half = x.shape[-1] // 2
+    exps = torch.arange(half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(1.0 / theta, exps)
+    ang = positions[..., :, None].float() * freqs       # [..., S, half]
+    cos = torch.cos(ang)[..., :, None, :]                # [..., S, 1, half]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def embedding_defs(cfg: ModelConfig):
+    defs = {"table": ParamDef((cfg.vocab_size, cfg.d_model), init="embed",
+                              scale=cfg.d_model ** -0.5)}
+    if not cfg.tie_embeddings:
+        defs["head"] = ParamDef((cfg.d_model, cfg.vocab_size))
+    return defs
+
+
+def embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    h = F.embedding(tokens, params["table"])
+    if cfg.embed_scale:
+        h = h * (cfg.d_model ** 0.5)
+    return h
+
+
+def logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """LM head; fp32 out whatever the activation dtype."""
+    w = params["table"].t() if cfg.tie_embeddings else params["head"]
+    out = torch.matmul(h.float(), w.float())
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        out = torch.tanh(out / c) * c
+    return out
+
+
+def mlp_defs(cfg: ModelConfig):
+    d = cfg.d_model
+    return {"w_gate": ParamDef((d, cfg.d_ff)),
+            "w_up": ParamDef((d, cfg.d_ff)),
+            "w_down": ParamDef((cfg.d_ff, d))}
+
+
+def mlp(params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``."""
+    g = torch.matmul(x, params["w_gate"].to(x.dtype))
+    u = torch.matmul(x, params["w_up"].to(x.dtype))
+    return torch.matmul(F.silu(g) * u, params["w_down"].to(x.dtype))

@@ -1,0 +1,446 @@
+"""Serving runtime of the port: fused chunked prefill over block-paged
+fp32 KV pools (counterpart of ``repro/serve/engine.py``'s default mode).
+
+Three layers, as in the reference:
+
+* **Scheduler** (``serve/scheduler``) — host-side policy: FIFO queue,
+  slot admission, per-group page reservation, refcounted prefix sharing
+  over a radix index.
+* **Executor** (below) — the device layer.  A chunk is ``sync_interval``
+  micro-steps; each feeds a right-aligned ``[slots, S]`` token matrix
+  (``S = prefill_budget``) to the model: a mid-prefill slot contributes
+  its next ``min(plen - len, S)`` prompt tokens, a decoding slot its
+  pending token, and pad rows are write-masked so their KV lands on the
+  trash page.  Sampling and slot bookkeeping stay on the device.  The
+  reference's ``lax.scan`` becomes a Python loop of eager launches with
+  no host synchronization inside a chunk.
+* **Driver** (``Engine``) — glues them: admission at chunk boundaries,
+  one batched device-to-host drain per chunk, finish reporting.
+
+Attention reads the pools pool-direct through the Hopper paged-attention
+kernel (``paged_kernel="auto"`` on a CUDA device) or gathers each slot's
+ring (``paged_kernel=False``).  Speculation, the legacy two-executable
+path, preemption, deadlines, SLO policy, tracing, fault injection and
+sharding are not ported yet; their arguments raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers
+from repro_torch.models.transformer import verify_hidden
+from repro_torch.serve import cache as cache_mod
+from repro_torch.serve import sampling
+from repro_torch.serve.cache import CacheSpec
+from repro_torch.serve.scheduler import (PagePoolExhausted, Request,
+                                         RequestRejected, RequestStatus,
+                                         Scheduler)
+from repro_torch.serve.spec import spec_unsupported_reason
+
+
+class Executor:
+    """Device layer of the fused engine: the chunk, admission
+    bookkeeping, copy-on-write and slot eviction.  Cache and slot state
+    are dicts of device tensors, updated in place where the reference
+    donated them."""
+
+    def __init__(self, cfg: ModelConfig, spec: CacheSpec, *, top_k: int,
+                 sync_interval: int, paged_kernel: bool,
+                 prefill_budget: int, device: torch.device):
+        self.cfg = cfg
+        self.spec = spec
+        self.top_k = int(top_k)
+        self.sync_interval = int(sync_interval)
+        self.paged_kernel = bool(paged_kernel)
+        self.chunk_rows = int(prefill_budget)
+        self.device = device
+
+    def micro_inputs(self, cache: Dict, state: Dict):
+        """One micro-step's right-aligned token matrix and masks:
+        ``(toks [B,S], write_mask [B,S], n_rows [B], prefilling [B],
+        completing [B])``."""
+        S = self.chunk_rows
+        col = torch.arange(S, device=self.device, dtype=torch.int32)[None, :]
+        len_ = cache["len"]
+        active = state["active"]
+        rem = state["plen"] - len_
+        prefilling = active & (rem > 0)
+        n = torch.where(prefilling, torch.clamp(rem, max=S), 1)
+        completing = prefilling & (rem <= S)
+        gidx = len_[:, None] + col - (S - n)[:, None]
+        pcap = state["prompt"].shape[1]
+        ptoks = torch.gather(state["prompt"], 1,
+                             torch.clamp(gidx, 0, pcap - 1).long())
+        wm = active[:, None] & (col >= (S - n)[:, None])
+        toks = torch.where(
+            prefilling[:, None], ptoks,
+            torch.where(col == S - 1, state["tokens"][:, None], 0))
+        return toks, wm, n, prefilling, completing
+
+    def chunk(self, params, cache: Dict, state: Dict,
+              gen: torch.Generator):
+        """``sync_interval`` fused micro-steps: forward (KV written
+        through the page tables) + sample + bookkeeping, all on the
+        device.  Returns the [T, slots] token history (-1 where a slot
+        committed nothing), the cache and the state."""
+        emitted: List[torch.Tensor] = []
+        for _ in range(self.sync_interval):
+            len_, active = cache["len"], state["active"]
+            toks, wm, n, prefilling, completing = self.micro_inputs(
+                cache, state)
+            h, cache = verify_hidden(
+                params, self.cfg, toks, cache, write_mask=wm,
+                paged_kernel=self.paged_kernel,
+                spec_slack=self.spec.spec_tokens, n_rows=n)
+            logits = layers.logits(params["embed"], self.cfg, h[:, -1])
+            nxt = sampling.sample(logits, gen, temperature=state["temp"],
+                                  top_k=self.top_k)
+            # commit for decoding slots and for slots whose prefill just
+            # completed (their first token); mid-prefill slots commit
+            # nothing
+            commit = active & (~prefilling | completing)
+            state, em = sampling.decode_update(state, nxt, commit=commit)
+            cache = dict(cache, len=len_ + torch.where(
+                prefilling, n, active.to(torch.int32)))
+            emitted.append(em)
+        return torch.stack(emitted), cache, state
+
+    def admit(self, cache: Dict, state: Dict, entries: List[Dict]) -> None:
+        """Fused admission, in place: install each slot's page-table rows,
+        rewind its ``len`` to the prefill cursor, stage its prompt and arm
+        it.  No KV is written here; the chunk prefills."""
+        if not entries:
+            return
+        dev = self.device
+        for en in entries:
+            cache_mod.install_slot_rows(self.spec, cache, en["slot"],
+                                        en["start"], en["rows"])
+        idx = torch.as_tensor([en["slot"] for en in entries], device=dev)
+
+        def put(name, values, dtype=torch.int32):
+            state[name][idx] = torch.as_tensor(np.asarray(values),
+                                               dtype=dtype, device=dev)
+
+        put("tokens", [0] * len(entries))
+        put("out_len", [en["out_len0"] for en in entries])
+        put("max_new", [en["max_new"] for en in entries])
+        put("eos", [en["eos"] for en in entries])
+        put("temp", [en["temp"] for en in entries], torch.float32)
+        put("active", [en["out_len0"] < en["max_new"] for en in entries],
+            torch.bool)
+        put("plen", [en["plen"] for en in entries])
+        put("prompt", np.stack([en["prompt"] for en in entries]))
+
+    def copy_page(self, cache: Dict, src: int, dst: int,
+                  group_key: str) -> None:
+        cache_mod.copy_shared_page(self.spec, cache, group_key, src, dst)
+
+    def free_slot(self, cache: Dict, slot: int) -> None:
+        cache_mod.free_slot_cache(self.spec, cache, slot)
+
+
+def _unsupported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch engine yet (ROADMAP {item})")
+
+
+class Engine:
+    """Host driver of the port's fused chunked-prefill engine.
+
+    ``device`` (default: the card; raises without one) holds params,
+    pools and slot state.  ``paged_kernel``: ``True`` reads the pools
+    through ``kernels/paged_attention`` (the Hopper kernel on CUDA
+    tensors, its plain version on the CPU), ``False`` gathers each slot's
+    ring, ``"auto"`` is the kernel exactly when the device is CUDA.
+    ``max_len`` is the logical per-slot token cap; ``num_pages`` the
+    full-attention pool budget (default ``slots`` x widest ring, under
+    which no pool pressure can arise)."""
+
+    def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
+                 max_len: int = 256, greedy: bool = True,
+                 temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+                 sync_interval: int = 8, page_size: int = 8,
+                 num_pages: Optional[int] = None,
+                 prefix_sharing: bool = True,
+                 paged_kernel: Any = "auto",
+                 chunked_prefill: Any = "auto",
+                 prefill_budget: int = 32,
+                 kv_dtype: str = "auto",
+                 device: DeviceLike = None,
+                 spec: Any = None, chaos: Any = None, trace: Any = None,
+                 policy: str = "fifo", rules: Any = None,
+                 queue_limit: Optional[int] = None,
+                 shed_policy: str = "reject"):
+        if spec not in (None, False, "off"):
+            raise _unsupported("speculative decoding (spec=)", "A10")
+        if chaos is not None:
+            raise _unsupported("fault injection (chaos=)", "A11")
+        if trace not in (None, False):
+            raise _unsupported("lifecycle tracing (trace=)", "A11")
+        if policy != "fifo":
+            raise _unsupported(f"policy={policy!r}", "A11")
+        if rules is not None:
+            raise _unsupported("sharded serving (rules=)", "A14")
+        if queue_limit is not None or shed_policy != "reject":
+            raise _unsupported("queue limits and shed policies", "A11")
+        if kv_dtype not in ("auto", "fp32"):
+            raise _unsupported(f"kv_dtype={kv_dtype!r}", "A9")
+        if chunked_prefill is False:
+            raise _unsupported("the two-executable path "
+                               "(chunked_prefill=False)", "A13")
+        reason = spec_unsupported_reason(cfg)
+        if reason is not None:
+            raise _unsupported(f"{cfg.name} ({reason}) outside fused "
+                               "chunked prefill", "A13")
+        if prefill_budget < 1:
+            raise ValueError(
+                f"prefill_budget must be >= 1, got {prefill_budget}")
+        self.device = resolve_device(device)
+        pdev = next(params.parameters()).device
+        if pdev.type != self.device.type:
+            raise ValueError(f"params live on {pdev}, engine on "
+                             f"{self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        if temperature > 0.0:
+            self.default_temp = float(temperature)
+        else:
+            self.default_temp = 0.0 if greedy else 1.0
+        self.top_k = int(top_k)
+        self.sync_interval = int(sync_interval)
+        self.chunked_prefill = True
+        self.prefill_budget = int(prefill_budget)
+        self.kv_dtype = "fp32"
+        # windowed rings need ring >= window + S - 1 so a full-width
+        # prefill slice may write-wrap legitimately (capped in CacheSpec)
+        self.spec = CacheSpec.from_config(
+            cfg, slots, max_len, page_size=page_size, num_pages=num_pages,
+            spec_tokens=self.prefill_budget - 1)
+        if paged_kernel == "auto":
+            paged_kernel = self.device.type == "cuda"
+        self.paged_kernel = bool(paged_kernel)
+        self.scheduler = Scheduler(self.spec, prefix_sharing=prefix_sharing,
+                                   defer_radix_insert=True)
+        self.executor = Executor(cfg, self.spec, top_k=self.top_k,
+                                 sync_interval=self.sync_interval,
+                                 paged_kernel=self.paged_kernel,
+                                 prefill_budget=self.prefill_budget,
+                                 device=self.device)
+        self._slot_req: List[Optional[Request]] = [None] * slots
+        # host-visible prefill cursor (trails the device's cache["len"] by
+        # one drain) and the admission-time prompt length it counts toward
+        self._slot_seen_len: List[int] = [0] * slots
+        self._slot_plen: List[int] = [0] * slots
+        self.cache = self.spec.init_paged_cache(self.device)
+        self.state = sampling.make_slot_state(slots, self.device, max_len)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
+        self._clock = time.monotonic
+        self.finished: List[Request] = []
+        self.rejected: List[Request] = []
+        self.steps = 0          # micro-steps run
+        self.host_syncs = 0
+        self.chunks = 0
+        self.peak_live_slots = 0
+
+    # ---------------------------------------------------------- telemetry
+    @property
+    def queue(self) -> List[Request]:
+        return self.scheduler.queue
+
+    def memory_stats(self) -> Dict[str, Any]:
+        """Paged-cache memory telemetry (per-group page occupancy and
+        pool bytes per live token at the current instant)."""
+        live = sum(len(r.out_tokens) + len(r.prompt)
+                   for r in self._slot_req if r is not None)
+        stats = self.spec.memory_stats(
+            self.scheduler.pages_in_use_by_group, live)
+        stats["peak_pages_in_use"] = self.scheduler.peak_pages_in_use
+        stats["live_slots"] = sum(r is not None for r in self._slot_req)
+        stats["peak_live_slots"] = self.peak_live_slots
+        return stats
+
+    def prefix_stats(self) -> Dict[str, Any]:
+        return self.scheduler.prefix_stats()
+
+    def leaked_pages(self) -> int:
+        """Pages leased beyond what live slots and the radix index hold;
+        nonzero at full drain is a refcount leak."""
+        sched = self.scheduler
+        leaked = 0
+        for key, pool in sched.pools.items():
+            accounted = set()
+            for lease in sched._leases.values():
+                accounted.update(lease.get(key, ()))
+            if sched.radix is not None and key == sched.share_key:
+                stack = list(sched.radix.root.children.values())
+                while stack:
+                    node = stack.pop()
+                    stack.extend(node.children.values())
+                    accounted.add(node.page)
+            leaked += pool.in_use - len(accounted)
+        return leaked
+
+    # ------------------------------------------------------------ serving
+    def submit(self, req: Request) -> Optional[RequestRejected]:
+        """Enqueue a request; returns a typed rejection when its
+        worst-case page reservation can never fit the pool."""
+        if req.deadline is not None or req.ttl is not None:
+            raise _unsupported("request deadlines and TTLs", "A11")
+        if not req.prompt:
+            raise ValueError("chunked_prefill requires a non-empty prompt")
+        if len(req.prompt) + req.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt length {len(req.prompt)} + max_new_tokens "
+                f"{req.max_new_tokens} exceeds max_len={self.max_len}: "
+                "the fused chunk stages prompts in a max_len-sized buffer")
+        try:
+            self.scheduler.validate(req)
+        except PagePoolExhausted as e:
+            req.status = RequestStatus.REJECTED
+            req.reject_reason = str(e)
+            req.done = True
+            self.rejected.append(req)
+            return RequestRejected(req=req, kind="infeasible", reason=str(e))
+        if req.submit_time is None:
+            req.submit_time = self._clock()
+        self.scheduler.submit(req)
+        return None
+
+    def warmup(self) -> None:
+        """Run one inert chunk (every slot idle: all writes land on trash
+        pages) so the first served chunk pays no kernel build or library
+        initialization.  The sampling generator is restored afterwards,
+        so seeded runs are identical with or without warmup."""
+        gen_state = self.gen.get_state()
+        _, self.cache, self.state = self.executor.chunk(
+            self.params, self.cache, self.state, self.gen)
+        self.gen.set_state(gen_state)
+
+    def _req_temp(self, req: Request) -> float:
+        if req.temperature is not None:
+            return float(req.temperature)
+        return self.default_temp
+
+    def _admit(self) -> None:
+        """Chunk-boundary admission: admit while the queue head fits,
+        otherwise wait (pool-pressure preemption is ROADMAP A11)."""
+        free = [i for i in range(self.slots) if self._slot_req[i] is None]
+        entries: List[Dict] = []
+        self.scheduler.current_chunk = self.chunks
+        for adm in self.scheduler.admissions(free, now=self._clock()):
+            req, slot = adm.req, adm.slot
+            prompt = req.effective_prompt
+            plen = len(prompt)
+            if adm.cow is not None:
+                # the slot will write into a shared page: give it a
+                # private copy before the generator drops the source pin
+                _blk, src, dst = adm.cow
+                self.executor.copy_page(self.cache, src, dst,
+                                        self.scheduler.share_key)
+            pbuf = np.zeros((self.max_len,), np.int32)
+            pbuf[:plen] = prompt
+            entries.append({
+                "slot": slot, "start": adm.suffix_start, "plen": plen,
+                "rows": adm.rows, "prompt": pbuf,
+                "out_len0": len(req.out_tokens),
+                "max_new": req.max_new_tokens,
+                "eos": -1 if req.eos_id is None else int(req.eos_id),
+                "temp": self._req_temp(req)})
+            self._slot_req[slot] = req
+            self._slot_seen_len[slot] = adm.suffix_start
+            self._slot_plen[slot] = plen
+        self.executor.admit(self.cache, self.state, entries)
+        self.peak_live_slots = max(
+            self.peak_live_slots, sum(r is not None for r in self._slot_req))
+
+    def step_chunk(self) -> torch.Tensor:
+        """Launch one fused chunk.  No host synchronization: safe under
+        ``torch.cuda.set_sync_debug_mode("error")``."""
+        toks, self.cache, self.state = self.executor.chunk(
+            self.params, self.cache, self.state, self.gen)
+        self.steps += self.sync_interval
+        return toks
+
+    def _drain(self, toks: torch.Tensor) -> None:
+        """One batched device-to-host transfer: token history, generated
+        counts, active flags and prefill cursors.  Each slot's new tokens
+        are the non-negative entries of its history column; finished
+        slots are evicted (page references dropped, table rows trashed)."""
+        n_tok = toks.numel()
+        packed = torch.cat([
+            toks.reshape(-1), self.state["out_len"],
+            self.state["active"].to(torch.int32),
+            self.cache["len"]]).cpu().numpy()
+        self.host_syncs += 1
+        s = self.slots
+        toks_np = packed[:n_tok].reshape(toks.shape)
+        out_len = packed[n_tok:n_tok + s]
+        active = packed[n_tok + s:n_tok + 2 * s]
+        cache_len = packed[n_tok + 2 * s:]
+        now = self._clock()
+        self.chunks += 1
+        for slot in range(self.slots):
+            req = self._slot_req[slot]
+            if req is None:
+                continue
+            plen0 = self._slot_plen[slot]
+            seen = min(int(cache_len[slot]), plen0)
+            if seen > self._slot_seen_len[slot]:
+                prev = self._slot_seen_len[slot]
+                self._slot_seen_len[slot] = seen
+                if prev < plen0 <= seen:
+                    # prefill completed: every prompt page is now written,
+                    # so the prompt becomes visible to the radix index
+                    self.scheduler.index_slot(slot, req, plen0)
+            k = int(out_len[slot]) - len(req.out_tokens)
+            if k > 0:
+                vals = [int(t) for t in toks_np[:, slot] if t >= 0]
+                if len(vals) > k:
+                    raise RuntimeError(f"slot {slot}: drained {len(vals)} "
+                                       f"tokens for {k} new")
+                req.out_tokens.extend(vals[-k:])
+                req.token_times.extend([now] * len(vals[-k:]))
+                req.token_chunks.extend([self.chunks] * len(vals[-k:]))
+                if req.first_token_time is None:
+                    req.first_token_time = now
+            if not active[slot]:
+                req.status = RequestStatus.FINISHED
+                req.done = True
+                req.finish_time = now
+                self.finished.append(req)
+                self._slot_req[slot] = None
+                self.scheduler.release(slot)
+                self.executor.free_slot(self.cache, slot)
+
+    def _live(self) -> bool:
+        return any(r is not None for r in self._slot_req)
+
+    def step(self) -> None:
+        """One admit + fused-chunk + drain round (``sync_interval``
+        micro-steps)."""
+        self._admit()
+        if not self._live():
+            if not self.scheduler.can_progress(0, now=self._clock()):
+                head = self.queue[0]
+                raise PagePoolExhausted(
+                    f"wedged: rid={head.rid} cannot be admitted "
+                    f"({self.scheduler.pool.free_pages} pages free) and no "
+                    "slot is live to release more")
+            return
+        self._drain(self.step_chunk())
+
+    def run(self, max_steps: int = 1000) -> List[Request]:
+        while (self.queue or self._live()) and self.steps < max_steps:
+            self.step()
+        return self.finished
