@@ -6,9 +6,11 @@ buffer and runs masked attention over it.  Validity is the ring formula
 ``u = t - ((t - r) mod R)`` (floor-mod: ``torch.remainder``), the
 per-row causal mask at position ``t - (S-1) + i``, the optional window,
 and the trash-page convention (an entry equal to the last pool row
-masks its whole page).  The softmax is the masked-accumulate form —
-weights zeroed where invalid, denominator clamped — so a row with no
-valid position comes out exactly 0, as the CUDA kernel's does.
+masks its whole page).  8-bit pools come with ``k_scale``/``v_scale``
+[num_pages+1, Hkv]: the gathered pages are dequantized before attending.
+The softmax is the masked-accumulate form — weights zeroed where
+invalid, denominator clamped — so a row with no valid position comes
+out exactly 0, as the CUDA kernel's does.
 """
 
 from __future__ import annotations
@@ -20,13 +22,25 @@ import torch
 NEG_INF = -1e30
 
 
+def take_pages(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``pool[idx]`` for any pool dtype: 8-bit pools are indexed through a
+    uint8 view, so the gather needs no float8 indexing kernel."""
+    if pool.element_size() == 1:
+        return pool.view(torch.uint8)[idx.long()].view(pool.dtype)
+    return pool[idx.long()]
+
+
 def paged_attention_ref(q: torch.Tensor, pool_k: torch.Tensor,
                         pool_v: torch.Tensor, page_table: torch.Tensor,
                         cache_len: torch.Tensor, *,
                         window: Optional[int] = None,
-                        softcap: Optional[float] = None) -> torch.Tensor:
+                        softcap: Optional[float] = None,
+                        k_scale: Optional[torch.Tensor] = None,
+                        v_scale: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """q [B,H,dh] or [B,S,H,dh] (S query rows, newest last); pools
-    [num_pages+1,P,Hkv,dh] fp32; page_table [B,nb] int; cache_len [B]
+    [num_pages+1,P,Hkv,dh] fp32, or 8-bit with ``k_scale``/``v_scale``
+    [num_pages+1,Hkv] fp32; page_table [B,nb] int; cache_len [B]
     (including the newest query token) -> output shaped like ``q``."""
     squeeze = q.dim() == 3
     if squeeze:
@@ -37,8 +51,13 @@ def paged_attention_ref(q: torch.Tensor, pool_k: torch.Tensor,
     ring = nb * page_size
     g = h // hkv
     pt = page_table.long()
-    ck = pool_k[pt].reshape(b, ring, hkv, dh).transpose(1, 2)  # [B,Hkv,R,dh]
-    cv = pool_v[pt].reshape(b, ring, hkv, dh).transpose(1, 2)
+    gk = take_pages(pool_k, pt)                       # [B, nb, P, Hkv, dh]
+    gv = take_pages(pool_v, pt)
+    if k_scale is not None:    # dequant: scale per (page, kv head)
+        gk = gk.float() * k_scale[pt][:, :, None, :, None]
+        gv = gv.float() * v_scale[pt][:, :, None, :, None]
+    ck = gk.reshape(b, ring, hkv, dh).transpose(1, 2)          # [B,Hkv,R,dh]
+    cv = gv.reshape(b, ring, hkv, dh).transpose(1, 2)
     cl = cache_len.long()
     t = (cl - 1)[:, None]
     r = torch.arange(ring, device=q.device)[None, :]

@@ -9,6 +9,11 @@ slot's ring (``paged_kernel=False``) or pool-direct through
 the card).  Pool writes are **in place** — the reference returns new
 pools, the port mutates the cache's tensors and returns them.
 
+8-bit pools (int8 / fp8_e4m3, with per-page, per-kv-head fp32 scales
+"ks"/"vs") are written by a re-quantizing read-modify-write of whole
+pages (``rmw_quantized_pages``) and read either through the kernel,
+which folds the scales in, or by gathering and dequantizing.
+
 Every function here is free of host synchronization: no ``.item()``,
 no boolean-mask indexing, no Python branch on a tensor value.
 """
@@ -21,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention.ref import take_pages
 from repro_torch.models.layers import rope
 from repro_torch.models.module import ParamDef
 
@@ -108,6 +114,72 @@ def page_group_key(ring_blocks: int) -> str:
     return f"ring{ring_blocks}"
 
 
+def kv_pool_qmax(pool_dtype: torch.dtype) -> Optional[float]:
+    """Symmetric quantization range of an 8-bit pool dtype; ``None`` for
+    a pool that stores K/V directly and carries no scale pool."""
+    if pool_dtype == torch.int8:
+        return 127.0
+    if pool_dtype == torch.float8_e4m3fn:
+        return 448.0
+    return None
+
+
+def quantize_pages(x: torch.Tensor, pool_dtype: torch.dtype
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize full pages to an 8-bit pool dtype with per-(page, kv-head)
+    symmetric amax scales: x [..., P, Hkv, dh] -> (q [..., P, Hkv, dh]
+    ``pool_dtype``, scale [..., Hkv] fp32) with ``x ~= q * scale``.  The
+    reference's order of operations, so codes and scales are bitwise
+    equal to its: amax, floor 1e-30, / qmax, divide, clip, round (int8),
+    cast.  The floor keeps all-zero pages (and the trash page) at a
+    finite scale, so they round-trip to exact zeros."""
+    qmax = kv_pool_qmax(pool_dtype)
+    x = x.float()
+    amax = x.abs().amax(dim=(-3, -1))
+    scale = torch.clamp(amax, min=1e-30) / qmax
+    y = x / scale[..., None, :, None]
+    y = torch.clamp(y, -qmax, qmax)  # pre-clip: round(127.49) must not hit 128
+    if pool_dtype == torch.int8:
+        y = torch.round(y)
+    return y.to(pool_dtype), scale
+
+
+def dequantize_pages(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_pages`: q [..., P, Hkv, dh] 8-bit,
+    scale [..., Hkv] -> fp32 [..., P, Hkv, dh]."""
+    return q.float() * scale[..., None, :, None]
+
+
+def put_pages(pool: torch.Tensor, idx: torch.Tensor,
+              pages: torch.Tensor) -> None:
+    """``pool[idx] = pages`` in place, through a uint8 view for 8-bit
+    pools (as ``take_pages``)."""
+    if pool.element_size() == 1:
+        pool.view(torch.uint8)[idx.long()] = pages.view(torch.uint8)
+    else:
+        pool[idx.long()] = pages
+
+
+def rmw_quantized_pages(pool: torch.Tensor, scales: torch.Tensor,
+                        phys: torch.Tensor, new_vals: torch.Tensor,
+                        wrote: torch.Tensor) -> None:
+    """Re-quantizing read-modify-write of whole pages, in place.
+
+    Gathers the ``phys`` pages [...] from ``pool`` [npg+1, P, Hkv, dh],
+    dequantizes them with ``scales`` [npg+1, Hkv], overlays ``new_vals``
+    [..., P, Hkv, dh] where ``wrote`` [..., P] is set, recomputes each
+    page's amax scale and scatters pages and scales back.  Every page is
+    read before any is written.  Distinct non-trash entries of ``phys``
+    name distinct pages (shared pages go copy-on-write at admission);
+    duplicate trash entries race benignly: the trash page is never
+    attended and its scale stays finite."""
+    ex = dequantize_pages(take_pages(pool, phys), scales[phys.long()])
+    merged = torch.where(wrote[..., None, None], new_vals.float(), ex)
+    q, s = quantize_pages(merged, pool.dtype)
+    put_pages(pool, phys, q)
+    scales[phys.long()] = s
+
+
 def paged_decode_step(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
                       cache: Dict, cache_len: torch.Tensor, *,
                       window: Optional[int], softcap: Optional[float],
@@ -118,20 +190,24 @@ def paged_decode_step(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
     verify rows, newest last).
 
     cache: {"pk","pv": [num_pages+1, P, Hkv, dh], "pt": [B, ring_blocks],
-    optional "wm": [B] or [B,S] bool write mask}.  Writes the new KV
+    optional "wm": [B] or [B,S] bool write mask, optional "ks","vs":
+    [num_pages+1, Hkv] fp32 scales of 8-bit pools}.  Writes the new KV
     through the page table **in place** (write-then-attend), redirecting
     masked rows — and, for ``S > 1``, writes past a ring that must not
-    wrap — to the trash page, then attends.  Quantized pools ("ks"/"vs")
-    are ROADMAP A9."""
-    if "ks" in cache or "vs" in cache:
-        raise NotImplementedError(
-            "quantized KV pools are not ported yet (ROADMAP A9/B2)")
+    wrap — to the trash page, then attends.  8-bit pools are written by
+    re-quantizing every touched page (``rmw_quantized_pages``) and read
+    with their scales.  The returned cache carries the pools and, when
+    quantized, the scale pools."""
     pool_k, pool_v, pt = cache["pk"], cache["pv"], cache["pt"]
+    ks, vs = cache.get("ks"), cache.get("vs")
+    quant = ks is not None
     b, s = q.shape[0], q.shape[1]
     page_size = pool_k.shape[1]
     trash = pool_k.shape[0] - 1
     wm = cache.get("wm")
     new = {"pk": pool_k, "pv": pool_v}
+    if quant:
+        new["ks"], new["vs"] = ks, vs
 
     if s == 1:
         blocks = paged_ring_blocks(window, pt.shape[1], page_size)
@@ -144,14 +220,29 @@ def paged_decode_step(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
         if wm is not None:
             phys = torch.where(wm, phys, trash)                # dead -> trash
         off = torch.remainder(t, page_size)
-        pool_k[phys, off] = kk[:, 0].to(pool_k.dtype)
-        pool_v[phys, off] = vv[:, 0].to(pool_v.dtype)
+        if quant:
+            # one-page overlay per slot, then re-quantize the page
+            bi = torch.arange(b, device=q.device)
+            wrote = torch.zeros((b, page_size), dtype=torch.bool,
+                                device=q.device)
+            wrote[bi, off] = True
+            shape = (b, page_size) + tuple(kk.shape[2:])
+            nk = torch.zeros(shape, dtype=torch.float32, device=q.device)
+            nv = torch.zeros(shape, dtype=torch.float32, device=q.device)
+            nk[bi, off] = kk[:, 0].float()
+            nv[bi, off] = vv[:, 0].float()
+            rmw_quantized_pages(pool_k, ks, phys, nk, wrote)
+            rmw_quantized_pages(pool_v, vs, phys, nv, wrote)
+        else:
+            pool_k[phys, off] = kk[:, 0].to(pool_k.dtype)
+            pool_v[phys, off] = vv[:, 0].to(pool_v.dtype)
         if paged_kernel:
             out = paged_attention(q[:, 0].contiguous(), pool_k, pool_v,
                                   table.contiguous(), cache_len,
-                                  window=window, softcap=softcap)
+                                  window=window, softcap=softcap,
+                                  k_scale=ks, v_scale=vs)
             return out[:, None], new
-        ck, cv = _gather_ring(pool_k, pool_v, table, ring)
+        ck, cv = _gather_ring(pool_k, pool_v, table, ring, ks, vs)
         return decode_attention(q, ck, cv, ring_valid(cache_len, ring, window),
                                 softcap=softcap), new
 
@@ -170,14 +261,19 @@ def paged_decode_step(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
     if wm is not None:
         ok = ok & (wm if wm.dim() == 2 else wm[:, None])
     off = torch.remainder(g_pos, page_size)
-    phys = torch.where(ok, phys, trash)
-    pool_k[phys, off] = kk.to(pool_k.dtype)
-    pool_v[phys, off] = vv.to(pool_v.dtype)
+    if quant:
+        _write_quantized_rows(pool_k, pool_v, ks, vs, pt, kk, vv, g_pos, off,
+                              ok, trash)
+    else:
+        phys = torch.where(ok, phys, trash)
+        pool_k[phys, off] = kk.to(pool_k.dtype)
+        pool_v[phys, off] = vv.to(pool_v.dtype)
     if paged_kernel:
         out = paged_attention(q.contiguous(), pool_k, pool_v, pt, cache_len,
-                              window=window, softcap=softcap)
+                              window=window, softcap=softcap,
+                              k_scale=ks, v_scale=vs)
         return out, new
-    ck, cv = _gather_ring(pool_k, pool_v, pt, ring)
+    ck, cv = _gather_ring(pool_k, pool_v, pt, ring, ks, vs)
     u = ring_token_positions(cache_len, ring)                  # [B, ring]
     valid = (u >= 0)[:, None, :] & (u[:, None, :] <= g_pos[:, :, None])
     if window is not None:
@@ -185,12 +281,55 @@ def paged_decode_step(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
     return decode_attention(q, ck, cv, valid, softcap=softcap), new
 
 
-def _gather_ring(pool_k, pool_v, table, ring):
-    """Gather each slot's logical ring: -> [B, Hkv, ring, dh] K and V."""
+def _write_quantized_rows(pool_k, pool_v, ks, vs, pt, kk, vv, g_pos, off,
+                          ok, trash) -> None:
+    """S-row write into 8-bit pools, page-granular: the S tokens of a row
+    touch at most ``J = (S-1)//P + 2`` consecutive logical pages from the
+    page of its earliest token.  Tokens are scattered into per-page fp32
+    overlays, then each touched page is re-quantized once.  Rows that are
+    not ``ok`` mark nothing written, and a page none of them touches goes
+    to the trash page."""
+    b, s = g_pos.shape
+    page_size = pool_k.shape[1]
+    blocks = pt.shape[1]
+    dev = g_pos.device
+    J = (s - 1) // page_size + 2
+    page = torch.div(g_pos, page_size, rounding_mode="floor")
+    base = page[:, :1]                                   # [B,1] earliest
+    jtok = page - base                                   # [B,S] in [0, J)
+    lp = base + torch.arange(J, device=dev)[None, :]     # [B,J] logical
+    bi = torch.arange(b, device=dev)[:, None]
+    page_live = torch.zeros((b, J), dtype=torch.int32, device=dev)
+    page_live = page_live.scatter_add_(1, jtok, ok.to(torch.int32)) > 0
+    if J > blocks:
+        # a ring narrower than the touched span aliases: of logical pages
+        # congruent mod `blocks`, only the newest may be written
+        page_live = page_live & (torch.arange(J, device=dev)[None, :]
+                                 + blocks >= J)
+    pphys = torch.gather(pt.long(), 1, torch.remainder(lp, blocks))
+    pphys = torch.where(page_live, pphys, trash)
+    wrote = torch.zeros((b, J, page_size), dtype=torch.bool, device=dev)
+    wrote[bi, jtok, off] = ok
+    shape = (b, J, page_size) + tuple(kk.shape[2:])
+    nk = torch.zeros(shape, dtype=torch.float32, device=dev)
+    nv = torch.zeros(shape, dtype=torch.float32, device=dev)
+    nk[bi, jtok, off] = kk.float()
+    nv[bi, jtok, off] = vv.float()
+    rmw_quantized_pages(pool_k, ks, pphys, nk, wrote)
+    rmw_quantized_pages(pool_v, vs, pphys, nv, wrote)
+
+
+def _gather_ring(pool_k, pool_v, table, ring, ks=None, vs=None):
+    """Gather each slot's logical ring, dequantized when the pools are
+    8-bit: -> [B, Hkv, ring, dh] K and V."""
     b = table.shape[0]
-    idx = table.long()
-    gk = pool_k[idx].reshape(b, ring, *pool_k.shape[2:])
-    gv = pool_v[idx].reshape(b, ring, *pool_v.shape[2:])
+    gk = take_pages(pool_k, table)          # [B, blocks, P, Hkv, dh]
+    gv = take_pages(pool_v, table)
+    if ks is not None:
+        gk = dequantize_pages(gk, ks[table.long()])
+        gv = dequantize_pages(gv, vs[table.long()])
+    gk = gk.reshape(b, ring, *pool_k.shape[2:])
+    gv = gv.reshape(b, ring, *pool_v.shape[2:])
     return gk.transpose(1, 2), gv.transpose(1, 2)
 
 

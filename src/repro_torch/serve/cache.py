@@ -1,5 +1,5 @@
-"""Decode-cache subsystem of the port: ``CacheSpec`` + block-paged fp32
-KV pools (counterpart of ``repro/serve/cache.py``).
+"""Decode-cache subsystem of the port: ``CacheSpec`` + block-paged KV
+pools in fp32, int8 or fp8_e4m3 (counterpart of ``repro/serve/cache.py``).
 
 Attention layers keep keys and values in block-paged pools grouped by
 logical ring width (``ceil(min(max_len, window) / page_size)`` pages):
@@ -13,7 +13,13 @@ fused decode chunk only indexes the tables.
 Device updates here (``install_slot_rows``, ``copy_shared_page``,
 ``free_slot_cache``) are **in place** on the cache's tensors: the
 reference returns new pytrees, the port mutates and returns the same
-dict.  Quantized pools (``kv_dtype`` int8/fp8) are ROADMAP A9; layers
+dict.
+
+Pool precision (``kv_dtype``): K/V pages may be stored 8-bit with
+per-page, per-kv-head fp32 scales in parallel scale pools ("ks"/"vs",
+``[num_pages + 1, kv_heads]``).  Every producer re-quantizes whole pages
+(``attention.rmw_quantized_pages``) and every consumer dequantizes in
+the attention read, so fp32 K/V never exists at pool width.  Layers
 with recurrent state (mamba2/rwkv6) are ROADMAP A13.
 """
 
@@ -30,7 +36,16 @@ from repro_torch.models import attention
 from repro_torch.models.attention import page_group_key
 
 PAGED_KV = "paged_kv"    # block-paged KV ring (attention mixers)
-KV_DTYPES = ("fp32",)    # int8 / fp8_e4m3 pools: ROADMAP A9
+KV_DTYPES = ("fp32", "int8", "fp8_e4m3")
+
+
+def kv_pool_dtype(kv_dtype: str) -> torch.dtype:
+    """torch dtype the K/V pools are stored in for ``kv_dtype``."""
+    if kv_dtype == "int8":
+        return torch.int8
+    if kv_dtype == "fp8_e4m3":
+        return torch.float8_e4m3fn
+    return torch.float32
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -87,9 +102,8 @@ class CacheSpec:
                 f"{cfg.name}: cross-attention caches are not slot-batched "
                 "decode caches; the serving cache is decoder-only")
         if kv_dtype not in KV_DTYPES:
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: the port stores fp32 pools; 8-bit "
-                "pools are ROADMAP A9")
+            raise ValueError(
+                f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
         if page_size < 1 or page_size & (page_size - 1):
             raise ValueError(f"page_size must be a power of two >= 1, got "
                              f"{page_size}")
@@ -178,12 +192,26 @@ class CacheSpec:
         return self.widest_group.trash_page
 
     @property
+    def quantized(self) -> bool:
+        """True when K/V pages are stored 8-bit with a parallel scale pool."""
+        return self.kv_dtype != "fp32"
+
+    @property
+    def pool_dtype(self) -> torch.dtype:
+        return kv_pool_dtype(self.kv_dtype)
+
+    @property
     def kv_dtype_bytes(self) -> int:
-        return 4
+        """Bytes per stored pool element (scales accounted separately)."""
+        return 1 if self.quantized else 4
 
     def pool_shape_for(self, group: PoolGroup) -> Tuple[int, int, int, int]:
         return (group.num_pages + 1, self.page_size,
                 self.cfg.num_kv_heads, self.cfg.resolved_head_dim)
+
+    def scale_shape_for(self, group: PoolGroup) -> Tuple[int, int]:
+        """Per-page, per-kv-head scale pool parallel to the page pool."""
+        return (group.num_pages + 1, self.cfg.num_kv_heads)
 
     def blocks_needed(self, plen: int, max_new: int) -> Dict[str, int]:
         """Worst-case page-table entries a request ever touches, per pool
@@ -198,13 +226,25 @@ class CacheSpec:
                          dtype=torch.float32) -> Dict[str, Any]:
         """Zeroed paged cache on ``device``.  Page-table entries start at
         each group's trash page, so an unadmitted slot's writes are
-        discarded."""
+        discarded.  Quantized specs store the pools in ``pool_dtype`` and
+        add fp32 scale pools "ks"/"vs"."""
+        pool_dt = self.pool_dtype if self.quantized else dtype
         layer_caches: List[Optional[Dict]] = []
         for ls in self.layers:
-            shape = self.pool_shape_for(self.groups[ls.group])
-            layer_caches.append({
-                "pk": torch.zeros(shape, dtype=dtype, device=device),
-                "pv": torch.zeros(shape, dtype=dtype, device=device)})
+            group = self.groups[ls.group]
+            shape = self.pool_shape_for(group)
+            entry = {
+                "pk": torch.zeros(shape, dtype=pool_dt, device=device),
+                "pv": torch.zeros(shape, dtype=pool_dt, device=device)}
+            if self.quantized:
+                # scale floor, not zero: an unwritten page dequantizes to
+                # exact zeros and never divides by zero on RMW
+                sshape = self.scale_shape_for(group)
+                entry["ks"] = torch.full(sshape, 1e-30, dtype=torch.float32,
+                                         device=device)
+                entry["vs"] = torch.full(sshape, 1e-30, dtype=torch.float32,
+                                         device=device)
+            layer_caches.append(entry)
         return {
             "layers": layer_caches,
             "page_tables": {
@@ -219,14 +259,18 @@ class CacheSpec:
     def group_page_bytes(self, group: PoolGroup,
                          dtype_bytes: Optional[int] = None) -> int:
         """Device bytes one physical page of ``group`` costs across every
-        member layer (a K and a V block per layer)."""
+        member layer (a K and a V block per layer).  Quantized pools also
+        pay the per-page fp32 scale rows (one per kv head, K and V)."""
         if dtype_bytes is None:
             dtype_bytes = self.kv_dtype_bytes
         n = sum(1 for ls in self.layers
                 if ls is not None and ls.kind == PAGED_KV
                 and self.groups[ls.group] is group)
-        return n * (2 * self.page_size * self.cfg.num_kv_heads
-                    * self.cfg.resolved_head_dim * dtype_bytes)
+        per_layer = (2 * self.page_size * self.cfg.num_kv_heads
+                     * self.cfg.resolved_head_dim * dtype_bytes)
+        if self.quantized and dtype_bytes == self.kv_dtype_bytes:
+            per_layer += 2 * self.cfg.num_kv_heads * 4   # ks/vs scale rows
+        return n * per_layer
 
     def dense_kv_bytes(self, dtype_bytes: int = 4) -> int:
         """What a dense per-slot ``max_len`` layout would preallocate."""
@@ -294,12 +338,14 @@ def copy_shared_page(spec: CacheSpec, cache: Dict, group_key: str,
                      src: int, dst: int) -> Dict:
     """Copy-on-write, in place: duplicate physical page ``src`` into
     ``dst`` in every layer pool of ``group_key`` before a slot writes
-    into a page it shares."""
+    into a page it shares.  A quantized page's copy carries its scale
+    rows, so it dequantizes exactly as its source."""
     for ls, big in zip(spec.layers, cache["layers"]):
         if (ls is not None and ls.kind == PAGED_KV
                 and spec.groups[ls.group].key == group_key):
-            big["pk"][dst].copy_(big["pk"][src])
-            big["pv"][dst].copy_(big["pv"][src])
+            for key in ("pk", "pv", "ks", "vs"):
+                if key in big:
+                    big[key][dst].copy_(big[key][src])
     return cache
 
 

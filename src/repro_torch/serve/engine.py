@@ -1,5 +1,6 @@
 """Serving runtime of the port: fused chunked prefill over block-paged
-fp32 KV pools (counterpart of ``repro/serve/engine.py``'s default mode).
+KV pools in fp32, int8 or fp8_e4m3 (counterpart of
+``repro/serve/engine.py``'s default mode).
 
 Three layers, as in the reference:
 
@@ -162,7 +163,14 @@ class Engine:
     ring, ``"auto"`` is the kernel exactly when the device is CUDA.
     ``max_len`` is the logical per-slot token cap; ``num_pages`` the
     full-attention pool budget (default ``slots`` x widest ring, under
-    which no pool pressure can arise)."""
+    which no pool pressure can arise).
+
+    ``kv_dtype`` is the pool precision: ``"auto"`` (fp32), ``"fp32"``,
+    ``"int8"`` or ``"fp8_e4m3"`` (8-bit pages with per-page, per-kv-head
+    fp32 scales).  One departure from the reference, which falls back to
+    fp32 pools when it cannot store a dtype: the port never does.  An
+    8-bit dtype is served in 8 bits, through the quantized kernel on the
+    card, or the launch raises."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  max_len: int = 256, greedy: bool = True,
@@ -191,8 +199,11 @@ class Engine:
             raise _unsupported("sharded serving (rules=)", "A14")
         if queue_limit is not None or shed_policy != "reject":
             raise _unsupported("queue limits and shed policies", "A11")
-        if kv_dtype not in ("auto", "fp32"):
-            raise _unsupported(f"kv_dtype={kv_dtype!r}", "A9")
+        requested = "fp32" if kv_dtype == "auto" else kv_dtype
+        if requested not in cache_mod.KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype must be 'auto' or one of {cache_mod.KV_DTYPES}, "
+                f"got {kv_dtype!r}")
         if chunked_prefill is False:
             raise _unsupported("the two-executable path "
                                "(chunked_prefill=False)", "A13")
@@ -220,12 +231,13 @@ class Engine:
         self.sync_interval = int(sync_interval)
         self.chunked_prefill = True
         self.prefill_budget = int(prefill_budget)
-        self.kv_dtype = "fp32"
+        self.requested_kv_dtype = requested
+        self.kv_dtype = requested
         # windowed rings need ring >= window + S - 1 so a full-width
         # prefill slice may write-wrap legitimately (capped in CacheSpec)
         self.spec = CacheSpec.from_config(
             cfg, slots, max_len, page_size=page_size, num_pages=num_pages,
-            spec_tokens=self.prefill_budget - 1)
+            spec_tokens=self.prefill_budget - 1, kv_dtype=self.kv_dtype)
         if paged_kernel == "auto":
             paged_kernel = self.device.type == "cuda"
         self.paged_kernel = bool(paged_kernel)

@@ -71,8 +71,8 @@ def test_cachespec_validation_and_unported_dtypes():
         tcache.CacheSpec.from_config(cfg, 2, 64, page_size=6)
     with pytest.raises(ValueError, match="exceeds"):
         tcache.CacheSpec.from_config(cfg, 2, 8, page_size=16)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tcache.CacheSpec.from_config(cfg, 2, 64, kv_dtype="int8")
+    with pytest.raises(ValueError, match="kv_dtype"):
+        tcache.CacheSpec.from_config(cfg, 2, 64, kv_dtype="int4")
 
 
 def _caches(slots=3, max_len=64, page_size=8):

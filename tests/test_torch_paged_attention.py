@@ -165,14 +165,6 @@ def test_paged_decode_step_vs_jax(s, window, paged_kernel):
                                atol=ATOL)
 
 
-def test_quantized_pool_raises():
-    q, kk, vv, pk, pv, pt, cl, _wm = _t(*_step_inputs(1, 3, None))
-    with pytest.raises(NotImplementedError, match="A9"):
-        tatt.paged_decode_step(q, kk, vv, {"pk": pk, "pv": pv, "pt": pt,
-                                           "ks": pk, "vs": pv}, cl,
-                               window=None, softcap=None)
-
-
 # ---------------------------------------------------------------------------
 # The Hopper kernel against its plain version (needs the card)
 # ---------------------------------------------------------------------------
