@@ -5,7 +5,8 @@
 
 Drives the port's main paths — the fused chunked-prefill engine serving
 full-width internlm2-1.8b (random weights from a seed) from fp32, int8
-and fp8_e4m3 KV page pools — and holds every CUDA kernel on them against
+and fp8_e4m3 KV page pools, then full-width dbrx-132b (MoE, depth cut to
+4 layers) from fp32 pools — and holds every CUDA kernel on them against
 its plain PyTorch version.  Phases, each printing JSON lines:
 
 1. device: the card's name and power limit (as nvidia-smi reports them),
@@ -13,10 +14,13 @@ its plain PyTorch version.  Phases, each printing JSON lines:
 2. build: every kernel source compiled by nvcc (in parallel), seconds.
 3. kernels: the paged-attention kernel on fp32, int8 and fp8_e4m3 pools
    (8-bit pools quantized by the port's ``quantize_pages``) against its
-   plain version at the main path's shapes and at edge cases (max abs
-   error <= 1e-4), timed with CUDA events beside its plain version, one
-   library call as a yardstick (never used by the port) and its bound on
-   this card.
+   plain version at the main path's shapes, at dbrx's 48:8 heads and at
+   edge cases (max abs error <= 1e-4), timed with CUDA events beside its
+   plain version, one library call as a yardstick (never used by the
+   port) and its bound on this card.  Then the ``moe_gmm`` kernel in fp32
+   and bf16 at dbrx's and grok's expert shapes, with and without row
+   counts, with a group dimension and at ragged edges (fp32 max abs error
+   <= 1e-4, bf16 <= 2e-2 x max|want|, rows past a count exactly 0).
 4. engine, once per pool dtype: full-width serving, 12 greedy requests
    with a shared prompt head; checks 32 tokens each, kernel launches of
    that dtype == layers x micro-steps (counts zeroed just before, read
@@ -27,14 +31,28 @@ its plain PyTorch version.  Phases, each printing JSON lines:
 5. paths, on the fp32 and the int8 engine: full-width ``forward_verify``
    logits through the kernel against the gather path on the same mid-run
    cache state (<= 1e-3).
+6. dbrx: internlm2's params and engines are freed, then dbrx-132b is
+   built at full width with its depth cut 40 -> 4 (~57 GB of fp32
+   weights) and serves the same 12 requests from fp32 pools: 0 leaked
+   pages, a chunk free of host syncs, ``moe_gmm`` launches == 3 x 4 x
+   micro-steps and paged-attention launches == 4 x micro-steps.  One
+   chunk is profiled.  On one teacher-forced chunk (8 slots x 32 tokens)
+   it prints each layer's ``dropped_fraction``, and holds the first MoE
+   layer on those 256 tokens (``moe.apply``, through the kernel) against
+   the same layer recomposed here from the port's ``route`` and
+   ``_dispatch_indices`` with the plain ``moe_gmm_ref`` (<= 1e-3).  The
+   kernel is timed there, at the main path's shapes and counts.
 
-The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
+The last three lines are the card's name and power limit (again), the
+kernel table and ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before them.  Without a CUDA device, or
 without the repository's ``src/`` beside it, it exits non-zero at once.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -51,6 +69,20 @@ KERNEL_TOL = 1e-4     # fp32, TF32 off: only the summation order differs
 PATH_TOL = 1e-3       # 24 layers of that difference, on logits
 KV_DTYPES = ("fp32", "int8", "fp8_e4m3")
 SHARED_HEAD = 264     # tokens of the prompt head every other request shares
+GMM_BF16_TOL = 2e-2   # x max|want|: both round the fp32 sum to bf16
+MOE_LAYER_TOL = 1e-3  # one MoE layer, kernel vs recomposed plain version
+DBRX_DEPTH = 4        # of 40 layers: ~57 GB of fp32 weights on an 80 GB card
+# moe_gmm cases: name, (G, E, C, D, F), row counts ("pattern": C, C//2,
+# 0, 1, ... per expert; None: every row live)
+GMM_CASES = [
+    ("dbrx_gate_up", (1, 16, 80, 6144, 10752), "pattern"),
+    ("dbrx_gate_up_all_rows", (1, 16, 80, 6144, 10752), None),
+    ("dbrx_gate_up_groups2", (2, 16, 80, 6144, 10752), "pattern"),
+    ("dbrx_down", (1, 16, 80, 10752, 6144), "pattern"),
+    ("grok_gate_up", (1, 8, 80, 6144, 32768), "pattern"),
+    ("odd_edges", (1, 4, 37, 200, 72), "pattern"),
+    ("odd_edges_groups2_all_rows", (2, 4, 37, 200, 72), None),
+]
 
 
 class SmokeFailure(Exception):
@@ -178,6 +210,8 @@ def phase_kernels(torch, ops, quantize, kv_pool_dtype):
                              lens=[256, 70])),
         ("dh256_p4", dict(B=2, H=4, Hkv=2, dh=256, P=4, nb=16, S=3,
                           lens=[61, 7])),
+        # dbrx-132b's heads: GQA 6:1, S*G = 192 rows in 3 row tiles
+        ("dbrx_gqa6", dict(main, H=48, S=32, lens=lens32)),
     ]
     worst = {kv: 0.0 for kv in KV_DTYPES}
     rows = {kv: {} for kv in KV_DTYPES}
@@ -263,6 +297,74 @@ def sdpa_ms(torch, case, flush) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3, moe_gmm: the grouped expert matmul against its plain version
+# ---------------------------------------------------------------------------
+
+def gmm_pattern_counts(torch, G, E, C):
+    """Row counts C, C//2, 0, 1, C, ... per expert (the reference's
+    ``tests/test_kernels.py`` pattern), shifted by one expert per group."""
+    pat = [C, C // 2, 0, 1]
+    return torch.tensor([[pat[(e + g) % 4] for e in range(E)]
+                         for g in range(G)], dtype=torch.int32, device=DEV)
+
+
+def phase_gmm_kernels(torch, gmm):
+    """Every ``GMM_CASES`` case in fp32 and bf16 at the model's scale
+    (x ~ N(0, 1), w ~ N(0, 1/D)).  Returns the worst fp32 max abs error
+    and the worst bf16 error relative to max|want|."""
+    gen = torch.Generator(device=DEV).manual_seed(4321)
+    worst = {"fp32": 0.0, "bf16": 0.0}
+    for name, (G, E, C, D, F), counts_kind in GMM_CASES:
+        x32 = torch.randn(G, E, C, D, generator=gen, device=DEV)
+        w32 = torch.randn(E, D, F, generator=gen, device=DEV).mul_(D ** -0.5)
+        counts = (gmm_pattern_counts(torch, G, E, C)
+                  if counts_kind == "pattern" else None)
+        for dt_name, dt in (("fp32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            x, w = x32.to(dt), w32.to(dt)
+            if G == 1:             # the ungrouped [E,C,D] form of the op
+                x = x[0]
+            c = counts if counts is None or G > 1 else counts[0]
+            got = gmm.moe_gmm(x, w, c)
+            want = gmm.moe_gmm_ref(x, w, c)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == dt,
+                  f"moe_gmm {name} {dt_name}: {tuple(got.shape)} "
+                  f"{got.dtype}")
+            check(bool(torch.isfinite(got).all()),
+                  f"moe_gmm {name} {dt_name}: non-finite output")
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            rec = {"case": name, "dtype": dt_name, "shape": [G, E, C, D, F],
+                   "row_counts": counts_kind, "max_abs_err": err,
+                   "max_abs_want": scale}
+            if counts is not None:
+                g4 = got.reshape(G, E, C, F)
+                pad = (torch.arange(C, device=DEV)[None, None, :]
+                       >= counts[..., None])
+                rec["padding_rows_exactly_zero"] = not bool(g4[pad].any())
+                check(rec["padding_rows_exactly_zero"],
+                      f"moe_gmm {name} {dt_name}: rows past a count are "
+                      "not 0")
+            if dt_name == "fp32":
+                rec["tol"] = KERNEL_TOL
+                worst["fp32"] = max(worst["fp32"], err)
+                check(err <= KERNEL_TOL, f"moe_gmm {name} fp32: max abs "
+                                         f"err {err} > {KERNEL_TOL}")
+            else:
+                rel = err / max(scale, 1e-30)
+                rec.update(tol_relative=GMM_BF16_TOL, relative_err=rel)
+                worst["bf16"] = max(worst["bf16"], rel)
+                check(rel <= GMM_BF16_TOL, f"moe_gmm {name} bf16: error "
+                                           f"{rel} x max|want|")
+            emit("kernel_check", kernel="moe_gmm", **rec)
+            del x, w, got, want
+        del x32, w32
+        torch.cuda.empty_cache()
+    return worst
+
+
+# ---------------------------------------------------------------------------
 # Phases 4-5: the engine at full width
 # ---------------------------------------------------------------------------
 
@@ -303,9 +405,11 @@ def make_engine(rt, cfg, params, kv_dtype):
                         kv_dtype=kv_dtype, device=DEV)
 
 
-def phase_engine(torch, ops, rt, cfg, params, kv_dtype):
-    """Serve the 12 requests from ``kv_dtype`` pools.  The kernel's launch
-    counts are zeroed just before and read just after the run."""
+def phase_engine(torch, ops, gmm, rt, cfg, params, kv_dtype):
+    """Serve the 12 requests from ``kv_dtype`` pools.  Every kernel's
+    launch counts are zeroed just before and read just after the run; an
+    MoE model must launch ``moe_gmm`` 3 times per MoE layer and
+    micro-step, a dense one never."""
     eng = make_engine(rt, cfg, params, kv_dtype)
     check(eng.paged_kernel, "paged_kernel='auto' did not pick the kernel")
     check(eng.kv_dtype == kv_dtype, f"engine serves {eng.kv_dtype} pools")
@@ -320,6 +424,7 @@ def phase_engine(torch, ops, rt, cfg, params, kv_dtype):
     ops.launches = 0
     for k in ops.launches_by_dtype:
         ops.launches_by_dtype[k] = 0
+    gmm.launches = 0
     t0 = time.time()
     for r in reqs:
         check(eng.submit(r) is None, f"rid {r.rid} rejected")
@@ -340,12 +445,15 @@ def phase_engine(torch, ops, rt, cfg, params, kv_dtype):
     wall = time.time() - t0
     launches = ops.launches_by_dtype[kv_dtype]
     all_launches = ops.launches
+    gmm_launches = gmm.launches
     micro = eng.steps - steps0
+    moe_layers = sum(b.ffn == "moe" for b in cfg.blocks)
     gen_tokens = sum(len(r.out_tokens) for r in reqs)
     prompt_tokens = sum(len(r.prompt) for r in reqs)
     stats = eng.memory_stats()
     pstats = eng.prefix_stats()
-    emit("engine", kv_dtype=kv_dtype, requests=len(reqs), micro_steps=micro,
+    emit("engine", arch=cfg.name, layers=cfg.num_layers, kv_dtype=kv_dtype,
+         requests=len(reqs), micro_steps=micro,
          chunks=eng.chunks, wall_s=wall, generated_tokens=gen_tokens,
          prompt_tokens=prompt_tokens,
          prefill_tokens_computed=prompt_tokens
@@ -353,7 +461,8 @@ def phase_engine(torch, ops, rt, cfg, params, kv_dtype):
          generated_tokens_per_s=gen_tokens / wall,
          ms_per_micro_step=wall / micro * 1e3, kernel_launches=launches,
          kernel_launches_all_dtypes=all_launches,
-         host_syncs=eng.host_syncs, sync_free_chunk=sync_checked,
+         moe_gmm_launches=gmm_launches, host_syncs=eng.host_syncs,
+         sync_free_chunk=sync_checked,
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
          pool_bytes=stats["paged_kv_bytes"], memory_stats=stats,
          prefix_stats=pstats, leaked_pages=eng.leaked_pages())
@@ -365,11 +474,14 @@ def phase_engine(torch, ops, rt, cfg, params, kv_dtype):
     check(launches == cfg.num_layers * micro and all_launches == launches,
           f"{kv_dtype} kernel launches {launches} (all dtypes "
           f"{all_launches}) != {cfg.num_layers} x {micro}")
+    check(gmm_launches == 3 * moe_layers * micro,
+          f"{cfg.name}: moe_gmm launches {gmm_launches} != 3 x "
+          f"{moe_layers} x {micro}")
     check(eng.leaked_pages() == 0, f"{kv_dtype}: leaked pages")
     check(pstats["prefix_hits"] > 0, f"{kv_dtype}: no prefix hits")
     check(pstats["cow_copies"] > 0, f"{kv_dtype}: no copy-on-write ran")
     tokens = {r.rid: list(r.out_tokens) for r in reqs}
-    return eng, launches, tokens
+    return eng, launches, gmm_launches, tokens
 
 
 def greedy_agreement(ref: dict, got: dict) -> float:
@@ -382,21 +494,28 @@ def greedy_agreement(ref: dict, got: dict) -> float:
     return same / total
 
 
+def teacher_forced_engine(rt, cfg, params, kv_dtype):
+    """A fresh engine whose 8 slots each own a whole ring of pages, so
+    ``forward_verify`` can be fed 32 tokens per slot with no scheduler."""
+    from repro_torch.serve import cache as cache_mod
+    eng = make_engine(rt, cfg, params, kv_dtype)
+    key = eng.spec.groups[0].key
+    nb = eng.spec.groups[0].ring_blocks
+    for slot in range(8):
+        cache_mod.install_slot_rows(
+            eng.spec, eng.cache, slot, 0,
+            {key: list(range(slot * nb, (slot + 1) * nb))})
+    return eng
+
+
 def teacher_forced_logit_diff(torch, rt, cfg, params, kv_dtype,
                               chunks: int = 4) -> float:
     """Max |logit| difference between ``kv_dtype`` pools and fp32 pools on
     the same random tokens, fed 32 per slot per step to all 8 slots of
     two fresh engines (teacher forcing: both see the same tokens)."""
-    from repro_torch.serve import cache as cache_mod
-    engs = [make_engine(rt, cfg, params, d) for d in ("fp32", kv_dtype)]
+    engs = [teacher_forced_engine(rt, cfg, params, d)
+            for d in ("fp32", kv_dtype)]
     gen = torch.Generator(device=DEV).manual_seed(5)
-    key = engs[0].spec.groups[0].key
-    nb = engs[0].spec.groups[0].ring_blocks
-    for e in engs:
-        for slot in range(8):
-            cache_mod.install_slot_rows(
-                e.spec, e.cache, slot, 0,
-                {key: list(range(slot * nb, (slot + 1) * nb))})
     worst = 0.0
     for _ in range(chunks):
         toks = torch.randint(1, cfg.vocab_size, (8, 32), generator=gen,
@@ -414,9 +533,10 @@ def teacher_forced_logit_diff(torch, rt, cfg, params, kv_dtype,
 
 def profile_chunk(torch, eng) -> dict:
     """Device time of one chunk by kernel family, from ``torch.profiler``:
-    the paged-attention kernel, matrix products, everything else, and the
-    device's idle share of the chunk's wall time (profiler on, so the
-    wall time includes its overhead)."""
+    the paged-attention kernel, the moe_gmm kernel, library matrix
+    products, everything else, and the device's idle share of the
+    chunk's wall time (profiler on, so the wall time includes its
+    overhead)."""
     from torch.profiler import ProfilerActivity, profile
     eng._admit()
     torch.cuda.synchronize()
@@ -427,7 +547,8 @@ def profile_chunk(torch, eng) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     eng._drain(toks)
-    fam = {"paged_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    fam = {"paged_attention": 0.0, "moe_gmm": 0.0, "matmul": 0.0,
+           "other": 0.0}
     n_kernels = 0
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -437,6 +558,8 @@ def profile_chunk(torch, eng) -> dict:
         name = evt.name.lower()
         if "paged_attention" in name:
             fam["paged_attention"] += us / 1e3
+        elif "moe_gmm" in name:
+            fam["moe_gmm"] += us / 1e3
         elif "gemm" in name or "gemv" in name or "cutlass" in name:
             fam["matmul"] += us / 1e3
         else:
@@ -492,6 +615,170 @@ def phase_paths(torch, eng, cfg, rt):
           f"{eng.kv_dtype}: leaked pages after the second wave")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: dbrx-132b, MoE at full width
+# ---------------------------------------------------------------------------
+
+def cut_depth(cfg, layers: int):
+    """The first ``layers`` of a uniform stack: every width kept."""
+    from repro_torch.configs.base import validate
+    return validate(dataclasses.replace(cfg, num_layers=layers,
+                                        blocks=cfg.blocks[:layers]))
+
+
+def moe_recomposed(torch, moe, ref, p, x, cfg):
+    """One MoE layer written out here from the port's ``route`` and
+    ``_dispatch_indices`` with the plain ``moe_gmm_ref`` (boolean indexing
+    and host syncs are fine outside the engine's path).  Returns y, the
+    dispatched buffer [E,cap,d], the live rows per expert [E] and the
+    hidden activations [E,cap,F] that enter the down product."""
+    import torch.nn.functional as F
+    m = cfg.moe
+    e, k = m.num_experts, m.top_k
+    d = x.shape[-1]
+    x2d = x.reshape(-1, d)
+    T = x2d.shape[0]
+    check(moe._num_groups(T) == 1, f"{T} tokens make more than one group")
+    cap = moe._capacity(T, m)
+    top_p, top_e, _ = moe.route(p, x2d, m)
+    slot, keep = moe._dispatch_indices(top_e, e, cap)
+    kept = keep.reshape(-1)
+    token = torch.arange(T, device=x.device).repeat_interleave(k)
+    buf = torch.zeros(e * cap, d, dtype=x.dtype, device=x.device)
+    buf[slot.reshape(-1)[kept]] = x2d[token[kept]]
+    counts = torch.bincount(top_e.reshape(-1)[kept], minlength=e).to(
+        torch.int32)
+    buf = buf.view(e, cap, d)
+    hidden = (F.silu(ref(buf, p["w_gate"], counts))
+              * ref(buf, p["w_up"], counts))
+    out = ref(hidden, p["w_down"], counts).reshape(e * cap, d)
+    wts = (top_p * keep).reshape(-1, 1)
+    y = (out[slot.reshape(-1)] * wts).reshape(T, k, d).sum(dim=1)
+    return y.reshape(x.shape), buf, counts, hidden
+
+
+def gmm_timing(torch, gmm, x, w, counts, flush) -> dict:
+    """The kernel, its plain version and ``torch.bmm`` (fp32, TF32 off: a
+    yardstick the port never calls) on one expert product of the main
+    path, with its bound: bytes of x, of the live experts' w and of the
+    output over the memory rate, 2 * sum(counts) * D * F flops over the
+    fp32 rate."""
+    E, C, D = x.shape
+    F = w.shape[2]
+    x4, c2 = x[None], counts[None]
+    got = gmm.moe_gmm(x4, w, c2)
+    want = gmm.moe_gmm_ref(x4, w, c2)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(err <= KERNEL_TOL, f"moe_gmm at the main shape: max abs err {err}")
+    live = int((counts > 0).sum())
+    nbytes = (x.numel() + live * D * F + E * C * F) * x.element_size()
+    flops = 2 * int(counts.sum()) * D * F
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / FP32_FLOPS * 1e3
+    return {"shape": [E, C, D, F], "row_counts": counts.tolist(),
+            "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda: gmm.moe_gmm(x4, w, c2),
+                          flush=flush),
+            "plain_ms": cuda_ms(torch, lambda: gmm.moe_gmm_ref(x4, w, c2),
+                                flush=flush),
+            "library_ms": cuda_ms(torch, lambda: torch.bmm(x, w),
+                                  flush=flush),
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def phase_moe_chunk(torch, gmm, rt, cfg, params):
+    """One teacher-forced chunk (8 slots x 32 tokens) through the model,
+    reading each MoE layer's aux on the way; then the first MoE layer on
+    that chunk's 256 tokens, through the kernel against the recomposed
+    plain version, and the kernel timed on its expert products."""
+    from repro_torch.models import moe
+    eng = teacher_forced_engine(rt, cfg, params, "fp32")
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    toks = torch.randint(1, cfg.vocab_size, (8, 32), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    seen = []
+    apply = moe.apply
+
+    def spy(p, x, c, act="silu"):
+        y, aux = apply(p, x, c, act)
+        seen.append((p, x, aux))
+        return y, aux
+
+    moe.apply = spy
+    try:
+        logits, _ = rt["forward_verify"](params, cfg, toks, eng.cache,
+                                         paged_kernel=True,
+                                         spec_slack=eng.spec.spec_tokens)
+    finally:
+        moe.apply = apply
+    del eng
+    check(tuple(logits.shape) == (8, 32, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"teacher-forced logits {tuple(logits.shape)} not finite")
+    check(len(seen) == len(cfg.blocks), f"{len(seen)} MoE layers ran")
+    dropped = [float(aux["dropped_fraction"]) for _p, _x, aux in seen]
+    emit("moe_chunk", arch=cfg.name, tokens=8 * 32,
+         capacity=moe._capacity(8 * 32, cfg.moe),
+         dropped_fraction_by_layer=dropped,
+         load_balance_loss_by_layer=[float(a["load_balance_loss"])
+                                     for _p, _x, a in seen])
+
+    p, x, _aux = seen[0]
+    y, _ = moe.apply(p, x, cfg)
+    want, buf, counts, hidden = moe_recomposed(torch, moe, gmm.moe_gmm_ref,
+                                               p, x, cfg)
+    torch.cuda.synchronize()
+    err = float((y - want).abs().max())
+    emit("moe_layer", arch=cfg.name, tokens=x.shape[0] * x.shape[1],
+         row_counts=counts.tolist(), max_abs_err=err, tol=MOE_LAYER_TOL,
+         max_abs_y=float(want.abs().max()))
+    check(bool(torch.isfinite(y).all()), "non-finite MoE layer output")
+    check(err <= MOE_LAYER_TOL, f"MoE layer kernel vs plain: {err}")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    timed = {"gate_up": gmm_timing(torch, gmm, buf, p["w_gate"], counts,
+                                   flush),
+             "down": gmm_timing(torch, gmm, hidden, p["w_down"], counts,
+                                flush)}
+    for name, rec in timed.items():
+        emit("kernel_time", kernel="moe_gmm", product=name, **rec)
+    return timed
+
+
+def phase_dbrx(torch, ops, gmm, rt, cfg):
+    """Serve the 12 requests on ``cfg`` (dbrx, depth cut) from fp32 pools,
+    profile one chunk of a second wave, then the teacher-forced chunk."""
+    t0 = time.time()
+    params = rt["init_params"](rt["model_defs"](cfg), 0, device=DEV)
+    torch.cuda.synchronize()
+    emit("params", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         experts=cfg.moe.num_experts, top_k=cfg.moe.top_k, d_ff=cfg.d_ff,
+         params=sum(p.numel() for p in params.parameters()),
+         param_bytes=sum(p.numel() * p.element_size()
+                         for p in params.parameters()),
+         seconds=time.time() - t0)
+    eng, launches, gmm_launches, _tokens = phase_engine(
+        torch, ops, gmm, rt, cfg, params, "fp32")
+    for r in make_requests(rt["Request"], cfg.vocab_size, 8, seed=11,
+                           rid0=100):
+        eng.submit(r)
+    eng.step()
+    eng.step()
+    try:
+        prof = profile_chunk(torch, eng)
+    except (RuntimeError, AttributeError) as e:   # an optional reading
+        prof = {"measured": False, "reason": repr(e)}
+    emit("profile", arch=cfg.name, kv_dtype=eng.kv_dtype, **prof)
+    eng.run(max_steps=10 ** 6)
+    check(eng.leaked_pages() == 0,
+          f"{cfg.name}: leaked pages after the second wave")
+    del eng
+    timed = phase_moe_chunk(torch, gmm, rt, cfg, params)
+    return launches, gmm_launches, timed
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -503,6 +790,7 @@ def main() -> int:
         from repro_torch.configs import get_config
         from repro_torch.device import resolve_device
         from repro_torch.kernels import build
+        from repro_torch.kernels.moe_gmm import ops as gmm
         from repro_torch.kernels.paged_attention import ops
         from repro_torch.models import forward_verify, model_defs
         from repro_torch.models.attention import quantize_pages
@@ -523,7 +811,8 @@ def main() -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60)
         check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-        print(smi.stdout.strip().splitlines()[0], flush=True)
+        card = smi.stdout.strip().splitlines()[0]
+        print(card, flush=True)
         emit("device", name=torch.cuda.get_device_name(0),
              count=torch.cuda.device_count(), torch=torch.__version__,
              cuda=torch.version.cuda,
@@ -531,7 +820,7 @@ def main() -> int:
                    torch.backends.cudnn.allow_tf32])
 
         t0 = time.time()
-        sources = [ops.SOURCE]
+        sources = [ops.SOURCE, gmm.SOURCE]
         with ThreadPoolExecutor(len(sources)) as pool:
             built = list(pool.map(build.compile_source, sources))
         for src, (lib, log) in zip(sources, built):
@@ -543,11 +832,12 @@ def main() -> int:
 
         worst, rows = phase_kernels(torch, ops, quantize_pages,
                                     kv_pool_dtype)
+        gmm_worst = phase_gmm_kernels(torch, gmm)
         cfg, params = init_model(torch, rt)
         launches, tokens = {}, {}
         for kv_dtype in KV_DTYPES:
-            eng, launches[kv_dtype], tokens[kv_dtype] = phase_engine(
-                torch, ops, rt, cfg, params, kv_dtype)
+            eng, launches[kv_dtype], _, tokens[kv_dtype] = phase_engine(
+                torch, ops, gmm, rt, cfg, params, kv_dtype)
             if kv_dtype != "fp32":
                 # information only: with random weights near-ties flip
                 # greedy tokens, so neither number is gated
@@ -560,6 +850,18 @@ def main() -> int:
                 phase_paths(torch, eng, cfg, rt)
             del eng
             torch.cuda.empty_cache()
+        # dbrx's ~57 GB of weights fit only once internlm2's are gone
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = get_config("dbrx-132b")
+        dbrx = cut_depth(full, DBRX_DEPTH)
+        emit("depth_cut", arch=full.name, layers_full=full.num_layers,
+             layers=dbrx.num_layers,
+             kept=f"the first {dbrx.num_layers} of {full.num_layers} "
+                  "uniform attention + MoE blocks; every width kept")
+        dbrx_launches, gmm_launches, gmm_rows = phase_dbrx(
+            torch, ops, gmm, rt, dbrx)
     except SmokeFailure as e:
         emit("failed", reason=str(e))
         return 1
@@ -581,6 +883,24 @@ def main() -> int:
             "library_ms": main32["library_ms"],
             "max_err": worst[kv_dtype], "kernel_ms": main32["ms"],
             "shape": f"B=8 S=32 H=16 Hkv=8 dh=128 P=16 nb=64 {kv_dtype}"})
+    entries[0]["launches_dbrx"] = dbrx_launches
+    main_gmm = gmm_rows["gate_up"]
+    entries.append({
+        "name": "moe_gmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/kernel.py:49",
+        "launches": gmm_launches,
+        "max_abs_err": max(gmm_worst["fp32"], main_gmm["max_abs_err"],
+                           gmm_rows["down"]["max_abs_err"]),
+        "ms": main_gmm["ms"], "plain_ms": main_gmm["plain_ms"],
+        "bound_ms": main_gmm["bound_ms"], "bound_by": main_gmm["bound_by"],
+        "library_ms": main_gmm["library_ms"],
+        "bf16_relative_err": gmm_worst["bf16"],
+        "down_ms": gmm_rows["down"]["ms"],
+        "down_bound_ms": gmm_rows["down"]["bound_ms"],
+        "shape": "dbrx gate/up: E=16 C=80 D=6144 F=10752 fp32, "
+                 f"sum(counts)={sum(main_gmm['row_counts'])}"})
+    print(card, flush=True)      # again, beside the results it qualifies
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get_config("internlm2-1.8b")``.
 
-Only the architectures the port can serve are registered; the others
-of the reference join as their layers are ported (ROADMAP A5, A13).
+Only the architectures the port can serve are registered: the dense
+internlm2-1.8b and the MoE dbrx-132b and grok-1-314b.  The others of
+the reference join as their layers are ported (ROADMAP A5, A13).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from repro_torch.configs.base import ModelConfig, reduced
 
 _ARCH_MODULES = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1p8b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "grok-1-314b": "repro_torch.configs.grok1_314b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -12,7 +12,7 @@ reference's nested dicts (``params["layers"][0]["mixer"]["wq"]``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +26,7 @@ class ParamDef:
     shape: Tuple[int, ...]
     init: str = "fan_in"     # fan_in | zeros | ones | normal | embed
     scale: float = 1.0       # extra multiplier on the init
+    dtype: Optional[torch.dtype] = None   # None -> the model's param dtype
 
 
 class ParamTree(nn.Module):
@@ -64,6 +65,7 @@ def _map_tree(tree, fn):
 
 def _init_one(d: ParamDef, gen: torch.Generator, dtype,
               device: torch.device) -> torch.Tensor:
+    dtype = d.dtype or dtype
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
@@ -78,7 +80,7 @@ def _init_one(d: ParamDef, gen: torch.Generator, dtype,
         std = d.scale / max(fan_in, 1) ** 0.5
     else:
         raise ValueError(f"unknown init {d.init!r}")
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 def init_params(defs, seed: int, dtype=torch.float32,

@@ -1,13 +1,15 @@
-"""Model assembly for the port: decoder stacks of attention + dense-FFN
-blocks over block-paged KV (counterpart of ``repro/models/transformer.py``).
+"""Model assembly for the port: decoder stacks of attention blocks with
+dense or MoE FFNs over block-paged KV (counterpart of
+``repro/models/transformer.py``).
 
 Entry points (functions of ``(params, cfg, tokens, cache)``):
     forward_decode(params, cfg, tokens [B,1], cache)  -> (logits [B,V], cache)
     forward_verify(params, cfg, tokens [B,S], cache)  -> (logits [B,S,V], cache)
 
 Both update the cache's pools in place.  Other mixers (mamba2, rwkv6,
-shared attention), MoE FFNs, encoders and the dense prefill/train
-passes are not ported yet and raise (ROADMAP A13, A15).
+shared attention), other FFNs, encoders and the dense prefill/train
+passes are not ported yet and raise (ROADMAP A13, A15).  Serving drops
+the MoE router's aux values, as the reference's ``forward_verify`` does.
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, FFN_DENSE, BlockSpec, ModelConfig
-from repro_torch.models import attention, layers
+from repro_torch.configs.base import (ATTN, FFN_DENSE, FFN_MOE, BlockSpec,
+                                      ModelConfig)
+from repro_torch.models import attention, layers, moe
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -27,17 +30,19 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: encoders, cross-attention, modality frontends and "
             "shared blocks are not ported yet (ROADMAP A13)")
     for b in cfg.blocks:
-        if b.mixer != ATTN or b.ffn != FFN_DENSE:
+        if b.mixer != ATTN or b.ffn not in (FFN_DENSE, FFN_MOE):
             raise NotImplementedError(
                 f"{cfg.name}: a {b.mixer}/{b.ffn} block is not ported yet; "
-                "the port runs attention + dense-FFN stacks (ROADMAP A13)")
+                "the port runs attention blocks with dense or MoE FFNs "
+                "(ROADMAP A13)")
 
 
 def _block_defs(cfg: ModelConfig, block: BlockSpec) -> Dict:
+    ffn = moe.moe_defs(cfg) if block.ffn == FFN_MOE else layers.mlp_defs(cfg)
     return {"ln1": layers.rmsnorm_defs(cfg.d_model),
             "mixer": attention.attn_defs(cfg),
             "ln2": layers.rmsnorm_defs(cfg.d_model),
-            "ffn": layers.mlp_defs(cfg)}
+            "ffn": ffn}
 
 
 def model_defs(cfg: ModelConfig) -> Dict:
@@ -51,15 +56,20 @@ def _apply_block(lp, h: torch.Tensor, cfg: ModelConfig, block: BlockSpec, *,
                  positions: torch.Tensor, cache: Dict,
                  cache_len: torch.Tensor, paged_kernel: bool
                  ) -> Tuple[torch.Tensor, Dict]:
-    """One decoder layer (pre-norm attention, then pre-norm SwiGLU)."""
+    """One decoder layer (pre-norm attention, then a pre-norm SwiGLU or
+    MoE FFN; the MoE aux values are dropped)."""
     xn = layers.rmsnorm(lp["ln1"], h, cfg.norm_eps)
     y, new_cache = attention.apply(
         lp["mixer"], xn, cfg=cfg, window=block.window, positions=positions,
         mode="decode", cache=cache, cache_len=cache_len,
         paged_kernel=paged_kernel)
     h = h + y
-    h = h + layers.mlp(lp["ffn"], layers.rmsnorm(lp["ln2"], h, cfg.norm_eps))
-    return h, new_cache
+    xn = layers.rmsnorm(lp["ln2"], h, cfg.norm_eps)
+    if block.ffn == FFN_MOE:
+        y, _aux = moe.apply(lp["ffn"], xn, cfg)
+    else:
+        y = layers.mlp(lp["ffn"], xn)
+    return h + y, new_cache
 
 
 def _decoder(params, cfg: ModelConfig, h: torch.Tensor, *,
