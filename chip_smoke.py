@@ -5,9 +5,11 @@
 
 Drives the port's main paths — the fused chunked-prefill engine serving
 full-width internlm2-1.8b (random weights from a seed) from fp32, int8
-and fp8_e4m3 KV page pools, then full-width dbrx-132b (MoE, depth cut to
-4 layers) from fp32 pools — and holds every CUDA kernel on them against
-its plain PyTorch version.  Phases, each printing JSON lines:
+and fp8_e4m3 KV page pools, the two-executable engine (bucketed,
+suffix and segmented prefill, S = 1 decode) serving it from fp32 and
+int8 pools, then full-width dbrx-132b (MoE, depth cut to 4 layers) from
+fp32 pools — and holds every CUDA kernel on them against its plain
+PyTorch version.  Phases, each printing JSON lines:
 
 1. device: the card's name and power limit (as nvidia-smi reports them),
    torch and CUDA versions; TF32 off.
@@ -21,6 +23,12 @@ its plain PyTorch version.  Phases, each printing JSON lines:
    and bf16 at dbrx's and grok's expert shapes, with and without row
    counts, with a group dimension and at ragged edges (fp32 max abs error
    <= 1e-4, bf16 <= 2e-2 x max|want|, rows past a count exactly 0).
+   Then the ``flash_attention`` kernel in fp32 and bf16 at internlm2's
+   prefill shapes (S = 128, 512, 1024) and at edge cases (window,
+   softcap, non-causal Sq != Skv, GQA 8:1, dh 32/64/256, odd lengths,
+   B = 2), same gates (bf16 per query row, against the row's own
+   max|want|); the main shapes timed beside the plain version,
+   ``scaled_dot_product_attention`` (a yardstick) and the bound.
 4. engine, once per pool dtype: full-width serving, 12 greedy requests
    with a shared prompt head; checks 32 tokens each, kernel launches of
    that dtype == layers x micro-steps (counts zeroed just before, read
@@ -31,6 +39,27 @@ its plain PyTorch version.  Phases, each printing JSON lines:
 5. paths, on the fp32 and the int8 engine: full-width ``forward_verify``
    logits through the kernel against the gather path on the same mid-run
    cache state (<= 1e-3).
+5b. legacy, once on fp32 and once on int8 pools: the same 12 requests
+   through ``Engine(chunked_prefill=False)`` (buckets 8..1024): 32 tokens
+   each, 0 leaked pages, prefix hits with CoW, ``flash_attention``
+   launches == 24 x full prefills (calls of ``Executor.prefill``),
+   paged-attention launches == 24 x decode micro-steps, and the first
+   admission round (prefills, CoW, splices, arming) and one decode chunk
+   free of host syncs.  Before it, on one prompt per bucket, the last
+   prompt token's logits of ``forward_prefill`` (through the flash
+   kernel) against the fused path's teacher-forced ``forward_verify``
+   (through the paged kernel), <= 1e-3; and three prompts (100, 600 and
+   900 tokens, the last two in the 1024 bucket, one logical page wider
+   than the ring) prefilled and spliced into fresh int8 pools: every
+   prompt page's codes and scales bitwise those of ``quantize_pages`` on
+   the prefill's fp32 KV, the other pages untouched.  Greedy agreement
+   with the fused fp32 run and with the fused run of the same pool
+   dtype, prefill and decode times and one profiled decode chunk are
+   printed, not gated.
+5c. segments: two 700-token prompts on a legacy engine whose buckets
+   stop at 256, so each prefill runs as segments; it must complete with
+   0 leaked pages; agreement with the same prompts served in one
+   prefill is printed.
 6. dbrx: internlm2's params and engines are freed, then dbrx-132b is
    built at full width with its depth cut 40 -> 4 (~57 GB of fp32
    weights) and serves the same 12 requests from fp32 pools: 0 leaked
@@ -70,6 +99,7 @@ PATH_TOL = 1e-3       # 24 layers of that difference, on logits
 KV_DTYPES = ("fp32", "int8", "fp8_e4m3")
 SHARED_HEAD = 264     # tokens of the prompt head every other request shares
 GMM_BF16_TOL = 2e-2   # x max|want|: both round the fp32 sum to bf16
+FLASH_BF16_TOL = 2e-2  # x max|want| of each row: both round fp32 to bf16
 MOE_LAYER_TOL = 1e-3  # one MoE layer, kernel vs recomposed plain version
 DBRX_DEPTH = 4        # of 40 layers: ~57 GB of fp32 weights on an 80 GB card
 # moe_gmm cases: name, (G, E, C, D, F), row counts ("pattern": C, C//2,
@@ -83,6 +113,31 @@ GMM_CASES = [
     ("odd_edges", (1, 4, 37, 200, 72), "pattern"),
     ("odd_edges_groups2_all_rows", (2, 4, 37, 200, 72), None),
 ]
+# flash_attention cases: name, (B, H, Hkv, Sq, Skv, dh), options; "main"
+# cases are internlm2-1.8b's prefill at three buckets, and are timed
+FLASH_MAIN = dict(B=1, H=16, Hkv=8, dh=128)
+FLASH_CASES = [
+    ("main_s128", dict(FLASH_MAIN, Sq=128, Skv=128), {}),
+    ("main_s512", dict(FLASH_MAIN, Sq=512, Skv=512), {}),
+    ("main_s1024", dict(FLASH_MAIN, Sq=1024, Skv=1024), {}),
+    ("window48", dict(FLASH_MAIN, Sq=300, Skv=300), {"window": 48}),
+    ("softcap50", dict(FLASH_MAIN, Sq=256, Skv=256), {"softcap": 50.0}),
+    ("noncausal_sq_ne_skv", dict(FLASH_MAIN, Sq=100, Skv=177),
+     {"causal": False}),
+    ("gqa_8to1", dict(FLASH_MAIN, Hkv=2, Sq=256, Skv=256), {}),
+    ("dh32", dict(B=1, H=8, Hkv=4, dh=32, Sq=200, Skv=200), {}),
+    ("dh64", dict(B=1, H=8, Hkv=4, dh=64, Sq=200, Skv=200), {}),
+    ("dh256_softcap", dict(B=1, H=8, Hkv=4, dh=256, Sq=200, Skv=200),
+     {"softcap": 30.0}),
+    ("odd_s37", dict(FLASH_MAIN, Sq=37, Skv=37), {}),
+    ("odd_s100_window", dict(FLASH_MAIN, Sq=100, Skv=100), {"window": 48}),
+    ("batch2", dict(FLASH_MAIN, B=2, Sq=160, Skv=160), {}),
+]
+# one prompt length per bucket (8..1024) for the prefill-vs-fused check
+BUCKET_PROMPT_LENS = (5, 12, 30, 60, 100, 200, 400, 900)
+# prompts spliced into int8 pools: 600 and 900 pad to the 1024 bucket,
+# wider than the 64-page ring by one logical page
+SPLICE_PROMPT_LENS = (100, 600, 900)
 
 
 class SmokeFailure(Exception):
@@ -365,6 +420,104 @@ def phase_gmm_kernels(torch, gmm):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3, flash_attention: prefill attention against its plain version
+# ---------------------------------------------------------------------------
+
+def flash_need(B, H, Hkv, Sq, Skv, dh, causal=True, window=None, **_kw):
+    """Bytes and flops this call needs: q, k, v read once and the output
+    written once (fp32); 4*dh flops per (head, live score), the live
+    scores being the unmasked (row, key) pairs."""
+    rows = list(range(Sq))
+    live = 0
+    for i in rows:
+        lo, hi = 0, Skv
+        if causal:
+            hi = min(i + 1, Skv)
+        if window is not None:
+            lo = max(lo, i - window + 1)
+        live += max(0, hi - lo)
+    nbytes = 4 * (2 * B * H * Sq * dh + 2 * B * Hkv * Skv * dh)
+    return nbytes, 4 * B * H * live * dh, live
+
+
+def flash_sdpa_ms(torch, q, k, v, flush) -> float:
+    """Yardstick only (the port never calls it): PyTorch's
+    ``scaled_dot_product_attention`` with ``is_causal`` on the same fp32
+    inputs, kv heads repeated to H outside the timed call."""
+    import torch.nn.functional as F
+    g = q.shape[1] // k.shape[1]
+    kr = k.repeat_interleave(g, dim=1).contiguous()
+    vr = v.repeat_interleave(g, dim=1).contiguous()
+    return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, kr, vr, is_causal=True), flush=flush)
+
+
+def phase_flash_kernels(torch, fa):
+    """Every ``FLASH_CASES`` case in fp32 and bf16.  Returns the worst
+    fp32 max abs error, the worst bf16 error relative to max|want| and
+    the timed main-shape records."""
+    gen = torch.Generator(device=DEV).manual_seed(2468)
+    worst = {"fp32": 0.0, "bf16": 0.0}
+    timed = {}
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    for name, shape, opts in FLASH_CASES:
+        B, H, Hkv, Sq, Skv, dh = (shape[k] for k in
+                                  ("B", "H", "Hkv", "Sq", "Skv", "dh"))
+        q32 = torch.randn(B, H, Sq, dh, generator=gen, device=DEV)
+        k32 = torch.randn(B, Hkv, Skv, dh, generator=gen, device=DEV)
+        v32 = torch.randn(B, Hkv, Skv, dh, generator=gen, device=DEV)
+        for dt_name, dt in (("fp32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+            got = fa.flash_attention(q, k, v, **opts)
+            want = fa.flash_attention_ref(q, k, v, **opts)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == dt,
+                  f"flash {name} {dt_name}: {tuple(got.shape)} {got.dtype}")
+            check(bool(torch.isfinite(got).all()),
+                  f"flash {name} {dt_name}: non-finite output")
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            rec = {"case": name, "dtype": dt_name, "shape": shape,
+                   "options": opts, "max_abs_err": err,
+                   "max_abs_want": scale}
+            if dt_name == "fp32":
+                rec["tol"] = KERNEL_TOL
+                worst["fp32"] = max(worst["fp32"], err)
+                check(err <= KERNEL_TOL, f"flash {name} fp32: max abs err "
+                                         f"{err} > {KERNEL_TOL}")
+                if name.startswith("main"):
+                    nbytes, flops, live = flash_need(**shape, **opts)
+                    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                    t_flops = flops / FP32_FLOPS * 1e3
+                    rec.update(
+                        ms=cuda_ms(torch, lambda: fa.flash_attention(
+                            q, k, v, **opts), flush=flush),
+                        plain_ms=cuda_ms(torch, lambda: fa.flash_attention_ref(
+                            q, k, v, **opts), flush=flush),
+                        library_ms=flash_sdpa_ms(torch, q, k, v, flush),
+                        bound_ms=max(t_bytes, t_flops),
+                        bound_by="bytes" if t_bytes >= t_flops
+                        else "operations",
+                        bytes=nbytes, flops=flops, live_scores=live)
+                    timed[name] = rec
+            else:
+                # per query row, against that row's own max|want|: late
+                # causal rows are smaller than the first ones
+                d = (got.float() - want.float()).abs().amax(-1)
+                rel = float((d / want.float().abs().amax(-1)
+                             .clamp_min(1e-30)).max())
+                rec.update(tol_relative=FLASH_BF16_TOL, relative_err=rel)
+                worst["bf16"] = max(worst["bf16"], rel)
+                check(rel <= FLASH_BF16_TOL, f"flash {name} bf16: error "
+                                             f"{rel} x max|want|")
+            emit("kernel_check", kernel="flash_attention", **rec)
+        del q32, k32, v32, q, k, v, got, want
+    torch.cuda.empty_cache()
+    return worst, timed
+
+
+# ---------------------------------------------------------------------------
 # Phases 4-5: the engine at full width
 # ---------------------------------------------------------------------------
 
@@ -533,8 +686,8 @@ def teacher_forced_logit_diff(torch, rt, cfg, params, kv_dtype,
 
 def profile_chunk(torch, eng) -> dict:
     """Device time of one chunk by kernel family, from ``torch.profiler``:
-    the paged-attention kernel, the moe_gmm kernel, library matrix
-    products, everything else, and the device's idle share of the
+    the paged-attention, moe_gmm and flash-attention kernels, library
+    matrix products, everything else, and the device's idle share of the
     chunk's wall time (profiler on, so the wall time includes its
     overhead)."""
     from torch.profiler import ProfilerActivity, profile
@@ -547,8 +700,8 @@ def profile_chunk(torch, eng) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     eng._drain(toks)
-    fam = {"paged_attention": 0.0, "moe_gmm": 0.0, "matmul": 0.0,
-           "other": 0.0}
+    fam = {"paged_attention": 0.0, "moe_gmm": 0.0, "flash_attention": 0.0,
+           "matmul": 0.0, "other": 0.0}
     n_kernels = 0
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -560,6 +713,8 @@ def profile_chunk(torch, eng) -> dict:
             fam["paged_attention"] += us / 1e3
         elif "moe_gmm" in name:
             fam["moe_gmm"] += us / 1e3
+        elif "flash_attention" in name:
+            fam["flash_attention"] += us / 1e3
         elif "gemm" in name or "gemv" in name or "cutlass" in name:
             fam["matmul"] += us / 1e3
         else:
@@ -613,6 +768,288 @@ def phase_paths(torch, eng, cfg, rt):
     eng.run(max_steps=10 ** 6)
     check(eng.leaked_pages() == 0,
           f"{eng.kv_dtype}: leaked pages after the second wave")
+
+
+# ---------------------------------------------------------------------------
+# Phases 5b-5c: the two-executable engine at full width
+# ---------------------------------------------------------------------------
+
+def make_legacy_engine(rt, cfg, params, kv_dtype, **kw):
+    return rt["Engine"](cfg, params, slots=8, max_len=1024, page_size=16,
+                        kv_dtype=kv_dtype, chunked_prefill=False,
+                        device=DEV, **kw)
+
+
+def count_prefills(eng) -> dict:
+    """Count the engine's full prefills: calls of ``Executor.prefill``
+    (suffix prefills and segments after the first are other calls)."""
+    inner = eng.executor.prefill
+    box = {"n": 0}
+
+    def prefill(*args, **kw):
+        box["n"] += 1
+        return inner(*args, **kw)
+
+    eng.executor.prefill = prefill
+    return box
+
+
+def phase_prefill_vs_fused(torch, rt, cfg, params):
+    """On one prompt per bucket (8..1024): the last prompt token's logits
+    of ``forward_prefill`` (bucket-padded, through the flash kernel)
+    against the fused path's, teacher-forced through ``forward_verify``
+    in right-aligned 32-row slices over paged pools (through the paged
+    kernel).  Gate: max abs difference <= 1e-3."""
+    import numpy as np
+    from repro_torch.serve.cache import CacheSpec
+    S = 32
+    spec = CacheSpec.from_config(cfg, 1, 1024, page_size=16,
+                                 spec_tokens=S - 1)
+    group = spec.groups[0]
+    rows = {group.key: list(range(group.ring_blocks))}
+    rng = np.random.default_rng(13)
+    col = torch.arange(S, device=DEV)[None, :]
+    worst = 0.0
+    for L in BUCKET_PROMPT_LENS:
+        prompt = rng.integers(1, cfg.vocab_size, L)
+        bucket = max(8, 1 << (L - 1).bit_length())
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :L] = prompt
+        want, _ = rt["forward_prefill"](
+            params, cfg, {"tokens": torch.tensor(padded, device=DEV)},
+            length=torch.tensor([L], dtype=torch.int32, device=DEV))
+        cache = spec.init_paged_cache(torch.device(DEV))
+        rt["install_slot_rows"](spec, cache, 0, 0, rows)
+        done = 0
+        while done < L:
+            n = min(S, L - done)
+            toks = np.zeros((1, S), np.int32)
+            toks[0, S - n:] = prompt[done:done + n]
+            logits, cache = rt["forward_verify"](
+                params, cfg, torch.tensor(toks, device=DEV), cache,
+                write_mask=col >= S - n, paged_kernel=True,
+                spec_slack=spec.spec_tokens,
+                n_rows=torch.tensor([n], dtype=torch.int32, device=DEV))
+            cache = dict(cache, len=cache["len"] + n)
+            done += n
+        got = logits[0, -1]
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(want).all()),
+              f"prefill logits at L={L} not finite")
+        err = float((got - want[0]).abs().max())
+        worst = max(worst, err)
+        emit("prefill_vs_fused", prompt_len=L, bucket=bucket,
+             logits_max_abs_diff=err, tol=PATH_TOL,
+             same_argmax=bool(got.argmax() == want[0].argmax()))
+        check(err <= PATH_TOL, f"prefill vs fused logits at L={L}: {err}")
+    return worst
+
+
+def phase_quantized_splice(torch, rt, cfg, params):
+    """The int8 legacy admission at full width: ``forward_prefill`` (through
+    the flash kernel) of one prompt per length in ``SPLICE_PROMPT_LENS``,
+    then ``admit_cache`` into fresh int8 pools through a reversed page
+    row.  Gate, every layer, K and V: each prompt page's codes and scales
+    are bitwise those of ``quantize_pages`` on the prefill's fp32 KV
+    (zero past the prompt), and the slot's other pages stay untouched.
+    900 and 600 tokens pad to the 1024 bucket, whose 65 logical pages
+    outnumber the 64-page ring."""
+    import numpy as np
+    spec = rt["CacheSpec"].from_config(cfg, 1, 1024, page_size=16,
+                                       kv_dtype="int8")
+    group = spec.groups[0]
+    P, nb = spec.page_size, group.ring_blocks
+    row = np.arange(nb - 1, -1, -1, dtype=np.int32)
+    rng = np.random.default_rng(19)
+    for L in SPLICE_PROMPT_LENS:
+        bucket = max(8, 1 << (L - 1).bit_length())
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :L] = rng.integers(1, cfg.vocab_size, L)
+        _, one = rt["forward_prefill"](
+            params, cfg, {"tokens": torch.tensor(padded, device=DEV)},
+            length=torch.tensor([L], dtype=torch.int32, device=DEV))
+        cache = spec.init_paged_cache(torch.device(DEV))
+        rt["admit_cache"](spec, cache, one, 0, 0, L, {group.key: row})
+        npg = -(-L // P)
+        live = torch.as_tensor(row[:npg].astype(np.int64), device=DEV)
+        rest = torch.as_tensor(row[npg:].astype(np.int64), device=DEV)
+        bad = []
+        for i, (big, small) in enumerate(zip(cache["layers"],
+                                             one["layers"])):
+            for pk, sk, name in (("pk", "ks", "k"), ("pv", "vs", "v")):
+                x = small[name][0].transpose(0, 1)[:L].float()
+                x = torch.cat([x, x.new_zeros((npg * P - L,) + x.shape[1:])])
+                q, sc = rt["quantize_pages"](
+                    x.reshape((npg, P) + x.shape[1:]), torch.int8)
+                ok = (torch.equal(big[pk][live], q)
+                      and torch.equal(big[sk][live], sc)
+                      and not bool(big[pk][rest].any())
+                      and bool((big[sk][rest] == 1e-30).all()))
+                if not ok:
+                    bad.append(f"{name}{i}")
+        emit("quantized_splice", kv_dtype="int8", prompt_len=L,
+             bucket=bucket, logical_pages=(bucket - 1) // P + 2,
+             ring_blocks=nb, prompt_pages=npg, layers_wrong=bad)
+        check(not bad, f"int8 splice at L={L}: pages differ from "
+                       f"quantize_pages in {bad[:6]}")
+        del one, cache
+
+
+def serve_legacy(torch, eng, reqs, sync_check: bool) -> dict:
+    """Serve ``reqs`` round by round.  With ``sync_check`` the first
+    admission round (prefills, CoW copies, splices, arming) and its
+    decode chunk run under ``set_sync_debug_mode("error")``.  Returns
+    the wall, admission and decode seconds (the sync-checked round
+    apart) and the decode micro-steps timed."""
+    for r in reqs:
+        check(eng.submit(r) is None, f"rid {r.rid} rejected")
+    t = {"wall_s": 0.0, "prefill_s": 0.0, "decode_s": 0.0,
+         "first_round_s": 0.0, "decode_micro_steps_timed": 0}
+    t0 = time.time()
+    first = sync_check
+    while eng.queue or eng._live():
+        ta = time.time()
+        if first:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng._admit()
+                check(eng._live(), "the first round admitted nothing")
+                toks = eng.step_chunk()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            eng._drain(toks)
+            t["first_round_s"] = time.time() - ta
+            first = False
+            continue
+        eng._admit()
+        check(eng._live(), "admission wedged with no live slot")
+        torch.cuda.synchronize()
+        tb = time.time()
+        eng._drain(eng.step_chunk())
+        t["prefill_s"] += tb - ta
+        t["decode_s"] += time.time() - tb
+        t["decode_micro_steps_timed"] += eng.sync_interval
+    torch.cuda.synchronize()
+    t["wall_s"] = time.time() - t0
+    return t
+
+
+def phase_legacy(torch, ops, fa, rt, cfg, params, kv_dtype, fused_tokens):
+    """Serve the 12 requests through the two-executable engine from
+    ``kv_dtype`` pools (``fused_tokens``: the fused engine's tokens by
+    pool dtype, for agreement).  Counts are zeroed just before the run
+    and read just after.  Returns the engine (for the segment phase), the
+    flash launches and the full prefills."""
+    eng = make_legacy_engine(rt, cfg, params, kv_dtype)
+    check(eng.paged_kernel and not eng.chunked_prefill,
+          "the legacy engine does not read pools through the kernel")
+    check(eng.buckets == [8 << i for i in range(8)],
+          f"buckets {eng.buckets}")
+    t0 = time.time()
+    eng.warmup()
+    torch.cuda.synchronize()
+    emit("warmup", path="legacy", kv_dtype=kv_dtype,
+         buckets=eng.buckets, seconds=time.time() - t0)
+    reqs = make_requests(rt["Request"], cfg.vocab_size, 12, seed=7, rid0=0)
+    steps0 = eng.steps
+    prefills = count_prefills(eng)
+    torch.cuda.reset_peak_memory_stats()
+    ops.launches = 0
+    for k in ops.launches_by_dtype:
+        ops.launches_by_dtype[k] = 0
+    fa.launches = 0
+    times = serve_legacy(torch, eng, reqs, sync_check=True)
+    paged = ops.launches_by_dtype[kv_dtype]
+    paged_all = ops.launches
+    flash = fa.launches
+    n_prefill = prefills["n"]
+    micro = eng.steps - steps0
+    gen_tokens = sum(len(r.out_tokens) for r in reqs)
+    pstats = eng.prefix_stats()
+    tokens = {r.rid: list(r.out_tokens) for r in reqs}
+    emit("legacy_engine", arch=cfg.name, kv_dtype=kv_dtype,
+         requests=len(reqs), decode_micro_steps=micro, chunks=eng.chunks,
+         full_prefills=n_prefill, flash_attention_launches=flash,
+         paged_attention_launches=paged,
+         paged_attention_launches_all_dtypes=paged_all,
+         generated_tokens=gen_tokens,
+         generated_tokens_per_s=gen_tokens / times["wall_s"],
+         ms_per_decode_micro_step=(times["decode_s"]
+                                   / max(times["decode_micro_steps_timed"],
+                                         1) * 1e3),
+         sync_free_admission_and_chunk=True, host_syncs=eng.host_syncs,
+         greedy_agreement_with_fused_fp32=greedy_agreement(
+             fused_tokens["fp32"], tokens),
+         greedy_agreement_with_fused_same_dtype=greedy_agreement(
+             fused_tokens[kv_dtype], tokens),
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         prefix_stats=pstats, leaked_pages=eng.leaked_pages(), **times)
+    for r in reqs:
+        check(r.done and len(r.out_tokens) == 32,
+              f"legacy {kv_dtype} rid {r.rid}: {len(r.out_tokens)} tokens, "
+              f"done={r.done}")
+    check(n_prefill > 0 and flash == cfg.num_layers * n_prefill,
+          f"legacy {kv_dtype}: flash launches {flash} != "
+          f"{cfg.num_layers} x {n_prefill} full prefills")
+    check(paged == cfg.num_layers * micro and paged_all == paged,
+          f"legacy {kv_dtype}: paged launches {paged} (all dtypes "
+          f"{paged_all}) != {cfg.num_layers} x {micro}")
+    check(eng.leaked_pages() == 0, f"legacy {kv_dtype}: leaked pages")
+    check(pstats["prefix_hits"] > 0, f"legacy {kv_dtype}: no prefix hits")
+    check(pstats["cow_copies"] > 0,
+          f"legacy {kv_dtype}: no copy-on-write ran")
+    # a second wave, one of its decode chunks profiled
+    for r in make_requests(rt["Request"], cfg.vocab_size, 8, seed=11,
+                           rid0=100):
+        eng.submit(r)
+    eng.step()
+    eng.step()
+    try:
+        prof = profile_chunk(torch, eng)
+    except (RuntimeError, AttributeError) as e:   # an optional reading
+        prof = {"measured": False, "reason": repr(e)}
+    emit("profile", path="legacy", kv_dtype=kv_dtype, **prof)
+    eng.run(max_steps=10 ** 6)
+    check(eng.leaked_pages() == 0,
+          f"legacy {kv_dtype}: leaked pages after the second wave")
+    return eng, flash, n_prefill
+
+
+def phase_segments(torch, rt, cfg, params, single):
+    """Two 700-token prompts on a legacy engine whose buckets stop at
+    256: each prefill runs as a 256-token full prefill, a 256-token
+    segment and a 188-token suffix.  Gate: both complete with 0 leaked
+    pages.  Agreement with the same prompts served by ``single`` (one
+    1024-bucket prefill each) is printed."""
+    import numpy as np
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(1, cfg.vocab_size, 700).tolist()
+               for _ in range(2)]
+
+    def run(eng, rid0):
+        reqs = [rt["Request"](rid=rid0 + i, prompt=p, max_new_tokens=32)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            check(eng.submit(r) is None, f"rid {r.rid} rejected")
+        eng.run(max_steps=10 ** 6)
+        return {r.rid - rid0: list(r.out_tokens) for r in reqs}, reqs
+
+    want, _ = run(single, 200)
+    eng = make_legacy_engine(rt, cfg, params, "fp32",
+                             buckets=[8 << i for i in range(6)])
+    prefills = count_prefills(eng)
+    t0 = time.time()
+    got, reqs = run(eng, 300)
+    torch.cuda.synchronize()
+    emit("segments", prompt_lens=[700, 700], buckets=eng.buckets,
+         full_prefills=prefills["n"], wall_s=time.time() - t0,
+         greedy_agreement_with_single_prefill=greedy_agreement(want, got),
+         leaked_pages=eng.leaked_pages())
+    for r in reqs:
+        check(r.done and len(r.out_tokens) == 32,
+              f"segments rid {r.rid}: {len(r.out_tokens)} tokens")
+    check(eng.buckets[-1] == 256, f"segments grew buckets {eng.buckets}")
+    check(eng.leaked_pages() == 0, "segments: leaked pages")
 
 
 # ---------------------------------------------------------------------------
@@ -790,12 +1227,15 @@ def main() -> int:
         from repro_torch.configs import get_config
         from repro_torch.device import resolve_device
         from repro_torch.kernels import build
+        from repro_torch.kernels.flash_attention import ops as fa
         from repro_torch.kernels.moe_gmm import ops as gmm
         from repro_torch.kernels.paged_attention import ops
-        from repro_torch.models import forward_verify, model_defs
+        from repro_torch.models import (forward_prefill, forward_verify,
+                                        model_defs)
         from repro_torch.models.attention import quantize_pages
         from repro_torch.models.module import init_params
-        from repro_torch.serve.cache import kv_pool_dtype
+        from repro_torch.serve.cache import (CacheSpec, admit_cache,
+                                             install_slot_rows, kv_pool_dtype)
         from repro_torch.serve.engine import Engine, Request
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e}); run from the "
@@ -803,7 +1243,9 @@ def main() -> int:
         return 2
     rt = dict(get_config=get_config, init_params=init_params,
               model_defs=model_defs, Engine=Engine, Request=Request,
-              forward_verify=forward_verify)
+              forward_verify=forward_verify, forward_prefill=forward_prefill,
+              install_slot_rows=install_slot_rows, admit_cache=admit_cache,
+              CacheSpec=CacheSpec, quantize_pages=quantize_pages)
     try:
         resolve_device("cuda")        # TF32 off
         smi = subprocess.run(
@@ -820,7 +1262,7 @@ def main() -> int:
                    torch.backends.cudnn.allow_tf32])
 
         t0 = time.time()
-        sources = [ops.SOURCE, gmm.SOURCE]
+        sources = [ops.SOURCE, gmm.SOURCE, fa.SOURCE]
         with ThreadPoolExecutor(len(sources)) as pool:
             built = list(pool.map(build.compile_source, sources))
         for src, (lib, log) in zip(sources, built):
@@ -833,6 +1275,7 @@ def main() -> int:
         worst, rows = phase_kernels(torch, ops, quantize_pages,
                                     kv_pool_dtype)
         gmm_worst = phase_gmm_kernels(torch, gmm)
+        flash_worst, flash_timed = phase_flash_kernels(torch, fa)
         cfg, params = init_model(torch, rt)
         launches, tokens = {}, {}
         for kv_dtype in KV_DTYPES:
@@ -848,6 +1291,18 @@ def main() -> int:
                          torch, rt, cfg, params, kv_dtype))
             if kv_dtype in ("fp32", "int8"):
                 phase_paths(torch, eng, cfg, rt)
+            del eng
+            torch.cuda.empty_cache()
+        # the two-executable path on the same model, before it is freed
+        phase_prefill_vs_fused(torch, rt, cfg, params)
+        phase_quantized_splice(torch, rt, cfg, params)
+        legacy = {}
+        for kv_dtype in ("fp32", "int8"):
+            eng, flash_launches, n_prefill = phase_legacy(
+                torch, ops, fa, rt, cfg, params, kv_dtype, tokens)
+            legacy[kv_dtype] = (flash_launches, n_prefill)
+            if kv_dtype == "fp32":
+                phase_segments(torch, rt, cfg, params, eng)
             del eng
             torch.cuda.empty_cache()
         # dbrx's ~57 GB of weights fit only once internlm2's are gone
@@ -900,6 +1355,22 @@ def main() -> int:
         "down_bound_ms": gmm_rows["down"]["bound_ms"],
         "shape": "dbrx gate/up: E=16 C=80 D=6144 F=10752 fp32, "
                  f"sum(counts)={sum(main_gmm['row_counts'])}"})
+    main_fa = flash_timed["main_s1024"]
+    entries.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
+        "launches": legacy["fp32"][0],
+        "max_abs_err": flash_worst["fp32"],
+        "ms": main_fa["ms"], "plain_ms": main_fa["plain_ms"],
+        "bound_ms": main_fa["bound_ms"], "bound_by": main_fa["bound_by"],
+        "library_ms": main_fa["library_ms"],
+        "bf16_relative_err": flash_worst["bf16"],
+        "full_prefills": legacy["fp32"][1],
+        "launches_int8": legacy["int8"][0],
+        "ms_by_seq": {name: rec["ms"] for name, rec in flash_timed.items()},
+        "shape": "B=1 H=16 Hkv=8 dh=128 causal fp32 S=1024"})
     print(card, flush=True)      # again, beside the results it qualifies
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

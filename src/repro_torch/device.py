@@ -29,3 +29,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def host_to_device(values, device: torch.device,
+                   dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Host values (a list or numpy array) as a tensor on ``device``,
+    without a host synchronization: on the card the copy goes through
+    pinned memory with ``non_blocking=True``, so it is safe under
+    ``torch.cuda.set_sync_debug_mode("error")``.  On the CPU it is a
+    plain tensor."""
+    t = torch.as_tensor(values, dtype=dtype)
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

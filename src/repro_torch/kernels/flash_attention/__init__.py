@@ -1,0 +1,8 @@
+"""Blockwise (flash) prefill attention: Hopper CUDA kernel, its wrapper
+and its plain PyTorch version (port of ``repro/kernels/flash_attention``)."""
+
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     supported)
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+__all__ = ["flash_attention", "flash_attention_ref", "supported"]

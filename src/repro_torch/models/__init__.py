@@ -1,9 +1,11 @@
-"""Models of the port: parameter trees, layers, paged attention, the MoE
-FFN and the decoder stack (counterpart of ``repro/models``)."""
+"""Models of the port: parameter trees, layers, paged and prefill
+attention, the MoE FFN and the decoder stack (counterpart of
+``repro/models``)."""
 
 from repro_torch.models import attention, layers, module, moe, transformer
-from repro_torch.models.transformer import (forward_decode, forward_verify,
-                                            model_defs)
+from repro_torch.models.transformer import (forward_decode, forward_prefill,
+                                            forward_verify, model_defs)
 
 __all__ = ["attention", "layers", "module", "moe", "transformer",
-           "model_defs", "forward_decode", "forward_verify"]
+           "model_defs", "forward_prefill", "forward_decode",
+           "forward_verify"]

@@ -1,18 +1,30 @@
-"""GQA attention over block-paged KV pools: the paged decode half of
-``repro/models/attention.py``.
+"""GQA attention of the port: the paged decode half and the prefill half
+of ``repro/models/attention.py``.
 
-``apply`` runs in paged-decode mode only (the serving engine's fused
-chunk): projections + rope, then ``paged_decode_step`` writes the new
-KV through the page table and reads it back either by gathering each
-slot's ring (``paged_kernel=False``) or pool-direct through
-``kernels/paged_attention`` (``paged_kernel=True``: the Hopper kernel on
-the card).  Pool writes are **in place** — the reference returns new
-pools, the port mutates the cache's tensors and returns them.
+``apply`` runs in two modes:
+
+* ``mode="decode"`` over a paged cache (the serving engines' chunks):
+  projections + rope, then ``paged_decode_step`` writes the new KV
+  through the page table and reads it back either by gathering each
+  slot's ring (``paged_kernel=False``) or pool-direct through
+  ``kernels/paged_attention`` (``paged_kernel=True``: the Hopper kernel
+  on the card).  Pool writes are **in place** — the reference returns
+  new pools, the port mutates the cache's tensors and returns them.
+* ``mode="prefill"`` (the two-executable engine's bucketed prefill):
+  ``chunked_attention`` over the whole prompt, which runs
+  ``kernels/flash_attention`` (the Hopper kernel on the card), and
+  returns the prompt's K/V ``[B,Hkv,S,dh]`` for the splice.  With
+  ``ctx`` it is a suffix prefill: the matched prefix is gathered
+  (dequantized, for 8-bit pools) from the paged pool and attended by
+  ``prefix_prefill_attention`` in plain torch ops, as the reference's
+  XLA einsums.
 
 8-bit pools (int8 / fp8_e4m3, with per-page, per-kv-head fp32 scales
 "ks"/"vs") are written by a re-quantizing read-modify-write of whole
 pages (``rmw_quantized_pages``) and read either through the kernel,
-which folds the scales in, or by gathering and dequantizing.
+which folds the scales in, or by gathering and dequantizing.  The dense
+(train / encoder) mode is ROADMAP A15 and the dense ring-buffer decode
+cache A7; both raise.
 
 Every function here is free of host synchronization: no ``.item()``,
 no boolean-mask indexing, no Python branch on a tensor value.
@@ -25,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_attention.ref import take_pages
 from repro_torch.models.layers import rope
@@ -76,6 +89,62 @@ def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     p = torch.softmax(scores, dim=-1).to(cv.dtype)
     out = torch.einsum("bkgqs,bksd->bqkgd", p, cv)
     return out.reshape(b, sq, h, dh)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, window: Optional[int] = None,
+                      softcap: Optional[float] = None,
+                      q_chunk: Optional[int] = None) -> torch.Tensor:
+    """q [B,Sq,H,dh]; k,v [B,Skv,Hkv,dh] -> [B,Sq,H,dh].
+
+    For causal self-attention query ``i`` sits at position ``i``.  The
+    reference's query-chunked XLA loop becomes one call of
+    ``kernels/flash_attention`` in its ``[B,H,S,dh]`` layout (one
+    contiguous copy per tensor), which tiles the queries itself:
+    ``q_chunk`` is accepted for the reference's signature and unused."""
+    del q_chunk
+    out = flash_ops.flash_attention(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), causal=causal, window=window,
+        softcap=softcap)
+    return out.transpose(1, 2)
+
+
+def prefix_prefill_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, ck: torch.Tensor,
+                             cv: torch.Tensor, off, *,
+                             softcap: Optional[float] = None
+                             ) -> torch.Tensor:
+    """Suffix-prefill attention against a shared-prefix KV context.
+
+    q/k/v [B,S,H(kv),dh] carry the suffix tokens at absolute positions
+    ``off + i`` (rope applied); ck/cv [B,C,Hkv,dh] are the prefix KV
+    gathered from the paged pool in block order, so context token ``j``
+    sits at position ``j`` and is valid iff ``j < off`` (the tail is
+    trash-page padding).  ``off`` is a host int or a 0-d tensor.  Plain
+    torch ops in the reference's order: repeat kv by the group, fp32
+    scores, softcap, mask, softmax."""
+    b, s, h, dh = q.shape
+    c = ck.shape[1]
+    g = h // k.shape[2]
+    if g > 1:
+        k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+        ck = ck.repeat_interleave(g, dim=2)
+        cv = cv.repeat_interleave(g, dim=2)
+    kall = torch.cat([ck.to(q.dtype), k], dim=1)
+    vall = torch.cat([cv.to(q.dtype), v], dim=1)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kall).float() * dh ** -0.5
+    scores = _softcap(scores, softcap)
+    ar_s = torch.arange(s, device=q.device)
+    ar_c = torch.arange(c, device=q.device)
+    qpos = (off + ar_s)[:, None]                              # [S,1]
+    kpos = torch.cat([ar_c, off + ar_s])
+    kvalid = torch.cat([ar_c < off,
+                        torch.ones(s, dtype=torch.bool, device=q.device)])
+    mask = (kpos[None, :] <= qpos) & kvalid[None, :]          # [S,C+S]
+    scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(vall.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vall)
 
 
 def ring_token_positions(cache_len: torch.Tensor, ring: int) -> torch.Tensor:
@@ -223,9 +292,8 @@ def paged_decode_step(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
         if quant:
             # one-page overlay per slot, then re-quantize the page
             bi = torch.arange(b, device=q.device)
-            wrote = torch.zeros((b, page_size), dtype=torch.bool,
-                                device=q.device)
-            wrote[bi, off] = True
+            wrote = off[:, None] == torch.arange(page_size,
+                                                 device=q.device)[None, :]
             shape = (b, page_size) + tuple(kk.shape[2:])
             nk = torch.zeros(shape, dtype=torch.float32, device=q.device)
             nv = torch.zeros(shape, dtype=torch.float32, device=q.device)
@@ -337,15 +405,29 @@ def apply(params, x: torch.Tensor, *, cfg: ModelConfig,
           window: Optional[int], positions: torch.Tensor, mode: str,
           cache: Optional[Dict] = None,
           cache_len: Optional[torch.Tensor] = None,
-          paged_kernel: bool = False
+          causal: bool = True, q_chunk: Optional[int] = None,
+          ctx: Optional[Dict] = None, paged_kernel: bool = False
           ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """x [B,S,d] -> (y [B,S,d], new_cache).  Only ``mode="decode"`` over
-    a paged cache is ported (the fused serving chunk); the dense, prefill
-    and ring-buffer modes are ROADMAP A13."""
-    if mode != "decode" or cache is None or "pk" not in cache:
+    """x [B,S,d] -> (y [B,S,d], new_cache).
+
+    ``mode="prefill"`` returns the new KV as ``{"k","v": [B,Hkv,S,dh]}``;
+    with ``ctx`` (``{"pk","pv", optional "ks","vs": pool, "row": [Cb]
+    page ids, "off": prefix length}``) the layer's queries sit at
+    ``off + i`` (``positions`` already carry the offset) and attend to
+    the ``off`` prefix tokens gathered from the pool.  ``mode="decode"``
+    needs a paged cache (``paged_kernel``: read it through the kernel).
+    The dense mode (A15) and the dense ring-buffer decode cache (A7) are
+    not ported and raise."""
+    if mode == "dense":
         raise NotImplementedError(
-            f"attention mode {mode!r} without a paged cache is not ported "
-            "yet (ROADMAP A13); the port runs paged decode only")
+            "attention mode 'dense' (training / encoders) is not ported "
+            "yet (ROADMAP A15)")
+    if mode == "decode" and (cache is None or "pk" not in cache):
+        raise NotImplementedError(
+            "decode over a dense ring-buffer cache is not ported yet "
+            "(ROADMAP A7); the port decodes over paged caches")
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"unknown attention mode {mode!r}")
     b, s, d = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     x2 = x.reshape(b * s, d)
@@ -356,9 +438,29 @@ def apply(params, x: torch.Tensor, *, cfg: ModelConfig,
         b, s, hkv, dh)
     q = rope(q, positions, cfg.rope_theta)
     kk = rope(kk, positions, cfg.rope_theta)
-    out, new_cache = paged_decode_step(
-        q, kk, vv, cache, cache_len, window=window, softcap=cfg.attn_softcap,
-        paged_kernel=paged_kernel)
+    if mode == "decode":
+        out, new_cache = paged_decode_step(
+            q, kk, vv, cache, cache_len, window=window,
+            softcap=cfg.attn_softcap, paged_kernel=paged_kernel)
+    elif ctx is not None:
+        # prefix sharing: gather the matched prefix KV from the paged pool
+        # (block order is position order in the non-wrapping full-attention
+        # group) and prefill only the suffix against it
+        gk = take_pages(ctx["pk"], ctx["row"])          # [Cb, P, Hkv, dh]
+        gv = take_pages(ctx["pv"], ctx["row"])
+        if ctx.get("ks") is not None:       # 8-bit pool: dequantize pages
+            gk = dequantize_pages(gk, ctx["ks"][ctx["row"].long()])
+            gv = dequantize_pages(gv, ctx["vs"][ctx["row"].long()])
+        cb, psz = gk.shape[0], gk.shape[1]
+        ck = gk.reshape(1, cb * psz, *gk.shape[2:])
+        cv = gv.reshape(1, cb * psz, *gv.shape[2:])
+        out = prefix_prefill_attention(q, kk, vv, ck, cv, ctx["off"],
+                                       softcap=cfg.attn_softcap)
+        new_cache = {"k": kk.transpose(1, 2), "v": vv.transpose(1, 2)}
+    else:
+        out = chunked_attention(q, kk, vv, causal=causal, window=window,
+                                softcap=cfg.attn_softcap, q_chunk=q_chunk)
+        new_cache = {"k": kk.transpose(1, 2), "v": vv.transpose(1, 2)}
     y = torch.matmul(out.reshape(b * s, h * dh),
                      params["wo"].reshape(h * dh, d)).view(b, s, d)
     return y, new_cache

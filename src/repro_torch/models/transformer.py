@@ -2,14 +2,19 @@
 dense or MoE FFNs over block-paged KV (counterpart of
 ``repro/models/transformer.py``).
 
-Entry points (functions of ``(params, cfg, tokens, cache)``):
+Entry points:
+    forward_prefill(params, cfg, {"tokens": [B,S]}, length=, ctx=)
+                                   -> (last-token logits [B,V], cache)
     forward_decode(params, cfg, tokens [B,1], cache)  -> (logits [B,V], cache)
     forward_verify(params, cfg, tokens [B,S], cache)  -> (logits [B,S,V], cache)
 
-Both update the cache's pools in place.  Other mixers (mamba2, rwkv6,
-shared attention), other FFNs, encoders and the dense prefill/train
-passes are not ported yet and raise (ROADMAP A13, A15).  Serving drops
-the MoE router's aux values, as the reference's ``forward_verify`` does.
+``forward_prefill`` is the two-executable engine's bucketed prefill (its
+attention runs ``kernels/flash_attention`` on the card, or a suffix
+prefill against paged context); it returns per-layer KV for the splice.
+The other two update the cache's pools in place.  Other mixers (mamba2:
+ROADMAP B5, rwkv6: B6, shared attention: A13), other FFNs, encoders and
+the train pass are not ported yet and raise (A13, A15).  Serving drops
+the MoE router's aux values, as the reference's entry points do.
 """
 
 from __future__ import annotations
@@ -31,10 +36,11 @@ def _check_supported(cfg: ModelConfig) -> None:
             "shared blocks are not ported yet (ROADMAP A13)")
     for b in cfg.blocks:
         if b.mixer != ATTN or b.ffn not in (FFN_DENSE, FFN_MOE):
+            item = {"mamba2": "B5", "rwkv6": "B6"}.get(b.mixer, "A13")
             raise NotImplementedError(
                 f"{cfg.name}: a {b.mixer}/{b.ffn} block is not ported yet; "
                 "the port runs attention blocks with dense or MoE FFNs "
-                "(ROADMAP A13)")
+                f"(ROADMAP {item})")
 
 
 def _block_defs(cfg: ModelConfig, block: BlockSpec) -> Dict:
@@ -53,15 +59,16 @@ def model_defs(cfg: ModelConfig) -> Dict:
 
 
 def _apply_block(lp, h: torch.Tensor, cfg: ModelConfig, block: BlockSpec, *,
-                 positions: torch.Tensor, cache: Dict,
-                 cache_len: torch.Tensor, paged_kernel: bool
+                 mode: str, positions: torch.Tensor, cache: Optional[Dict],
+                 cache_len: Optional[torch.Tensor], paged_kernel: bool,
+                 ctx: Optional[Dict] = None
                  ) -> Tuple[torch.Tensor, Dict]:
     """One decoder layer (pre-norm attention, then a pre-norm SwiGLU or
     MoE FFN; the MoE aux values are dropped)."""
     xn = layers.rmsnorm(lp["ln1"], h, cfg.norm_eps)
     y, new_cache = attention.apply(
         lp["mixer"], xn, cfg=cfg, window=block.window, positions=positions,
-        mode="decode", cache=cache, cache_len=cache_len,
+        mode=mode, cache=cache, cache_len=cache_len, ctx=ctx,
         paged_kernel=paged_kernel)
     h = h + y
     xn = layers.rmsnorm(lp["ln2"], h, cfg.norm_eps)
@@ -72,17 +79,64 @@ def _apply_block(lp, h: torch.Tensor, cfg: ModelConfig, block: BlockSpec, *,
     return h + y, new_cache
 
 
-def _decoder(params, cfg: ModelConfig, h: torch.Tensor, *,
-             positions: torch.Tensor, caches: List,
-             cache_len: torch.Tensor, paged_kernel: bool
+def _decoder(params, cfg: ModelConfig, h: torch.Tensor, *, mode: str,
+             positions: torch.Tensor, caches: Optional[List],
+             cache_len: Optional[torch.Tensor], paged_kernel: bool = False,
+             ctx_list: Optional[List] = None
              ) -> Tuple[torch.Tensor, List]:
     new_caches: List = []
     for i, block in enumerate(cfg.blocks):
-        h, nc = _apply_block(params["layers"][i], h, cfg, block,
-                             positions=positions, cache=caches[i],
-                             cache_len=cache_len, paged_kernel=paged_kernel)
+        h, nc = _apply_block(
+            params["layers"][i], h, cfg, block, mode=mode,
+            positions=positions,
+            cache=caches[i] if caches is not None else None,
+            cache_len=cache_len, paged_kernel=paged_kernel,
+            ctx=ctx_list[i] if ctx_list is not None else None)
         new_caches.append(nc)
     return layers.rmsnorm(params["final_ln"], h, cfg.norm_eps), new_caches
+
+
+def forward_prefill(params, cfg: ModelConfig, batch: Dict, *,
+                    length: Optional[torch.Tensor] = None,
+                    ctx: Optional[Dict] = None
+                    ) -> Tuple[torch.Tensor, Dict]:
+    """Returns (last-token logits [B,V], cache).
+
+    ``batch["tokens"]`` [B,S], right-padded to a shape bucket; ``length``
+    [B] int32, their true lengths: logits are taken at ``length - 1`` and
+    the cache records ``length`` (causality already hides the padding
+    from every real token).  The cache holds per-layer ``{"k","v"}``
+    [B,Hkv,S,dh] (padding included; the splice drops it) and ``len``.
+
+    ``ctx`` makes this a suffix prefill for prefix sharing: ``{"off":
+    prefix length (host int), "row": [Cb] int32 page ids, "layers":
+    per-layer {"pk","pv"[,"ks","vs"]} pools}``.  ``tokens`` then hold
+    only the suffix, at positions ``off + i``, and each layer attends to
+    the ``off`` prefix tokens through the pages named in ``row``.  The
+    returned cache carries suffix KV only, for a splice at ``off``."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    ctx_list = None
+    if ctx is not None:
+        positions = ctx["off"] + positions
+        ctx_list = [None if lc is None else
+                    {"pk": lc["pk"], "pv": lc["pv"], "ks": lc.get("ks"),
+                     "vs": lc.get("vs"), "row": ctx["row"],
+                     "off": ctx["off"]}
+                    for lc in ctx["layers"]]
+    h = layers.embed(params["embed"], cfg, tokens)
+    h, caches = _decoder(params, cfg, h, mode="prefill", positions=positions,
+                         caches=None, cache_len=None, ctx_list=ctx_list)
+    if length is None:
+        h_last = h[:, -1:]
+        clen = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    else:
+        idx = torch.clamp(length.long() - 1, min=0)[:, None, None]
+        h_last = torch.gather(h, 1, idx.expand(b, 1, h.shape[2]))
+        clen = length.to(torch.int32)
+    lg = layers.logits(params["embed"], cfg, h_last)
+    return lg[:, 0], {"layers": caches, "len": clen}
 
 
 def _thread_page_tables(cfg: ModelConfig, cache: Dict,
@@ -118,9 +172,9 @@ def forward_decode(params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = cache["len"][:, None]
     layer_caches = _thread_page_tables(cfg, cache, write_mask)
     h = layers.embed(params["embed"], cfg, tokens)
-    h, new_caches = _decoder(params, cfg, h, positions=positions,
-                             caches=layer_caches, cache_len=cache_len,
-                             paged_kernel=paged_kernel)
+    h, new_caches = _decoder(params, cfg, h, mode="decode",
+                             positions=positions, caches=layer_caches,
+                             cache_len=cache_len, paged_kernel=paged_kernel)
     lg = layers.logits(params["embed"], cfg, h)
     return lg[:, 0], dict(cache, layers=new_caches, len=cache_len)
 
@@ -145,9 +199,9 @@ def verify_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
             cache["len"][:, None] + cols - (s - n_rows)[:, None], min=0)
     layer_caches = _thread_page_tables(cfg, cache, write_mask, spec_slack)
     h = layers.embed(params["embed"], cfg, tokens)
-    h, new_caches = _decoder(params, cfg, h, positions=positions,
-                             caches=layer_caches, cache_len=cache_len,
-                             paged_kernel=paged_kernel)
+    h, new_caches = _decoder(params, cfg, h, mode="decode",
+                             positions=positions, caches=layer_caches,
+                             cache_len=cache_len, paged_kernel=paged_kernel)
     return h, dict(cache, layers=new_caches)
 
 
@@ -175,5 +229,5 @@ def forward_verify(params, cfg: ModelConfig, tokens: torch.Tensor,
     return layers.logits(params["embed"], cfg, h), new_cache
 
 
-__all__ = ["model_defs", "forward_decode", "forward_verify",
-           "verify_hidden"]
+__all__ = ["model_defs", "forward_prefill", "forward_decode",
+           "forward_verify", "verify_hidden"]

@@ -10,17 +10,20 @@ page: unreserved table entries point at it, so stray writes land there.
 Physical page ids are leased host-side by ``serve/scheduler``; the
 fused decode chunk only indexes the tables.
 
-Device updates here (``install_slot_rows``, ``copy_shared_page``,
-``free_slot_cache``) are **in place** on the cache's tensors: the
-reference returns new pytrees, the port mutates and returns the same
-dict.
+Device updates here (``splice_paged_layer``, ``admit_cache``,
+``install_slot_rows``, ``copy_shared_page``, ``free_slot_cache``) are
+**in place** on the cache's tensors: the reference returns new pytrees,
+the port mutates and returns the same dict.  None of them synchronizes
+with the host: table rows travel by ``device.host_to_device``, a host
+scalar goes in by ``fill_`` (``t[i] = x`` on a CUDA tensor is a blocking
+copy), and positions and masks are built on the device.
 
 Pool precision (``kv_dtype``): K/V pages may be stored 8-bit with
 per-page, per-kv-head fp32 scales in parallel scale pools ("ks"/"vs",
 ``[num_pages + 1, kv_heads]``).  Every producer re-quantizes whole pages
 (``attention.rmw_quantized_pages``) and every consumer dequantizes in
 the attention read, so fp32 K/V never exists at pool width.  Layers
-with recurrent state (mamba2/rwkv6) are ROADMAP A13.
+with recurrent state are ROADMAP B5 (mamba2) and B6 (rwkv6).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ATTN, SHARED_ATTN, ModelConfig
+from repro_torch.device import host_to_device
 from repro_torch.models import attention
 from repro_torch.models.attention import page_group_key
 
@@ -110,9 +114,11 @@ class CacheSpec:
         layers: List[Optional[LayerCacheSpec]] = []
         for block in cfg.blocks:
             if block.mixer not in (ATTN, SHARED_ATTN):
+                item = {"mamba2": "B5", "rwkv6": "B6"}.get(block.mixer,
+                                                           "A13")
                 raise NotImplementedError(
                     f"{cfg.name}: {block.mixer} state caches are not ported "
-                    "yet (ROADMAP A13)")
+                    f"yet (ROADMAP {item})")
             cap = min(max_len, block.window or max_len)
             if block.window is not None and spec_tokens:
                 cap = min(max_len, block.window + spec_tokens)
@@ -321,16 +327,137 @@ class CacheSpec:
 # In-place cache updates (host-issued at chunk boundaries)
 # ---------------------------------------------------------------------------
 
+def splice_paged_layer(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                       pre_k: torch.Tensor, pre_v: torch.Tensor,
+                       pages_row: torch.Tensor, start: int, valid_len: int,
+                       ring_blocks: int, page_size: int, trash_page: int,
+                       scale_k: Optional[torch.Tensor] = None,
+                       scale_v: Optional[torch.Tensor] = None) -> None:
+    """Write a batch-1 prefill KV ``[1, Hkv, bucket, dh]`` into the pool,
+    in place, as one token-granular scatter.
+
+    Local token ``i`` holds position ``g = start + i`` and lands at page
+    ``pages_row[(g // P) % ring_blocks]``, offset ``g % P`` — the write
+    rule of decode.  ``start`` is 0 for a full prefill and the prefix
+    length for a suffix prefill; it need not be page-aligned: only the
+    written offsets are touched, so a copy-on-write page keeps its
+    earlier tokens.  Pad tokens (``i >= valid_len``) and, when a
+    windowed ring wraps inside one prefill (``bucket > ring``), every
+    token that is not the newest occupant of its ring slot go to the
+    trash page instead.
+
+    With ``scale_k``/``scale_v`` (8-bit pools, [num_pages+1, Hkv]) the
+    splice is page-granular: the kept tokens are grouped by the ring
+    slot of their page (at most ``min(J, ring_blocks)`` of them, with
+    ``J = (bucket-1)//P + 2`` the logical pages a bucket can touch), and
+    each touched page is dequantized, overlaid and re-quantized with a
+    fresh amax scale (``attention.rmw_quantized_pages``); a partial CoW
+    page keeps its earlier tokens through the read-modify-write.  The
+    pools come out as the fp32 splice's, quantized page by page.  The
+    reference groups by logical page and, when ``J > ring_blocks``,
+    keeps only the last ``ring_blocks`` of the ``J``, padding included,
+    which can send a short prompt's first pages to the trash page
+    (ROADMAP C)."""
+    dev = pool_k.device
+    k = pre_k[0].transpose(0, 1)          # [bucket, Hkv, dh]
+    v = pre_v[0].transpose(0, 1)
+    bucket = k.shape[0]
+    idx = torch.arange(bucket, device=dev)
+    g = start + idx
+    keep = idx < valid_len
+    ring = ring_blocks * page_size
+    if bucket > ring:     # only wrap-capable shapes pay the mask
+        keep = keep & (g >= start + valid_len - ring)
+    off = torch.remainder(g, page_size)
+    rows = pages_row.long()
+    if scale_k is not None:
+        n = min((bucket - 1) // page_size + 2, ring_blocks)
+        base = start // page_size
+        jtok = torch.div(g, page_size, rounding_mode="floor") - base
+        # kept tokens hold distinct ring positions, so each (slot, offset)
+        # gets at most one; the others land in the spare row n
+        jg = torch.where(keep, torch.remainder(jtok, n), n)
+        wrote = torch.zeros((n + 1, page_size), dtype=torch.bool, device=dev)
+        wrote[jg, off] = keep
+        wrote = wrote[:n]
+        shape = (n + 1, page_size) + tuple(k.shape[1:])
+        nk = torch.zeros(shape, dtype=torch.float32, device=dev)
+        nv = torch.zeros(shape, dtype=torch.float32, device=dev)
+        nk[jg, off] = k.float()
+        nv[jg, off] = v.float()
+        nk, nv = nk[:n], nv[:n]
+        lp = base + torch.arange(n, device=dev)
+        phys = torch.where(wrote.any(1),
+                           rows[torch.remainder(lp, ring_blocks)], trash_page)
+        attention.rmw_quantized_pages(pool_k, scale_k, phys, nk, wrote)
+        attention.rmw_quantized_pages(pool_v, scale_v, phys, nv, wrote)
+        return
+    lb = torch.remainder(torch.div(g, page_size, rounding_mode="floor"),
+                         ring_blocks)
+    phys = torch.where(keep, rows[lb], trash_page)
+    pool_k[phys, off] = k.to(pool_k.dtype)
+    pool_v[phys, off] = v.to(pool_v.dtype)
+
+
+def _install_rows(cache: Dict, slot: int,
+                  rows: Dict[str, np.ndarray]) -> None:
+    for key, table in cache["page_tables"].items():
+        table[slot] = host_to_device(np.asarray(rows[key], np.int32),
+                                     table.device)
+
+
+def splice_prefill(spec: CacheSpec, cache: Dict, one_cache: Dict,
+                   start: int, valid: int,
+                   rows: Dict[str, np.ndarray]) -> None:
+    """Splice the first ``valid`` tokens of a batch-1 prefill cache into
+    every layer's pool, in place, through the page rows ``rows`` (one per
+    pool group) from position ``start``; the slot's table and ``len``
+    are left as they are.  An overlong prompt's intermediate segments
+    take this alone; its final segment goes through :func:`admit_cache`."""
+    for ls, big, small in zip(spec.layers, cache["layers"],
+                              one_cache["layers"]):
+        if ls.kind != PAGED_KV:
+            raise NotImplementedError(
+                f"splicing {ls.kind} state is not ported yet (ROADMAP B5)")
+        group = spec.groups[ls.group]
+        row = host_to_device(np.asarray(rows[group.key], np.int32),
+                             big["pk"].device)
+        splice_paged_layer(big["pk"], big["pv"], small["k"], small["v"],
+                           row, start, valid, ls.ring_blocks, spec.page_size,
+                           group.trash_page, scale_k=big.get("ks"),
+                           scale_v=big.get("vs"))
+
+
+def admit_cache(spec: CacheSpec, cache: Dict, one_cache: Dict, slot: int,
+                start: int, plen: int, rows: Dict[str, np.ndarray]) -> Dict:
+    """Admission of the two-executable path, in place: splice a batch-1
+    prefill cache into ``slot`` from position ``start`` (0 for a full
+    prefill, the prefix length for a suffix prefill or a final segment),
+    install the slot's page-table rows (one per pool group; reserved
+    pages padded with the trash id) and set its ``len`` to ``plen``.
+    Only the ``plen - start`` real tokens are written: the prefill's
+    bucket padding goes to the trash page.  The reference pads every
+    batch of admissions to a fixed count with disabled entries, and
+    every prefill's KV to the largest bucket, so that one executable
+    serves them; the eager port splices the real admissions' own buckets,
+    which leaves the pools and tables the same — except on 8-bit pools
+    where the span is wider than the ring: there the reference's
+    quantized splice sends the prompt's first pages to the trash page
+    (ROADMAP C) and the port's keeps them (:func:`splice_paged_layer`)."""
+    splice_prefill(spec, cache, one_cache, start, plen - start, rows)
+    _install_rows(cache, slot, rows)
+    cache["len"][slot:slot + 1].fill_(plen)
+    return cache
+
+
 def install_slot_rows(spec: CacheSpec, cache: Dict, slot: int, start: int,
                       rows: Dict[str, np.ndarray]) -> Dict:
     """Table-only admission for fused chunked prefill, in place: install
     ``slot``'s page-table rows (one per group) and rewind its ``len`` to
     the prefill cursor ``start``.  No KV is written — the fused chunk
     writes prompt KV through these rows itself."""
-    for key, table in cache["page_tables"].items():
-        table[slot] = torch.as_tensor(np.asarray(rows[key], np.int32),
-                                      device=table.device)
-    cache["len"][slot] = start
+    _install_rows(cache, slot, rows)
+    cache["len"][slot:slot + 1].fill_(start)
     return cache
 
 
@@ -354,6 +481,6 @@ def free_slot_cache(spec: CacheSpec, cache: Dict, slot: int) -> Dict:
     group's trash page and zero its length, so its dead writes land on
     trash pages and its physical pages can be re-leased at once."""
     for g in spec.groups:
-        cache["page_tables"][g.key][slot] = g.trash_page
-    cache["len"][slot] = 0
+        cache["page_tables"][g.key][slot].fill_(g.trash_page)
+    cache["len"][slot:slot + 1].fill_(0)
     return cache

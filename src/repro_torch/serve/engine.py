@@ -1,6 +1,6 @@
-"""Serving runtime of the port: fused chunked prefill over block-paged
-KV pools in fp32, int8 or fp8_e4m3 (counterpart of
-``repro/serve/engine.py``'s default mode).
+"""Serving runtime of the port over block-paged KV pools in fp32, int8
+or fp8_e4m3 (counterpart of ``repro/serve/engine.py``), in the
+reference's two modes.
 
 Three layers, as in the reference:
 
@@ -8,20 +8,33 @@ Three layers, as in the reference:
   slot admission, per-group page reservation, refcounted prefix sharing
   over a radix index.
 * **Executor** (below) — the device layer.  A chunk is ``sync_interval``
-  micro-steps; each feeds a right-aligned ``[slots, S]`` token matrix
-  (``S = prefill_budget``) to the model: a mid-prefill slot contributes
-  its next ``min(plen - len, S)`` prompt tokens, a decoding slot its
-  pending token, and pad rows are write-masked so their KV lands on the
-  trash page.  Sampling and slot bookkeeping stay on the device.  The
-  reference's ``lax.scan`` becomes a Python loop of eager launches with
-  no host synchronization inside a chunk.
-* **Driver** (``Engine``) — glues them: admission at chunk boundaries,
-  one batched device-to-host drain per chunk, finish reporting.
+  micro-steps, sampled and booked on the device with no host
+  synchronization inside it (the reference's ``lax.scan`` becomes a
+  Python loop of eager launches):
 
-Attention reads the pools pool-direct through the Hopper paged-attention
-kernel (``paged_kernel="auto"`` on a CUDA device) or gathers each slot's
-ring (``paged_kernel=False``).  Speculation, the legacy two-executable
-path, preemption, deadlines, SLO policy, tracing, fault injection and
+  - *fused chunked prefill* (``chunked_prefill=True``): each micro-step
+    feeds a right-aligned ``[slots, S]`` token matrix
+    (``S = prefill_budget``) to the model: a mid-prefill slot
+    contributes its next ``min(plen - len, S)`` prompt tokens, a
+    decoding slot its pending token, and pad rows are write-masked so
+    their KV lands on the trash page;
+  - *two executables* (``chunked_prefill=False``): admission runs a
+    batch-1 prefill of the prompt padded to a power-of-two bucket
+    (``models/transformer.forward_prefill``, whose attention is
+    ``kernels/flash_attention`` on the card), samples the first token
+    on the device and splices the prompt's KV into the slot's pages
+    (``serve/cache.admit_cache``).  A radix prefix hit prefills only the
+    suffix against the shared pages, and a prompt longer than the
+    largest bucket runs as bucket-sized segments.  Each micro-step of
+    the chunk is one S = 1 decode step.
+* **Driver** (``Engine``) — glues them: admission at chunk boundaries,
+  one batched device-to-host drain per chunk (prefill-sampled first
+  tokens included), finish reporting.
+
+Decode attention reads the pools pool-direct through the Hopper
+paged-attention kernel (``paged_kernel="auto"`` on a CUDA device) or
+gathers each slot's ring (``paged_kernel=False``).  Speculation,
+preemption, deadlines, SLO policy, tracing, fault injection and
 sharding are not ported yet; their arguments raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
@@ -35,9 +48,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, host_to_device, resolve_device
 from repro_torch.models import layers
-from repro_torch.models.transformer import verify_hidden
+from repro_torch.models.transformer import (forward_decode, forward_prefill,
+                                            verify_hidden)
 from repro_torch.serve import cache as cache_mod
 from repro_torch.serve import sampling
 from repro_torch.serve.cache import CacheSpec
@@ -48,24 +62,28 @@ from repro_torch.serve.spec import spec_unsupported_reason
 
 
 class Executor:
-    """Device layer of the fused engine: the chunk, admission
-    bookkeeping, copy-on-write and slot eviction.  Cache and slot state
-    are dicts of device tensors, updated in place where the reference
-    donated them."""
+    """Device layer of both modes: the chunk, admission, prefill (two
+    executables only), copy-on-write and slot eviction.  Cache and slot
+    state are dicts of device tensors, updated in place where the
+    reference donated them.  ``chunked``: the fused mode, whose chunk
+    feeds ``prefill_budget`` rows per slot; else two executables, whose
+    chunk decodes one row per slot."""
 
     def __init__(self, cfg: ModelConfig, spec: CacheSpec, *, top_k: int,
-                 sync_interval: int, paged_kernel: bool,
+                 sync_interval: int, paged_kernel: bool, chunked: bool,
                  prefill_budget: int, device: torch.device):
         self.cfg = cfg
         self.spec = spec
         self.top_k = int(top_k)
         self.sync_interval = int(sync_interval)
         self.paged_kernel = bool(paged_kernel)
+        self.chunked = bool(chunked)
         self.chunk_rows = int(prefill_budget)
         self.device = device
 
+    # ------------------------------------------------------ fused chunk
     def micro_inputs(self, cache: Dict, state: Dict):
-        """One micro-step's right-aligned token matrix and masks:
+        """One fused micro-step's right-aligned token matrix and masks:
         ``(toks [B,S], write_mask [B,S], n_rows [B], prefilling [B],
         completing [B])``."""
         S = self.chunk_rows
@@ -88,47 +106,116 @@ class Executor:
 
     def chunk(self, params, cache: Dict, state: Dict,
               gen: torch.Generator):
-        """``sync_interval`` fused micro-steps: forward (KV written
-        through the page tables) + sample + bookkeeping, all on the
-        device.  Returns the [T, slots] token history (-1 where a slot
-        committed nothing), the cache and the state."""
+        """``sync_interval`` micro-steps: forward (KV written through the
+        page tables) + sample + bookkeeping, all on the device.  Returns
+        the [T, slots] token history (-1 where a slot committed nothing),
+        the cache and the state."""
+        step = self._fused_step if self.chunked else self._decode_step
         emitted: List[torch.Tensor] = []
         for _ in range(self.sync_interval):
-            len_, active = cache["len"], state["active"]
-            toks, wm, n, prefilling, completing = self.micro_inputs(
-                cache, state)
-            h, cache = verify_hidden(
-                params, self.cfg, toks, cache, write_mask=wm,
-                paged_kernel=self.paged_kernel,
-                spec_slack=self.spec.spec_tokens, n_rows=n)
-            logits = layers.logits(params["embed"], self.cfg, h[:, -1])
-            nxt = sampling.sample(logits, gen, temperature=state["temp"],
-                                  top_k=self.top_k)
-            # commit for decoding slots and for slots whose prefill just
-            # completed (their first token); mid-prefill slots commit
-            # nothing
-            commit = active & (~prefilling | completing)
-            state, em = sampling.decode_update(state, nxt, commit=commit)
-            cache = dict(cache, len=len_ + torch.where(
-                prefilling, n, active.to(torch.int32)))
+            em, cache, state = step(params, cache, state, gen)
             emitted.append(em)
         return torch.stack(emitted), cache, state
+
+    def _decode_step(self, params, cache: Dict, state: Dict,
+                     gen: torch.Generator):
+        """S = 1 decode; ``active`` as write mask: a finished slot's
+        dead-tail steps must not write into pages now shared with other
+        slots or the radix index."""
+        logits, cache = forward_decode(
+            params, self.cfg, state["tokens"][:, None], cache,
+            write_mask=state["active"], paged_kernel=self.paged_kernel)
+        nxt = sampling.sample(logits, gen, temperature=state["temp"],
+                              top_k=self.top_k)
+        state, em = sampling.decode_update(state, nxt)
+        return em, cache, state
+
+    def _fused_step(self, params, cache: Dict, state: Dict,
+                    gen: torch.Generator):
+        """One fused micro-step: prompt slices and decode rows together."""
+        len_, active = cache["len"], state["active"]
+        toks, wm, n, prefilling, completing = self.micro_inputs(
+            cache, state)
+        h, cache = verify_hidden(
+            params, self.cfg, toks, cache, write_mask=wm,
+            paged_kernel=self.paged_kernel,
+            spec_slack=self.spec.spec_tokens, n_rows=n)
+        logits = layers.logits(params["embed"], self.cfg, h[:, -1])
+        nxt = sampling.sample(logits, gen, temperature=state["temp"],
+                              top_k=self.top_k)
+        # commit for decoding slots and for slots whose prefill just
+        # completed (their first token); mid-prefill slots commit
+        # nothing
+        commit = active & (~prefilling | completing)
+        state, em = sampling.decode_update(state, nxt, commit=commit)
+        cache = dict(cache, len=len_ + torch.where(
+            prefilling, n, active.to(torch.int32)))
+        return em, cache, state
+
+    # --------------------------------------------- two-executable prefill
+    def prefill(self, params, tokens: torch.Tensor, length: torch.Tensor,
+                temp: torch.Tensor, gen: torch.Generator):
+        """Bucketed batch-1 prefill and on-device first-token sampling:
+        tokens [1, bucket], length [1] int32, temp [1] -> (first token [1]
+        int32, cache of per-layer ``{"k","v"}`` [1,Hkv,bucket,dh]).  Its
+        attention is one ``flash_attention`` launch per layer."""
+        logits, one = forward_prefill(params, self.cfg, {"tokens": tokens},
+                                      length=length)
+        tok = sampling.sample(logits, gen, temperature=temp,
+                              top_k=self.top_k)
+        return tok, one
+
+    def prefill_suffix(self, params, tokens: torch.Tensor,
+                       length: torch.Tensor, off: int,
+                       ctx_row: torch.Tensor, cache: Dict,
+                       temp: torch.Tensor, gen: torch.Generator):
+        """Suffix prefill: ``tokens`` [1, bucket] hold the prompt's tail
+        at positions ``off + i``; the first ``off`` tokens are attended
+        through the pool pages named in ``ctx_row`` (the slot's own table
+        row: shared pages, a CoW copy, or the pages earlier segments of
+        an overlong prompt spliced) without being recomputed."""
+        pools = [c if (c is not None and "pk" in c) else None
+                 for c in cache["layers"]]
+        ctx = {"off": off, "row": ctx_row, "layers": pools}
+        logits, one = forward_prefill(params, self.cfg, {"tokens": tokens},
+                                      length=length, ctx=ctx)
+        tok = sampling.sample(logits, gen, temperature=temp,
+                              top_k=self.top_k)
+        return tok, one
+
+    # --------------------------------------------------------- admission
+    def admit_prefilled(self, cache: Dict, state: Dict, en: Dict) -> None:
+        """Two-executable admission of one slot, in place: splice its
+        prefill's KV into its pages, install its table rows, set ``len``
+        to the prompt length and arm it with its prefill-sampled first
+        token, which ``out_len0`` already counts."""
+        slot = en["slot"]
+        cache_mod.admit_cache(self.spec, cache, en["one_cache"], slot,
+                              en["start"], en["plen"], en["rows"])
+        at = slice(slot, slot + 1)   # fill_: no blocking copy
+        state["tokens"][at].copy_(en["tok"])
+        state["out_len"][at].fill_(en["out_len0"])
+        state["max_new"][at].fill_(en["max_new"])
+        state["eos"][at].fill_(en["eos"])
+        state["temp"][at].fill_(en["temp"])
+        # a max_new = 1 request is done with its first token
+        state["active"][at].fill_(en["out_len0"] < en["max_new"])
 
     def admit(self, cache: Dict, state: Dict, entries: List[Dict]) -> None:
         """Fused admission, in place: install each slot's page-table rows,
         rewind its ``len`` to the prefill cursor, stage its prompt and arm
-        it.  No KV is written here; the chunk prefills."""
+        it; no KV is written (the chunk prefills)."""
         if not entries:
             return
         dev = self.device
         for en in entries:
             cache_mod.install_slot_rows(self.spec, cache, en["slot"],
                                         en["start"], en["rows"])
-        idx = torch.as_tensor([en["slot"] for en in entries], device=dev)
+        idx = host_to_device([en["slot"] for en in entries], dev,
+                             torch.int64)
 
         def put(name, values, dtype=torch.int32):
-            state[name][idx] = torch.as_tensor(np.asarray(values),
-                                               dtype=dtype, device=dev)
+            state[name][idx] = host_to_device(np.asarray(values), dev, dtype)
 
         put("tokens", [0] * len(entries))
         put("out_len", [en["out_len0"] for en in entries])
@@ -148,13 +235,24 @@ class Executor:
         cache_mod.free_slot_cache(self.spec, cache, slot)
 
 
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
 def _unsupported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the PyTorch engine yet (ROADMAP {item})")
 
 
 class Engine:
-    """Host driver of the port's fused chunked-prefill engine.
+    """Host driver of the port's serving engine.
+
+    ``chunked_prefill``: ``True`` streams prompts through the fused
+    chunk, ``prefill_budget`` tokens per slot per micro-step; ``False``
+    prefills each admission in a batch-1 bucket (``buckets``, default
+    powers of two from ``min_bucket`` up to ``max_len``) and decodes
+    one token per slot per micro-step; ``"auto"`` is fused exactly where
+    the reference picks it (attention-only stacks).
 
     ``device`` (default: the card; raises without one) holds params,
     pools and slot state.  ``paged_kernel``: ``True`` reads the pools
@@ -175,7 +273,8 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  max_len: int = 256, greedy: bool = True,
                  temperature: float = 0.0, top_k: int = 0, seed: int = 0,
-                 sync_interval: int = 8, page_size: int = 8,
+                 sync_interval: int = 8, min_bucket: int = 8,
+                 buckets: Optional[List[int]] = None, page_size: int = 8,
                  num_pages: Optional[int] = None,
                  prefix_sharing: bool = True,
                  paged_kernel: Any = "auto",
@@ -204,13 +303,19 @@ class Engine:
             raise ValueError(
                 f"kv_dtype must be 'auto' or one of {cache_mod.KV_DTYPES}, "
                 f"got {kv_dtype!r}")
-        if chunked_prefill is False:
-            raise _unsupported("the two-executable path "
-                               "(chunked_prefill=False)", "A13")
         reason = spec_unsupported_reason(cfg)
+        if chunked_prefill == "auto":
+            chunked_prefill = reason is None
+        elif chunked_prefill and reason is not None:
+            raise ValueError(
+                f"{cfg.name}: chunked_prefill needs paged KV for every "
+                f"mixer (attention-only stack); reason: {reason}")
         if reason is not None:
-            raise _unsupported(f"{cfg.name} ({reason}) outside fused "
-                               "chunked prefill", "A13")
+            # the two-executable path serves it once its mixers are ported
+            bad = {b.mixer for b in cfg.blocks}
+            item = ("B5" if "mamba2" in bad else
+                    "B6" if "rwkv6" in bad else "A13")
+            raise _unsupported(f"{cfg.name} ({reason})", item)
         if prefill_budget < 1:
             raise ValueError(
                 f"prefill_budget must be >= 1, got {prefill_budget}")
@@ -229,32 +334,49 @@ class Engine:
             self.default_temp = 0.0 if greedy else 1.0
         self.top_k = int(top_k)
         self.sync_interval = int(sync_interval)
-        self.chunked_prefill = True
-        self.prefill_budget = int(prefill_budget)
+        self.chunked_prefill = bool(chunked_prefill)
+        self.prefill_budget = (int(prefill_budget) if self.chunked_prefill
+                               else 0)
+        if buckets is None:
+            b, buckets = min_bucket, []
+            while b < _next_pow2(max_len):
+                buckets.append(b)
+                b *= 2
+            buckets.append(b)
+        self.buckets = sorted(set(int(b) for b in buckets))
         self.requested_kv_dtype = requested
         self.kv_dtype = requested
-        # windowed rings need ring >= window + S - 1 so a full-width
-        # prefill slice may write-wrap legitimately (capped in CacheSpec)
+        # fused: windowed rings need ring >= window + S - 1 so a
+        # full-width prefill slice may write-wrap legitimately (capped in
+        # CacheSpec); the S = 1 decode of two executables needs no slack
         self.spec = CacheSpec.from_config(
             cfg, slots, max_len, page_size=page_size, num_pages=num_pages,
-            spec_tokens=self.prefill_budget - 1, kv_dtype=self.kv_dtype)
+            spec_tokens=max(self.prefill_budget - 1, 0),
+            kv_dtype=self.kv_dtype)
         if paged_kernel == "auto":
             paged_kernel = self.device.type == "cuda"
         self.paged_kernel = bool(paged_kernel)
+        # fused prompts enter the radix index once their pages are written
+        # (a later drain); a two-executable admission writes them at once
         self.scheduler = Scheduler(self.spec, prefix_sharing=prefix_sharing,
-                                   defer_radix_insert=True)
+                                   defer_radix_insert=self.chunked_prefill)
         self.executor = Executor(cfg, self.spec, top_k=self.top_k,
                                  sync_interval=self.sync_interval,
                                  paged_kernel=self.paged_kernel,
+                                 chunked=self.chunked_prefill,
                                  prefill_budget=self.prefill_budget,
                                  device=self.device)
         self._slot_req: List[Optional[Request]] = [None] * slots
+        # two executables: each slot's prefill-sampled first token, on the
+        # device until the drain fetches it with the chunk's history
+        self._slot_first_tok: List[Optional[torch.Tensor]] = [None] * slots
         # host-visible prefill cursor (trails the device's cache["len"] by
         # one drain) and the admission-time prompt length it counts toward
         self._slot_seen_len: List[int] = [0] * slots
         self._slot_plen: List[int] = [0] * slots
         self.cache = self.spec.init_paged_cache(self.device)
-        self.state = sampling.make_slot_state(slots, self.device, max_len)
+        self.state = sampling.make_slot_state(
+            slots, self.device, max_len if self.chunked_prefill else 0)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self._clock = time.monotonic
@@ -310,12 +432,15 @@ class Engine:
         if req.deadline is not None or req.ttl is not None:
             raise _unsupported("request deadlines and TTLs", "A11")
         if not req.prompt:
-            raise ValueError("chunked_prefill requires a non-empty prompt")
-        if len(req.prompt) + req.max_new_tokens > self.max_len:
+            raise ValueError("the port serves non-empty prompts only")
+        if len(req.prompt) + req.max_new_tokens > self.max_len and (
+                self.chunked_prefill or not self.cfg.supports_long_context):
+            # fused: prompts are staged in a max_len-sized buffer; either
+            # mode: a full-attention table caps at max_len tokens, and a
+            # longer span would mod-wrap over the oldest (maybe shared) KV
             raise ValueError(
                 f"prompt length {len(req.prompt)} + max_new_tokens "
-                f"{req.max_new_tokens} exceeds max_len={self.max_len}: "
-                "the fused chunk stages prompts in a max_len-sized buffer")
+                f"{req.max_new_tokens} exceeds max_len={self.max_len}")
         try:
             self.scheduler.validate(req)
         except PagePoolExhausted as e:
@@ -330,19 +455,129 @@ class Engine:
         return None
 
     def warmup(self) -> None:
-        """Run one inert chunk (every slot idle: all writes land on trash
-        pages) so the first served chunk pays no kernel build or library
-        initialization.  The sampling generator is restored afterwards,
-        so seeded runs are identical with or without warmup."""
+        """Run one inert prefill per bucket (two executables; results
+        dropped) and one inert chunk (every slot idle: all writes land on
+        trash pages), so serving pays no kernel build, library
+        initialization or first use of a bucket's shapes.  The sampling
+        generator and every slot's ``len`` are restored afterwards, so
+        seeded runs are identical with or without warmup."""
         gen_state = self.gen.get_state()
+        if not self.chunked_prefill:
+            zero = torch.zeros((1,), dtype=torch.int32, device=self.device)
+            for b in self.buckets:
+                tokens = torch.zeros((1, b), dtype=torch.int32,
+                                     device=self.device)
+                self.executor.prefill(self.params, tokens, zero,
+                                      zero.float(), self.gen)
         _, self.cache, self.state = self.executor.chunk(
             self.params, self.cache, self.state, self.gen)
+        # the S = 1 decode advanced every idle slot's len
+        self.cache["len"].zero_()
         self.gen.set_state(gen_state)
 
     def _req_temp(self, req: Request) -> float:
         if req.temperature is not None:
             return float(req.temperature)
         return self.default_temp
+
+    # ------------------------------------------ two-executable prefill
+    def bucket_for(self, plen: int) -> int:
+        for b in self.buckets:
+            if b >= plen:
+                return b
+        b = _next_pow2(max(plen, 1))
+        self.buckets.append(b)
+        self.buckets.sort()
+        return b
+
+    def _ctx_row(self, adm, s: int) -> np.ndarray:
+        """The ``ceil(s/P)`` context pages a suffix prefill at offset
+        ``s`` gathers, from the slot's page row.  The reference pads the
+        row to a power of two of trash pages to bound its executables;
+        eager torch compiles nothing per shape."""
+        nctx = -(-s // self.spec.page_size)
+        return np.asarray(adm.rows[self.spec.share_group_key][:nctx],
+                          np.int32)
+
+    @property
+    def _chunked_ok(self) -> bool:
+        """Prompts longer than the largest bucket run as segments when the
+        arch has the suffix machinery (one full-attention pool group)."""
+        return self.spec.prefix_sharing_capable
+
+    def _bucketed(self, toks: List[int]):
+        """(tokens [1, bucket] zero-padded, length [1]) on the device,
+        with no host synchronization."""
+        bucket = self.bucket_for(len(toks))
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :len(toks)] = toks
+        length = torch.full((1,), len(toks), dtype=torch.int32,
+                            device=self.device)
+        return host_to_device(padded, self.device), length
+
+    def _prefill_at(self, adm, toks: List[int], s: int,
+                    temp: torch.Tensor):
+        """Prefill ``toks`` at positions ``s..``: a full prefill from 0,
+        else a suffix prefill against the slot's first ``s`` tokens."""
+        tokens, length = self._bucketed(toks)
+        if s == 0:
+            return self.executor.prefill(self.params, tokens, length, temp,
+                                         self.gen)
+        row = host_to_device(self._ctx_row(adm, s), self.device)
+        return self.executor.prefill_suffix(self.params, tokens, length, s,
+                                            row, self.cache, temp, self.gen)
+
+    def _chunked_prefill(self, adm, s: int) -> int:
+        """Run all but the final ``<= Bmax`` prompt tokens of an overlong
+        prompt as ``Bmax``-token segments, each attending to the pages the
+        earlier ones spliced, and return the final segment's start."""
+        prompt = adm.req.effective_prompt
+        bmax = self.buckets[-1]
+        temp = torch.zeros((1,), dtype=torch.float32, device=self.device)
+        cur = s
+        while len(prompt) - cur > bmax:
+            _tok, one = self._prefill_at(adm, list(prompt[cur:cur + bmax]),
+                                         cur, temp)
+            # the slot's table row and len are installed once, at its
+            # final admission; later segments read these pages by row
+            cache_mod.splice_prefill(self.spec, self.cache, one, cur, bmax,
+                                     adm.rows)
+            cur += bmax
+        return cur
+
+    def _admit_prefilled(self, adm) -> None:
+        """Two-executable admission of one request, applied at once:
+        copy-on-write, the prefill (full, suffix, or segments then a
+        suffix), the splice and the slot's arming.  Applying each
+        admission before the next is planned keeps the reference's rule
+        that an admission reading pool pages (a CoW source, a prefix
+        context) sees every earlier admission's splice.  No host
+        synchronization: the first token stays on the device."""
+        req, slot = adm.req, adm.slot
+        prompt = req.effective_prompt
+        plen = len(prompt)
+        temp_v = self._req_temp(req)
+        temp = torch.full((1,), temp_v, dtype=torch.float32,
+                          device=self.device)
+        if adm.cow is not None:
+            # the slot will write into a shared page: a private copy
+            # before any prefill reads it or the splice writes it
+            _blk, src, dst = adm.cow
+            self.executor.copy_page(self.cache, src, dst,
+                                    self.scheduler.share_key)
+        s = adm.suffix_start
+        if plen - s > self.buckets[-1] and self._chunked_ok:
+            s = self._chunked_prefill(adm, s)
+        tok, one = self._prefill_at(adm, list(prompt[s:]), s, temp)
+        self.executor.admit_prefilled(self.cache, self.state, {
+            "slot": slot, "start": s, "plen": plen, "rows": adm.rows,
+            "tok": tok, "one_cache": one,
+            "out_len0": len(req.out_tokens) + 1,
+            "max_new": req.max_new_tokens,
+            "eos": -1 if req.eos_id is None else int(req.eos_id),
+            "temp": temp_v})
+        self._slot_req[slot] = req
+        self._slot_first_tok[slot] = tok
 
     def _admit(self) -> None:
         """Chunk-boundary admission: admit while the queue head fits,
@@ -351,6 +586,9 @@ class Engine:
         entries: List[Dict] = []
         self.scheduler.current_chunk = self.chunks
         for adm in self.scheduler.admissions(free, now=self._clock()):
+            if not self.chunked_prefill:
+                self._admit_prefilled(adm)
+                continue
             req, slot = adm.req, adm.slot
             prompt = req.effective_prompt
             plen = len(prompt)
@@ -377,7 +615,7 @@ class Engine:
             self.peak_live_slots, sum(r is not None for r in self._slot_req))
 
     def step_chunk(self) -> torch.Tensor:
-        """Launch one fused chunk.  No host synchronization: safe under
+        """Launch one chunk.  No host synchronization: safe under
         ``torch.cuda.set_sync_debug_mode("error")``."""
         toks, self.cache, self.state = self.executor.chunk(
             self.params, self.cache, self.state, self.gen)
@@ -386,29 +624,41 @@ class Engine:
 
     def _drain(self, toks: torch.Tensor) -> None:
         """One batched device-to-host transfer: token history, generated
-        counts, active flags and prefill cursors.  Each slot's new tokens
-        are the non-negative entries of its history column; finished
-        slots are evicted (page references dropped, table rows trashed)."""
+        counts, active flags, and the prefill cursors (fused) or the
+        prefill-sampled first tokens (two executables).  Each slot's new
+        tokens are the non-negative entries of its history column;
+        finished slots are evicted (page references dropped, table rows
+        trashed)."""
         n_tok = toks.numel()
-        packed = torch.cat([
-            toks.reshape(-1), self.state["out_len"],
-            self.state["active"].to(torch.int32),
-            self.cache["len"]]).cpu().numpy()
-        self.host_syncs += 1
         s = self.slots
+        firsts = [i for i in range(s) if self._slot_first_tok[i] is not None]
+        packed = torch.cat(
+            [toks.reshape(-1), self.state["out_len"],
+             self.state["active"].to(torch.int32), self.cache["len"]]
+            + [self._slot_first_tok[i] for i in firsts]).cpu().numpy()
+        self.host_syncs += 1
         toks_np = packed[:n_tok].reshape(toks.shape)
         out_len = packed[n_tok:n_tok + s]
         active = packed[n_tok + s:n_tok + 2 * s]
-        cache_len = packed[n_tok + 2 * s:]
+        cache_len = packed[n_tok + 2 * s:n_tok + 3 * s]
+        first = dict(zip(firsts, packed[n_tok + 3 * s:].tolist()))
         now = self._clock()
         self.chunks += 1
         for slot in range(self.slots):
             req = self._slot_req[slot]
             if req is None:
                 continue
+            if slot in first:
+                # the prefill-sampled token, counted by out_len already
+                self._slot_first_tok[slot] = None
+                req.out_tokens.append(first[slot])
+                req.token_times.append(now)
+                req.token_chunks.append(self.chunks)
+                if req.first_token_time is None:
+                    req.first_token_time = now
             plen0 = self._slot_plen[slot]
             seen = min(int(cache_len[slot]), plen0)
-            if seen > self._slot_seen_len[slot]:
+            if self.chunked_prefill and seen > self._slot_seen_len[slot]:
                 prev = self._slot_seen_len[slot]
                 self._slot_seen_len[slot] = seen
                 if prev < plen0 <= seen:
@@ -439,7 +689,7 @@ class Engine:
         return any(r is not None for r in self._slot_req)
 
     def step(self) -> None:
-        """One admit + fused-chunk + drain round (``sync_interval``
+        """One admit + chunk + drain round (``sync_interval``
         micro-steps)."""
         self._admit()
         if not self._live():

@@ -1,4 +1,4 @@
-"""On-device token sampling and slot bookkeeping for the fused chunk
+"""On-device token sampling and slot bookkeeping for the serving chunks
 (counterpart of the non-speculative half of ``repro/serve/sampling.py``).
 
 Everything here stays on the device with no host synchronization:
@@ -40,8 +40,8 @@ def sample(logits: torch.Tensor, gen: torch.Generator, *,
 
 
 def make_slot_state(slots: int, device: torch.device,
-                    prompt_cap: int) -> Dict[str, torch.Tensor]:
-    """Device-side per-slot bookkeeping for the fused chunk.
+                    prompt_cap: int = 0) -> Dict[str, torch.Tensor]:
+    """Device-side per-slot bookkeeping of the serving chunks.
 
     tokens:  last token fed/emitted per slot (decode input)
     out_len: generated tokens so far
@@ -49,23 +49,28 @@ def make_slot_state(slots: int, device: torch.device,
     eos:     per-slot EOS id, -1 for none
     active:  slot is serving a live request
     temp:    per-slot sampling temperature (0 == greedy)
-    prompt:  [slots, prompt_cap] the slot's full prompt, fed to the fused
-             chunk a budgeted slice at a time; ``plen`` its length.  The
-             prefill cursor is the cache ``len``."""
+
+    ``prompt_cap > 0`` (the fused chunked-prefill engine) adds
+    ``prompt`` [slots, prompt_cap], the slot's full prompt, fed to the
+    fused chunk a budgeted slice at a time, and ``plen``, its length;
+    the prefill cursor is the cache ``len``.  The two-executable engine
+    prefills outside the chunk and passes 0, as the reference does."""
     def zi():
         return torch.zeros((slots,), dtype=torch.int32, device=device)
 
-    return {
+    state = {
         "tokens": zi(),
         "out_len": zi(),
         "max_new": zi(),
         "eos": torch.full((slots,), -1, dtype=torch.int32, device=device),
         "active": torch.zeros((slots,), dtype=torch.bool, device=device),
         "temp": torch.zeros((slots,), dtype=torch.float32, device=device),
-        "prompt": torch.zeros((slots, prompt_cap), dtype=torch.int32,
-                              device=device),
-        "plen": zi(),
     }
+    if prompt_cap > 0:
+        state["prompt"] = torch.zeros((slots, prompt_cap), dtype=torch.int32,
+                                      device=device)
+        state["plen"] = zi()
+    return state
 
 
 def decode_update(state: Dict[str, torch.Tensor], nxt: torch.Tensor,

@@ -471,6 +471,35 @@ def test_fused_engine_token_parity(models, jax_runs, budget, factor,
         max(dropped)
 
 
+@pytest.mark.parametrize("arch,factor", [
+    ("dbrx-132b", None), ("dbrx-132b", 1.25), ("grok-1-314b", None)],
+    ids=["dbrx-dropless", "dbrx-capacity1.25", "grok-dropless"])
+def test_legacy_engine_token_parity(models, arch, factor, monkeypatch):
+    """Greedy tokens of the port's two-executable engine
+    (``chunked_prefill=False``) equal the JAX legacy Engine's on reduced
+    dbrx and grok.  A bucketed prefill's pad rows are routed and, at
+    capacity_factor 1.25, take capacity from the prompt's rows; so do the
+    idle slots' rows of the S = 1 decode chunk."""
+    cfg, tp, jcfg, jp = models[(arch, factor)]
+    dropped = []
+    apply = tmoe.apply
+
+    def spy(p, x, c, act="silu"):
+        y, aux = apply(p, x, c, act)
+        dropped.append(float(aux["dropped_fraction"]))
+        return y, aux
+
+    monkeypatch.setattr(tmoe, "apply", spy)
+    eng = Engine(cfg, tp, chunked_prefill=False, device="cpu", **ENGINE_KW)
+    jeng = JEngine(jcfg, jp, chunked_prefill=False, **ENGINE_KW)
+    assert not eng.chunked_prefill and not jeng.chunked_prefill
+    assert eng.paged_kernel == jeng.paged_kernel
+    assert _serve(eng, PROMPTS, 8) == _serve(jeng, PROMPTS, 8)
+    assert eng.leaked_pages() == 0
+    assert dropped and (max(dropped) > 0) == (factor is not None), \
+        max(dropped)
+
+
 # ---------------------------------------------------------------------------
 # The Hopper kernel against its plain version (needs the card)
 # ---------------------------------------------------------------------------

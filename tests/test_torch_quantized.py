@@ -472,6 +472,45 @@ def test_quantized_engine_prefix_hit_with_cow_parity(chain_model):
     assert eng.leaked_pages() == 0
 
 
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+def test_quantized_legacy_engine_token_parity(chain_model, kv_dtype):
+    """The two-executable engine (``chunked_prefill=False``) on 8-bit
+    pools: each prefill is spliced by the page-granular re-quantizing
+    RMW, decode re-quantizes one page per step; the JAX legacy Engine's
+    tokens, memory and prefix telemetry.  A later wave shares 21 tokens
+    with an indexed prompt (a hit with copy-on-write of a partial page).
+
+    The largest bucket (32) stays below the ring (96 tokens): the
+    reference pads every prefill's KV to its largest bucket, and where
+    that padded span is wider than the ring its quantized splice sends
+    the prompt's own pages to the trash page (ROADMAP C;
+    ``tests/test_torch_legacy_engine.py`` pins it).  The port's splice
+    keeps the prompt whatever the span (held there too), so the two
+    agree exactly where the reference keeps it."""
+    cfg, tp, jcfg, jp = chain_model
+    kw = dict(ENGINE_KW, kv_dtype=kv_dtype, chunked_prefill=False,
+              buckets=[8, 16, 32])
+    head = _chain(5, 21, cfg.vocab_size)
+    waves = [_prompts(cfg.vocab_size), [head + [30, 31, 32]],
+             [head + [40, 41, 42], head + [77]]]
+    eng = Engine(cfg, tp, device="cpu", **kw)
+    jeng = JEngine(jcfg, jp, **kw)
+    got, want = {}, {}
+    for w, prompts in enumerate(waves):
+        got.update(_serve(eng, prompts, 12, rid0=10 * w))
+        want.update(_serve(jeng, prompts, 12, rid0=10 * w))
+    assert got == want
+    ps = eng.prefix_stats()
+    assert ps == jeng.prefix_stats()
+    assert ps["prefix_hits"] == 2 and ps["cow_copies"] == 2
+    assert eng.memory_stats() == jeng.memory_stats()
+    assert eng.leaked_pages() == 0
+    # the chain model follows its chain: parity is not vacuous
+    assert all(toks[:3] == _chain(p[-1], 4, cfg.vocab_size)[1:]
+               for toks, p in zip((got[i] for i in range(5)),
+                                  _prompts(cfg.vocab_size)))
+
+
 # ---------------------------------------------------------------------------
 # (f) kv_dtype validation
 # ---------------------------------------------------------------------------
