@@ -7,9 +7,11 @@ Drives the port's main paths — the fused chunked-prefill engine serving
 full-width internlm2-1.8b (random weights from a seed) from fp32, int8
 and fp8_e4m3 KV page pools, the two-executable engine (bucketed,
 suffix and segmented prefill, S = 1 decode) serving it from fp32 and
-int8 pools, then full-width dbrx-132b (MoE, depth cut to 4 layers) from
-fp32 pools — and holds every CUDA kernel on them against its plain
-PyTorch version.  Phases, each printing JSON lines:
+int8 pools, full-width, full-depth zamba2-7b (Mamba2 + shared
+attention) through the two-executable engine, then full-width
+dbrx-132b (MoE, depth cut to 4 layers) from fp32 pools — and holds
+every CUDA kernel on them against its plain PyTorch version.  Phases,
+each printing JSON lines:
 
 1. device: the card's name and power limit (as nvidia-smi reports them),
    torch and CUDA versions; TF32 off.
@@ -26,9 +28,18 @@ PyTorch version.  Phases, each printing JSON lines:
    Then the ``flash_attention`` kernel in fp32 and bf16 at internlm2's
    prefill shapes (S = 128, 512, 1024) and at edge cases (window,
    softcap, non-causal Sq != Skv, GQA 8:1, dh 32/64/256, odd lengths,
-   B = 2), same gates (bf16 per query row, against the row's own
-   max|want|); the main shapes timed beside the plain version,
-   ``scaled_dot_product_attention`` (a yardstick) and the bound.
+   B = 2, zamba2's dh 112 with H = Hkv = 32), same gates (bf16 per query
+   row, against the row's own max|want|); the main shapes and zamba2's
+   timed beside the plain version, ``scaled_dot_product_attention`` (a
+   yardstick) and the bound.  The paged kernel also runs zamba2's
+   S = 1 decode shape (dh 112, window 4096).  Then the ``mamba2_scan``
+   kernel on the reference's three test cases, S = 1000, an initial
+   state with ragged P and N, the model's layout with b/c shared by the
+   heads (with and without an initial state) and zamba2's full prefill
+   shape (BH 112, S 1024, P = N = 64) in both layouts: y and the final
+   state within 1e-4 x max|want|; the model-layout call at zamba2's
+   shape timed beside the plain version and the bound (no PyTorch call
+   computes this function).
 4. engine, once per pool dtype: full-width serving, 12 greedy requests
    with a shared prompt head; checks 32 tokens each, kernel launches of
    that dtype == layers x micro-steps (counts zeroed just before, read
@@ -60,9 +71,23 @@ PyTorch version.  Phases, each printing JSON lines:
    stop at 256, so each prefill runs as segments; it must complete with
    0 leaked pages; agreement with the same prompts served in one
    prefill is printed.
-6. dbrx: internlm2's params and engines are freed, then dbrx-132b is
-   built at full width with its depth cut 40 -> 4 (~57 GB of fp32
-   weights) and serves the same 12 requests from fp32 pools: 0 leaked
+5d. zamba2: internlm2's params and engines are freed, then zamba2-7b is
+   built at full width and depth (81 layers: 68 Mamba2, 13 applications
+   of 2 shared attention blocks; ~24 GB of fp32 weights).  One 100-token
+   prompt through ``forward_prefill`` in the 1024 bucket padded with 0s
+   and with 9s (<= 1e-4 x max|want| on the logits and every Mamba2 state
+   leaf: the length masking), and in its own 128 bucket against the
+   1024 bucket and against a first-token prefill followed by 99
+   ``forward_decode`` steps (<= 1e-3 x max|want|: other shapes, other
+   fp32 summation orders).  Then the 12 requests
+   through ``Engine(chunked_prefill="auto")``, which must resolve to two
+   executables: 32 tokens each, 0 leaked pages, 0 prefix hits,
+   ``mamba2_scan`` launches == 68 x full prefills, flash launches == 13
+   x full prefills, paged launches == 13 x decode micro-steps, the first
+   admission round and its chunk free of host syncs; one decode chunk
+   of a second wave profiled.  Then zamba2 is freed.
+6. dbrx: dbrx-132b is built at full width with its depth cut 40 -> 4
+   (~57 GB of fp32 weights) and serves the same 12 requests from fp32 pools: 0 leaked
    pages, a chunk free of host syncs, ``moe_gmm`` launches == 3 x 4 x
    micro-steps and paged-attention launches == 4 x micro-steps.  One
    chunk is profiled.  On one teacher-forced chunk (8 slots x 32 tokens)
@@ -73,7 +98,9 @@ PyTorch version.  Phases, each printing JSON lines:
    kernel is timed there, at the main path's shapes and counts.
 
 The last three lines are the card's name and power limit (again), the
-kernel table and ``{"ok": true, "device": ...}``.
+kernel table (paged attention per pool dtype, ``moe_gmm``,
+``flash_attention`` at dh 128 and at zamba2's dh 112, ``mamba2_scan``)
+and ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before them.  Without a CUDA device, or
 without the repository's ``src/`` beside it, it exits non-zero at once.
 """
@@ -133,6 +160,38 @@ FLASH_CASES = [
     ("odd_s100_window", dict(FLASH_MAIN, Sq=100, Skv=100), {"window": 48}),
     ("batch2", dict(FLASH_MAIN, B=2, Sq=160, Skv=160), {}),
 ]
+# zamba2-7b's shared attention at full width: H = Hkv = 32, dh = 112,
+# window 4096 (wider than any prompt here); timed like the main cases
+FLASH_CASES.append(("zamba2_dh112_s1024",
+                    dict(B=1, H=32, Hkv=32, dh=112, Sq=1024, Skv=1024),
+                    {"window": 4096}))
+# mamba2_scan cases: name, shape, layout.  "kernel": the Pallas layout
+# (x [BH,S,P], b/c [BH,S,N]); "model": the model's (x [B,S,H,P], b/c
+# [B,S,N] column slices of one [B,S,2N] tensor, shared by the H heads).
+# The first three are tests/test_kernels.py's cases; "zamba2_full" is the
+# main path's call (zamba2-7b prefill in the 1024 bucket), and is timed.
+MAMBA_CASES = [
+    ("jax_s64_p32_n16", dict(B=3, H=1, S=64, P=32, N=16), "kernel", False),
+    ("jax_s128_p64_n32", dict(B=3, H=1, S=128, P=64, N=32), "kernel", False),
+    ("jax_s96_p64_n64", dict(B=3, H=1, S=96, P=64, N=64), "kernel", False),
+    ("s1000_not_pow2", dict(B=8, H=1, S=1000, P=64, N=64), "kernel", False),
+    ("h0_ragged_p20_n100", dict(B=3, H=1, S=77, P=20, N=100), "kernel",
+     True),
+    ("model_shared_bc", dict(B=2, H=16, S=300, P=64, N=64), "model", False),
+    ("model_shared_bc_h0", dict(B=2, H=16, S=37, P=64, N=64), "model",
+     True),
+    ("zamba2_kernel_layout", dict(B=112, H=1, S=1024, P=64, N=64), "kernel",
+     False),
+    ("zamba2_full", dict(B=1, H=112, S=1024, P=64, N=64), "model", False),
+]
+# zamba2's path checks, x max|want| of each leaf.  One prompt through
+# other shapes (another bucket; step-by-step decode): fp32 products of
+# other shapes sum in other orders and 81 layers carry the difference
+# (the 128 and 1024 buckets differ by ~1e-4 on a Mamba2 state).  The same
+# bucket with another pad token has the same shapes, so only a masking
+# fault can move it.
+ZAMBA2_PATH_TOL = 1e-3
+ZAMBA2_MASK_TOL = 1e-4
 # one prompt length per bucket (8..1024) for the prefill-vs-fused check
 BUCKET_PROMPT_LENS = (5, 12, 30, 60, 100, 200, 400, 900)
 # prompts spliced into int8 pools: 600 and 900 pad to the 1024 bucket,
@@ -267,6 +326,9 @@ def phase_kernels(torch, ops, quantize, kv_pool_dtype):
                           lens=[61, 7])),
         # dbrx-132b's heads: GQA 6:1, S*G = 192 rows in 3 row tiles
         ("dbrx_gqa6", dict(main, H=48, S=32, lens=lens32)),
+        # zamba2-7b's shared attention, S = 1 decode: dh 112, window 4096
+        ("zamba2_dh112_s1", dict(B=8, H=32, Hkv=32, dh=112, P=16, nb=64,
+                                 S=1, lens=lens32, window=4096)),
     ]
     worst = {kv: 0.0 for kv in KV_DTYPES}
     rows = {kv: {} for kv in KV_DTYPES}
@@ -297,7 +359,7 @@ def phase_kernels(torch, ops, quantize, kv_pool_dtype):
                             "position are not 0")
             check(err <= KERNEL_TOL,
                   f"{kv_dtype} {name}: max abs err {err} > {KERNEL_TOL}")
-            if name.startswith("main"):
+            if name.startswith(("main", "zamba2")):
                 nbytes, flops = paged_need(torch, case)
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_flops = flops / FP32_FLOPS * 1e3
@@ -486,7 +548,7 @@ def phase_flash_kernels(torch, fa):
                 worst["fp32"] = max(worst["fp32"], err)
                 check(err <= KERNEL_TOL, f"flash {name} fp32: max abs err "
                                          f"{err} > {KERNEL_TOL}")
-                if name.startswith("main"):
+                if name.startswith(("main", "zamba2")):
                     nbytes, flops, live = flash_need(**shape, **opts)
                     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                     t_flops = flops / FP32_FLOPS * 1e3
@@ -513,6 +575,100 @@ def phase_flash_kernels(torch, fa):
                                              f"{rel} x max|want|")
             emit("kernel_check", kernel="flash_attention", **rec)
         del q32, k32, v32, q, k, v, got, want
+    torch.cuda.empty_cache()
+    return worst, timed
+
+
+# ---------------------------------------------------------------------------
+# Phase 3, mamba2_scan: the Mamba2 prefill scan against its plain version
+# ---------------------------------------------------------------------------
+
+def mamba_inputs(torch, gen, B, H, S, P, N, layout, h0):
+    """tests/test_kernels.py's distributions (dt = |N(0,1)| 0.4 + 0.01,
+    b and c N(0, 0.25), a < -0.05; the model layout's a from a_log =
+    log U(1, 16)).  Returns the kernel call and the same inputs in the
+    plain version's layout (b/c broadcast to every head there)."""
+    dev = DEV
+    rn = lambda *sh: torch.randn(*sh, generator=gen, device=dev)  # noqa: E731
+    if layout == "kernel":
+        x, b, c = rn(B, S, P), rn(B, S, N) * 0.5, rn(B, S, N) * 0.5
+        dt = rn(B, S).abs() * 0.4 + 0.01
+        a = -rn(B).abs() - 0.05
+        hh = rn(B, N, P) if h0 else None
+        return (x, dt, b, c, a, hh), (x, dt, b, c, a, hh)
+    x, bc = rn(B, S, H, P), rn(B, S, 2 * N) * 0.5
+    dt = rn(B, S, H).abs() * 0.4 + 0.01
+    a_log = torch.log(1.0 + 15.0 * torch.rand(H, generator=gen, device=dev))
+    hh = rn(B, H, N, P) if h0 else None
+    bb = bc[..., :N][:, None].expand(B, H, S, N).reshape(B * H, S, N)
+    cc = bc[..., N:][:, None].expand(B, H, S, N).reshape(B * H, S, N)
+    plain = (x.transpose(1, 2).reshape(B * H, S, P),
+             dt.transpose(1, 2).reshape(B * H, S), bb, cc,
+             (-torch.exp(a_log))[None].expand(B, H).reshape(B * H),
+             None if hh is None else hh.reshape(B * H, N, P))
+    return (x, dt, bc[..., :N], bc[..., N:], a_log, hh), plain
+
+
+def mamba_need(B, H, S, P, N, layout, h0):
+    """Bytes and flops of one call: x and dt read, y and the final state
+    written, b/c read once ([B,S,N] each in the model layout, [BH,S,N] in
+    the kernel's), h0 read when given, fp32; 4 * BH * S * N * P flops (a
+    multiply-add per state element for the update, one for y)."""
+    bh = B * H
+    bc_rows = B * S if layout == "model" else bh * S
+    nbytes = 4 * (2 * bh * S * P + bh * S + 2 * bc_rows * N
+                  + bh * N * P * (2 if h0 else 1))
+    return nbytes, 4 * bh * S * N * P
+
+
+def phase_mamba_kernels(torch, mops):
+    """Every ``MAMBA_CASES`` case: the kernel against its plain version
+    on y and the final state, each within ``KERNEL_TOL`` x its max|want|.
+    Returns the worst relative error and the timed main-shape record."""
+    gen = torch.Generator(device=DEV).manual_seed(1357)
+    worst = 0.0
+    timed = {}
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    for name, shape, layout, h0 in MAMBA_CASES:
+        call, plain = mamba_inputs(torch, gen, **shape, layout=layout, h0=h0)
+        op = mops.scan_model_layout if layout == "model" else mops.mamba2_scan
+        before = mops.launches
+        y, hf = op(*call)
+        yw, hw = mops.mamba2_scan_ref(*plain)
+        torch.cuda.synchronize()
+        check(mops.launches == before + 1, f"mamba2 {name}: no launch")
+        B, H, S, P, N = (shape[k] for k in ("B", "H", "S", "P", "N"))
+        if layout == "model":
+            y = y.transpose(1, 2).reshape(B * H, S, P)
+            hf = hf.reshape(B * H, N, P)
+        check(bool(torch.isfinite(y).all() and torch.isfinite(hf).all()),
+              f"mamba2 {name}: non-finite output")
+        rec = {"case": name, "shape": shape, "layout": layout, "h0": h0,
+               "tol_relative": KERNEL_TOL}
+        for key, got, want in (("y", y, yw), ("state", hf, hw)):
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            rel = err / max(scale, 1e-30)
+            rec.update({f"{key}_max_abs_err": err,
+                        f"{key}_max_abs_want": scale,
+                        f"{key}_relative_err": rel})
+            worst = max(worst, rel)
+            check(rel <= KERNEL_TOL, f"mamba2 {name} {key}: error {rel} x "
+                                     "max|want|")
+        if name == "zamba2_full":
+            nbytes, flops = mamba_need(**shape, layout=layout, h0=h0)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_flops = flops / FP32_FLOPS * 1e3
+            rec.update(
+                ms=cuda_ms(torch, lambda: op(*call), flush=flush),
+                plain_ms=cuda_ms(torch, lambda: mops.mamba2_scan_ref(*plain),
+                                 flush=flush),
+                library_ms=None, bound_ms=max(t_bytes, t_flops),
+                bound_by="bytes" if t_bytes >= t_flops else "operations",
+                bytes=nbytes, flops=flops)
+            timed = rec
+        emit("kernel_check", kernel="mamba2_scan", **rec)
+        del call, plain, y, hf, yw, hw
     torch.cuda.empty_cache()
     return worst, timed
 
@@ -686,7 +842,8 @@ def teacher_forced_logit_diff(torch, rt, cfg, params, kv_dtype,
 
 def profile_chunk(torch, eng) -> dict:
     """Device time of one chunk by kernel family, from ``torch.profiler``:
-    the paged-attention, moe_gmm and flash-attention kernels, library
+    the paged-attention, moe_gmm, flash-attention and mamba2_scan kernels,
+    library
     matrix products, everything else, and the device's idle share of the
     chunk's wall time (profiler on, so the wall time includes its
     overhead)."""
@@ -701,7 +858,7 @@ def profile_chunk(torch, eng) -> dict:
         wall_ms = (time.time() - t0) * 1e3
     eng._drain(toks)
     fam = {"paged_attention": 0.0, "moe_gmm": 0.0, "flash_attention": 0.0,
-           "matmul": 0.0, "other": 0.0}
+           "mamba2_scan": 0.0, "matmul": 0.0, "other": 0.0}
     n_kernels = 0
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -715,6 +872,8 @@ def profile_chunk(torch, eng) -> dict:
             fam["moe_gmm"] += us / 1e3
         elif "flash_attention" in name:
             fam["flash_attention"] += us / 1e3
+        elif "mamba2_scan" in name:
+            fam["mamba2_scan"] += us / 1e3
         elif "gemm" in name or "gemv" in name or "cutlass" in name:
             fam["matmul"] += us / 1e3
         else:
@@ -1053,6 +1212,177 @@ def phase_segments(torch, rt, cfg, params, single):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5d: zamba2-7b, Mamba2 + shared attention at full width and depth
+# ---------------------------------------------------------------------------
+
+def zamba2_recurrent_check(torch, rt, cfg, params):
+    """One prompt of 100 tokens four ways: ``forward_prefill`` in its own
+    bucket (128), in the 1024 bucket padded with 0s and padded with 9s
+    (the flash and mamba2_scan kernels), and the recurrent path: a
+    prefill of its first token, then ``forward_decode`` through the rest
+    (the paged kernel and the O(1) state update).  Gates on the
+    last-token logits and every Mamba2 state leaf: the two pad tokens
+    <= ``ZAMBA2_MASK_TOL`` x max|want| (the ``length`` masking); the 1024
+    bucket and the recurrent path against the 128 bucket <=
+    ``ZAMBA2_PATH_TOL`` x max|want|."""
+    import numpy as np
+    L = 100
+    rng = np.random.default_rng(23)
+    prompt = rng.integers(1, cfg.vocab_size, L).astype(np.int32)
+    length = torch.tensor([L], dtype=torch.int32, device=DEV)
+
+    def prefill(bucket, pad):
+        padded = np.full((1, bucket), pad, np.int32)
+        padded[0, :L] = prompt
+        lg, cache = rt["forward_prefill"](
+            params, cfg, {"tokens": torch.tensor(padded, device=DEV)},
+            length=length)
+        return leaves(lg, cache["layers"])
+
+    def leaves(lg, layers):
+        out = {"logits": lg.reshape(-1)}
+        for i, c in enumerate(layers):
+            if c is not None and "ssm" in c:
+                out[f"ssm{i}"], out[f"conv{i}"] = c["ssm"], c["conv"]
+        return out
+
+    want = prefill(128, 0)
+    runs = {"pad9": prefill(1024, 9)}
+    base = prefill(1024, 0)
+    spec = rt["CacheSpec"].from_config(cfg, 1, 1024, page_size=16)
+    cache = spec.init_paged_cache(torch.device(DEV))
+    rows = {g.key: list(range(g.ring_blocks)) for g in spec.groups}
+    toks = torch.tensor(prompt, device=DEV)
+    _, one = rt["forward_prefill"](params, cfg, {"tokens": toks[None, :1]})
+    rt["admit_cache"](spec, cache, one, 0, 0, 1, rows)
+    t0 = time.time()
+    for t in range(1, L):
+        logits, cache = rt["forward_decode"](params, cfg, toks[None, t:t + 1],
+                                             cache, paged_kernel=True)
+    torch.cuda.synchronize()
+    decode_s = time.time() - t0
+    runs["bucket1024"] = base
+    runs["recurrent"] = leaves(logits, cache["layers"])
+    rec = {}
+    for name, got in runs.items():
+        ref = base if name == "pad9" else want
+        check(all(bool(torch.isfinite(got[k]).all()) for k in got),
+              f"zamba2 {name}: non-finite values")
+        rel = {k: float((got[k] - w).abs().max())
+               / max(float(w.abs().max()), 1e-30) for k, w in ref.items()}
+        worst = max(rel, key=rel.get)
+        rec[name] = {"relative_err": rel[worst], "leaf": worst,
+                     "logits_relative_err": rel["logits"]}
+    emit("zamba2_paths", prompt_len=L, decode_steps=L - 1,
+         decode_s=decode_s, state_leaves=len(want) - 1,
+         mask_tol=ZAMBA2_MASK_TOL, path_tol=ZAMBA2_PATH_TOL,
+         same_argmax=bool(runs["recurrent"]["logits"].argmax()
+                          == want["logits"].argmax()), **rec)
+    for name, tol in (("pad9", ZAMBA2_MASK_TOL),
+                      ("bucket1024", ZAMBA2_PATH_TOL),
+                      ("recurrent", ZAMBA2_PATH_TOL)):
+        check(rec[name]["relative_err"] <= tol,
+              f"zamba2 {name}: {rec[name]['relative_err']} x max|want| "
+              f"({rec[name]['leaf']}) > {tol}")
+
+
+def phase_zamba2(torch, ops, fa, mops, rt):
+    """Full-width, full-depth zamba2-7b (81 layers, fp32, random weights
+    from seed 0): the prefill-vs-recurrent check, then the 12 requests
+    through ``Engine(chunked_prefill="auto")``, which must resolve to two
+    executables.  Counts are zeroed just before the run and read just
+    after.  Returns the launch counts for the kernel line."""
+    cfg = rt["get_config"]("zamba2-7b")
+    n_mamba = sum(b.mixer == "mamba2" for b in cfg.blocks)
+    n_attn = sum(b.mixer == "shared_attn" for b in cfg.blocks)
+    t0 = time.time()
+    params = rt["init_params"](rt["model_defs"](cfg), 0, device=DEV)
+    torch.cuda.synchronize()
+    emit("params", arch=cfg.name, layers=cfg.num_layers,
+         mamba2_layers=n_mamba, shared_attention_layers=n_attn,
+         d_model=cfg.d_model,
+         params=sum(p.numel() for p in params.parameters()),
+         param_bytes=sum(p.numel() * p.element_size()
+                         for p in params.parameters()),
+         seconds=time.time() - t0)
+    zamba2_recurrent_check(torch, rt, cfg, params)
+
+    eng = rt["Engine"](cfg, params, slots=8, max_len=1024, page_size=16,
+                       num_pages=512, chunked_prefill="auto", device=DEV)
+    check(not eng.chunked_prefill and eng.paged_kernel,
+          "zamba2: chunked_prefill='auto' did not resolve to two "
+          "executables reading pools through the kernel")
+    check(not eng.spec.prefix_sharing_capable,
+          "zamba2: prefix sharing must be off for STATE archs")
+    t0 = time.time()
+    eng.warmup()
+    torch.cuda.synchronize()
+    emit("warmup", arch=cfg.name, path="legacy", buckets=eng.buckets,
+         seconds=time.time() - t0)
+    reqs = make_requests(rt["Request"], cfg.vocab_size, 12, seed=7, rid0=0)
+    steps0 = eng.steps
+    prefills = count_prefills(eng)
+    torch.cuda.reset_peak_memory_stats()
+    ops.launches = 0
+    for k in ops.launches_by_dtype:
+        ops.launches_by_dtype[k] = 0
+    fa.launches = 0
+    mops.launches = 0
+    times = serve_legacy(torch, eng, reqs, sync_check=True)
+    paged, flash, scans = ops.launches, fa.launches, mops.launches
+    n_prefill = prefills["n"]
+    micro = eng.steps - steps0
+    gen_tokens = sum(len(r.out_tokens) for r in reqs)
+    pstats = eng.prefix_stats()
+    stats = eng.memory_stats()
+    emit("zamba2_engine", arch=cfg.name, kv_dtype="fp32",
+         requests=len(reqs), decode_micro_steps=micro, chunks=eng.chunks,
+         full_prefills=n_prefill, mamba2_scan_launches=scans,
+         flash_attention_launches=flash, paged_attention_launches=paged,
+         generated_tokens=gen_tokens,
+         generated_tokens_per_s=gen_tokens / times["wall_s"],
+         ms_per_decode_micro_step=(times["decode_s"]
+                                   / max(times["decode_micro_steps_timed"],
+                                         1) * 1e3),
+         sync_free_admission_and_chunk=True, host_syncs=eng.host_syncs,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         pool_bytes=stats["paged_kv_bytes"], memory_stats=stats,
+         prefix_stats=pstats, leaked_pages=eng.leaked_pages(), **times)
+    for r in reqs:
+        check(r.done and len(r.out_tokens) == 32,
+              f"zamba2 rid {r.rid}: {len(r.out_tokens)} tokens, "
+              f"done={r.done}")
+    check(pstats["prefix_hits"] == 0, "zamba2: prefix hits with sharing off")
+    check(n_prefill > 0 and scans == n_mamba * n_prefill,
+          f"zamba2: mamba2_scan launches {scans} != {n_mamba} x "
+          f"{n_prefill} full prefills")
+    check(flash == n_attn * n_prefill,
+          f"zamba2: flash launches {flash} != {n_attn} x {n_prefill}")
+    check(paged == n_attn * micro and ops.launches_by_dtype["fp32"] == paged,
+          f"zamba2: paged launches {paged} != {n_attn} x {micro}")
+    check(eng.leaked_pages() == 0, "zamba2: leaked pages")
+    # a second wave, one of its decode chunks profiled
+    for r in make_requests(rt["Request"], cfg.vocab_size, 8, seed=11,
+                           rid0=100):
+        eng.submit(r)
+    eng.step()
+    eng.step()
+    try:
+        prof = profile_chunk(torch, eng)
+    except (RuntimeError, AttributeError) as e:   # an optional reading
+        prof = {"measured": False, "reason": repr(e)}
+    emit("profile", arch=cfg.name, path="legacy", kv_dtype="fp32", **prof)
+    eng.run(max_steps=10 ** 6)
+    check(eng.leaked_pages() == 0,
+          "zamba2: leaked pages after the second wave")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"scans": scans, "flash": flash, "paged": paged,
+            "prefills": n_prefill}
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: dbrx-132b, MoE at full width
 # ---------------------------------------------------------------------------
 
@@ -1228,10 +1558,11 @@ def main() -> int:
         from repro_torch.device import resolve_device
         from repro_torch.kernels import build
         from repro_torch.kernels.flash_attention import ops as fa
+        from repro_torch.kernels.mamba2_scan import ops as mops
         from repro_torch.kernels.moe_gmm import ops as gmm
         from repro_torch.kernels.paged_attention import ops
-        from repro_torch.models import (forward_prefill, forward_verify,
-                                        model_defs)
+        from repro_torch.models import (forward_decode, forward_prefill,
+                                        forward_verify, model_defs)
         from repro_torch.models.attention import quantize_pages
         from repro_torch.models.module import init_params
         from repro_torch.serve.cache import (CacheSpec, admit_cache,
@@ -1244,6 +1575,7 @@ def main() -> int:
     rt = dict(get_config=get_config, init_params=init_params,
               model_defs=model_defs, Engine=Engine, Request=Request,
               forward_verify=forward_verify, forward_prefill=forward_prefill,
+              forward_decode=forward_decode,
               install_slot_rows=install_slot_rows, admit_cache=admit_cache,
               CacheSpec=CacheSpec, quantize_pages=quantize_pages)
     try:
@@ -1262,7 +1594,7 @@ def main() -> int:
                    torch.backends.cudnn.allow_tf32])
 
         t0 = time.time()
-        sources = [ops.SOURCE, gmm.SOURCE, fa.SOURCE]
+        sources = [ops.SOURCE, gmm.SOURCE, fa.SOURCE, mops.SOURCE]
         with ThreadPoolExecutor(len(sources)) as pool:
             built = list(pool.map(build.compile_source, sources))
         for src, (lib, log) in zip(sources, built):
@@ -1276,6 +1608,7 @@ def main() -> int:
                                     kv_pool_dtype)
         gmm_worst = phase_gmm_kernels(torch, gmm)
         flash_worst, flash_timed = phase_flash_kernels(torch, fa)
+        mamba_worst, mamba_timed = phase_mamba_kernels(torch, mops)
         cfg, params = init_model(torch, rt)
         launches, tokens = {}, {}
         for kv_dtype in KV_DTYPES:
@@ -1305,10 +1638,12 @@ def main() -> int:
                 phase_segments(torch, rt, cfg, params, eng)
             del eng
             torch.cuda.empty_cache()
-        # dbrx's ~57 GB of weights fit only once internlm2's are gone
+        # zamba2's ~24 GB and dbrx's ~57 GB of weights fit only one at a
+        # time, and only once internlm2's are gone
         del params
         gc.collect()
         torch.cuda.empty_cache()
+        zamba2 = phase_zamba2(torch, ops, fa, mops, rt)
         full = get_config("dbrx-132b")
         dbrx = cut_depth(full, DBRX_DEPTH)
         emit("depth_cut", arch=full.name, layers_full=full.num_layers,
@@ -1339,6 +1674,7 @@ def main() -> int:
             "max_err": worst[kv_dtype], "kernel_ms": main32["ms"],
             "shape": f"B=8 S=32 H=16 Hkv=8 dh=128 P=16 nb=64 {kv_dtype}"})
     entries[0]["launches_dbrx"] = dbrx_launches
+    entries[0]["launches_zamba2"] = zamba2["paged"]
     main_gmm = gmm_rows["gate_up"]
     entries.append({
         "name": "moe_gmm", "route": "cuda",
@@ -1371,6 +1707,32 @@ def main() -> int:
         "launches_int8": legacy["int8"][0],
         "ms_by_seq": {name: rec["ms"] for name, rec in flash_timed.items()},
         "shape": "B=1 H=16 Hkv=8 dh=128 causal fp32 S=1024"})
+    z_fa = flash_timed["zamba2_dh112_s1024"]
+    entries.append({
+        "name": "flash_attention_dh112", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
+        "launches": zamba2["flash"], "max_abs_err": z_fa["max_abs_err"],
+        "ms": z_fa["ms"], "plain_ms": z_fa["plain_ms"],
+        "bound_ms": z_fa["bound_ms"], "bound_by": z_fa["bound_by"],
+        "library_ms": z_fa["library_ms"],
+        "full_prefills": zamba2["prefills"],
+        "shape": "zamba2-7b: B=1 H=Hkv=32 dh=112 causal window=4096 fp32 "
+                 "S=1024"})
+    entries.append({
+        "name": "mamba2_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba2_scan/csrc/mamba2_scan.cu",
+        "replaces": "src/repro/kernels/mamba2_scan/kernel.py:77",
+        "launches": zamba2["scans"], "max_abs_err": mamba_timed[
+            "y_max_abs_err"],
+        "max_relative_err_all_cases": mamba_worst,
+        "ms": mamba_timed["ms"], "plain_ms": mamba_timed["plain_ms"],
+        "bound_ms": mamba_timed["bound_ms"],
+        "bound_by": mamba_timed["bound_by"], "library_ms": None,
+        "full_prefills": zamba2["prefills"],
+        "shape": "zamba2-7b prefill, model layout: B=1 H=112 S=1024 P=64 "
+                 "N=64 fp32, b/c shared by the heads"})
     print(card, flush=True)      # again, beside the results it qualifies
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``get_config("internlm2-1.8b")``.
 
 Only the architectures the port can serve are registered: the dense
-internlm2-1.8b and the MoE dbrx-132b and grok-1-314b.  The others of
-the reference join as their layers are ported (ROADMAP A5, A13).
+internlm2-1.8b, the MoE dbrx-132b and grok-1-314b, and the hybrid
+zamba2-7b (Mamba2 backbone + shared attention).  The others of the
+reference join as their layers are ported (ROADMAP A5, A13, B6).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ _ARCH_MODULES = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1p8b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "grok-1-314b": "repro_torch.configs.grok1_314b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -109,6 +109,24 @@ def uniform_blocks(n: int, mixer: str = ATTN, ffn: str = FFN_DENSE,
                  for _ in range(n))
 
 
+def zamba2_blocks(n: int, shared_every: int, num_shared_groups: int,
+                  window: Optional[int]) -> Tuple[BlockSpec, ...]:
+    """Mamba2 backbone with a shared attention + MLP block applied every
+    ``shared_every`` layers, cycling through ``num_shared_groups``
+    parameter groups."""
+    blocks = []
+    shared_i = 0
+    for i in range(n):
+        if shared_every and i % shared_every == shared_every - 1:
+            blocks.append(BlockSpec(
+                mixer=SHARED_ATTN, ffn=FFN_DENSE, window=window,
+                shared_group=shared_i % max(num_shared_groups, 1)))
+            shared_i += 1
+        else:
+            blocks.append(BlockSpec(mixer=MAMBA2, ffn=FFN_NONE))
+    return tuple(blocks)
+
+
 def validate(cfg: ModelConfig) -> ModelConfig:
     """Structural checks; raise ``ValueError`` on an inconsistent config."""
     if len(cfg.blocks) != cfg.num_layers:

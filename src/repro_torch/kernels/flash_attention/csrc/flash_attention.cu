@@ -26,7 +26,8 @@
 // denominator of its 4 rows are reduced over the 16 lanes that share the
 // rows with warp shuffles; the probabilities go back to shared memory
 // (transposed) and each thread accumulates its 4 rows x dh/16 output
-// dims in registers, in fp32.  Rows and keys past Sq and Skv are
+// dims in registers, in fp32 (read from V as float4s, float2s or, at
+// dh = 112, zamba2's head dim, one float at a time).  Rows and keys past Sq and Skv are
 // bounds-checked: no length needs to divide the tile.  The shared memory
 // (120 KB at dh = 128, 217 KB at dh = 256) is dynamic, after the opt-in.
 //
@@ -88,9 +89,10 @@ __global__ void __launch_bounds__(kThreads)
                            const T* __restrict__ v, T* __restrict__ out,
                            int H, int Hkv, int Sq, int Skv, int causal,
                            int window, float softcap, float scale) {
-  constexpr int DPT = DH / 16;             // output dims per thread
-  constexpr int VEC = DPT >= 4 ? 4 : DPT;  // dims per vector load of V
-  constexpr int NV = DPT / VEC;            // vector loads per V row
+  constexpr int DPT = DH / 16;  // output dims per thread
+  // dims per vector load of V: 4, 2 or 1 (DH = 112: DPT = 7, scalar)
+  constexpr int VEC = DPT % 4 == 0 ? 4 : DPT % 2 == 0 ? 2 : 1;
+  constexpr int NV = DPT / VEC;  // vector loads per V row
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + Smem<DH>::q;
@@ -216,10 +218,12 @@ __global__ void __launch_bounds__(kThreads)
           vv[1] = t.y;
           vv[2] = t.z;
           vv[3] = t.w;
-        } else {
+        } else if constexpr (VEC == 2) {
           const float2 t = *reinterpret_cast<const float2*>(vrow + n * 16 * VEC);
           vv[0] = t.x;
           vv[1] = t.y;
+        } else {
+          vv[0] = vrow[n * 16];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -279,6 +283,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
     case 64:
       return launch<T, 64>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window,
                            softcap, scale, st);
+    case 112:
+      return launch<T, 112>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window,
+                            softcap, scale, st);
     case 128:
       return launch<T, 128>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window,
                             softcap, scale, st);
@@ -295,7 +302,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // Element types (dtype): 0 float, 1 bf16 (q, k, v and out share it).
-// dh is 32, 64, 128 or 256; window <= 0 means none, softcap <= 0 none.
+// dh is 32, 64, 112, 128 or 256; window <= 0 means none, softcap <= 0
+// none.
 // Returns a cudaError_t: cudaErrorInvalidValue for a dtype code or
 // shapes the kernel does not take, else the launch's cudaGetLastError().
 int flash_attention_fwd(const void* q, const void* k, const void* v,

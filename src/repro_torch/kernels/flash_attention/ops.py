@@ -10,9 +10,9 @@ by where ``q`` lies, and nothing else:
   ``kernels/build.py`` at first use) or raises — there is no fallback.
 
 q [B,H,Sq,dh], k/v [B,Hkv,Skv,dh], fp32 or bf16 alike, contiguous; the
-output is in q's dtype.  The kernel takes dh in {32, 64, 128, 256} and,
-when causal, Sq <= Skv (query i sits at key position i, so every row
-sees a key).  ``launches`` counts kernel launches (one per call on a
+output is in q's dtype.  The kernel takes dh in {32, 64, 112, 128, 256}
+and, when causal, Sq <= Skv (query i sits at key position i, so every
+row sees a key).  ``launches`` counts kernel launches (one per call on a
 CUDA tensor), so a run can show that its main path went through the
 kernel.  ``supported()`` runs the smallest real launch; tests use it to
 skip.
@@ -34,7 +34,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 # element type -> the kernel's dtype code (csrc: flash_attention_fwd)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)   # 112: zamba2-7b's shared attention
 
 launches = 0    # kernel launches since import (callers may reset it)
 

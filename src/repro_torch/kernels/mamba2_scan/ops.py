@@ -1,0 +1,207 @@
+"""Public Mamba2 scan ops: the Hopper kernel on the card, its plain
+version on the CPU.
+
+``scan_model_layout`` is what ``models/mamba2.ssd_chunked`` calls for
+every Mamba2 layer of a full prefill; ``mamba2_scan`` is the kernel's
+own (Pallas) layout.  Dispatch is by where ``x`` lies, and nothing else:
+
+* a CPU tensor runs ``ref.mamba2_scan_ref`` (the per-step recurrence);
+* a CUDA tensor launches ``csrc/mamba2_scan.cu`` (built by
+  ``kernels/build.py`` at first use) or raises — there is no fallback.
+
+The kernel takes fp32 operands with N <= 128 and any S.  Its one entry
+point addresses every operand through (batch, head, time) strides, so
+the model's layout, whose b/c rows ``[B,S,N]`` are shared by the H heads
+of a batch row, is read in place: no broadcast copy of b/c and no
+transpose of x.  ``launches`` counts kernel launches (one per call on a
+CUDA tensor), so a run can show that its main path went through the
+kernel.  ``supported()`` runs the smallest real launch; tests use it to
+skip.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba2_scan.cu"
+MAX_STATE = 128
+
+launches = 0    # kernel launches since import (callers may reset it)
+
+# the C signature of csrc's mamba2_scan_fwd: 8 tensor pointers, B, H, S,
+# P, N, the strides of x, dt, b/c (batch, head, time) and a (batch,
+# head), the stream
+FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 16 \
+    + [ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    lib.mamba2_scan_fwd.argtypes = FWD_ARGTYPES
+    lib.mamba2_scan_fwd.restype = ctypes.c_int
+    lib.mamba2_scan_error_string.argtypes = [ctypes.c_int]
+    lib.mamba2_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(named: Sequence[Tuple[str, Optional[torch.Tensor]]],
+           shapes: dict) -> None:
+    """fp32 on one CUDA device, the expected shapes, unit inner stride
+    and 32-bit strides; x contiguous (y takes its strides)."""
+    dev = named[0][1].device
+    for name, t in named:
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"the kernel takes fp32 operands; {name} is "
+                            f"{t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"shape mismatch: {name} {tuple(t.shape)}, "
+                             f"want {shapes[name]}")
+        if t.dim() and t.stride(-1) != 1 and t.shape[-1] > 1:
+            raise ValueError(f"{name} needs a unit innermost stride")
+        if any(st >= 2 ** 31 for st in t.stride()):
+            raise ValueError(f"{name}'s strides exceed 32 bits")
+    x, h0 = named[0][1], dict(named).get("h0")
+    if not x.is_contiguous() or (h0 is not None and not h0.is_contiguous()):
+        raise ValueError("x and h0 must be contiguous")
+    n = shapes["b"][-1]
+    if n > MAX_STATE:
+        raise ValueError(f"the kernel takes N <= {MAX_STATE}, got {n}")
+
+
+def _launch(x, dt, b, c, a, h0, *, B: int, H: int, S: int, P: int, N: int,
+            x_st: Tuple[int, int, int], dt_st: Tuple[int, int, int],
+            bc_st: Tuple[int, int, int], a_st: Tuple[int, int]):
+    """One kernel launch over B*H streams; strides are (batch, head,
+    time) in elements.  Returns (y with x's strides, h_final [B*H,N,P])."""
+    if B * H > 65535:
+        raise ValueError(f"B*H = {B * H} exceeds the grid's 65535")
+    y = torch.empty_like(x)
+    hout = torch.empty((B * H, N, P), dtype=torch.float32, device=x.device)
+    vp = ctypes.c_void_p
+    lib = _lib()
+    rc = lib.mamba2_scan_fwd(
+        vp(x.data_ptr()), vp(dt.data_ptr()), vp(b.data_ptr()),
+        vp(c.data_ptr()), vp(a.data_ptr()),
+        vp(h0.data_ptr() if h0 is not None else 0), vp(y.data_ptr()),
+        vp(hout.data_ptr()), B, H, S, P, N, *x_st, *dt_st, *bc_st, *a_st,
+        vp(torch.cuda.current_stream(x.device).cuda_stream))
+    if rc != 0:
+        raise RuntimeError("mamba2_scan kernel launch failed: "
+                           + lib.mamba2_scan_error_string(rc).decode())
+    global launches
+    launches += 1
+    return y, hout
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba2_scan runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    return True
+
+
+def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, a: torch.Tensor,
+                h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's layout: x [BH,S,P], dt [BH,S] (softplus'd, > 0),
+    b/c [BH,S,N], a [BH] (negative), h0 [BH,N,P] or None -> (y [BH,S,P],
+    h_final [BH,N,P] fp32)."""
+    if not _on_cuda(x):
+        return mamba2_scan_ref(x, dt, b, c, a, h0)
+    bh, s, p = x.shape
+    n = b.shape[-1]
+    if c.stride() != b.stride():
+        raise ValueError("b and c must share their strides")
+    _check([("x", x), ("dt", dt), ("b", b), ("c", c), ("a", a),
+            ("h0", h0)],
+           {"x": (bh, s, p), "dt": (bh, s), "b": (bh, s, n),
+            "c": (bh, s, n), "a": (bh,), "h0": (bh, n, p)})
+    return _launch(x, dt, b, c, a, h0, B=bh, H=1, S=s, P=p, N=n,
+                   x_st=(x.stride(0), 0, x.stride(1)),
+                   dt_st=(dt.stride(0), 0, dt.stride(1)),
+                   bc_st=(b.stride(0), 0, b.stride(1)),
+                   a_st=(a.stride(0), 0))
+
+
+def scan_model_layout(xh: torch.Tensor, dt: torch.Tensor,
+                      b_in: torch.Tensor, c_in: torch.Tensor,
+                      a_log: torch.Tensor,
+                      h0: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The model's layout: xh [B,S,H,P], dt [B,S,H], b_in/c_in [B,S,N]
+    (n_groups = 1: shared by the heads), a_log [H], h0 [B,H,N,P] or None
+    -> (y [B,S,H,P], h_final [B,H,N,P] fp32).  On the card: one launch
+    that reads this layout in place (b/c may be column slices of one
+    [B,S,2N] tensor).  On the CPU: the reference adapter's broadcast to
+    the kernel's layout, then the plain version."""
+    bsz, s, h, p = xh.shape
+    n = b_in.shape[-1]
+    a = -torch.exp(a_log.float())                                # [H]
+    if not _on_cuda(xh):
+        x2 = xh.transpose(1, 2).reshape(bsz * h, s, p)
+        dt2 = dt.transpose(1, 2).reshape(bsz * h, s)
+        bb = b_in[:, None].expand(bsz, h, s, n).reshape(bsz * h, s, n)
+        cc = c_in[:, None].expand(bsz, h, s, n).reshape(bsz * h, s, n)
+        aa = a[None].expand(bsz, h).reshape(bsz * h)
+        y, hf = mamba2_scan(x2, dt2, bb, cc, aa, None if h0 is None
+                            else h0.reshape(bsz * h, n, p))
+        return y.reshape(bsz, h, s, p).transpose(1, 2), \
+            hf.reshape(bsz, h, n, p)
+    if c_in.stride() != b_in.stride():
+        raise ValueError("b_in and c_in must share their strides")
+    h0f = None if h0 is None else h0.reshape(bsz * h, n, p)
+    _check([("x", xh), ("dt", dt), ("b", b_in), ("c", c_in), ("a", a),
+            ("h0", h0f)],
+           {"x": (bsz, s, h, p), "dt": (bsz, s, h), "b": (bsz, s, n),
+            "c": (bsz, s, n), "a": (h,), "h0": (bsz * h, n, p)})
+    y, hf = _launch(xh, dt, b_in, c_in, a, h0f, B=bsz, H=h, S=s, P=p, N=n,
+                    x_st=(xh.stride(0), xh.stride(2), xh.stride(1)),
+                    dt_st=(dt.stride(0), dt.stride(2), dt.stride(1)),
+                    bc_st=(b_in.stride(0), 0, b_in.stride(1)),
+                    a_st=(0, a.stride(0)))
+    return y, hf.view(bsz, h, n, p)
+
+
+@functools.lru_cache(maxsize=None)
+def supported() -> bool:
+    """Probe, don't version-sniff: True when the smallest real kernel
+    launch (ragged P and S, N padded, an initial state) builds, runs and
+    agrees with the plain version.  Probe launches are not counted."""
+    if not torch.cuda.is_available():
+        return False
+    global launches
+    before = launches
+    try:
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(2, 37, 20, generator=gen, device=dev)
+        dt = torch.rand(2, 37, generator=gen, device=dev) * 0.1
+        b = torch.randn(2, 37, 20, generator=gen, device=dev)
+        c = torch.randn(2, 37, 20, generator=gen, device=dev)
+        a = -torch.rand(2, generator=gen, device=dev) - 0.5
+        h0 = torch.randn(2, 20, 20, generator=gen, device=dev)
+        got = mamba2_scan(x, dt, b, c, a, h0)
+        want = mamba2_scan_ref(x, dt, b, c, a, h0)
+        torch.cuda.synchronize()
+        return all(bool(torch.allclose(g, w, atol=1e-4))
+                   for g, w in zip(got, want))
+    except (RuntimeError, OSError):
+        return False
+    finally:
+        launches = before

@@ -1,11 +1,12 @@
 """Models of the port: parameter trees, layers, paged and prefill
-attention, the MoE FFN and the decoder stack (counterpart of
+attention, the MoE FFN, the Mamba2 mixer and the decoder stack (counterpart of
 ``repro/models``)."""
 
-from repro_torch.models import attention, layers, module, moe, transformer
+from repro_torch.models import (attention, layers, mamba2, module, moe,
+                                transformer)
 from repro_torch.models.transformer import (forward_decode, forward_prefill,
                                             forward_verify, model_defs)
 
-__all__ = ["attention", "layers", "module", "moe", "transformer",
+__all__ = ["attention", "layers", "mamba2", "module", "moe", "transformer",
            "model_defs", "forward_prefill", "forward_decode",
            "forward_verify"]

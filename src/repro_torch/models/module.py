@@ -12,7 +12,7 @@ reference's nested dicts (``params["layers"][0]["mixer"]["wq"]``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,9 +24,11 @@ from repro_torch.device import DeviceLike, resolve_device
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "fan_in"     # fan_in | zeros | ones | normal | embed
+    init: str = "fan_in"     # fan_in | zeros | ones | normal | embed | custom
     scale: float = 1.0       # extra multiplier on the init
     dtype: Optional[torch.dtype] = None   # None -> the model's param dtype
+    # init="custom": (generator, shape, device) -> fp32 tensor
+    custom: Optional[Callable] = None
 
 
 class ParamTree(nn.Module):
@@ -70,6 +72,8 @@ def _init_one(d: ParamDef, gen: torch.Generator, dtype,
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init == "custom":
+        return d.custom(gen, d.shape, device).to(dtype)
     x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
                     device=device)
     if d.init in ("normal", "embed"):

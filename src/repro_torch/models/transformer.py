@@ -1,6 +1,7 @@
 """Model assembly for the port: decoder stacks of attention blocks with
-dense or MoE FFNs over block-paged KV (counterpart of
-``repro/models/transformer.py``).
+dense or MoE FFNs, and the zamba2 hybrid (Mamba2 backbone + shared
+attention blocks), over block-paged KV and dense recurrent state
+(counterpart of ``repro/models/transformer.py``).
 
 Entry points:
     forward_prefill(params, cfg, {"tokens": [B,S]}, length=, ctx=)
@@ -10,11 +11,14 @@ Entry points:
 
 ``forward_prefill`` is the two-executable engine's bucketed prefill (its
 attention runs ``kernels/flash_attention`` on the card, or a suffix
-prefill against paged context); it returns per-layer KV for the splice.
-The other two update the cache's pools in place.  Other mixers (mamba2:
-ROADMAP B5, rwkv6: B6, shared attention: A13), other FFNs, encoders and
-the train pass are not ported yet and raise (A13, A15).  Serving drops
-the MoE router's aux values, as the reference's entry points do.
+prefill against paged context; its Mamba2 layers run
+``kernels/mamba2_scan``); it returns per-layer KV for the splice and
+each Mamba2 layer's state.  ``forward_decode`` writes KV into the pools
+in place and returns new state tensors for the Mamba2 layers.
+``forward_verify`` runs attention-only stacks (the fused chunk).  The
+rwkv6 mixer (ROADMAP B6), other FFNs, encoders, frontends and the train
+pass are not ported yet and raise (A13, A15).  Serving drops the MoE
+router's aux values, as the reference's entry points do.
 """
 
 from __future__ import annotations
@@ -23,49 +27,103 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import (ATTN, FFN_DENSE, FFN_MOE, BlockSpec,
+from repro_torch.configs.base import (ATTN, FFN_DENSE, FFN_MOE, FFN_NONE,
+                                      MAMBA2, SHARED_ATTN, BlockSpec,
                                       ModelConfig)
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, mamba2, moe
+from repro_torch.models.module import ParamDef
+
+_PORTED = {(ATTN, FFN_DENSE), (ATTN, FFN_MOE), (MAMBA2, FFN_NONE),
+           (SHARED_ATTN, FFN_DENSE)}
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.cross_attention or cfg.enc_layers or cfg.frontend \
-            or cfg.num_shared_groups:
+    if cfg.cross_attention or cfg.enc_layers or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: encoders, cross-attention, modality frontends and "
-            "shared blocks are not ported yet (ROADMAP A13)")
+            f"{cfg.name}: encoders, cross-attention and modality frontends "
+            "are not ported yet (ROADMAP A13)")
     for b in cfg.blocks:
-        if b.mixer != ATTN or b.ffn not in (FFN_DENSE, FFN_MOE):
-            item = {"mamba2": "B5", "rwkv6": "B6"}.get(b.mixer, "A13")
+        if (b.mixer, b.ffn) not in _PORTED:
+            item = "B6" if b.mixer == "rwkv6" else "A13"
             raise NotImplementedError(
                 f"{cfg.name}: a {b.mixer}/{b.ffn} block is not ported yet; "
-                "the port runs attention blocks with dense or MoE FFNs "
-                f"(ROADMAP {item})")
+                "the port runs attention blocks with dense or MoE FFNs, "
+                f"Mamba2 blocks and shared attention blocks (ROADMAP {item})")
 
 
 def _block_defs(cfg: ModelConfig, block: BlockSpec) -> Dict:
-    ffn = moe.moe_defs(cfg) if block.ffn == FFN_MOE else layers.mlp_defs(cfg)
-    return {"ln1": layers.rmsnorm_defs(cfg.d_model),
-            "mixer": attention.attn_defs(cfg),
-            "ln2": layers.rmsnorm_defs(cfg.d_model),
-            "ffn": ffn}
+    """The reference's per-layer keys: a shared attention layer keeps
+    only its (unused) ``ln1``, its weights live in ``shared``."""
+    defs: Dict = {"ln1": layers.rmsnorm_defs(cfg.d_model)}
+    if block.mixer == ATTN:
+        defs["mixer"] = attention.attn_defs(cfg)
+    elif block.mixer == MAMBA2:
+        defs["mixer"] = mamba2.mamba2_defs(cfg)
+    if block.ffn != FFN_NONE and block.mixer != SHARED_ATTN:
+        defs["ln2"] = layers.rmsnorm_defs(cfg.d_model)
+        defs["ffn"] = (moe.moe_defs(cfg) if block.ffn == FFN_MOE
+                       else layers.mlp_defs(cfg))
+    return defs
+
+
+def _shared_group_defs(cfg: ModelConfig) -> Dict:
+    """zamba2's shared transformer block: attention + MLP on
+    ``concat(h, h0) @ proj_in``."""
+    d = cfg.d_model
+    return {"proj_in": ParamDef((2 * d, d)),
+            "ln_attn": layers.rmsnorm_defs(d),
+            "attn": attention.attn_defs(cfg),
+            "ln_mlp": layers.rmsnorm_defs(d),
+            "mlp": layers.mlp_defs(cfg)}
 
 
 def model_defs(cfg: ModelConfig) -> Dict:
     _check_supported(cfg)
-    return {"embed": layers.embedding_defs(cfg),
+    defs = {"embed": layers.embedding_defs(cfg),
             "final_ln": layers.rmsnorm_defs(cfg.d_model),
             "layers": [_block_defs(cfg, b) for b in cfg.blocks]}
+    if cfg.num_shared_groups:
+        defs["shared"] = [_shared_group_defs(cfg)
+                          for _ in range(cfg.num_shared_groups)]
+    return defs
 
 
-def _apply_block(lp, h: torch.Tensor, cfg: ModelConfig, block: BlockSpec, *,
-                 mode: str, positions: torch.Tensor, cache: Optional[Dict],
+def _apply_block(lp, shared, h: torch.Tensor, h0: torch.Tensor,
+                 cfg: ModelConfig, block: BlockSpec, *, mode: str,
+                 positions: torch.Tensor, cache: Optional[Dict],
                  cache_len: Optional[torch.Tensor], paged_kernel: bool,
+                 length: Optional[torch.Tensor] = None,
                  ctx: Optional[Dict] = None
                  ) -> Tuple[torch.Tensor, Dict]:
-    """One decoder layer (pre-norm attention, then a pre-norm SwiGLU or
-    MoE FFN; the MoE aux values are dropped)."""
+    """One decoder layer.  Attention: pre-norm attention, then a pre-norm
+    SwiGLU or MoE FFN (the MoE aux values are dropped).  Mamba2: a
+    pre-norm Mamba2 mixer and no FFN (``length``: the true lengths of a
+    right-padded prefill).  Shared attention: the block of
+    ``shared[block.shared_group]`` on ``concat(h, h0)``, where ``h0`` is
+    the embedding output."""
+    if block.mixer == SHARED_ATTN:
+        sp = shared[block.shared_group]
+        d = h.shape[-1]
+        xin = torch.cat([h, h0], dim=-1)
+        x = torch.matmul(xin.reshape(-1, 2 * d),
+                         sp["proj_in"].to(h.dtype)).view(h.shape)
+        y, new_cache = attention.apply(
+            sp["attn"], layers.rmsnorm(sp["ln_attn"], x, cfg.norm_eps),
+            cfg=cfg, window=block.window, positions=positions, mode=mode,
+            cache=cache, cache_len=cache_len, paged_kernel=paged_kernel)
+        x = x + y
+        x = x + layers.mlp(sp["mlp"],
+                           layers.rmsnorm(sp["ln_mlp"], x, cfg.norm_eps))
+        return h + x, new_cache
+    if ctx is not None and block.mixer != ATTN:
+        raise ValueError(
+            f"a suffix prefill reached a {block.mixer} layer; only pure "
+            "full-attention stacks are sharing-capable")
     xn = layers.rmsnorm(lp["ln1"], h, cfg.norm_eps)
+    if block.mixer == MAMBA2:
+        y, new_cache = mamba2.apply(lp["mixer"], xn, cfg, mode=mode,
+                                    state=cache, length=length)
+        return h + y, new_cache
     y, new_cache = attention.apply(
         lp["mixer"], xn, cfg=cfg, window=block.window, positions=positions,
         mode=mode, cache=cache, cache_len=cache_len, ctx=ctx,
@@ -82,15 +140,18 @@ def _apply_block(lp, h: torch.Tensor, cfg: ModelConfig, block: BlockSpec, *,
 def _decoder(params, cfg: ModelConfig, h: torch.Tensor, *, mode: str,
              positions: torch.Tensor, caches: Optional[List],
              cache_len: Optional[torch.Tensor], paged_kernel: bool = False,
+             length: Optional[torch.Tensor] = None,
              ctx_list: Optional[List] = None
              ) -> Tuple[torch.Tensor, List]:
+    h0 = h
+    shared = params["shared"] if "shared" in params else None
     new_caches: List = []
     for i, block in enumerate(cfg.blocks):
         h, nc = _apply_block(
-            params["layers"][i], h, cfg, block, mode=mode,
+            params["layers"][i], shared, h, h0, cfg, block, mode=mode,
             positions=positions,
             cache=caches[i] if caches is not None else None,
-            cache_len=cache_len, paged_kernel=paged_kernel,
+            cache_len=cache_len, paged_kernel=paged_kernel, length=length,
             ctx=ctx_list[i] if ctx_list is not None else None)
         new_caches.append(nc)
     return layers.rmsnorm(params["final_ln"], h, cfg.norm_eps), new_caches
@@ -105,8 +166,10 @@ def forward_prefill(params, cfg: ModelConfig, batch: Dict, *,
     ``batch["tokens"]`` [B,S], right-padded to a shape bucket; ``length``
     [B] int32, their true lengths: logits are taken at ``length - 1`` and
     the cache records ``length`` (causality already hides the padding
-    from every real token).  The cache holds per-layer ``{"k","v"}``
-    [B,Hkv,S,dh] (padding included; the splice drops it) and ``len``.
+    from every real token; Mamba2 layers take dt = 0 past it).  The cache
+    holds per-layer ``{"k","v"}`` [B,Hkv,S,dh] for attention layers
+    (padding included; the splice drops it), ``{"conv","ssm"}`` for
+    Mamba2 layers (the state at ``length - 1``) and ``len``.
 
     ``ctx`` makes this a suffix prefill for prefix sharing: ``{"off":
     prefix length (host int), "row": [Cb] int32 page ids, "layers":
@@ -127,7 +190,8 @@ def forward_prefill(params, cfg: ModelConfig, batch: Dict, *,
                     for lc in ctx["layers"]]
     h = layers.embed(params["embed"], cfg, tokens)
     h, caches = _decoder(params, cfg, h, mode="prefill", positions=positions,
-                         caches=None, cache_len=None, ctx_list=ctx_list)
+                         caches=None, cache_len=None, length=length,
+                         ctx_list=ctx_list)
     if length is None:
         h_last = h[:, -1:]
         clen = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
@@ -167,7 +231,9 @@ def forward_decode(params, cfg: ModelConfig, tokens: torch.Tensor,
                    ) -> Tuple[torch.Tensor, Dict]:
     """tokens [B,1]; ``cache["len"]`` counts tokens already cached.  Writes
     the new KV through the page tables and returns next-token logits
-    [B,V] and the cache with ``len`` advanced by one."""
+    [B,V] and the cache with ``len`` advanced by one and each Mamba2
+    layer's new state (every row's: the write mask does not cover
+    state, as in the reference)."""
     cache_len = cache["len"] + 1
     positions = cache["len"][:, None]
     layer_caches = _thread_page_tables(cfg, cache, write_mask)

@@ -22,8 +22,13 @@ Pool precision (``kv_dtype``): K/V pages may be stored 8-bit with
 per-page, per-kv-head fp32 scales in parallel scale pools ("ks"/"vs",
 ``[num_pages + 1, kv_heads]``).  Every producer re-quantizes whole pages
 (``attention.rmw_quantized_pages``) and every consumer dequantizes in
-the attention read, so fp32 K/V never exists at pool width.  Layers
-with recurrent state are ROADMAP B5 (mamba2) and B6 (rwkv6).
+the attention read, so fp32 K/V never exists at pool width.
+
+Mamba2 layers (zamba2) keep their O(1) recurrent state dense,
+``[slots, ...]`` per leaf (kind ``STATE``): paging constant-size state
+buys nothing.  Admission copies a prefill's state into the slot's row in
+place; decode replaces the leaves with the step's new state.  rwkv6
+state is ROADMAP B6.
 """
 
 from __future__ import annotations
@@ -34,12 +39,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, SHARED_ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA2, SHARED_ATTN, ModelConfig
 from repro_torch.device import host_to_device
-from repro_torch.models import attention
+from repro_torch.models import attention, mamba2
 from repro_torch.models.attention import page_group_key
 
 PAGED_KV = "paged_kv"    # block-paged KV ring (attention mixers)
+STATE = "state"          # constant-size recurrent state (mamba2)
 KV_DTYPES = ("fp32", "int8", "fp8_e4m3")
 
 
@@ -79,6 +85,8 @@ class LayerCacheSpec:
     ring_blocks: int = 0
     window: Optional[int] = None
     group: int = -1     # index into CacheSpec.groups
+    # STATE: {leaf name: shape} at batch == slots
+    state: Optional[Dict[str, Tuple[int, ...]]] = None
 
 
 @dataclasses.dataclass
@@ -113,9 +121,12 @@ class CacheSpec:
                              f"{page_size}")
         layers: List[Optional[LayerCacheSpec]] = []
         for block in cfg.blocks:
+            if block.mixer == MAMBA2:
+                layers.append(LayerCacheSpec(
+                    STATE, state=mamba2.state_shapes(cfg, slots)))
+                continue
             if block.mixer not in (ATTN, SHARED_ATTN):
-                item = {"mamba2": "B5", "rwkv6": "B6"}.get(block.mixer,
-                                                           "A13")
+                item = "B6" if block.mixer == "rwkv6" else "A13"
                 raise NotImplementedError(
                     f"{cfg.name}: {block.mixer} state caches are not ported "
                     f"yet (ROADMAP {item})")
@@ -130,24 +141,27 @@ class CacheSpec:
             layers.append(LayerCacheSpec(
                 PAGED_KV, ring_blocks=_ceil_div(cap, page_size),
                 window=block.window))
-        rings = sorted({ls.ring_blocks for ls in layers})
+        paged = [ls for ls in layers if ls.kind == PAGED_KV]
+        rings = sorted({ls.ring_blocks for ls in paged})
         widest = rings[-1] if rings else 1
         if num_pages is None:
             num_pages = slots * widest
         groups: List[PoolGroup] = []
         for r in rings:
-            windowed = all(ls.window is not None for ls in layers
+            windowed = all(ls.window is not None for ls in paged
                            if ls.ring_blocks == r)
             budget = num_pages if r == widest else slots * r
             groups.append(PoolGroup(key=page_group_key(r), ring_blocks=r,
                                     num_pages=budget, windowed=windowed))
         gidx = {g.ring_blocks: i for i, g in enumerate(groups)}
         layers = [dataclasses.replace(ls, group=gidx[ls.ring_blocks])
-                  for ls in layers]
+                  if ls.kind == PAGED_KV else ls for ls in layers]
         spec = cls(cfg=cfg, slots=slots, max_len=max_len,
                    page_size=page_size, num_pages=num_pages, layers=layers,
                    groups=groups, spec_tokens=spec_tokens, kv_dtype=kv_dtype)
         for block, ls in zip(cfg.blocks, spec.layers):
+            if ls.kind != PAGED_KV:
+                continue
             derived = attention.paged_ring_blocks(
                 block.window, spec.max_blocks, page_size, spec_tokens)
             if derived != ls.ring_blocks:
@@ -233,10 +247,16 @@ class CacheSpec:
         """Zeroed paged cache on ``device``.  Page-table entries start at
         each group's trash page, so an unadmitted slot's writes are
         discarded.  Quantized specs store the pools in ``pool_dtype`` and
-        add fp32 scale pools "ks"/"vs"."""
+        add fp32 scale pools "ks"/"vs"; ``dtype`` governs the dense STATE
+        leaves."""
         pool_dt = self.pool_dtype if self.quantized else dtype
         layer_caches: List[Optional[Dict]] = []
         for ls in self.layers:
+            if ls.kind == STATE:
+                layer_caches.append({
+                    k: torch.zeros(shape, dtype=dtype, device=device)
+                    for k, shape in ls.state.items()})
+                continue
             group = self.groups[ls.group]
             shape = self.pool_shape_for(group)
             entry = {
@@ -413,19 +433,29 @@ def splice_prefill(spec: CacheSpec, cache: Dict, one_cache: Dict,
     every layer's pool, in place, through the page rows ``rows`` (one per
     pool group) from position ``start``; the slot's table and ``len``
     are left as they are.  An overlong prompt's intermediate segments
-    take this alone; its final segment goes through :func:`admit_cache`."""
+    take this alone; its final segment goes through :func:`admit_cache`.
+    Segments exist only for sharing-capable (attention-only) stacks, so
+    a STATE layer here is an error."""
     for ls, big, small in zip(spec.layers, cache["layers"],
                               one_cache["layers"]):
         if ls.kind != PAGED_KV:
-            raise NotImplementedError(
-                f"splicing {ls.kind} state is not ported yet (ROADMAP B5)")
-        group = spec.groups[ls.group]
-        row = host_to_device(np.asarray(rows[group.key], np.int32),
-                             big["pk"].device)
-        splice_paged_layer(big["pk"], big["pv"], small["k"], small["v"],
-                           row, start, valid, ls.ring_blocks, spec.page_size,
-                           group.trash_page, scale_k=big.get("ks"),
-                           scale_v=big.get("vs"))
+            raise ValueError(
+                f"a prompt segment reached a {ls.kind} layer; recurrent "
+                "state cannot be spliced from a segment")
+        _splice_kv_layer(spec, ls, big, small, rows, start, valid)
+
+
+def _splice_kv_layer(spec: CacheSpec, ls: LayerCacheSpec, big: Dict,
+                     small: Dict, rows: Dict[str, np.ndarray], start: int,
+                     valid: int) -> None:
+    """One paged layer's splice through its group's page row."""
+    group = spec.groups[ls.group]
+    row = host_to_device(np.asarray(rows[group.key], np.int32),
+                         big["pk"].device)
+    splice_paged_layer(big["pk"], big["pv"], small["k"], small["v"],
+                       row, start, valid, ls.ring_blocks, spec.page_size,
+                       group.trash_page, scale_k=big.get("ks"),
+                       scale_v=big.get("vs"))
 
 
 def admit_cache(spec: CacheSpec, cache: Dict, one_cache: Dict, slot: int,
@@ -443,8 +473,17 @@ def admit_cache(spec: CacheSpec, cache: Dict, one_cache: Dict, slot: int,
     which leaves the pools and tables the same — except on 8-bit pools
     where the span is wider than the ring: there the reference's
     quantized splice sends the prompt's first pages to the trash page
-    (ROADMAP C) and the port's keeps them (:func:`splice_paged_layer`)."""
-    splice_prefill(spec, cache, one_cache, start, plen - start, rows)
+    (ROADMAP C) and the port's keeps them (:func:`splice_paged_layer`).
+    A STATE layer's batch-1 leaves are copied into row ``slot`` of its
+    dense leaves (the reference's ``_splice_state_leaf``): a ``copy_``
+    into a row, no host synchronization."""
+    for ls, big, small in zip(spec.layers, cache["layers"],
+                              one_cache["layers"]):
+        if ls.kind == STATE:
+            for key, leaf in big.items():
+                leaf[slot:slot + 1].copy_(small[key])
+        else:
+            _splice_kv_layer(spec, ls, big, small, rows, start, plen - start)
     _install_rows(cache, slot, rows)
     cache["len"][slot:slot + 1].fill_(plen)
     return cache

@@ -47,7 +47,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA2, SHARED_ATTN, ModelConfig
 from repro_torch.device import DeviceLike, host_to_device, resolve_device
 from repro_torch.models import layers
 from repro_torch.models.transformer import (forward_decode, forward_prefill,
@@ -157,8 +157,10 @@ class Executor:
                 temp: torch.Tensor, gen: torch.Generator):
         """Bucketed batch-1 prefill and on-device first-token sampling:
         tokens [1, bucket], length [1] int32, temp [1] -> (first token [1]
-        int32, cache of per-layer ``{"k","v"}`` [1,Hkv,bucket,dh]).  Its
-        attention is one ``flash_attention`` launch per layer."""
+        int32, cache of per-layer ``{"k","v"}`` [1,Hkv,bucket,dh], or
+        ``{"conv","ssm"}`` for a Mamba2 layer).  Its attention is one
+        ``flash_attention`` launch per attention layer, its Mamba2 scan
+        one ``mamba2_scan`` launch per Mamba2 layer."""
         logits, one = forward_prefill(params, self.cfg, {"tokens": tokens},
                                       length=length)
         tok = sampling.sample(logits, gen, temperature=temp,
@@ -235,6 +237,10 @@ class Executor:
         cache_mod.free_slot_cache(self.spec, cache, slot)
 
 
+# mixers the two-executable path serves (rwkv6: ROADMAP B6)
+_LEGACY_MIXERS = {ATTN, MAMBA2, SHARED_ATTN}
+
+
 def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
@@ -252,7 +258,10 @@ class Engine:
     prefills each admission in a batch-1 bucket (``buckets``, default
     powers of two from ``min_bucket`` up to ``max_len``) and decodes
     one token per slot per micro-step; ``"auto"`` is fused exactly where
-    the reference picks it (attention-only stacks).
+    the reference picks it (attention-only stacks).  zamba2 (Mamba2 +
+    shared attention) runs on two executables: its state admits by a
+    copy into the slot's row, it shares no prefixes, and a prompt longer
+    than the largest bucket takes a larger bucket (no segments).
 
     ``device`` (default: the card; raises without one) holds params,
     pools and slot state.  ``paged_kernel``: ``True`` reads the pools
@@ -310,11 +319,10 @@ class Engine:
             raise ValueError(
                 f"{cfg.name}: chunked_prefill needs paged KV for every "
                 f"mixer (attention-only stack); reason: {reason}")
-        if reason is not None:
-            # the two-executable path serves it once its mixers are ported
-            bad = {b.mixer for b in cfg.blocks}
-            item = ("B5" if "mamba2" in bad else
-                    "B6" if "rwkv6" in bad else "A13")
+        unported = sorted({b.mixer for b in cfg.blocks} - _LEGACY_MIXERS)
+        if unported or cfg.cross_attention or cfg.frontend:
+            # the two-executable path serves an arch whose mixers are ported
+            item = "B6" if "rwkv6" in unported else "A13"
             raise _unsupported(f"{cfg.name} ({reason})", item)
         if prefill_budget < 1:
             raise ValueError(
