@@ -8,9 +8,10 @@ full-width internlm2-1.8b (random weights from a seed) from fp32, int8
 and fp8_e4m3 KV page pools, the two-executable engine (bucketed,
 suffix and segmented prefill, S = 1 decode) serving it from fp32 and
 int8 pools, full-width, full-depth zamba2-7b (Mamba2 + shared
-attention) through the two-executable engine, then full-width
-dbrx-132b (MoE, depth cut to 4 layers) from fp32 pools — and holds
-every CUDA kernel on them against its plain PyTorch version.  Phases,
+attention) and rwkv6-7b (attention-free) through the two-executable
+engine, then full-width dbrx-132b (MoE, depth cut to 4 layers) from
+fp32 pools — and holds every CUDA kernel on them against its plain
+PyTorch version.  Phases,
 each printing JSON lines:
 
 1. device: the card's name and power limit (as nvidia-smi reports them),
@@ -39,7 +40,15 @@ each printing JSON lines:
    shape (BH 112, S 1024, P = N = 64) in both layouts: y and the final
    state within 1e-4 x max|want|; the model-layout call at zamba2's
    shape timed beside the plain version and the bound (no PyTorch call
-   computes this function).
+   computes this function).  Then the ``rwkv6_wkv`` kernel likewise: the
+   reference's three test cases, S = 1000 and an initial state with a
+   ragged S and K (neither S a multiple of the 16-step stage), the
+   model's layout with r, k, v strided column slices and u shared by
+   the batch (with and without an initial state) and rwkv6-7b's full
+   prefill shape (BH 64, S 1024, K 64) in both layouts, within 1e-4 x
+   max|want|; the model-layout call at that shape timed; and 300 pad
+   steps (k = 0, lw = 0) at the end of that shape, whose final state
+   must be bitwise the state before them.
 4. engine, once per pool dtype: full-width serving, 12 greedy requests
    with a shared prompt head; checks 32 tokens each, kernel launches of
    that dtype == layers x micro-steps (counts zeroed just before, read
@@ -86,6 +95,22 @@ each printing JSON lines:
    x full prefills, paged launches == 13 x decode micro-steps, the first
    admission round and its chunk free of host syncs; one decode chunk
    of a second wave profiled.  Then zamba2 is freed.
+5e. rwkv6: rwkv6-7b at full width and depth (32 layers of 64 wkv heads
+   of 64, d_ff 14336, vocab 65536; ~30.3 GB of fp32 weights).  One
+   100-token prompt through ``forward_prefill`` in the 1024 bucket
+   padded with 0s and with 9s (<= 1e-4 x max|want| on the logits and
+   every state leaf), and in its own 128 bucket against the 1024 bucket
+   and against a first-token prefill followed by 99 ``forward_decode``
+   steps (<= 1e-2: random weights grow a rounding difference ~1.3x per
+   layer over 32 layers); and each layer on the prefill's own input to
+   it, its prefill against its recurrent path (<= 1e-4).  Then the
+   12 requests through ``Engine(chunked_prefill="auto")``, which must
+   resolve to two executables with no pools: 32 tokens each, 0 prefix
+   hits, 0 pool pages in ``memory_stats``, ``rwkv6_wkv`` launches == 32
+   x full prefills, no paged, flash or mamba2_scan launch, the first
+   admission round and its chunk free of host syncs, finite logits of a
+   decode step on the final state; one decode chunk of a second wave
+   profiled.  Then rwkv6 is freed.
 6. dbrx: dbrx-132b is built at full width with its depth cut 40 -> 4
    (~57 GB of fp32 weights) and serves the same 12 requests from fp32 pools: 0 leaked
    pages, a chunk free of host syncs, ``moe_gmm`` launches == 3 x 4 x
@@ -99,8 +124,8 @@ each printing JSON lines:
 
 The last three lines are the card's name and power limit (again), the
 kernel table (paged attention per pool dtype, ``moe_gmm``,
-``flash_attention`` at dh 128 and at zamba2's dh 112, ``mamba2_scan``)
-and ``{"ok": true, "device": ...}``.
+``flash_attention`` at dh 128 and at zamba2's dh 112, ``mamba2_scan``,
+``rwkv6_wkv``) and ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before them.  Without a CUDA device, or
 without the repository's ``src/`` beside it, it exits non-zero at once.
 """
@@ -184,6 +209,39 @@ MAMBA_CASES = [
      False),
     ("zamba2_full", dict(B=1, H=112, S=1024, P=64, N=64), "model", False),
 ]
+# rwkv6_wkv cases: name, shape, layout.  "kernel": the Pallas layout (r,
+# k, v, lw [BH,S,K], u [BH,K]); "model": the model's (r, k, v [B,S,H,K]
+# column slices of one [B,S,3,H,K] tensor, lw [B,S,H,K], u [H,K] with a
+# batch stride of 0).  The first three are tests/test_kernels.py's
+# cases; "rwkv6_full" is the main path's call (rwkv6-7b prefill in the
+# 1024 bucket), and is timed.  S = 1000 and 77 are not multiples of the
+# kernel's 16-step stage.
+RWKV_CASES = [
+    ("jax_s64_k32", dict(B=3, H=1, S=64, K=32), "kernel", False),
+    ("jax_s128_k64", dict(B=3, H=1, S=128, K=64), "kernel", False),
+    ("jax_s48_k64", dict(B=3, H=1, S=48, K=64), "kernel", False),
+    ("s1000_not_stage_multiple", dict(B=8, H=1, S=1000, K=64), "kernel",
+     False),
+    ("h0_ragged_s77_k100", dict(B=3, H=1, S=77, K=100), "kernel", True),
+    ("model_strided", dict(B=2, H=16, S=300, K=64), "model", False),
+    ("model_strided_h0", dict(B=2, H=16, S=37, K=64), "model", True),
+    ("rwkv6_kernel_layout", dict(B=64, H=1, S=1024, K=64), "kernel",
+     False),
+    ("rwkv6_full", dict(B=1, H=64, S=1024, K=64), "model", False),
+]
+# rwkv6's path checks, x max|want| of each leaf.  Full-depth rwkv6-7b
+# with random weights grows a rounding-sized difference ~1.3x per layer:
+# this script's rwkv6_paths line on an H100 put the same prompt in the
+# 128 and 1024 buckets, which differ only in cuBLAS summation orders,
+# 2.8e-6 apart on the first layer's state and 2.3e-3 on the logits after
+# 32 layers (the recurrent path: 7.4e-7 and 1.7e-3).  So the
+# recurrent path is held to the prefill layer by layer, each layer fed
+# the prefill's own input (nothing compounds: RWKV6_LAYER_TOL), and end
+# to end, like the other bucket, within RWKV6_PATH_TOL.  The same bucket
+# with another pad token only moves with a masking fault.
+RWKV6_LAYER_TOL = 1e-4
+RWKV6_PATH_TOL = 1e-2
+RWKV6_MASK_TOL = 1e-4
 # zamba2's path checks, x max|want| of each leaf.  One prompt through
 # other shapes (another bucket; step-by-step decode): fp32 products of
 # other shapes sum in other orders and 81 layers carry the difference
@@ -674,6 +732,118 @@ def phase_mamba_kernels(torch, mops):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3, rwkv6_wkv: the rwkv6 prefill recurrence against its plain version
+# ---------------------------------------------------------------------------
+
+def rwkv_inputs(torch, gen, B, H, S, K, layout, h0):
+    """tests/test_kernels.py's distributions (r, k N(0, 0.25), v N(0, 1),
+    lw = clip(-2|N(0, 1)|, -5, 0), u N(0, 0.09)).  Returns the kernel
+    call and the same inputs in the plain version's layout."""
+    dev = DEV
+    rn = lambda *sh: torch.randn(*sh, generator=gen, device=dev)  # noqa: E731
+    if layout == "kernel":
+        r, k, v = rn(B, S, K) * 0.5, rn(B, S, K) * 0.5, rn(B, S, K)
+        lw = torch.clamp(-rn(B, S, K).abs() * 2, -5.0, 0.0)
+        u = rn(B, K) * 0.3
+        hh = rn(B, K, K) if h0 else None
+        return (r, k, v, lw, u, hh), (r, k, v, lw, u, hh)
+    rkv = rn(B, S, 3, H, K)
+    rkv[:, :, :2] *= 0.5
+    r, k, v = rkv[:, :, 0], rkv[:, :, 1], rkv[:, :, 2]
+    lw = torch.clamp(-rn(B, S, H, K).abs() * 2, -5.0, 0.0)
+    u = rn(H, K) * 0.3
+    hh = rn(B, H, K, K) if h0 else None
+
+    def flat(z):
+        return z.transpose(1, 2).reshape(B * H, S, K)
+    plain = (flat(r), flat(k), flat(v), flat(lw),
+             u[None].expand(B, H, K).reshape(B * H, K),
+             None if hh is None else hh.reshape(B * H, K, K))
+    return (r, k, v, lw, u, hh), plain
+
+
+def rwkv_need(B, H, S, K, layout, h0):
+    """Bytes and flops of one call: r, k, v, lw and u read, y and the
+    final state written, h0 read when given, fp32; 4 * BH * S * K^2
+    flops (a multiply-add per state element and step for the update and
+    one for y; the bonus term folds into y's)."""
+    bh = B * H
+    u_rows = H if layout == "model" else bh
+    nbytes = 4 * (5 * bh * S * K + u_rows * K
+                  + bh * K * K * (2 if h0 else 1))
+    return nbytes, 4 * bh * S * K * K
+
+
+def phase_rwkv6_kernels(torch, wops):
+    """Every ``RWKV_CASES`` case: the kernel against its plain version on
+    y and the final state, each within ``KERNEL_TOL`` x its max|want|;
+    then pad steps (k = 0, lw = 0, as the model masks bucket padding)
+    at the full shape: the final state bitwise the state before them.
+    Returns the worst relative error and the timed main-shape record."""
+    gen = torch.Generator(device=DEV).manual_seed(2468)
+    worst = 0.0
+    timed = {}
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    for name, shape, layout, h0 in RWKV_CASES:
+        call, plain = rwkv_inputs(torch, gen, **shape, layout=layout, h0=h0)
+        op = wops.wkv_model_layout if layout == "model" else wops.rwkv6_wkv
+        before = wops.launches
+        y, hf = op(*call)
+        yw, hw = wops.rwkv6_wkv_ref(*plain)
+        torch.cuda.synchronize()
+        check(wops.launches == before + 1, f"rwkv6 {name}: no launch")
+        B, H, S, K = (shape[k] for k in ("B", "H", "S", "K"))
+        if layout == "model":
+            y = y.transpose(1, 2).reshape(B * H, S, K)
+            hf = hf.reshape(B * H, K, K)
+        check(bool(torch.isfinite(y).all() and torch.isfinite(hf).all()),
+              f"rwkv6 {name}: non-finite output")
+        rec = {"case": name, "shape": shape, "layout": layout, "h0": h0,
+               "tol_relative": KERNEL_TOL}
+        for key, got, want in (("y", y, yw), ("state", hf, hw)):
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            rel = err / max(scale, 1e-30)
+            rec.update({f"{key}_max_abs_err": err,
+                        f"{key}_max_abs_want": scale,
+                        f"{key}_relative_err": rel})
+            worst = max(worst, rel)
+            check(rel <= KERNEL_TOL, f"rwkv6 {name} {key}: error {rel} x "
+                                     "max|want|")
+        if name == "rwkv6_full":
+            nbytes, flops = rwkv_need(**shape, layout=layout, h0=h0)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_flops = flops / FP32_FLOPS * 1e3
+            rec.update(
+                ms=cuda_ms(torch, lambda: op(*call), flush=flush),
+                plain_ms=cuda_ms(torch, lambda: wops.rwkv6_wkv_ref(*plain),
+                                 flush=flush),
+                library_ms=None, bound_ms=max(t_bytes, t_flops),
+                bound_by="bytes" if t_bytes >= t_flops else "operations",
+                bytes=nbytes, flops=flops)
+            timed = rec
+        emit("kernel_check", kernel="rwkv6_wkv", **rec)
+        del call, plain, y, hf, yw, hw
+    # pad steps: the last 300 of 1024 steps masked as the model masks them
+    call, _plain = rwkv_inputs(torch, gen, B=1, H=64, S=1024, K=64,
+                               layout="model", h0=False)
+    r, k, v, lw, u, _ = call
+    k, lw = k.clone(), lw.clone()
+    k[:, 724:] = 0.0
+    lw[:, 724:] = 0.0
+    _y, h_all = wops.wkv_model_layout(r, k, v, lw, u)
+    _y, h_cut = wops.wkv_model_layout(r[:, :724], k[:, :724], v[:, :724],
+                                      lw[:, :724], u)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(h_all, h_cut))
+    emit("kernel_check", kernel="rwkv6_wkv", case="pad_steps_keep_state",
+         real_steps=724, pad_steps=300, state_bitwise_equal=same)
+    check(same, "rwkv6: pad steps moved the state")
+    torch.cuda.empty_cache()
+    return worst, timed
+
+
+# ---------------------------------------------------------------------------
 # Phases 4-5: the engine at full width
 # ---------------------------------------------------------------------------
 
@@ -842,9 +1012,9 @@ def teacher_forced_logit_diff(torch, rt, cfg, params, kv_dtype,
 
 def profile_chunk(torch, eng) -> dict:
     """Device time of one chunk by kernel family, from ``torch.profiler``:
-    the paged-attention, moe_gmm, flash-attention and mamba2_scan kernels,
-    library
-    matrix products, everything else, and the device's idle share of the
+    the paged-attention, moe_gmm, flash-attention, mamba2_scan and
+    rwkv6_wkv kernels, library matrix products, everything else, and the
+    device's idle share of the
     chunk's wall time (profiler on, so the wall time includes its
     overhead)."""
     from torch.profiler import ProfilerActivity, profile
@@ -858,7 +1028,8 @@ def profile_chunk(torch, eng) -> dict:
         wall_ms = (time.time() - t0) * 1e3
     eng._drain(toks)
     fam = {"paged_attention": 0.0, "moe_gmm": 0.0, "flash_attention": 0.0,
-           "mamba2_scan": 0.0, "matmul": 0.0, "other": 0.0}
+           "mamba2_scan": 0.0, "rwkv6_wkv": 0.0, "matmul": 0.0,
+           "other": 0.0}
     n_kernels = 0
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -874,6 +1045,8 @@ def profile_chunk(torch, eng) -> dict:
             fam["flash_attention"] += us / 1e3
         elif "mamba2_scan" in name:
             fam["mamba2_scan"] += us / 1e3
+        elif "rwkv6_wkv" in name:
+            fam["rwkv6_wkv"] += us / 1e3
         elif "gemm" in name or "gemv" in name or "cutlass" in name:
             fam["matmul"] += us / 1e3
         else:
@@ -1383,6 +1556,246 @@ def phase_zamba2(torch, ops, fa, mops, rt):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5e: rwkv6-7b, attention-free, at full width and depth
+# ---------------------------------------------------------------------------
+
+def rwkv6_layer_check(torch, cfg, params, prompt) -> dict:
+    """Each rwkv6 layer on the prefill's own input to it: its full
+    prefill (one ``rwkv6_wkv`` launch over the prompt) against its
+    recurrent path (a one-token prefill, then one decode step per
+    token), on the layer's output rows and its state leaves, each within
+    ``RWKV6_LAYER_TOL`` x max|want|.  Returns the worst error per layer."""
+    from repro_torch.models import layers, transformer
+    L = len(prompt)
+    toks = torch.tensor(prompt[None], device=DEV)
+    pos = torch.arange(L, device=DEV)[None]
+    h = layers.embed(params["embed"], cfg, toks)
+    worst = []
+    for i, block in enumerate(cfg.blocks):
+        def run(x, mode, cache, lp=params["layers"][i], block=block):
+            return transformer._apply_block(
+                lp, None, x, x, cfg, block, mode=mode, positions=pos,
+                cache=cache, cache_len=None, paged_kernel=False)
+        out, want = run(h, "prefill", None)
+        rows, state = run(h[:, :1], "prefill", None)
+        rows = [rows]
+        for t in range(1, L):
+            y, state = run(h[:, t:t + 1], "decode", state)
+            rows.append(y)
+        pairs = [("out", torch.cat(rows, 1), out)] + [
+            (k, state[k], want[k]) for k in want]
+        rel = {k: float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                   1e-30)
+               for k, g, w in pairs}
+        key = max(rel, key=rel.get)
+        worst.append((rel[key], key))
+        check(all(bool(torch.isfinite(g).all()) for _k, g, _w in pairs),
+              f"rwkv6 layer {i}: non-finite values")
+        h = out
+    return worst
+
+
+def rwkv6_recurrent_check(torch, rt, cfg, params):
+    """One prompt of 100 tokens through ``forward_prefill`` in its own
+    bucket (128), in the 1024 bucket padded with 0s and padded with 9s
+    (the rwkv6_wkv kernel), and through the recurrent path: a prefill of
+    its first token, then ``forward_decode`` through the rest (the O(1)
+    update).  Gates on the last-token logits and every layer's state
+    leaves: the two pad tokens <= ``RWKV6_MASK_TOL`` x max|want| (the
+    ``length`` masking); the recurrent path and the 1024 bucket against
+    the 128 bucket <= ``RWKV6_PATH_TOL`` x max|want|; and, layer by
+    layer on the prefill's own inputs, the recurrent path against the
+    prefill <= ``RWKV6_LAYER_TOL`` (``rwkv6_layer_check``).  Returns the
+    decode seconds."""
+    import numpy as np
+    L = 100
+    rng = np.random.default_rng(29)
+    prompt = rng.integers(1, cfg.vocab_size, L).astype(np.int32)
+    length = torch.tensor([L], dtype=torch.int32, device=DEV)
+
+    def leaves(lg, layers):
+        out = {"logits": lg.reshape(-1)}
+        for i, c in enumerate(layers):
+            for key in ("wkv", "tshift", "cshift"):
+                out[f"{key}{i}"] = c[key]
+        return out
+
+    def prefill(bucket, pad):
+        padded = np.full((1, bucket), pad, np.int32)
+        padded[0, :L] = prompt
+        lg, cache = rt["forward_prefill"](
+            params, cfg, {"tokens": torch.tensor(padded, device=DEV)},
+            length=length)
+        return leaves(lg, cache["layers"])
+
+    want = prefill(128, 0)
+    base = prefill(1024, 0)
+    runs = {"pad9": prefill(1024, 9), "bucket1024": base}
+    spec = rt["CacheSpec"].from_config(cfg, 1, 1024, page_size=16)
+    cache = spec.init_paged_cache(torch.device(DEV))
+    toks = torch.tensor(prompt, device=DEV)
+    _, one = rt["forward_prefill"](params, cfg, {"tokens": toks[None, :1]})
+    rt["admit_cache"](spec, cache, one, 0, 0, 1, {})
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for t in range(1, L):
+        logits, cache = rt["forward_decode"](params, cfg, toks[None, t:t + 1],
+                                             cache)
+    torch.cuda.synchronize()
+    decode_s = time.time() - t0
+    runs["recurrent"] = leaves(logits, cache["layers"])
+    rec = {}
+    for name, got in runs.items():
+        ref = base if name == "pad9" else want
+        check(all(bool(torch.isfinite(got[k]).all()) for k in got),
+              f"rwkv6 {name}: non-finite values")
+        rel = {k: float((got[k] - w).abs().max())
+               / max(float(w.abs().max()), 1e-30) for k, w in ref.items()}
+        worst = max(rel, key=rel.get)
+        rec[name] = {"relative_err": rel[worst], "leaf": worst,
+                     "logits_relative_err": rel["logits"],
+                     "wkv_relative_err_by_layer": [
+                         rel[f"wkv{i}"] for i in range(cfg.num_layers)]}
+    by_layer = rwkv6_layer_check(torch, cfg, params, prompt)
+    layer_worst = max(by_layer)
+    emit("rwkv6_paths", prompt_len=L, decode_steps=L - 1,
+         decode_s=decode_s, ms_per_batch1_decode_step=decode_s / (L - 1)
+         * 1e3, state_leaves=len(want) - 1, mask_tol=RWKV6_MASK_TOL,
+         path_tol=RWKV6_PATH_TOL, layer_tol=RWKV6_LAYER_TOL,
+         pad_bucket_bitwise=all(bool(torch.equal(runs["pad9"][k], base[k]))
+                                for k in base),
+         same_argmax=bool(runs["recurrent"]["logits"].argmax()
+                          == want["logits"].argmax()),
+         layer_by_layer={"relative_err": layer_worst[0],
+                         "leaf": layer_worst[1],
+                         "layer": by_layer.index(layer_worst),
+                         "relative_err_by_layer": [e for e, _k in by_layer]},
+         **rec)
+    for name, tol in (("pad9", RWKV6_MASK_TOL),
+                      ("bucket1024", RWKV6_PATH_TOL),
+                      ("recurrent", RWKV6_PATH_TOL)):
+        check(rec[name]["relative_err"] <= tol,
+              f"rwkv6 {name}: {rec[name]['relative_err']} x max|want| "
+              f"({rec[name]['leaf']}) > {tol}")
+    check(layer_worst[0] <= RWKV6_LAYER_TOL,
+          f"rwkv6 layer {by_layer.index(layer_worst)}: recurrent vs "
+          f"prefill {layer_worst[0]} x max|want| ({layer_worst[1]}) > "
+          f"{RWKV6_LAYER_TOL}")
+    return decode_s
+
+
+def phase_rwkv6(torch, ops, fa, mops, wops, rt):
+    """Full-width, full-depth rwkv6-7b (32 layers, fp32, random weights
+    from seed 0): the prefill-vs-recurrent check, then the 12 requests
+    through ``Engine(chunked_prefill="auto")``, which must resolve to two
+    executables with no pools.  Counts are zeroed just before the run and
+    read just after.  Returns the launch counts for the kernel line."""
+    cfg = rt["get_config"]("rwkv6-7b")
+    n_layers = sum(b.mixer == "rwkv6" for b in cfg.blocks)
+    t0 = time.time()
+    params = rt["init_params"](rt["model_defs"](cfg), 0, device=DEV)
+    torch.cuda.synchronize()
+    emit("params", arch=cfg.name, layers=cfg.num_layers,
+         rwkv6_layers=n_layers, d_model=cfg.d_model,
+         wkv_heads=cfg.d_model // cfg.rwkv.head_dim,
+         params=sum(p.numel() for p in params.parameters()),
+         param_bytes=sum(p.numel() * p.element_size()
+                         for p in params.parameters()),
+         seconds=time.time() - t0)
+    rwkv6_recurrent_check(torch, rt, cfg, params)
+
+    eng = rt["Engine"](cfg, params, slots=8, max_len=1024, page_size=16,
+                       chunked_prefill="auto", device=DEV)
+    check(not eng.chunked_prefill and not eng.paged_kernel,
+          "rwkv6: chunked_prefill='auto' did not resolve to two "
+          "executables with no pools to read")
+    check(not eng.spec.has_paged and not eng.spec.prefix_sharing_capable,
+          "rwkv6: the cache must hold no pools and share no prefixes")
+    t0 = time.time()
+    eng.warmup()
+    torch.cuda.synchronize()
+    emit("warmup", arch=cfg.name, path="legacy", buckets=eng.buckets,
+         seconds=time.time() - t0)
+    reqs = make_requests(rt["Request"], cfg.vocab_size, 12, seed=7, rid0=0)
+    steps0 = eng.steps
+    prefills = count_prefills(eng)
+    torch.cuda.reset_peak_memory_stats()
+    ops.launches = 0
+    for k in ops.launches_by_dtype:
+        ops.launches_by_dtype[k] = 0
+    fa.launches = 0
+    mops.launches = 0
+    wops.launches = 0
+    times = serve_legacy(torch, eng, reqs, sync_check=True)
+    wkvs, paged, flash, scans = (wops.launches, ops.launches, fa.launches,
+                                 mops.launches)
+    n_prefill = prefills["n"]
+    micro = eng.steps - steps0
+    gen_tokens = sum(len(r.out_tokens) for r in reqs)
+    pstats = eng.prefix_stats()
+    stats = eng.memory_stats()
+    emit("rwkv6_engine", arch=cfg.name, requests=len(reqs),
+         decode_micro_steps=micro, chunks=eng.chunks,
+         full_prefills=n_prefill, rwkv6_wkv_launches=wkvs,
+         paged_attention_launches=paged, flash_attention_launches=flash,
+         mamba2_scan_launches=scans, generated_tokens=gen_tokens,
+         generated_tokens_per_s=gen_tokens / times["wall_s"],
+         ms_per_decode_micro_step=(times["decode_s"]
+                                   / max(times["decode_micro_steps_timed"],
+                                         1) * 1e3),
+         sync_free_admission_and_chunk=True, host_syncs=eng.host_syncs,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         state_bytes=sum(t.numel() * t.element_size()
+                         for c in eng.cache["layers"] for t in c.values()),
+         memory_stats=stats, prefix_stats=pstats,
+         leaked_pages=eng.leaked_pages(), **times)
+    for r in reqs:
+        check(r.done and len(r.out_tokens) == 32,
+              f"rwkv6 rid {r.rid}: {len(r.out_tokens)} tokens, "
+              f"done={r.done}")
+        check(all(0 <= t < cfg.vocab_size for t in r.out_tokens),
+              f"rwkv6 rid {r.rid}: a token outside the vocabulary")
+    check(pstats["prefix_hits"] == 0, "rwkv6: prefix hits with no pools")
+    check(stats["num_pages"] == 0 and stats["pages_in_use"] == 0
+          and stats["peak_pages_in_use"] == 0,
+          f"rwkv6: pool pages in memory_stats: {stats['num_pages']} / "
+          f"{stats['peak_pages_in_use']}")
+    check(n_prefill > 0 and wkvs == n_layers * n_prefill,
+          f"rwkv6: rwkv6_wkv launches {wkvs} != {n_layers} x "
+          f"{n_prefill} full prefills")
+    check(paged == 0 and flash == 0 and scans == 0,
+          f"rwkv6: other kernels launched (paged {paged}, flash {flash}, "
+          f"mamba2_scan {scans})")
+    # the logits of one decode step on the engine's final state (a copy)
+    cache = dict(eng.cache, len=eng.cache["len"].clone(),
+                 layers=[{k: v.clone() for k, v in c.items()}
+                         for c in eng.cache["layers"]])
+    logits, _ = rt["forward_decode"](params, cfg, eng.state["tokens"][:, None],
+                                     cache)
+    check(bool(torch.isfinite(logits).all()), "rwkv6: non-finite logits")
+    del cache, logits
+    # a second wave, one of its decode chunks profiled
+    wave = make_requests(rt["Request"], cfg.vocab_size, 8, seed=11,
+                         rid0=100)
+    for r in wave:
+        eng.submit(r)
+    eng.step()
+    eng.step()
+    try:
+        prof = profile_chunk(torch, eng)
+    except (RuntimeError, AttributeError) as e:   # an optional reading
+        prof = {"measured": False, "reason": repr(e)}
+    emit("profile", arch=cfg.name, path="legacy", kv_dtype="none", **prof)
+    eng.run(max_steps=10 ** 6)
+    check(all(r.done and len(r.out_tokens) == 32 for r in wave),
+          "rwkv6: the second wave did not finish")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"wkvs": wkvs, "prefills": n_prefill}
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: dbrx-132b, MoE at full width
 # ---------------------------------------------------------------------------
 
@@ -1561,6 +1974,7 @@ def main() -> int:
         from repro_torch.kernels.mamba2_scan import ops as mops
         from repro_torch.kernels.moe_gmm import ops as gmm
         from repro_torch.kernels.paged_attention import ops
+        from repro_torch.kernels.rwkv6_wkv import ops as wops
         from repro_torch.models import (forward_decode, forward_prefill,
                                         forward_verify, model_defs)
         from repro_torch.models.attention import quantize_pages
@@ -1594,7 +2008,8 @@ def main() -> int:
                    torch.backends.cudnn.allow_tf32])
 
         t0 = time.time()
-        sources = [ops.SOURCE, gmm.SOURCE, fa.SOURCE, mops.SOURCE]
+        sources = [ops.SOURCE, gmm.SOURCE, fa.SOURCE, mops.SOURCE,
+                   wops.SOURCE]
         with ThreadPoolExecutor(len(sources)) as pool:
             built = list(pool.map(build.compile_source, sources))
         for src, (lib, log) in zip(sources, built):
@@ -1609,6 +2024,7 @@ def main() -> int:
         gmm_worst = phase_gmm_kernels(torch, gmm)
         flash_worst, flash_timed = phase_flash_kernels(torch, fa)
         mamba_worst, mamba_timed = phase_mamba_kernels(torch, mops)
+        rwkv_worst, rwkv_timed = phase_rwkv6_kernels(torch, wops)
         cfg, params = init_model(torch, rt)
         launches, tokens = {}, {}
         for kv_dtype in KV_DTYPES:
@@ -1638,12 +2054,13 @@ def main() -> int:
                 phase_segments(torch, rt, cfg, params, eng)
             del eng
             torch.cuda.empty_cache()
-        # zamba2's ~24 GB and dbrx's ~57 GB of weights fit only one at a
-        # time, and only once internlm2's are gone
+        # zamba2's ~24 GB, rwkv6's ~30 GB and dbrx's ~57 GB of weights
+        # fit only one at a time, and only once internlm2's are gone
         del params
         gc.collect()
         torch.cuda.empty_cache()
         zamba2 = phase_zamba2(torch, ops, fa, mops, rt)
+        rwkv6 = phase_rwkv6(torch, ops, fa, mops, wops, rt)
         full = get_config("dbrx-132b")
         dbrx = cut_depth(full, DBRX_DEPTH)
         emit("depth_cut", arch=full.name, layers_full=full.num_layers,
@@ -1733,6 +2150,19 @@ def main() -> int:
         "full_prefills": zamba2["prefills"],
         "shape": "zamba2-7b prefill, model layout: B=1 H=112 S=1024 P=64 "
                  "N=64 fp32, b/c shared by the heads"})
+    entries.append({
+        "name": "rwkv6_wkv", "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv.cu",
+        "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:72",
+        "launches": rwkv6["wkvs"], "max_abs_err": rwkv_timed[
+            "y_max_abs_err"],
+        "max_relative_err_all_cases": rwkv_worst,
+        "ms": rwkv_timed["ms"], "plain_ms": rwkv_timed["plain_ms"],
+        "bound_ms": rwkv_timed["bound_ms"],
+        "bound_by": rwkv_timed["bound_by"], "library_ms": None,
+        "full_prefills": rwkv6["prefills"],
+        "shape": "rwkv6-7b prefill, model layout: B=1 H=64 S=1024 K=64 "
+                 "fp32, u shared by the batch"})
     print(card, flush=True)      # again, beside the results it qualifies
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

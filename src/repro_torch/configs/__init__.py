@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``get_config("internlm2-1.8b")``.
 
 Only the architectures the port can serve are registered: the dense
-internlm2-1.8b, the MoE dbrx-132b and grok-1-314b, and the hybrid
-zamba2-7b (Mamba2 backbone + shared attention).  The others of the
-reference join as their layers are ported (ROADMAP A5, A13, B6).
+internlm2-1.8b, the MoE dbrx-132b and grok-1-314b, the hybrid zamba2-7b
+(Mamba2 backbone + shared attention) and the attention-free rwkv6-7b.
+The others of the reference join as their configs and layers are
+ported (ROADMAP A5b, A13).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ _ARCH_MODULES = {
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "grok-1-314b": "repro_torch.configs.grok1_314b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
@@ -30,7 +32,7 @@ def get_config(arch: str) -> ModelConfig:
         if arch not in _ARCH_MODULES:
             raise KeyError(f"unknown arch {arch!r} for the PyTorch port; "
                            f"known: {ARCH_IDS} (more arrive with ROADMAP "
-                           "A5/A13)")
+                           "A5b/A13)")
         _cache[arch] = importlib.import_module(_ARCH_MODULES[arch]).config()
     return _cache[arch]
 

@@ -1,0 +1,198 @@
+"""Public RWKV6 wkv ops: the Hopper kernel on the card, its plain version
+on the CPU.
+
+``wkv_model_layout`` is what ``models/rwkv6.wkv_chunked`` calls for
+every rwkv6 layer of a full prefill; ``rwkv6_wkv`` is the kernel's own
+(Pallas) layout.  Dispatch is by where ``r`` lies, and nothing else:
+
+* a CPU tensor runs ``ref.rwkv6_wkv_ref`` (the per-step recurrence);
+* a CUDA tensor launches ``csrc/rwkv6_wkv.cu`` (built by
+  ``kernels/build.py`` at first use) or raises — there is no fallback.
+
+The kernel takes fp32 operands with K <= 128 and any S.  Its one entry
+point addresses r, k, v, lw and y through (batch, head, time) strides
+and u through (batch, head) strides, so the model's layout (``[B,S,H,K]``
+views of the ``[B,S,d]`` projections, u ``[H,K]`` shared by the batch
+rows) is read in place: no transpose and no broadcast copy.
+``launches`` counts kernel launches (one per call on a CUDA tensor), so
+a run can show that its main path went through the kernel.
+``supported()`` runs the smallest real launch; tests use it to skip.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_wkv.cu"
+MAX_HEAD = 128
+
+launches = 0    # kernel launches since import (callers may reset it)
+
+# the C signature of csrc's rwkv6_wkv_fwd: 8 tensor pointers, B, H, S, K,
+# the strides of r, k, v, lw and y (batch, head, time) and of u (batch,
+# head), the stream
+FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 21 \
+    + [ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    lib.rwkv6_wkv_fwd.argtypes = FWD_ARGTYPES
+    lib.rwkv6_wkv_fwd.restype = ctypes.c_int
+    lib.rwkv6_wkv_error_string.argtypes = [ctypes.c_int]
+    lib.rwkv6_wkv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(named: Sequence[Tuple[str, Optional[torch.Tensor]]],
+           shapes: dict) -> None:
+    """fp32 on one device, the expected shapes, unit inner stride and
+    32-bit strides; h0 contiguous; K <= 128."""
+    dev = named[0][1].device
+    for name, t in named:
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"the kernel takes fp32 operands; {name} is "
+                            f"{t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, r on {dev}")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"shape mismatch: {name} {tuple(t.shape)}, "
+                             f"want {shapes[name]}")
+        if t.dim() and t.stride(-1) != 1 and t.shape[-1] > 1:
+            raise ValueError(f"{name} needs a unit innermost stride")
+        if any(st >= 2 ** 31 for st in t.stride()):
+            raise ValueError(f"{name}'s strides exceed 32 bits")
+    h0 = dict(named).get("h0")
+    if h0 is not None and not h0.is_contiguous():
+        raise ValueError("h0 must be contiguous")
+    kk = shapes["r"][-1]
+    if kk > MAX_HEAD:
+        raise ValueError(f"the kernel takes K <= {MAX_HEAD}, got {kk}")
+
+
+def _bht(t: torch.Tensor, layout: str) -> Tuple[int, int, int]:
+    """(batch, head, time) element strides of a [BH,S,K] ("kernel") or
+    [B,S,H,K] ("model") operand."""
+    if layout == "kernel":
+        return t.stride(0), 0, t.stride(1)
+    return t.stride(0), t.stride(2), t.stride(1)
+
+
+def _launch(r, k, v, lw, u, h0, *, B: int, H: int, S: int, K: int,
+            layout: str, u_st: Tuple[int, int]):
+    """One kernel launch over B*H streams.  Returns (y contiguous in r's
+    shape, h_final [B*H,K,K])."""
+    if B * H > 65535:
+        raise ValueError(f"B*H = {B * H} exceeds the grid's 65535")
+    y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    hout = torch.empty((B * H, K, K), dtype=torch.float32, device=r.device)
+    vp = ctypes.c_void_p
+    lib = _lib()
+    strides = [s for t in (r, k, v, lw, y) for s in _bht(t, layout)]
+    rc = lib.rwkv6_wkv_fwd(
+        vp(r.data_ptr()), vp(k.data_ptr()), vp(v.data_ptr()),
+        vp(lw.data_ptr()), vp(u.data_ptr()),
+        vp(h0.data_ptr() if h0 is not None else 0), vp(y.data_ptr()),
+        vp(hout.data_ptr()), B, H, S, K, *strides, *u_st,
+        vp(torch.cuda.current_stream(r.device).cuda_stream))
+    if rc != 0:
+        raise RuntimeError("rwkv6_wkv kernel launch failed: "
+                           + lib.rwkv6_wkv_error_string(rc).decode())
+    global launches
+    launches += 1
+    return y, hout
+
+
+def _on_cuda(r: torch.Tensor) -> bool:
+    if r.device.type == "cpu":
+        return False
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_wkv runs on cuda or cpu tensors, got "
+                         f"{r.device}")
+    return True
+
+
+def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              lw: torch.Tensor, u: torch.Tensor,
+              h0: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's layout: r, k, v, lw [BH,S,K] (lw <= 0), u [BH,K], h0
+    [BH,K,K] or None -> (y [BH,S,K], h_final [BH,K,K] fp32)."""
+    if not _on_cuda(r):
+        return rwkv6_wkv_ref(r, k, v, lw, u, h0)
+    bh, s, kk = r.shape
+    _check([("r", r), ("k", k), ("v", v), ("lw", lw), ("u", u),
+            ("h0", h0)],
+           {"r": (bh, s, kk), "k": (bh, s, kk), "v": (bh, s, kk),
+            "lw": (bh, s, kk), "u": (bh, kk), "h0": (bh, kk, kk)})
+    return _launch(r, k, v, lw, u, h0, B=bh, H=1, S=s, K=kk,
+                   layout="kernel", u_st=(u.stride(0), 0))
+
+
+def wkv_model_layout(rh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                     lwh: torch.Tensor, uh: torch.Tensor,
+                     h0: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The model's layout: rh, kh, vh, lwh [B,S,H,K], uh [H,K], h0
+    [B,H,K,K] or None -> (y [B,S,H,K], h_final [B,H,K,K] fp32).  On the
+    card: one launch that reads this layout in place.  On the CPU: the
+    reference adapter's transpose to the kernel's layout, then the plain
+    version."""
+    bsz, s, h, kk = rh.shape
+    if not _on_cuda(rh):
+        def flat(z):
+            return z.transpose(1, 2).reshape(bsz * h, s, kk)
+        u2 = uh[None].expand(bsz, h, kk).reshape(bsz * h, kk)
+        y, hf = rwkv6_wkv(flat(rh), flat(kh), flat(vh), flat(lwh), u2,
+                          None if h0 is None
+                          else h0.reshape(bsz * h, kk, kk))
+        return y.reshape(bsz, h, s, kk).transpose(1, 2), \
+            hf.reshape(bsz, h, kk, kk)
+    h0f = None if h0 is None else h0.reshape(bsz * h, kk, kk)
+    shape = (bsz, s, h, kk)
+    _check([("r", rh), ("k", kh), ("v", vh), ("lw", lwh), ("u", uh),
+            ("h0", h0f)],
+           {"r": shape, "k": shape, "v": shape, "lw": shape, "u": (h, kk),
+            "h0": (bsz * h, kk, kk)})
+    y, hf = _launch(rh, kh, vh, lwh, uh, h0f, B=bsz, H=h, S=s, K=kk,
+                    layout="model", u_st=(0, uh.stride(0)))
+    return y, hf.view(bsz, h, kk, kk)
+
+
+@functools.lru_cache(maxsize=None)
+def supported() -> bool:
+    """Probe, don't version-sniff: True when the smallest real kernel
+    launch (a ragged K and S, an initial state) builds, runs and agrees
+    with the plain version.  Probe launches are not counted."""
+    if not torch.cuda.is_available():
+        return False
+    global launches
+    before = launches
+    try:
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        r, k, v = (torch.randn(2, 37, 20, generator=gen, device=dev) * 0.5
+                   for _ in range(3))
+        lw = -torch.rand(2, 37, 20, generator=gen, device=dev) * 5.0
+        u = torch.randn(2, 20, generator=gen, device=dev) * 0.3
+        h0 = torch.randn(2, 20, 20, generator=gen, device=dev)
+        got = rwkv6_wkv(r, k, v, lw, u, h0)
+        want = rwkv6_wkv_ref(r, k, v, lw, u, h0)
+        torch.cuda.synchronize()
+        return all(bool(torch.allclose(g, w, atol=1e-4))
+                   for g, w in zip(got, want))
+    except (RuntimeError, OSError):
+        return False
+    finally:
+        launches = before

@@ -1,5 +1,6 @@
-"""Basic layers: RMS norm, rotary embeddings, token embeddings, LM head,
-SwiGLU MLP (counterparts of ``repro/models/layers.py``)."""
+"""Basic layers: RMS norm, group norm, rotary embeddings, token
+embeddings, LM head, SwiGLU MLP (counterparts of
+``repro/models/layers.py``)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,24 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def groupnorm_defs(dim: int):
+    return {"scale": ParamDef((dim,), init="ones"),
+            "bias": ParamDef((dim,), init="zeros")}
+
+
+def groupnorm(params, x: torch.Tensor, num_groups: int,
+              eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the last dim (RWKV's per-head norm): fp32
+    statistics, biased variance."""
+    *lead, d = x.shape
+    xf = x.float().reshape(*lead, num_groups, d // num_groups)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float

@@ -1,6 +1,7 @@
 """Model assembly for the port: decoder stacks of attention blocks with
-dense or MoE FFNs, and the zamba2 hybrid (Mamba2 backbone + shared
-attention blocks), over block-paged KV and dense recurrent state
+dense or MoE FFNs, the zamba2 hybrid (Mamba2 backbone + shared
+attention blocks) and the attention-free rwkv6 stack (time-mix +
+channel-mix), over block-paged KV and dense recurrent state
 (counterpart of ``repro/models/transformer.py``).
 
 Entry points:
@@ -12,13 +13,14 @@ Entry points:
 ``forward_prefill`` is the two-executable engine's bucketed prefill (its
 attention runs ``kernels/flash_attention`` on the card, or a suffix
 prefill against paged context; its Mamba2 layers run
-``kernels/mamba2_scan``); it returns per-layer KV for the splice and
-each Mamba2 layer's state.  ``forward_decode`` writes KV into the pools
-in place and returns new state tensors for the Mamba2 layers.
-``forward_verify`` runs attention-only stacks (the fused chunk).  The
-rwkv6 mixer (ROADMAP B6), other FFNs, encoders, frontends and the train
-pass are not ported yet and raise (A13, A15).  Serving drops the MoE
-router's aux values, as the reference's entry points do.
+``kernels/mamba2_scan``, its rwkv6 layers ``kernels/rwkv6_wkv``); it
+returns per-layer KV for the splice and each recurrent layer's state.
+``forward_decode`` writes KV into the pools in place and returns new
+state tensors for the Mamba2 and rwkv6 layers.  ``forward_verify`` runs
+attention-only stacks (the fused chunk).  Encoders, cross-attention,
+modality frontends and the train pass are not ported yet and raise
+(A13, A15).  Serving drops the MoE router's aux values, as the
+reference's entry points do.
 """
 
 from __future__ import annotations
@@ -28,13 +30,13 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import (ATTN, FFN_DENSE, FFN_MOE, FFN_NONE,
-                                      MAMBA2, SHARED_ATTN, BlockSpec,
-                                      ModelConfig)
-from repro_torch.models import attention, layers, mamba2, moe
+                                      FFN_RWKV, MAMBA2, RWKV6, SHARED_ATTN,
+                                      BlockSpec, ModelConfig)
+from repro_torch.models import attention, layers, mamba2, moe, rwkv6
 from repro_torch.models.module import ParamDef
 
 _PORTED = {(ATTN, FFN_DENSE), (ATTN, FFN_MOE), (MAMBA2, FFN_NONE),
-           (SHARED_ATTN, FFN_DENSE)}
+           (SHARED_ATTN, FFN_DENSE), (RWKV6, FFN_RWKV)}
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -44,11 +46,11 @@ def _check_supported(cfg: ModelConfig) -> None:
             "are not ported yet (ROADMAP A13)")
     for b in cfg.blocks:
         if (b.mixer, b.ffn) not in _PORTED:
-            item = "B6" if b.mixer == "rwkv6" else "A13"
             raise NotImplementedError(
                 f"{cfg.name}: a {b.mixer}/{b.ffn} block is not ported yet; "
                 "the port runs attention blocks with dense or MoE FFNs, "
-                f"Mamba2 blocks and shared attention blocks (ROADMAP {item})")
+                "Mamba2 blocks, shared attention blocks and rwkv6 blocks "
+                "(ROADMAP A13)")
 
 
 def _block_defs(cfg: ModelConfig, block: BlockSpec) -> Dict:
@@ -59,10 +61,16 @@ def _block_defs(cfg: ModelConfig, block: BlockSpec) -> Dict:
         defs["mixer"] = attention.attn_defs(cfg)
     elif block.mixer == MAMBA2:
         defs["mixer"] = mamba2.mamba2_defs(cfg)
+    elif block.mixer == RWKV6:
+        defs["mixer"] = rwkv6.time_mix_defs(cfg)
     if block.ffn != FFN_NONE and block.mixer != SHARED_ATTN:
         defs["ln2"] = layers.rmsnorm_defs(cfg.d_model)
-        defs["ffn"] = (moe.moe_defs(cfg) if block.ffn == FFN_MOE
-                       else layers.mlp_defs(cfg))
+        if block.ffn == FFN_MOE:
+            defs["ffn"] = moe.moe_defs(cfg)
+        elif block.ffn == FFN_RWKV:
+            defs["ffn"] = rwkv6.channel_mix_defs(cfg)
+        else:
+            defs["ffn"] = layers.mlp_defs(cfg)
     return defs
 
 
@@ -98,7 +106,9 @@ def _apply_block(lp, shared, h: torch.Tensor, h0: torch.Tensor,
     """One decoder layer.  Attention: pre-norm attention, then a pre-norm
     SwiGLU or MoE FFN (the MoE aux values are dropped).  Mamba2: a
     pre-norm Mamba2 mixer and no FFN (``length``: the true lengths of a
-    right-padded prefill).  Shared attention: the block of
+    right-padded prefill).  rwkv6: a pre-norm time-mix, then a pre-norm
+    channel-mix, their states ``{tshift, wkv}`` and ``{cshift}`` merged
+    into one dict.  Shared attention: the block of
     ``shared[block.shared_group]`` on ``concat(h, h0)``, where ``h0`` is
     the embedding output."""
     if block.mixer == SHARED_ATTN:
@@ -123,6 +133,15 @@ def _apply_block(lp, shared, h: torch.Tensor, h0: torch.Tensor,
     if block.mixer == MAMBA2:
         y, new_cache = mamba2.apply(lp["mixer"], xn, cfg, mode=mode,
                                     state=cache, length=length)
+        return h + y, new_cache
+    if block.mixer == RWKV6:
+        y, tm_state = rwkv6.time_mix(lp["mixer"], xn, cfg, mode=mode,
+                                     state=cache, length=length)
+        h = h + y
+        y, cm_state = rwkv6.channel_mix(
+            lp["ffn"], layers.rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg,
+            mode=mode, state=cache, length=length)
+        new_cache = None if tm_state is None else {**tm_state, **cm_state}
         return h + y, new_cache
     y, new_cache = attention.apply(
         lp["mixer"], xn, cfg=cfg, window=block.window, positions=positions,
@@ -166,10 +185,12 @@ def forward_prefill(params, cfg: ModelConfig, batch: Dict, *,
     ``batch["tokens"]`` [B,S], right-padded to a shape bucket; ``length``
     [B] int32, their true lengths: logits are taken at ``length - 1`` and
     the cache records ``length`` (causality already hides the padding
-    from every real token; Mamba2 layers take dt = 0 past it).  The cache
-    holds per-layer ``{"k","v"}`` [B,Hkv,S,dh] for attention layers
-    (padding included; the splice drops it), ``{"conv","ssm"}`` for
-    Mamba2 layers (the state at ``length - 1``) and ``len``.
+    from every real token; Mamba2 layers take dt = 0 past it, rwkv6
+    layers k = 0 and a log decay of 0).  The cache holds per-layer
+    ``{"k","v"}`` [B,Hkv,S,dh] for attention layers (padding included;
+    the splice drops it), ``{"conv","ssm"}`` for Mamba2 layers and
+    ``{"tshift","wkv","cshift"}`` for rwkv6 layers (the state at
+    ``length - 1``), and ``len``.
 
     ``ctx`` makes this a suffix prefill for prefix sharing: ``{"off":
     prefix length (host int), "row": [Cb] int32 page ids, "layers":
@@ -231,9 +252,9 @@ def forward_decode(params, cfg: ModelConfig, tokens: torch.Tensor,
                    ) -> Tuple[torch.Tensor, Dict]:
     """tokens [B,1]; ``cache["len"]`` counts tokens already cached.  Writes
     the new KV through the page tables and returns next-token logits
-    [B,V] and the cache with ``len`` advanced by one and each Mamba2
-    layer's new state (every row's: the write mask does not cover
-    state, as in the reference)."""
+    [B,V] and the cache with ``len`` advanced by one and each recurrent
+    (Mamba2, rwkv6) layer's new state (every row's: the write mask does
+    not cover state, as in the reference)."""
     cache_len = cache["len"] + 1
     positions = cache["len"][:, None]
     layer_caches = _thread_page_tables(cfg, cache, write_mask)

@@ -24,11 +24,13 @@ per-page, per-kv-head fp32 scales in parallel scale pools ("ks"/"vs",
 (``attention.rmw_quantized_pages``) and every consumer dequantizes in
 the attention read, so fp32 K/V never exists at pool width.
 
-Mamba2 layers (zamba2) keep their O(1) recurrent state dense,
-``[slots, ...]`` per leaf (kind ``STATE``): paging constant-size state
-buys nothing.  Admission copies a prefill's state into the slot's row in
-place; decode replaces the leaves with the step's new state.  rwkv6
-state is ROADMAP B6.
+Mamba2 layers (zamba2) and rwkv6 layers keep their O(1) recurrent
+state dense, ``[slots, ...]`` per leaf (kind ``STATE``): paging
+constant-size state buys nothing.  Admission copies a prefill's state
+into the slot's row in place; decode replaces the leaves with the step's
+new state.  An arch with no paged layer (rwkv6) has no pool groups, no
+page tables and needs no pages (``blocks_needed == {}``).  Encoder and
+cross-attention caches are not ported (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -39,13 +41,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, MAMBA2, SHARED_ATTN, ModelConfig
+from repro_torch.configs.base import (ATTN, MAMBA2, RWKV6, SHARED_ATTN,
+                                      ModelConfig)
 from repro_torch.device import host_to_device
-from repro_torch.models import attention, mamba2
+from repro_torch.models import attention, mamba2, rwkv6
 from repro_torch.models.attention import page_group_key
 
 PAGED_KV = "paged_kv"    # block-paged KV ring (attention mixers)
-STATE = "state"          # constant-size recurrent state (mamba2)
+STATE = "state"          # constant-size recurrent state (mamba2, rwkv6)
 KV_DTYPES = ("fp32", "int8", "fp8_e4m3")
 
 
@@ -121,15 +124,15 @@ class CacheSpec:
                              f"{page_size}")
         layers: List[Optional[LayerCacheSpec]] = []
         for block in cfg.blocks:
-            if block.mixer == MAMBA2:
-                layers.append(LayerCacheSpec(
-                    STATE, state=mamba2.state_shapes(cfg, slots)))
+            if block.mixer in (MAMBA2, RWKV6):
+                shapes = (mamba2 if block.mixer == MAMBA2
+                          else rwkv6).state_shapes(cfg, slots)
+                layers.append(LayerCacheSpec(STATE, state=shapes))
                 continue
             if block.mixer not in (ATTN, SHARED_ATTN):
-                item = "B6" if block.mixer == "rwkv6" else "A13"
                 raise NotImplementedError(
-                    f"{cfg.name}: {block.mixer} state caches are not ported "
-                    f"yet (ROADMAP {item})")
+                    f"{cfg.name}: {block.mixer} caches are not ported yet "
+                    "(ROADMAP A13)")
             cap = min(max_len, block.window or max_len)
             if block.window is not None and spec_tokens:
                 cap = min(max_len, block.window + spec_tokens)

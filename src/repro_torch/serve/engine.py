@@ -47,7 +47,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, MAMBA2, SHARED_ATTN, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, host_to_device, resolve_device
 from repro_torch.models import layers
 from repro_torch.models.transformer import (forward_decode, forward_prefill,
@@ -157,10 +157,11 @@ class Executor:
                 temp: torch.Tensor, gen: torch.Generator):
         """Bucketed batch-1 prefill and on-device first-token sampling:
         tokens [1, bucket], length [1] int32, temp [1] -> (first token [1]
-        int32, cache of per-layer ``{"k","v"}`` [1,Hkv,bucket,dh], or
-        ``{"conv","ssm"}`` for a Mamba2 layer).  Its attention is one
+        int32, cache of per-layer ``{"k","v"}`` [1,Hkv,bucket,dh], or the
+        state of a Mamba2 or rwkv6 layer).  Its attention is one
         ``flash_attention`` launch per attention layer, its Mamba2 scan
-        one ``mamba2_scan`` launch per Mamba2 layer."""
+        one ``mamba2_scan`` launch per Mamba2 layer, its wkv one
+        ``rwkv6_wkv`` launch per rwkv6 layer."""
         logits, one = forward_prefill(params, self.cfg, {"tokens": tokens},
                                       length=length)
         tok = sampling.sample(logits, gen, temperature=temp,
@@ -237,10 +238,6 @@ class Executor:
         cache_mod.free_slot_cache(self.spec, cache, slot)
 
 
-# mixers the two-executable path serves (rwkv6: ROADMAP B6)
-_LEGACY_MIXERS = {ATTN, MAMBA2, SHARED_ATTN}
-
-
 def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
@@ -259,15 +256,17 @@ class Engine:
     powers of two from ``min_bucket`` up to ``max_len``) and decodes
     one token per slot per micro-step; ``"auto"`` is fused exactly where
     the reference picks it (attention-only stacks).  zamba2 (Mamba2 +
-    shared attention) runs on two executables: its state admits by a
-    copy into the slot's row, it shares no prefixes, and a prompt longer
-    than the largest bucket takes a larger bucket (no segments).
+    shared attention) and rwkv6 (no attention, no pools) run on two
+    executables: their state admits by a copy into the slot's row, they
+    share no prefixes, and a prompt longer than the largest bucket takes
+    a larger bucket (no segments).
 
     ``device`` (default: the card; raises without one) holds params,
     pools and slot state.  ``paged_kernel``: ``True`` reads the pools
     through ``kernels/paged_attention`` (the Hopper kernel on CUDA
     tensors, its plain version on the CPU), ``False`` gathers each slot's
-    ring, ``"auto"`` is the kernel exactly when the device is CUDA.
+    ring, ``"auto"`` is the kernel exactly when the device is CUDA; an
+    arch with no paged layer reads no pools (``paged_kernel`` False).
     ``max_len`` is the logical per-slot token cap; ``num_pages`` the
     full-attention pool budget (default ``slots`` x widest ring, under
     which no pool pressure can arise).
@@ -319,11 +318,9 @@ class Engine:
             raise ValueError(
                 f"{cfg.name}: chunked_prefill needs paged KV for every "
                 f"mixer (attention-only stack); reason: {reason}")
-        unported = sorted({b.mixer for b in cfg.blocks} - _LEGACY_MIXERS)
-        if unported or cfg.cross_attention or cfg.frontend:
-            # the two-executable path serves an arch whose mixers are ported
-            item = "B6" if "rwkv6" in unported else "A13"
-            raise _unsupported(f"{cfg.name} ({reason})", item)
+        if cfg.cross_attention or cfg.frontend:
+            # every mixer is served; encoders and frontends are not
+            raise _unsupported(f"{cfg.name} ({reason})", "A13")
         if prefill_budget < 1:
             raise ValueError(
                 f"prefill_budget must be >= 1, got {prefill_budget}")
@@ -363,7 +360,8 @@ class Engine:
             kv_dtype=self.kv_dtype)
         if paged_kernel == "auto":
             paged_kernel = self.device.type == "cuda"
-        self.paged_kernel = bool(paged_kernel)
+        # an arch with no paged layer (rwkv6) has no pools to read
+        self.paged_kernel = bool(paged_kernel) and self.spec.has_paged
         # fused prompts enter the radix index once their pages are written
         # (a later drain); a two-executable admission writes them at once
         self.scheduler = Scheduler(self.spec, prefix_sharing=prefix_sharing,

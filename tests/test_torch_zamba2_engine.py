@@ -42,13 +42,10 @@ from repro.serve import cache as jcache  # noqa: E402
 from repro.serve.engine import Engine as JEngine  # noqa: E402
 from repro.serve.engine import Request as JRequest  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.configs.base import (FFN_RWKV, RWKV6,  # noqa: E402
-                                      RWKVConfig, uniform_blocks)
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention_ref  # noqa: E402
 from repro_torch.models import forward_decode, forward_prefill  # noqa: E402
-from repro_torch.models import model_defs  # noqa: E402
 from repro_torch.models.module import params_from_numpy  # noqa: E402
 from repro_torch.serve import cache as tcache  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
@@ -318,17 +315,6 @@ def test_engine_mode_contract(models):
     assert not Engine(cfg, tp, device="cpu").chunked_prefill
     with pytest.raises(ValueError, match="chunked_prefill"):
         Engine(cfg, tp, device="cpu", chunked_prefill=True)
-
-
-def test_rwkv6_still_raises_b6():
-    cfg = dataclasses.replace(
-        reduced(get_config("internlm2-1.8b")), name="rwkv-like",
-        blocks=uniform_blocks(2, mixer=RWKV6, ffn=FFN_RWKV),
-        rwkv=RWKVConfig())
-    with pytest.raises(NotImplementedError, match="B6"):
-        model_defs(cfg)
-    with pytest.raises(NotImplementedError, match="B6"):
-        tcache.CacheSpec.from_config(cfg, 1, 32)
 
 
 # ---------------------------------------------------------------------------
