@@ -10,9 +10,9 @@ suffix and segmented prefill, S = 1 decode) serving it from fp32 and
 int8 pools, full-width, full-depth zamba2-7b (Mamba2 + shared
 attention) and rwkv6-7b (attention-free) through the two-executable
 engine, then full-width dbrx-132b (MoE, depth cut to 4 layers) from
-fp32 pools — and holds every CUDA kernel on them against its plain
-PyTorch version.  Phases,
-each printing JSON lines:
+fp32 pools — and the paper's §5 operator study (fig09 and fig11, the
+fused-prep matmul), and holds every CUDA kernel on them against its
+plain PyTorch version.  Phases, each printing JSON lines:
 
 1. device: the card's name and power limit (as nvidia-smi reports them),
    torch and CUDA versions; TF32 off.
@@ -49,6 +49,21 @@ each printing JSON lines:
    max|want|; the model-layout call at that shape timed; and 300 pad
    steps (k = 0, lw = 0) at the end of that shape, whose final state
    must be bitwise the state before them.
+3b. fused_matmul: the kernel against ``matmul1`` on int8 x with fp32 w,
+   scaled and unscaled, at fig09's n = 256, 512, 1024 and 2048; on
+   tests/test_kernels.py's three shapes in fp32 and bf16, scaled and
+   unscaled; on fp16 x; at ragged edges (37x53x29, M = 1, K = 1) and
+   with a bf16 output from fp32 w (fp32 out <= 1e-4 x max|want|, bf16
+   <= 2e-2 x max|want|).  fig11's case (int8 x, scaled, fp32 out) timed
+   at n = 1024 and 2048 beside the plain version (prep + cuBLAS), bare
+   cuBLAS on the prepared x (a yardstick) and the bound.  ``matmul``'s
+   gradients (forward through the kernel) against autograd through
+   ``matmul1``: dw and dscale for int8 x, dx too for fp32 x (<= 1e-4 x
+   max|want|).  Then the slice's main path: fig09's and fig11's
+   ``main`` at their default sizes, their CSV rows printed; every
+   kernel count zeroed just before each and read just after: fig09
+   launches no kernel, fig11 launches ``fused_matmul`` once per fused
+   call and no other kernel.
 4. engine, once per pool dtype: full-width serving, 12 greedy requests
    with a shared prompt head; checks 32 tokens each, kernel launches of
    that dtype == layers x micro-steps (counts zeroed just before, read
@@ -125,7 +140,8 @@ each printing JSON lines:
 The last three lines are the card's name and power limit (again), the
 kernel table (paged attention per pool dtype, ``moe_gmm``,
 ``flash_attention`` at dh 128 and at zamba2's dh 112, ``mamba2_scan``,
-``rwkv6_wkv``) and ``{"ok": true, "device": ...}``.
+``rwkv6_wkv``, ``fused_matmul`` at fig11's n = 1024 with its launches
+in fig11) and ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before them.  Without a CUDA device, or
 without the repository's ``src/`` beside it, it exits non-zero at once.
 """
@@ -229,6 +245,31 @@ RWKV_CASES = [
      False),
     ("rwkv6_full", dict(B=1, H=64, S=1024, K=64), "model", False),
 ]
+# fused_matmul cases: name, (M, K, N), x dtype, w dtype, out dtype, scaled.
+# fig09/fig11's int8 x at their four sizes; tests/test_kernels.py's
+# three shapes in fp32 and bf16; fp16 x; ragged edges; a bf16 output
+# from fp32 w.  FMM_TIMED: fig11's size and the largest of fig09's.
+FMM_BF16_TOL = 2e-2   # x max|want|: one rounding of the fp32 sum to bf16
+FMM_CASES = [
+    (f"fig_int8_n{n}_{'scaled' if sc else 'unscaled'}", (n, n, n), "int8",
+     "float32", "float32", sc)
+    for n in (256, 512, 1024, 2048) for sc in (True, False)]
+FMM_CASES += [
+    (f"jax_{m}x{k}x{n}_{dt}_{'scaled' if sc else 'unscaled'}", (m, k, n),
+     dt, dt, dt, sc)
+    for (m, k, n) in ((128, 128, 128), (256, 512, 128), (512, 256, 384))
+    for dt in ("float32", "bfloat16") for sc in (True, False)]
+FMM_CASES += [
+    ("fp16_x_fp32_w", (512, 256, 384), "float16", "float32", "float32",
+     True),
+    ("ragged_37x53x29", (37, 53, 29), "int8", "float32", "float32", True),
+    ("ragged_m1", (1, 1024, 300), "int8", "float32", "float32", True),
+    ("ragged_k1", (300, 1, 200), "int8", "float32", "float32", True),
+    ("ragged_bf16_x", (37, 53, 29), "bfloat16", "float32", "float32", False),
+    ("bf16_out_fp32_w", (1024, 1024, 1024), "int8", "float32", "bfloat16",
+     True),
+]
+FMM_TIMED = (1024, 2048)
 # rwkv6's path checks, x max|want| of each leaf.  Full-depth rwkv6-7b
 # with random weights grows a rounding-sized difference ~1.3x per layer:
 # this script's rwkv6_paths line on an H100 put the same prompt in the
@@ -841,6 +882,166 @@ def phase_rwkv6_kernels(torch, wops):
     check(same, "rwkv6: pad steps moved the state")
     torch.cuda.empty_cache()
     return worst, timed
+
+
+# ---------------------------------------------------------------------------
+# Phase 3, fused_matmul: the §5 operator against its plain version
+# ---------------------------------------------------------------------------
+
+def fmm_inputs(torch, gen, M, K, N, xd, wd, scaled):
+    """fig09's distributions: int8 x in [-127, 127), float x and w
+    N(0, 1) in their dtype, row scales |N(0, 1)|."""
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+    if xd == "int8":
+        x = torch.randint(-127, 127, (M, K), generator=gen, device=DEV,
+                          dtype=torch.int8)
+    else:
+        x = torch.randn(M, K, generator=gen, device=DEV).to(dt[xd])
+    w = torch.randn(K, N, generator=gen, device=DEV).to(dt[wd])
+    sc = (torch.randn(M, 1, generator=gen, device=DEV).abs() if scaled
+          else None)
+    return x, w, sc
+
+
+def phase_fused_matmul_kernels(torch, fops, fig11):
+    """Every ``FMM_CASES`` case: the kernel against ``matmul1`` on the
+    same tensors, fp32 out within ``KERNEL_TOL`` x max|want|, bf16 out
+    within ``FMM_BF16_TOL``; fig11's int8 scaled case at ``FMM_TIMED``
+    timed beside the plain version, bare cuBLAS on the prepared x (the
+    library yardstick, never called by the port) and the bound: fig11's
+    ``fused_bytes`` (int8 x, the scales, fp32 w and out, each once) and
+    2n^3 flops.  Returns
+    the worst relative errors and the timed records by n."""
+    gen = torch.Generator(device=DEV).manual_seed(97531)
+    worst = {"fp32": 0.0, "bf16": 0.0}
+    timed = {}
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    out_dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for name, (M, K, N), xd, wd, od, scaled in FMM_CASES:
+        x, w, sc = fmm_inputs(torch, gen, M, K, N, xd, wd, scaled)
+        before = fops.launches
+        got = fops.fused_matmul(x, w, sc, out_dtype=out_dt[od])
+        want = fops.matmul1(x, w, sc, out_dtype=out_dt[od])
+        torch.cuda.synchronize()
+        check(fops.launches == before + 1, f"fused_matmul {name}: no launch")
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"fused_matmul {name}: {got.dtype} {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()),
+              f"fused_matmul {name}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        rel = err / max(scale, 1e-30)
+        key = "bf16" if od == "bfloat16" else "fp32"
+        tol = FMM_BF16_TOL if key == "bf16" else KERNEL_TOL
+        worst[key] = max(worst[key], rel)
+        rec = {"case": name, "mkn": [M, K, N], "x": xd, "w": wd, "out": od,
+               "scaled": scaled, "max_abs_err": err, "max_abs_want": scale,
+               "relative_err": rel, "tol_relative": tol}
+        check(rel <= tol, f"fused_matmul {name}: error {rel} x max|want|")
+        if M == K == N and M in FMM_TIMED and xd == "int8" and scaled \
+                and od == "float32":
+            xf = fops.prep(x, sc)
+            nbytes, flops = fig11.fused_bytes(M), 2 * M * N * K
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_flops = flops / FP32_FLOPS * 1e3
+            rec.update(
+                ms=cuda_ms(torch, lambda: fops.fused_matmul(
+                    x, w, sc, out_dtype=torch.float32), flush=flush),
+                plain_ms=cuda_ms(torch, lambda: fops.matmul1(
+                    x, w, sc, out_dtype=torch.float32), flush=flush),
+                library_ms=cuda_ms(torch, lambda: torch.matmul(xf, w),
+                                   flush=flush),
+                bound_ms=max(t_bytes, t_flops),
+                bound_by="bytes" if t_bytes >= t_flops else "operations",
+                bytes=nbytes, flops=flops)
+            timed[M] = rec
+            del xf
+        emit("kernel_check", kernel="fused_matmul", **rec)
+        del x, w, sc, got, want
+    torch.cuda.empty_cache()
+    return worst, timed
+
+
+def phase_fused_matmul_grads(torch, fops):
+    """``matmul``'s gradients on the card (forward through the kernel)
+    against autograd through ``matmul1``: dw and dscale for int8 x, dx
+    too for fp32 x, each within ``KERNEL_TOL`` x max|want|."""
+    gen = torch.Generator(device=DEV).manual_seed(8642)
+    worst = 0.0
+    for name, (M, K, N), xd in (("int8_fig11", (1024, 1024, 1024), "int8"),
+                                ("fp32_x", (512, 256, 384), "float32")):
+        x, w, sc = fmm_inputs(torch, gen, M, K, N, xd, "float32", True)
+        g = torch.randn(M, N, generator=gen, device=DEV)
+        grads = {}
+        for side in ("kernel", "plain"):
+            xs = x.clone().requires_grad_(xd != "int8")
+            ws = w.clone().requires_grad_(True)
+            ss = sc.clone().requires_grad_(True)
+            before = fops.launches
+            out = (fops.matmul(xs, ws, ss) if side == "kernel"
+                   else fops.matmul1(xs, ws, ss))
+            (out * g).sum().backward()
+            torch.cuda.synchronize()
+            check(fops.launches == before + (side == "kernel"),
+                  f"fused_matmul grads {name} {side}: launches")
+            grads[side] = {"dw": ws.grad, "dscale": ss.grad}
+            if xd != "int8":
+                grads[side]["dx"] = xs.grad
+        rec = {"case": name, "mkn": [M, K, N], "x": xd,
+               "tol_relative": KERNEL_TOL}
+        for key, want in grads["plain"].items():
+            got = grads["kernel"][key]
+            err = float((got - want).abs().max())
+            rel = err / max(float(want.abs().max()), 1e-30)
+            rec[f"{key}_relative_err"] = rel
+            worst = max(worst, rel)
+            check(rel <= KERNEL_TOL, f"fused_matmul grads {name} {key}: "
+                                     f"error {rel} x max|want|")
+        emit("kernel_grads", kernel="fused_matmul", **rec)
+    return worst
+
+
+def zero_launches(kernel_ops) -> None:
+    for mod in kernel_ops:
+        mod.launches = 0
+
+
+def other_launches(kernel_ops, fops) -> int:
+    return sum(mod.launches for mod in kernel_ops if mod is not fops)
+
+
+def phase_figs(torch, fops, kernel_ops, fig09, fig11):
+    """The slice's main path: fig09 and fig11's ``main`` on the card at
+    their default sizes (their CSV rows print as they go).  fig09 runs
+    no hand-written kernel; every fused call of fig11 launches
+    ``fused_matmul`` once, and no other kernel runs.  Every kernel's
+    count is zeroed just before each and read just after."""
+    t0 = time.time()
+    zero_launches(kernel_ops)
+    res09 = fig09.main(["--device", "cuda"])
+    launches09 = fops.launches
+    check(launches09 == 0, f"fig09 launched fused_matmul {launches09} times")
+    check(other_launches(kernel_ops, fops) == 0,
+          "fig09 launched another kernel")
+    check(all(r["op_us"] > 0 and r["bare_us"] > 0 for r in res09.values()),
+          "fig09: a non-positive time")
+    emit("fig09", sizes=sorted(res09), fused_matmul_launches=launches09,
+         results=res09, seconds=time.time() - t0)
+    t0 = time.time()
+    zero_launches(kernel_ops)
+    res11 = fig11.main(["--device", "cuda"])
+    launches11 = fops.launches
+    check(other_launches(kernel_ops, fops) == 0,
+          "fig11 launched another kernel")
+    check(res11["fused_calls"] > 0 and launches11 == res11["fused_calls"],
+          f"fig11: {launches11} launches for {res11['fused_calls']} fused "
+          "calls")
+    check(res11["fused_us"] > 0 and res11["unfused_us"] > 0,
+          "fig11: a non-positive time")
+    emit("fig11", fused_matmul_launches=launches11,
+         seconds=time.time() - t0, **res11)
+    return launches09, launches11, res11
 
 
 # ---------------------------------------------------------------------------
@@ -1969,8 +2170,11 @@ def main() -> int:
     try:
         from repro_torch.configs import get_config
         from repro_torch.device import resolve_device
+        from repro_torch.benchmarks import fig09_operator_scaling as fig09
+        from repro_torch.benchmarks import fig11_fused_prep as fig11
         from repro_torch.kernels import build
         from repro_torch.kernels.flash_attention import ops as fa
+        from repro_torch.kernels.fused_matmul import ops as fops
         from repro_torch.kernels.mamba2_scan import ops as mops
         from repro_torch.kernels.moe_gmm import ops as gmm
         from repro_torch.kernels.paged_attention import ops
@@ -2009,7 +2213,7 @@ def main() -> int:
 
         t0 = time.time()
         sources = [ops.SOURCE, gmm.SOURCE, fa.SOURCE, mops.SOURCE,
-                   wops.SOURCE]
+                   wops.SOURCE, fops.SOURCE]
         with ThreadPoolExecutor(len(sources)) as pool:
             built = list(pool.map(build.compile_source, sources))
         for src, (lib, log) in zip(sources, built):
@@ -2025,6 +2229,10 @@ def main() -> int:
         flash_worst, flash_timed = phase_flash_kernels(torch, fa)
         mamba_worst, mamba_timed = phase_mamba_kernels(torch, mops)
         rwkv_worst, rwkv_timed = phase_rwkv6_kernels(torch, wops)
+        fmm_worst, fmm_timed = phase_fused_matmul_kernels(torch, fops, fig11)
+        fmm_grad_worst = phase_fused_matmul_grads(torch, fops)
+        _, fig11_launches, fig11_res = phase_figs(
+            torch, fops, (ops, gmm, fa, mops, wops, fops), fig09, fig11)
         cfg, params = init_model(torch, rt)
         launches, tokens = {}, {}
         for kv_dtype in KV_DTYPES:
@@ -2163,6 +2371,26 @@ def main() -> int:
         "full_prefills": rwkv6["prefills"],
         "shape": "rwkv6-7b prefill, model layout: B=1 H=64 S=1024 K=64 "
                  "fp32, u shared by the batch"})
+    fmm = fmm_timed[1024]
+    entries.append({
+        "name": "fused_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/fused_matmul/csrc/fused_matmul.cu",
+        "replaces": "src/repro/kernels/fused_matmul/kernel.py:58",
+        "launches": fig11_launches, "max_abs_err": fmm["max_abs_err"],
+        "max_relative_err_all_cases": fmm_worst["fp32"],
+        "bf16_relative_err": fmm_worst["bf16"],
+        "grad_relative_err": fmm_grad_worst,
+        "ms": fmm["ms"], "plain_ms": fmm["plain_ms"],
+        "bound_ms": fmm["bound_ms"], "bound_by": fmm["bound_by"],
+        "library_ms": fmm["library_ms"],
+        "ms_by_n": {n: rec["ms"] for n, rec in fmm_timed.items()},
+        "plain_ms_by_n": {n: rec["plain_ms"] for n, rec in fmm_timed.items()},
+        "library_ms_by_n": {n: rec["library_ms"]
+                            for n, rec in fmm_timed.items()},
+        "bound_ms_by_n": {n: rec["bound_ms"] for n, rec in fmm_timed.items()},
+        "fig11_speedup": fig11_res["speedup"],
+        "shape": "fig11: int8 x [1024,1024] scaled, f32 w [1024,1024], "
+                 "f32 out"})
     print(card, flush=True)      # again, beside the results it qualifies
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
