@@ -20,20 +20,34 @@ plain PyTorch version.  Phases, each printing JSON lines:
 3. kernels: the paged-attention kernel on fp32, int8 and fp8_e4m3 pools
    (8-bit pools quantized by the port's ``quantize_pages``) against its
    plain version at the main path's shapes, at dbrx's 48:8 heads and at
-   edge cases (max abs error <= 1e-4), timed with CUDA events beside its
-   plain version, one library call as a yardstick (never used by the
-   port) and its bound on this card.  Then the ``moe_gmm`` kernel in fp32
-   and bf16 at dbrx's and grok's expert shapes, with and without row
+   edge cases, among them the split-KV ones (a ring that is not a whole
+   number of splits, a split of trash pages only, dead slots on the
+   tensor-core tile path and over three splits on both paths, a
+   wrapping window on the tile path, S*G = 15 and 16 on
+   either side of the tile/GEMV boundary, dh 36) (max abs error <=
+   1e-4), timed with CUDA events beside its plain version, one library
+   call as a yardstick (never used by the port) and its bound on this
+   card: bytes at 3.35 TB/s against the products at 495 TFLOP/s times
+   the TF32 products per fp32 product (3, or 2 on 8-bit pools) where
+   the kernel runs them on tensor cores, at 67 TFLOP/s where it does
+   not (``bound_fp32_cores_ms`` keeps the CUDA-core bound beside it; a
+   kernel faster than its bound fails the run).  The fused chunk's
+   S = 32 and both S = 1 decode shapes are timed.  Then the ``moe_gmm``
+   kernel in fp32 and bf16 at dbrx's and grok's expert shapes, with and
+   without row
    counts, with a group dimension and at ragged edges (fp32 max abs error
    <= 1e-4, bf16 <= 2e-2 x max|want|, rows past a count exactly 0).
    Then the ``flash_attention`` kernel in fp32 and bf16 at internlm2's
    prefill shapes (S = 128, 512, 1024) and at edge cases (window,
    softcap, non-causal Sq != Skv, GQA 8:1, dh 32/64/256, odd lengths,
-   B = 2, zamba2's dh 112 with H = Hkv = 32), same gates (bf16 per query
-   row, against the row's own max|want|); the main shapes and zamba2's
-   timed beside the plain version, ``scaled_dot_product_attention`` (a
-   yardstick) and the bound.  The paged kernel also runs zamba2's
-   S = 1 decode shape (dh 112, window 4096).  Then the ``mamba2_scan``
+   B = 2, zamba2's dh 112 with H = Hkv = 32, a window starting mid-tile,
+   one query row, causal Sq < Skv, three batches of ragged tiles, dh 112
+   with GQA and a window), same gates (bf16 per query row, against the
+   row's own max|want|); the main shapes and zamba2's timed beside the
+   plain version, ``scaled_dot_product_attention`` (a yardstick) and the
+   bound (3 TF32 products per fp32 product on the tensor cores).  The
+   paged kernel also runs zamba2's S = 1 decode shape (dh 112, window
+   4096).  Then the ``mamba2_scan``
    kernel on the reference's three test cases, S = 1000, an initial
    state with ragged P and N, the model's layout with b/c shared by the
    heads (with and without an initial state) and zamba2's full prefill
@@ -138,7 +152,8 @@ plain PyTorch version.  Phases, each printing JSON lines:
    kernel is timed there, at the main path's shapes and counts.
 
 The last three lines are the card's name and power limit (again), the
-kernel table (paged attention per pool dtype, ``moe_gmm``,
+kernel table (paged attention per pool dtype, with its S = 1 rows under
+``by_case``, ``moe_gmm``,
 ``flash_attention`` at dh 128 and at zamba2's dh 112, ``mamba2_scan``,
 ``rwkv6_wkv``, ``fused_matmul`` at fig11's n = 1024 with its launches
 in fig11) and ``{"ok": true, "device": ...}``.
@@ -158,9 +173,11 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp32 non-tensor rate
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor rate
+# and dense TF32 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 DEV = "cuda"
 KERNEL_TOL = 1e-4     # fp32, TF32 off: only the summation order differs
 PATH_TOL = 1e-3       # 24 layers of that difference, on logits
@@ -200,6 +217,15 @@ FLASH_CASES = [
     ("odd_s37", dict(FLASH_MAIN, Sq=37, Skv=37), {}),
     ("odd_s100_window", dict(FLASH_MAIN, Sq=100, Skv=100), {"window": 48}),
     ("batch2", dict(FLASH_MAIN, B=2, Sq=160, Skv=160), {}),
+    # the tensor-core redesign: windows that start mid-tile, one query row,
+    # causal Sq < Skv, three batches of ragged tiles issued longest first,
+    # dh 112 with GQA and a window
+    ("window33", dict(FLASH_MAIN, Sq=300, Skv=300), {"window": 33}),
+    ("sq1_noncausal", dict(FLASH_MAIN, Sq=1, Skv=77), {"causal": False}),
+    ("causal_sq_lt_skv", dict(FLASH_MAIN, Sq=90, Skv=200), {}),
+    ("batch3_s700", dict(B=3, H=4, Hkv=2, dh=128, Sq=700, Skv=700), {}),
+    ("dh112_gqa_window", dict(B=1, H=8, Hkv=2, dh=112, Sq=333, Skv=333),
+     {"window": 70}),
 ]
 # zamba2-7b's shared attention at full width: H = Hkv = 32, dh = 112,
 # window 4096 (wider than any prompt here); timed like the main cases
@@ -428,6 +454,39 @@ def phase_kernels(torch, ops, quantize, kv_pool_dtype):
         # zamba2-7b's shared attention, S = 1 decode: dh 112, window 4096
         ("zamba2_dh112_s1", dict(B=8, H=32, Hkv=32, dh=112, P=16, nb=64,
                                  S=1, lens=lens32, window=4096)),
+        # the split-KV redesign: a ring of 11 pages (2 splits, the second
+        # 48 positions) that wraps; a split whose pages are all trash; dead
+        # slots and a wrapping window on the tile path; S*G = 15 (GEMV) and
+        # 16 (tile) on either side of the path boundary; dh 36 (a k step
+        # past dh on the tile path, 4-byte copies of 8-bit rows)
+        ("nb_not_split_multiple", dict(B=3, H=16, Hkv=8, dh=128, P=16,
+                                       nb=11, S=8, lens=[200, 100, 30])),
+        ("trash_split", dict(B=2, H=16, Hkv=8, dh=128, P=16, nb=24, S=2,
+                             lens=[380, 300], trash_tail=9)),
+        ("no_valid_rows_tile", dict(B=4, H=16, Hkv=8, dh=128, P=16, nb=8,
+                                    S=8, lens=[0, 2, 60, 128],
+                                    dead_slots=(2,))),
+        # the same over three splits (a 384-position ring): empty partials
+        # and the combine launch, on both paths
+        ("no_valid_rows_split_tile", dict(B=4, H=16, Hkv=8, dh=128, P=16,
+                                          nb=24, S=8, lens=[0, 2, 300, 380],
+                                          dead_slots=(2,))),
+        ("no_valid_rows_split_gemv", dict(B=4, H=16, Hkv=8, dh=128, P=16,
+                                          nb=24, S=4, lens=[0, 2, 300, 380],
+                                          dead_slots=(2,))),
+        ("no_valid_rows_split_s1", dict(B=4, H=16, Hkv=8, dh=128, P=16,
+                                        nb=24, S=1, lens=[0, 2, 300, 380],
+                                        dead_slots=(2,))),
+        ("window_wrap_tile", dict(B=4, H=8, Hkv=4, dh=128, P=16, nb=8, S=16,
+                                  lens=[300, 129, 64, 20], window=100)),
+        ("rows15_gemv", dict(B=3, H=24, Hkv=8, dh=128, P=16, nb=16, S=5,
+                             lens=[250, 90, 6])),
+        ("rows16_tile", dict(B=3, H=16, Hkv=8, dh=128, P=16, nb=16, S=8,
+                             lens=[250, 90, 8])),
+        ("dh36_tile", dict(B=2, H=16, Hkv=8, dh=36, P=16, nb=10, S=8,
+                           lens=[150, 20])),
+        ("dh36_gemv", dict(B=2, H=16, Hkv=8, dh=36, P=16, nb=10, S=1,
+                           lens=[150, 20])),
     ]
     worst = {kv: 0.0 for kv in KV_DTYPES}
     rows = {kv: {} for kv in KV_DTYPES}
@@ -449,10 +508,13 @@ def phase_kernels(torch, ops, quantize, kv_pool_dtype):
             worst[kv_dtype] = max(worst[kv_dtype], err)
             rec = {"case": name, "kv_dtype": kv_dtype, "max_abs_err": err,
                    "tol": KERNEL_TOL}
-            if name == "no_valid_rows":
-                # slot 0 (nothing written) and slot 2 (all-trash table)
+            if name.startswith("no_valid_rows"):
+                # slot 0 (nothing written), slot 2 (all-trash table) and
+                # slot 1's query rows that precede its first token
+                dead_q = max(0, kw["S"] - kw["lens"][1])
                 zero = (bool((got[0] == 0).all())
-                        and bool((got[2] == 0).all()))
+                        and bool((got[2] == 0).all())
+                        and bool((got[1, :dead_q] == 0).all()))
                 rec["dead_rows_exactly_zero"] = zero
                 check(zero, f"{kv_dtype} {name}: rows with no valid "
                             "position are not 0")
@@ -460,8 +522,10 @@ def phase_kernels(torch, ops, quantize, kv_pool_dtype):
                   f"{kv_dtype} {name}: max abs err {err} > {KERNEL_TOL}")
             if name.startswith(("main", "zamba2")):
                 nbytes, flops = paged_need(torch, case)
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                t_flops = flops / FP32_FLOPS * 1e3
+                # S*G >= 16 rows run on the tensor cores (3 TF32 products
+                # per fp32 product, 2 on 8-bit pools), fewer on CUDA cores
+                sg = kw["S"] * kw["H"] // kw["Hkv"]
+                terms = (3 if kv_dtype == "fp32" else 2) if sg >= 16 else 0
                 rec.update(
                     ms=cuda_ms(torch,
                                lambda: ops.paged_attention(*args, **opts),
@@ -471,13 +535,35 @@ def phase_kernels(torch, ops, quantize, kv_pool_dtype):
                         lambda: ops.paged_attention_ref(*args, **opts),
                         flush=flush),
                     library_ms=sdpa_ms(torch, case, flush),
-                    bound_ms=max(t_bytes, t_flops),
-                    bound_by="bytes" if t_bytes >= t_flops
-                    else "operations",
-                    bytes=nbytes, flops=flops)
+                    path="tile" if sg >= 16 else "gemv",
+                    bytes=nbytes, flops=flops,
+                    **bounds(nbytes, flops, terms))
+                roofline(rec, f"paged {kv_dtype} {name}")
                 rows[kv_dtype][name] = rec
             emit("kernel_check", kernel="paged_decode_attention", **rec)
     return worst, rows
+
+
+def bounds(nbytes: int, flops: int, terms: int) -> dict:
+    """The least time the card could take: bytes at the HBM rate against
+    the products on the tensor cores (``terms`` TF32 products per fp32
+    product, at the TF32 rate) or, with ``terms`` 0, on the fp32 CUDA
+    cores; the CUDA-core bound rides along as ``bound_fp32_cores_ms``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_fp32 = flops / FP32_FLOPS * 1e3
+    t_ops = terms * flops / TF32_FLOPS * 1e3 if terms else t_fp32
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_fp32_cores_ms": max(t_bytes, t_fp32),
+            "tensor_terms": terms}
+
+
+def roofline(rec: dict, what: str) -> None:
+    """The share of the bound this run reached; above 1 the bound is
+    wrong, and the run fails."""
+    rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+    check(rec["roofline_share"] <= 1.0,
+          f"{what}: {rec['ms']} ms beats its {rec['bound_ms']} ms bound")
 
 
 def sdpa_ms(torch, case, flush) -> float:
@@ -649,18 +735,15 @@ def phase_flash_kernels(torch, fa):
                                          f"{err} > {KERNEL_TOL}")
                 if name.startswith(("main", "zamba2")):
                     nbytes, flops, live = flash_need(**shape, **opts)
-                    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                    t_flops = flops / FP32_FLOPS * 1e3
                     rec.update(
                         ms=cuda_ms(torch, lambda: fa.flash_attention(
                             q, k, v, **opts), flush=flush),
                         plain_ms=cuda_ms(torch, lambda: fa.flash_attention_ref(
                             q, k, v, **opts), flush=flush),
                         library_ms=flash_sdpa_ms(torch, q, k, v, flush),
-                        bound_ms=max(t_bytes, t_flops),
-                        bound_by="bytes" if t_bytes >= t_flops
-                        else "operations",
-                        bytes=nbytes, flops=flops, live_scores=live)
+                        bytes=nbytes, flops=flops, live_scores=live,
+                        **bounds(nbytes, flops, 3))   # fp32: 3xTF32
+                    roofline(rec, f"flash {name}")
                     timed[name] = rec
             else:
                 # per query row, against that row's own max|want|: late
@@ -2296,8 +2379,15 @@ def main() -> int:
             "plain_ms": main32["plain_ms"], "bound_ms": main32["bound_ms"],
             "bound_by": main32["bound_by"],
             "library_ms": main32["library_ms"],
+            "bound_fp32_cores_ms": main32["bound_fp32_cores_ms"],
             "max_err": worst[kv_dtype], "kernel_ms": main32["ms"],
-            "shape": f"B=8 S=32 H=16 Hkv=8 dh=128 P=16 nb=64 {kv_dtype}"})
+            "shape": f"B=8 S=32 H=16 Hkv=8 dh=128 P=16 nb=64 {kv_dtype}",
+            # the fused chunk (S = 32, tile path) and both S = 1 decode
+            # shapes (GEMV path), each beside SDPA and its bounds
+            "by_case": {name: {key: rec[key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "bound_fp32_cores_ms", "roofline_share", "path")}
+                for name, rec in rows[kv_dtype].items()}})
     entries[0]["launches_dbrx"] = dbrx_launches
     entries[0]["launches_zamba2"] = zamba2["paged"]
     main_gmm = gmm_rows["gate_up"]
@@ -2326,11 +2416,14 @@ def main() -> int:
         "max_abs_err": flash_worst["fp32"],
         "ms": main_fa["ms"], "plain_ms": main_fa["plain_ms"],
         "bound_ms": main_fa["bound_ms"], "bound_by": main_fa["bound_by"],
+        "bound_fp32_cores_ms": main_fa["bound_fp32_cores_ms"],
         "library_ms": main_fa["library_ms"],
         "bf16_relative_err": flash_worst["bf16"],
         "full_prefills": legacy["fp32"][1],
         "launches_int8": legacy["int8"][0],
         "ms_by_seq": {name: rec["ms"] for name, rec in flash_timed.items()},
+        "library_ms_by_seq": {name: rec["library_ms"]
+                              for name, rec in flash_timed.items()},
         "shape": "B=1 H=16 Hkv=8 dh=128 causal fp32 S=1024"})
     z_fa = flash_timed["zamba2_dh112_s1024"]
     entries.append({
@@ -2341,6 +2434,7 @@ def main() -> int:
         "launches": zamba2["flash"], "max_abs_err": z_fa["max_abs_err"],
         "ms": z_fa["ms"], "plain_ms": z_fa["plain_ms"],
         "bound_ms": z_fa["bound_ms"], "bound_by": z_fa["bound_by"],
+        "bound_fp32_cores_ms": z_fa["bound_fp32_cores_ms"],
         "library_ms": z_fa["library_ms"],
         "full_prefills": zamba2["prefills"],
         "shape": "zamba2-7b: B=1 H=Hkv=32 dh=112 causal window=4096 fp32 "

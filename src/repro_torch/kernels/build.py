@@ -4,8 +4,9 @@ Each kernel is one ``.cu`` file with a plain C interface, compiled by
 ``nvcc`` for ``sm_90a`` into a shared library and loaded with ``ctypes``
 (no PyTorch headers: a build takes seconds, not minutes).  Libraries go
 to ``build/repro_torch_kernels/`` at the repository root (listed in
-``.gitignore``), in a directory keyed by a hash of the source and the
-flags, so an edited source rebuilds.  A failed build raises with the
+``.gitignore``), in a directory keyed by a hash of the source, the
+headers it includes with quotes (``common/tf32_mma.cuh``) and the flags,
+so an edited source or header rebuilds.  A failed build raises with the
 compiler's output; nothing falls back.
 """
 
@@ -14,10 +15,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_ROOT = REPO_ROOT / "build" / "repro_torch_kernels"
@@ -25,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[Path, ctypes.CDLL] = {}
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 
 def nvcc_path() -> str:
@@ -39,9 +42,26 @@ def nvcc_path() -> str:
                        "port's CUDA kernels are built from source with it")
 
 
+def sources_of(source: Path) -> List[Path]:
+    """``source`` and every header it includes with quotes, recursively
+    (paths relative to the including file, as the compiler reads them)."""
+    found: List[Path] = []
+    todo = [source.resolve()]
+    while todo:
+        path = todo.pop()
+        if path not in found:
+            found.append(path)
+            todo += [(path.parent / name).resolve()
+                     for name in _INCLUDE.findall(path.read_text())]
+    return found
+
+
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256()
+    for path in sources_of(source):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_ROOT / f"{source.stem}-{digest[:16]}" / f"lib{source.stem}.so"
 
 

@@ -5,7 +5,7 @@
 //   out[b, h] = softmax(mask(softcap(q[b, h] @ k[b, kvh]^T * scale))) @ v[b, kvh]
 //   q    [B, H, Sq, dh]     float or bf16
 //   k, v [B, Hkv, Skv, dh]  same type;  kvh = h / (H / Hkv)  (GQA)
-//   out  [B, H, Sq, dh]     q's type; every product and the softmax in fp32
+//   out  [B, H, Sq, dh]     q's type; the softmax and every sum in fp32
 // Query i sits at key position i: the causal mask keeps cols <= rows, a
 // window keeps cols > rows - window.  The softcap comes before the mask,
 // and the mask is the finite -1e30 of the Pallas kernel, with its
@@ -15,237 +15,245 @@
 // m) = 0), exactly as in the Pallas kernel.  Keys past Skv (the ragged
 // last tile) take no part at all: p = 0 and no share of the max.
 //
-// Grid (ceil(Sq / 64), B * H).  One block of 256 threads owns 64 query
-// rows of one (b, h), held in shared memory (transposed, fp32) for the
-// whole KV walk.  It walks the KV tiles of 64 keys in order and skips a
-// tile that the causal or window structure masks for every row of the
-// block (the Pallas kernel's `needed` rule).  For each tile it stages K
-// (transposed) and V in shared memory as fp32, and each thread computes a
-// 4 x 4 register tile of scores (rows ty*4.., keys tx*4..; one float4 of
-// Q and one of K per depth step feed 16 FMAs).  The running max and
-// denominator of its 4 rows are reduced over the 16 lanes that share the
-// rows with warp shuffles; the probabilities go back to shared memory
-// (transposed) and each thread accumulates its 4 rows x dh/16 output
-// dims in registers, in fp32 (read from V as float4s, float2s or, at
-// dh = 112, zamba2's head dim, one float at a time).  Rows and keys past Sq and Skv are
-// bounds-checked: no length needs to divide the tile.  The shared memory
-// (120 KB at dh = 128, 217 KB at dh = 256) is dynamic, after the opt-in.
-//
 // What bounds it on this card: operations.  At the main path's shape
 // (internlm2 prefill: B = 1, H = 16, Hkv = 8, dh = 128, causal, S = 1024)
-// the live scores need 4 * H * S(S+1)/2 * dh = 4.3 GFLOP, 0.064 ms at
-// the 67 TFLOP/s fp32 CUDA-core rate, against 25 MB of q, k, v and out,
-// 0.0075 ms at 3.35 TB/s.  This version is right and simple: fp32 FMAs on
-// CUDA cores, plain loads with no cp.async or TMA pipeline, one block per
-// SM at dh = 128, and full 64 x 64 tiles on the causal diagonal.  A later
-// PR makes it fast with wgmma tiles fed by TMA (bf16, or TF32 where the
-// caller accepts another numeric result), warp specialisation and a
-// split over KV for short query counts.
+// the live scores need 4 * H * S(S+1)/2 * dh = 4.3 GFLOP against 25 MB of
+// q, k, v and out (0.0075 ms at 3.35 TB/s).  On the fp32 CUDA cores that
+// is 0.064 ms at 67 TFLOP/s, and the first version of this kernel ran at
+// ~10 TFLOP/s: a 4 x 4 register tile fed 2 shared loads per 16 FMAs, K
+// staged by scalar transposed stores with 8-way bank conflicts, no overlap
+// of loads with math, and one 120 KB block per SM.  This design runs both
+// products on the tensor cores (mma.sync m16n8k8 TF32, common/tf32_mma.cuh)
+// at fp32 accuracy: fp32 operands are split into two TF32 halves and each
+// product is 3 TF32 products (3 x 4.3 GFLOP at 495 TFLOP/s = 0.026 ms);
+// bf16 values are exact in TF32, so QK^T takes 1 product and PV 2 (the
+// weights split, V not).  The weights never leave registers (the score
+// fragment is reused as the A fragment with the keys renumbered).
+//
+// Grid: one block of 4 warps per (64 query rows, b, h), 1-D, block L on
+// head L % (B H).  Causal query tiles differ in work up to n_qt-fold, so
+// the longer half is issued first, longest first, then the shorter half
+// shortest first: a wave that puts blocks k and k + 132 on one SM pairs a
+// long tile with a short one, and the last blocks to start are short.  Each
+// warp owns 16 query rows (q in shared memory as fp32) and their running
+// max, denominator and output fragments.  The block walks the KV tiles of
+// 32 keys that the causal or window structure does not mask for every row
+// of the block (the Pallas kernel's `needed` rule), staged with 16-byte
+// cp.async copies into a 2-stage ring whose padded rows (= 16 mod 32
+// bytes past the data) the fragments read without bank conflicts; rows
+// past Skv are zero-filled.  Shared memory: 101 KB at dh = 128 in fp32
+// (2 blocks per SM), 69 KB in bf16, 200 KB at dh = 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "../../common/tf32_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // keys per KV tile
-constexpr int kLd = kBQ + 4;     // leading dim of the transposed tiles
+using namespace tf32mma;
+
+constexpr int kThreads = 128;
+constexpr int kBQ = 64;  // query rows per block (16 per warp)
+constexpr int kBK = 32;  // keys per KV tile
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;  // scores in base 2: exp2f
 
-static_assert(kBQ == kBK, "the transposed tiles share one leading dim");
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+// KV stage row stride in elements: dh plus padding to = 16 mod 32 bytes.
+template <typename T, int DH>
+constexpr int kv_ld() {
+  return (((DH * (int)sizeof(T) + 31) & ~31) + 16) / (int)sizeof(T);
 }
 
-// Shared-memory layout, in floats: Qs[DH][kLd], Ks[DH][kLd], Vs[kBK][DH],
-// Pt[kBK][kLd] (probabilities, key-major).
-template <int DH>
+template <typename T, int DH>
 struct Smem {
-  static constexpr int q = DH * kLd;
-  static constexpr int k = DH * kLd;
-  static constexpr int v = kBK * DH;
-  static constexpr int p = kBK * kLd;
-  static constexpr size_t bytes = sizeof(float) * (q + k + v + p);
+  static constexpr int ldq = DH + 4;  // fp32 q rows: = 4 mod 8 words
+  static constexpr int ld = kv_ld<T, DH>();
+  static constexpr size_t q_bytes = sizeof(float) * kBQ * ldq;
+  static constexpr size_t bytes = q_bytes + sizeof(T) * 2 * 2 * kBK * ld;
 };
+
+__device__ __forceinline__ float4 load4f(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4f(const __nv_bfloat16* p) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            int H, int Hkv, int Sq, int Skv, int causal,
-                           int window, float softcap, float scale) {
-  constexpr int DPT = DH / 16;  // output dims per thread
-  // dims per vector load of V: 4, 2 or 1 (DH = 112: DPT = 7, scalar)
-  constexpr int VEC = DPT % 4 == 0 ? 4 : DPT % 2 == 0 ? 2 : 1;
-  constexpr int NV = DPT / VEC;  // vector loads per V row
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + Smem<DH>::q;
-  float* Vs = Ks + Smem<DH>::k;
-  float* Pt = Vs + Smem<DH>::v;
+                           int window, float softcap, float scale, int n_qt) {
+  using L = Smem<T, DH>;
+  constexpr int NT = DH / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  T* st = reinterpret_cast<T*>(smem_raw + L::q_bytes);
 
-  const int bh = blockIdx.y;  // b * H + h
+  // issue order: the longer half of the query tiles longest first, then
+  // the shorter half shortest first, so that the blocks a wave pairs on
+  // one SM sum to about the same work
+  const int BH = gridDim.x / n_qt;
+  const int row = blockIdx.x / BH, half = (n_qt + 1) / 2;
+  const int qt = row < half ? n_qt - 1 - row : row - half;
+  const int bh = blockIdx.x % BH;  // b * H + h
   const int b = bh / H;
   const int kvh = (bh % H) / (H / Hkv);
-  const int q_lo = blockIdx.x * kBQ;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // key columns tx*4.. / output dims
-  const int ty = tid / 16;  // query rows ty*4..
+  const int q_lo = qt * kBQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
 
   const T* qb = q + (size_t)bh * Sq * DH;
   const T* kb = k + (size_t)(b * Hkv + kvh) * Skv * DH;
   const T* vb = v + (size_t)(b * Hkv + kvh) * Skv * DH;
 
-  for (int idx = tid; idx < kBQ * DH; idx += kThreads) {
-    const int r = idx / DH, d = idx % DH;
+  constexpr int C4 = DH / 4;
+#pragma unroll 8  // the loads of 8 iterations in flight at once
+  for (int idx = tid; idx < kBQ * C4; idx += kThreads) {
+    const int r = idx / C4, c = idx - r * C4;
     const int gr = q_lo + r;
-    Qs[d * kLd + r] = gr < Sq ? to_float(qb[(size_t)gr * DH + d]) : 0.f;
+    *reinterpret_cast<float4*>(q_s + r * L::ldq + 4 * c) =
+        gr < Sq ? load4f(qb + (size_t)gr * DH + 4 * c)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  float m[4], l[4], acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
+  // the KV tiles some row of the block needs
+  const int q_hi = min(Sq, q_lo + kBQ) - 1;
+  int kt_end = (Skv + kBK - 1) / kBK;
+  if (causal) kt_end = min(kt_end, q_hi / kBK + 1);
+  int kt_begin = 0;
+  if (window > 0) {
+    const int x = q_lo - window - kBK + 1;  // needed: kt * kBK > x
+    kt_begin = x < 0 ? 0 : x / kBK + 1;
   }
+  const int n_tiles = kt_end - kt_begin;
 
-  const int nkt = (Skv + kBK - 1) / kBK;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k_lo = kt * kBK;
-    bool needed = true;
-    if (causal) needed = k_lo <= q_lo + kBQ - 1;
-    if (window > 0) needed = needed && (k_lo + kBK - 1 > q_lo - window);
-    if (!needed) continue;  // the same for the whole block
-
-    __syncthreads();  // the last tile's readers are done with Ks, Vs, Pt
-    for (int idx = tid; idx < kBK * DH; idx += kThreads) {
-      const int c = idx / DH, d = idx % DH;
-      const int gc = k_lo + c;
-      const bool in = gc < Skv;
-      Ks[d * kLd + c] = in ? to_float(kb[(size_t)gc * DH + d]) : 0.f;
-      Vs[c * DH + d] = in ? to_float(vb[(size_t)gc * DH + d]) : 0.f;
+  constexpr int kUnits = DH * (int)sizeof(T) / 16;  // 16-byte units per row
+  constexpr int kStageElems = 2 * kBK * L::ld;
+  auto issue = [&](int i) {
+    const int k_lo = (kt_begin + i) * kBK;
+    T* ks = st + (i & 1) * kStageElems;
+    T* vs = ks + kBK * L::ld;
+    for (int idx = tid; idx < kBK * kUnits; idx += kThreads) {
+      const int r = idx / kUnits, c = idx - r * kUnits;
+      const bool in = k_lo + r < Skv;
+      const size_t off = in ? (size_t)(k_lo + r) * DH : 0;
+      cp_async16(reinterpret_cast<char*>(ks + r * L::ld) + 16 * c,
+                 reinterpret_cast<const char*>(kb + off) + 16 * c, in);
+      cp_async16(reinterpret_cast<char*>(vs + r * L::ld) + 16 * c,
+                 reinterpret_cast<const char*>(vb + off) + 16 * c, in);
     }
+    cp_async_commit();
+  };
+
+  const bool warp_live = q_lo + warp * 16 < Sq;
+  const int ra = q_lo + warp * 16 + g, rb = ra + 8;
+  float o[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+
+  if (n_tiles > 0) issue(0);
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles)
+      issue(i + 1);
+    else
+      cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-
-    float s[4][4];
+    if (warp_live) {
+      const T* ks = st + (i & 1) * kStageElems;
+      const T* vs = ks + kBK * L::ld;
+      const int k_lo = (kt_begin + i) * kBK;
+      float sc[4][4];
+      warp_scores<kExactTf32<T>, T>(sc, q_s + warp * 16 * L::ldq, L::ldq,
+                                    ks, L::ld, NT, lane);
+      float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qs[d * kLd + ty * 4]);
-      const float4 c = *reinterpret_cast<const float4*>(&Ks[d * kLd + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-    }
-
-    // scale, softcap, mask, then the online softmax of each row
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q_lo + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k_lo + tx * 4 + j;
-        float x = s[i][j] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        bool ok = col < Skv;
-        if (causal) ok = ok && col <= row;
-        if (window > 0) ok = ok && col > row - window;
-        s[i][j] = ok ? x : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k_lo + tx * 4 + j;
-        const float p = col < Skv ? expf(s[i][j] - m_new) : 0.f;
-        s[i][j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) acc[i][c] *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&Pt[(tx * 4 + j) * kLd + ty * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-    const int kmax = min(kBK, Skv - k_lo);
-    for (int c = 0; c < kmax; ++c) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&Pt[c * kLd + ty * 4]);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-      const float* vrow = Vs + c * DH + tx * VEC;
-#pragma unroll
-      for (int n = 0; n < NV; ++n) {
-        float vv[VEC];
-        if constexpr (VEC == 4) {
-          const float4 t = *reinterpret_cast<const float4*>(vrow + n * 16 * VEC);
-          vv[0] = t.x;
-          vv[1] = t.y;
-          vv[2] = t.z;
-          vv[3] = t.w;
-        } else if constexpr (VEC == 2) {
-          const float2 t = *reinterpret_cast<const float2*>(vrow + n * 16 * VEC);
-          vv[0] = t.x;
-          vv[1] = t.y;
-        } else {
-          vv[0] = vrow[n * 16];
+        for (int e = 0; e < 4; ++e) {
+          const int col = k_lo + n * 8 + 2 * t4 + (e & 1);
+          const int row = e < 2 ? ra : rb;
+          float x = sc[n][e] * scale;
+          if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+          bool ok = col < Skv;
+          if (causal) ok = ok && col <= row;
+          if (window > 0) ok = ok && col > row - window;
+          sc[n][e] = ok ? x * kLog2e : kNegInf;  // base-2 units
+          if (e < 2)
+            mx_a = fmaxf(mx_a, sc[n][e]);
+          else
+            mx_b = fmaxf(mx_b, sc[n][e]);
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < VEC; ++e)
-            acc[i][n * VEC + e] = fmaf(pv[i], vv[e], acc[i][n * VEC + e]);
+      for (int o2 = 1; o2 < 4; o2 <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
       }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      const float corr_a = exp2f(m_a - mn_a), corr_b = exp2f(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k_lo + n * 8 + 2 * t4 + (e & 1);
+          const float p =
+              col < Skv ? exp2f(sc[n][e] - (e < 2 ? mn_a : mn_b)) : 0.f;
+          sc[n][e] = p;
+          if (e < 2)
+            sum_a += p;
+          else
+            sum_b += p;
+        }
+      l_a = l_a * corr_a + sum_a;
+      l_b = l_b * corr_b + sum_b;
+      if (__any_sync(0xffffffffu, corr_a != 1.f || corr_b != 1.f)) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {  // a running max moved
+          o[j][0] *= corr_a;
+          o[j][1] *= corr_a;
+          o[j][2] *= corr_b;
+          o[j][3] *= corr_b;
+        }
+      }
+      warp_pv<NT, T>(o, sc, vs, L::ld, NT, lane);
     }
+    __syncthreads();
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q_lo + ty * 4 + i;
+  for (int o2 = 1; o2 < 4; o2 <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, o2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, o2);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? rb : ra;
     if (row >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    T* orow = out + ((size_t)bh * Sq + row) * DH;
+    const float inv = 1.f / fmaxf(half ? l_b : l_a, 1e-30f);
+    T* orow = out + ((size_t)bh * Sq + row) * DH + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < NV; ++n)
-#pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        orow[n * 16 * VEC + tx * VEC + e] =
-            from_float<T>(acc[i][n * VEC + e] / den);
+    for (int j = 0; j < NT; ++j)
+      store2(orow + 8 * j, o[j][2 * half] * inv, o[j][2 * half + 1] * inv);
   }
 }
 
@@ -254,7 +262,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int H, int Hkv, int Sq, int Skv, int causal,
                    int window, float softcap, float scale,
                    cudaStream_t stream) {
-  constexpr size_t bytes = Smem<DH>::bytes;
+  constexpr size_t bytes = Smem<T, DH>::bytes;
   static bool opted_in = false;  // the dynamic shared-memory opt-in, once
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -263,11 +271,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  flash_attention_kernel<T, DH><<<grid, kThreads, bytes, stream>>>(
+  const int n_qt = (Sq + kBQ - 1) / kBQ;
+  const long long blocks = (long long)n_qt * B * H;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_attention_kernel<T, DH><<<(unsigned)blocks, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), H, Hkv, Sq, Skv,
-      causal, window, softcap, scale);
+      causal, window, softcap, scale, n_qt);
   return cudaGetLastError();
 }
 

@@ -13,71 +13,102 @@
 //   out        [B, S, H, dh]               fp32
 // Requires dh % 4 == 0, dh <= 256, P a power of two <= 64.
 //
-// 8-bit pools: the element type is a template parameter.  Pages are staged
-// in shared memory as stored (1 byte per element) and converted to fp32
-// four at a time where the score and PV loops read them.  The page's two
-// scales are read once per page, after the skip test, and folded in where
-// the reference folds them: the K scale multiplies the score after the
-// 1/sqrt(dh) scale and before the softcap; the V scale multiplies the
-// page's weights in the PV update of the accumulator only, never the
-// denominator l (scaling l too would cancel the fold).  No page is ever
-// dequantized in memory.
+// Rows: a kv head's S*G query rows (G = H / Hkv) are grouped [S, G] as in
+// the Pallas kernel (row i is query i / G, head kh * G + i % G), so GQA
+// needs no KV repeat, and cut into tiles of 64.
+// Mask: t = cache_len[b] - 1; row i sits at qpos = t - (S - 1) + i / G;
+// ring offset r holds token u = t - floormod(t - r, R), R = nb * P (C's %
+// truncates: ((x % R) + R) % R).  Valid iff u >= 0 && u <= qpos, and
+// u > qpos - window with a window.  A page whose id is the trash id, or on
+// which no row of the tile has a valid position, is skipped.
+// 8-bit pools: the K page scale multiplies the score after the 1/sqrt(dh)
+// scale and before the softcap; the V page scale multiplies the weights in
+// the PV product only, never the denominator l.  No page is dequantized in
+// memory.
 //
-// Grid (B, Hkv, row_tiles).  One block owns one slot, one kv head and a
-// tile of at most 64 of its S*G query rows, grouped [Hkv, S, G] as in the
-// Pallas kernel (row i of a kv head is query i / G, head kh * G + i % G), so
-// GQA needs no KV repeat.  The block loops over the slot's nb pages in
-// order, loading its own page ids and cache length.  A page whose id is
-// the trash id, or on which no row of the tile has a valid position, is
-// skipped (the skip test follows the per-row mask).  Otherwise its K and V
-// rows for the block's kv head ([P, dh], stride Hkv * dh in the pool) are
-// staged in shared memory, and each warp updates its 8 rows in three
-// phases: (A) scores for all 8 rows at once (lanes split positions x rows,
-// 4-element loads) -> scale (x K scale) -> softcap tanh(s / c) * c -> mask;
-// (B) the online softmax in fp32, four lanes per row (masked scores never
-// raise the running max above -1e30's floor, masked weights are exactly
-// 0); (C) the PV update for all 8 rows at once (weights x V scale), each
-// lane owning 4 contiguous head dims per 128.  The output divides by
-// max(l, 1e-30), so a row with nothing valid is exactly 0.
-//
-// Mask: t = cache_len[b] - 1; query row position qpos = t - (S - 1) + i / G;
-// ring offset r holds absolute token u = t - floormod(t - r, R), R = nb * P,
-// written as ((x % R) + R) % R because C's % truncates.  Valid iff
-// u >= 0 && u <= qpos, and u > qpos - window when there is a window.
-//
-// What bounds it on this card: reading the live K/V pages.  The bytes a
-// call must move are sum_b live_pages_b * P * Hkv * (dh * e + 4) * 2, with
-// e = 4 bytes per element for fp32 pools and 1 for 8-bit ones (+4: the
-// scale; fp32 pools have none), plus q and the output; the arithmetic is
-// 4 * dh flops per (query head, row, valid position), on the fp32 CUDA
-// cores.  At decode shapes (S = 1) that is far below the card's ops:byte
-// ridge, so the kernel is memory bound; at the fused chunk's S = 32 rows
-// per slot the fp32 arithmetic is of the same order as the fp32 bytes and
-// bounds the 8-bit call, whose bytes are a quarter.  This version is right
-// and simple: one block per (slot, kv head), page loads not overlapped with
-// the math.  A later PR
-// makes it fast by
-//   - splitting the page loop across blocks (flash-decoding), so short
-//     batches fill all 132 SMs;
-//   - double-buffering page loads with cp.async / TMA, in place of the
-//     TPU's manual DMA ring, so loads overlap the math;
-//   - running the S*G x dh score and PV tiles on tensor cores (mma).
+// What bounds it on this card.  The bytes are the live pages at stored
+// width (sum_b live_pages_b * P * Hkv * dh * e * 2, e = 4 or 1, + two
+// scales per 8-bit page) plus q and out; the work is 4 * dh flops per
+// (query head, row, valid position).  At S = 1 decode that is far below
+// the ops:byte ridge: bytes bound it.  At the fused chunk's S = 32 (64 rows
+// per kv head) fp32 FMAs on the CUDA cores would take longer than the
+// bytes (0.0144 against 0.0107 ms at internlm2's shape), so the products go
+// to the tensor cores as 3xTF32 (2 products for 8-bit pools, whose codes
+// are exact in TF32; common/tf32_mma.cuh), which puts the bound back on the
+// bytes.  The first version of this kernel walked a slot's whole page table
+// in one block (64 blocks at the main shape, each a serial chain of up to
+// 64 unoverlapped page loads) and left 7 of 8 warps idle at S = 1.  This
+// design:
+//   - splits the ring across blocks (flash-decoding): grid (B, Hkv *
+//     row_tiles, n_splits), n_splits = ceil(nb * P / 128), each block 128
+//     ring positions (8 pages at P = 16);
+//   - stages each 32-position step of K and V with cp.async (16-byte units;
+//     4-byte units for 8-bit rows whose width is not a multiple of 16
+//     bytes) into a 2-stage ring, so the next step's loads overlap this
+//     step's math; a skipped page is zero-filled without a read, a step
+//     whose pages are all skipped is neither loaded nor computed, a block
+//     with no live page reads no q and exits;
+//   - S*G >= 16 rows (the tile path, paged_attention_tile_kernel): 4 warps
+//     x 16 rows, scores and PV on m16n8k8 TF32 tensor cores with the
+//     weights kept in registers;
+//   - S*G < 16 rows (the GEMV path, paged_attention_gemv_kernel, bytes-
+//     bound): fp32 CUDA cores, each warp on its 8 positions of every step
+//     (4 lanes per position for the scores, then lanes across head dims
+//     for PV) with its own online softmax, so a step has no barrier
+//     between phases; the 4 warps' partials merge once at the end.
+// A block writes its partial (running max m, denominator l, unnormalised
+// acc) to fp32 scratch (sized by paged_attention_scratch_floats, allocated
+// by the caller); paged_attention_combine_kernel (a second launch,
+// one warp per row) merges the splits with the log-sum-exp rule.  One
+// call is one kernel when n_splits == 1 (the block writes out directly)
+// and two otherwise.  A split with no valid position for a row writes
+// l = 0 and no acc; the combine skips it, so a row with no valid position
+// anywhere comes out 0 / max(0, 1e-30) = 0 exactly.  The running max
+// starts at -1e30 and masked scores never raise it.  Scores are kept in
+// base 2 (x log2 e, after the softcap) so every exponential is one exp2f.
 
-#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "../../common/tf32_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using namespace tf32mma;
+
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileRows = 64;
-constexpr int kRowsPerWarp = kTileRows / kWarps;  // 8
+constexpr int kTileRows = 64;   // rows per block on the tile path
+constexpr int kStep = 32;       // ring positions per pipeline step
+constexpr int kSplit = 128;     // ring positions per block
+constexpr int kSteps = kSplit / kStep;
+constexpr int kGemvRows = 16;   // S*G below this: the GEMV path
+constexpr int kStages = 2;      // K/V ring depth
 constexpr int kMaxHeadDim = 256;
 constexpr int kMaxPageSize = 64;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;  // scores in base 2: exp2f
+
+static_assert(kSplit == kThreads && kStep == 32,
+              "one thread per position of a split, one warp per step");
+
+struct Params {
+  const float* q;
+  const void* pool_k;
+  const void* pool_v;
+  const float* k_scale;
+  const float* v_scale;
+  const int* page_table;
+  const int* cache_len;
+  float* out;
+  float2* part_ml;  // [B, Hkv, row_tiles * 64, n_splits] (m base 2, l)
+  float* part_acc;  // [B, Hkv, row_tiles * 64, n_splits, dh]
+  int S, H, Hkv, dh, P, nb, trash, window, row_tiles, n_splits;
+  int ld;           // stage row stride, elements
+  float softcap, scale;
+};
 
 // Absolute token held at ring offset r, or a negative value if never written.
 __device__ __forceinline__ int ring_token(int t, int r, int ring) {
@@ -96,8 +127,7 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-// Four consecutive pool elements (aligned to 4 elements) as fp32, and the
-// unit a page row is copied in: 4 elements, 16 bytes for fp32, 4 for 8-bit.
+// Four consecutive elements (aligned to 4) as fp32.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -110,312 +140,679 @@ __device__ __forceinline__ float4 load4(const __nv_fp8_e4m3* p) {
   v.__x = *reinterpret_cast<const __nv_fp8x4_storage_t*>(p);
   return static_cast<float4>(v);
 }
-template <typename T>
-using Unit4 =
-    typename std::conditional<sizeof(T) == 4, float4, uint32_t>::type;
 
 __host__ __device__ constexpr size_t align16(size_t bytes) {
   return (bytes + 15) & ~(size_t)15;
 }
 
-// Shared-memory layout, in bytes.  q rows (fp32) and K rows (element type T)
-// are padded to dh + 4 elements: 4-element units stay aligned, and
-// consecutive K rows start 4 banks apart (fp32) or 1 bank apart (8-bit), so
-// the score loop's lanes, one K row each, read distinct banks.
-template <typename T>
-struct Smem {
-  int ld, sp;
-  size_t q, k, v, w, c, l, total;
-  __host__ __device__ Smem(int dh, int P)
-      : ld(dh + 4), sp(P + 4),
-        q(0),
-        k(q + align16(sizeof(float) * kTileRows * (dh + 4))),
-        v(k + align16(sizeof(T) * P * (dh + 4))),
-        w(v + align16(sizeof(T) * P * dh)),
-        c(w + align16(sizeof(float) * kTileRows * (P + 4))),
-        l(c + sizeof(float) * kTileRows),
-        total(l + sizeof(float) * kTileRows) {}
+// Per-position facts of a block's split, in shared memory.
+struct Meta {
+  int u[kSplit];        // ring token (negative: never written / past ring)
+  int pid[kSplit];      // page id (trash past the ring)
+  float ksc[kSplit];    // 8-bit pools: the position's page scales
+  float vsc[kSplit];
+  unsigned valid[kSteps];  // per step: positions valid for some row
+  unsigned live[kSteps];   // per step: positions on a live page
 };
 
-// T: pool element type (float, int8_t, __nv_fp8_e4m3; 8-bit pools carry
-// k_scale / v_scale).
-// NJ: 128-wide head-dim chunks per lane in the PV phase (dh <= 128 * NJ).
-// RPL: rows each lane scores in phase A, 8 / (32 / min(P, 32)) capped to
-// [1, 8], a constant so no issue slot goes to a row the lane never has.
-template <typename T, int NJ, int RPL>
+// Shared-memory layout, bytes: Meta, q rows (fp32, stride ldq), the 2-stage
+// K/V ring (T, stride ld), and the GEMV path's per-warp partials (acc, m, l).
+struct Smem {
+  size_t q, stage, red, total;
+  __host__ __device__ Smem(bool tile, int esize, int dh, int ld, int rows) {
+    const int dh8 = (dh + 7) & ~7;
+    q = align16(sizeof(Meta));
+    const size_t qbytes = tile ? sizeof(float) * kTileRows * (dh8 + 4)
+                               : sizeof(float) * rows * dh;
+    stage = q + align16(qbytes);
+    red = stage + align16((size_t)kStages * 2 * kStep * ld * esize);
+    total = red + (tile ? 0 : sizeof(float) * kWarps * rows * (dh + 2));
+  }
+};
+
+// The split's per-position facts for the tile of rows [row0, row0 + rows).
+// The union of the rows' valid tokens is one interval: u >= 0, u <= the
+// last row's qpos and, with a window, u > the first row's qpos - window.
+template <bool kQuant>
+__device__ void setup_split(const Params& p, Meta& M, int b, int kh,
+                            int split, int row0, int rows, int t) {
+  const int G = p.H / p.Hkv;
+  const int ring = p.nb * p.P;
+  const int qlo = t - (p.S - 1) + row0 / G;
+  const int qhi = t - (p.S - 1) + (row0 + rows - 1) / G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int pos = split * kSplit + tid;
+  int u = -1, pid = p.trash;
+  bool any = false;
+  if (pos < ring) {
+    pid = p.page_table[(int64_t)b * p.nb + pos / p.P];
+    u = ring_token(t, pos, ring);
+    any = pid != p.trash && u >= 0 && u <= qhi &&
+          (p.window <= 0 || u > qlo - p.window);
+  }
+  M.u[tid] = u;
+  M.pid[tid] = pid;
+  if (kQuant) {
+    const bool real = pid != p.trash;  // the trash page is never read
+    M.ksc[tid] = real ? p.k_scale[(int64_t)pid * p.Hkv + kh] : 0.f;
+    M.vsc[tid] = real ? p.v_scale[(int64_t)pid * p.Hkv + kh] : 0.f;
+  }
+  const unsigned ballot = __ballot_sync(0xffffffffu, any);
+  if (lane == 0) M.valid[warp] = ballot;
+  __syncthreads();
+  // a page is live when any of its positions is: expand to its positions
+  unsigned live;
+  if (p.P >= 64) {  // a page spans two steps
+    live = (M.valid[warp] | M.valid[warp ^ 1]) ? 0xffffffffu : 0u;
+  } else if (p.P == 32) {
+    live = M.valid[warp] ? 0xffffffffu : 0u;
+  } else {
+    const int first = lane & ~(p.P - 1);
+    const unsigned page_bits = ((1u << p.P) - 1u) << first;
+    live = __ballot_sync(0xffffffffu, (M.valid[warp] & page_bits) != 0);
+  }
+  if (lane == 0) M.live[warp] = live;
+  __syncthreads();
+}
+
+// Issue the cp.async copies of step s's K and V rows (32 positions, rows of
+// dh elements of T at stride ld) into one stage, zero-filling positions on
+// skipped pages; always commits one group.
+template <typename T>
+__device__ void issue_step(const Params& p, const Meta& M, T* kst, T* vst,
+                           int s, int kh) {
+  const unsigned live = M.live[s];
+  if (live) {
+    const T* pk = static_cast<const T*>(p.pool_k);
+    const T* pv = static_cast<const T*>(p.pool_v);
+    const int row_bytes = p.dh * (int)sizeof(T);
+    const bool wide = row_bytes % 16 == 0;
+    const int unit = wide ? 16 : 4;
+    const int units = row_bytes / unit;
+    for (int idx = threadIdx.x; idx < kStep * units; idx += kThreads) {
+      const int r = idx / units, c = idx - r * units;
+      const int ps = s * kStep + r;
+      const bool on = (live >> r) & 1u;
+      const int64_t off =
+          on ? (((int64_t)M.pid[ps] * p.P + (ps & (p.P - 1))) * p.Hkv + kh) *
+                   p.dh
+             : 0;
+      const char* gk = reinterpret_cast<const char*>(pk + off) + unit * c;
+      const char* gv = reinterpret_cast<const char*>(pv + off) + unit * c;
+      char* sk = reinterpret_cast<char*>(kst + r * p.ld) + unit * c;
+      char* sv = reinterpret_cast<char*>(vst + r * p.ld) + unit * c;
+      if (wide) {
+        cp_async16(sk, gk, on);
+        cp_async16(sv, gv, on);
+      } else {
+        cp_async4(sk, gk, on);
+        cp_async4(sv, gv, on);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// Walk a block's steps through an NST-stage cp.async ring: each step's K
+// and V rows are issued NST - 1 steps ahead (one commit group per step),
+// and body(s, ks, vs, live) runs on a step with a live page once its rows
+// have landed, between two barriers.
+template <int NST, typename T, typename Body>
+__device__ __forceinline__ void walk_steps(const Params& p, const Meta& M,
+                                           T* st, int steps, int kh,
+                                           Body&& body) {
+  const int stage = 2 * kStep * p.ld;
+#pragma unroll
+  for (int i = 0; i < NST - 1; ++i) {
+    if (i < steps)
+      issue_step<T>(p, M, st + i * stage, st + i * stage + kStep * p.ld, i,
+                    kh);
+    else
+      cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    const int next = s + NST - 1;
+    if (next < steps) {
+      T* nk = st + (next % NST) * stage;
+      issue_step<T>(p, M, nk, nk + kStep * p.ld, next, kh);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait<NST - 1>();
+    __syncthreads();
+    const T* ks = st + (s % NST) * stage;
+    if (M.live[s]) body(s, ks, ks + kStep * p.ld, M.live[s]);
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ int num_steps(const Params& p, int split) {
+  const int left = p.nb * p.P - split * kSplit;
+  return min(kSteps, (left + kStep - 1) / kStep);
+}
+
+// Where a row's partial of one split lies: part_ml[i] holds (m, l), and
+// part_acc[i * dh ..] its acc when l > 0.
+__device__ __forceinline__ size_t partial_index(const Params& p, int b,
+                                                int kh, int rt, int r,
+                                                int split) {
+  return ((((size_t)b * p.Hkv + kh) * p.row_tiles + rt) * kTileRows + r) *
+             p.n_splits + split;
+}
+
+// A block none of whose steps holds a live page: its rows' results are
+// empty (0 with one split; m = -1e30, l = 0 and no acc otherwise).
+__device__ void write_empty(const Params& p, int b, int kh, int rt,
+                            int split, int rows) {
+  const int G = p.H / p.Hkv, dh4 = p.dh >> 2;
+  if (p.n_splits > 1) {
+    for (int r = threadIdx.x; r < rows; r += kThreads)
+      p.part_ml[partial_index(p, b, kh, rt, r, split)] =
+          make_float2(kNegInf, 0.f);
+    return;
+  }
+  for (int idx = threadIdx.x; idx < rows * dh4; idx += kThreads) {
+    const int r = idx / dh4, c = idx - r * dh4, i = rt * kTileRows + r;
+    reinterpret_cast<float4*>(
+        p.out + (((int64_t)b * p.S + i / G) * p.H + kh * G + i % G) *
+                    p.dh)[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+__device__ __forceinline__ bool any_live(const Meta& M) {
+  return (M.live[0] | M.live[1] | M.live[2] | M.live[3]) != 0u;
+}
+
+// ---------------------------------------------------------------------------
+// The tile path: S*G >= 16 rows, scores and PV on tensor cores.
+// NT: n-tiles of 8 head dims the accumulator holds (dh <= 8 * NT).
+// ---------------------------------------------------------------------------
+template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const float* __restrict__ q,
-                       const T* __restrict__ pool_k,
-                       const T* __restrict__ pool_v,
-                       const float* __restrict__ k_scale,
-                       const float* __restrict__ v_scale,
-                       const int* __restrict__ page_table,
-                       const int* __restrict__ cache_len,
-                       float* __restrict__ out,
-                       int S, int H, int Hkv, int dh, int P, int nb, int trash,
-                       int window, float softcap, float scale) {
+    paged_attention_tile_kernel(const Params p) {
   constexpr bool kQuant = !std::is_same<T, float>::value;
-  using Unit = Unit4<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> L(dh, P);
-  float* q_s = reinterpret_cast<float*>(smem_raw + L.q);  // [kTileRows][ld]
-  T* k_s = reinterpret_cast<T*>(smem_raw + L.k);          // [P][ld]  K page
-  T* v_s = reinterpret_cast<T*>(smem_raw + L.v);          // [P][dh]  V page
-  float* w_s = reinterpret_cast<float*>(smem_raw + L.w);  // [kTileRows][sp]
-  float* c_s = reinterpret_cast<float*>(smem_raw + L.c);  // rescale per row
-  float* l_s = reinterpret_cast<float*>(smem_raw + L.l);  // denominators
+  const int b = blockIdx.x;
+  const int kh = blockIdx.y / p.row_tiles, rt = blockIdx.y % p.row_tiles;
+  const int split = blockIdx.z;
+  const int G = p.H / p.Hkv;
+  const int row0 = rt * kTileRows;
+  const int rows = min(kTileRows, p.S * G - row0);
+  const int dh8 = (p.dh + 7) & ~7, ldq = dh8 + 4;
+  const Smem L(true, sizeof(T), p.dh, p.ld, rows);
+  Meta& M = *reinterpret_cast<Meta*>(smem_raw);
+  float* q_s = reinterpret_cast<float*>(smem_raw + L.q);
+  T* st = reinterpret_cast<T*>(smem_raw + L.stage);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  const int t = p.cache_len[b] - 1;
+  setup_split<kQuant>(p, M, b, kh, split, row0, rows, t);
+  if (!any_live(M)) {
+    write_empty(p, b, kh, rt, split, rows);
+    return;
+  }
+
+  // q tile, fp32, by cp.async in the first step's group; zeros past
+  // `rows` and past dh (to dh8)
+  const int c8 = dh8 >> 2;
+  for (int idx = tid; idx < kTileRows * c8; idx += kThreads) {
+    const int r = idx / c8, c = idx - r * c8;
+    const int i = row0 + min(r, rows - 1);
+    const bool in = r < rows && 4 * c < p.dh;
+    cp_async16(q_s + r * ldq + 4 * c,
+               p.q + (((int64_t)b * p.S + i / G) * p.H + kh * G + i % G) *
+                             p.dh + (in ? 4 * c : 0),
+               in);
+  }
+  if (dh8 != p.dh)  // the last k step reads 4 head dims past dh: zeros
+    for (int r = tid; r < kStages * 2 * kStep; r += kThreads)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[r * p.ld + p.dh + e] = T(0.f);
+
+  const bool warp_live = warp * 16 < rows;
+  const int qa = t - (p.S - 1) + (row0 + warp * 16 + g) / G;  // row g
+  const int qb = t - (p.S - 1) + (row0 + warp * 16 + g + 8) / G;
+  float o[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
   const float kInvalid = __int_as_float(0xff800000);  // -inf: masked score
 
-  const int G = H / Hkv;
-  const int b = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int row0 = blockIdx.z * kTileRows;
-  const int rows = min(kTileRows, S * G - row0);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wrow = warp * kRowsPerWarp;  // this warp's rows: wrow .. wrow+7
-  const int dh4 = dh >> 2;
+  walk_steps<kStages>(p, M, st, num_steps(p, split), kh,
+                      [&](int s, const T* ks, const T* vs, unsigned live) {
+    if (!warp_live) return;
+    float sc[4][4];
+    warp_scores<false, T>(sc, q_s + warp * 16 * ldq, ldq, ks, p.ld,
+                          dh8 >> 3, lane);
+    float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int pos = n * 8 + 2 * t4 + (e & 1);
+        const int ps = s * kStep + pos;
+        const bool ok = ((live >> pos) & 1u) &&
+                        position_valid(M.u[ps], e < 2 ? qa : qb, p.window);
+        float x = sc[n][e] * p.scale;
+        if (kQuant) x *= M.ksc[ps];  // dequant K: before the softcap
+        if (p.softcap > 0.f) x = tanhf(x / p.softcap) * p.softcap;
+        sc[n][e] = ok ? x * kLog2e : kInvalid;  // base-2 units
+        if (e < 2)
+          mx_a = fmaxf(mx_a, sc[n][e]);
+        else
+          mx_b = fmaxf(mx_b, sc[n][e]);
+      }
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float corr_a = exp2f(m_a - mn_a), corr_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[n][e];
+        float w = x == kInvalid ? 0.f : exp2f(x - (e < 2 ? mn_a : mn_b));
+        if (e < 2)
+          sum_a += w;
+        else
+          sum_b += w;
+        // dequant V: the page's scale enters the product, not l
+        if (kQuant) w *= M.vsc[s * kStep + n * 8 + 2 * t4 + (e & 1)];
+        sc[n][e] = w;
+      }
+    l_a = l_a * corr_a + sum_a;
+    l_b = l_b * corr_b + sum_b;
+    if (__any_sync(0xffffffffu, corr_a != 1.f || corr_b != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {  // a running max moved
+        o[j][0] *= corr_a;
+        o[j][1] *= corr_a;
+        o[j][2] *= corr_b;
+        o[j][3] *= corr_b;
+      }
+    }
+    warp_pv<NT, T>(o, sc, vs, p.ld, dh8 >> 3, lane);
+  });
 
-  for (int idx = threadIdx.x; idx < rows * dh4; idx += kThreads) {
-    const int r = idx / dh4, c = idx - r * dh4;
-    const int i = row0 + r;
-    const int s = i / G, h = kh * G + i % G;
-    reinterpret_cast<float4*>(q_s + r * L.ld)[c] =
-        reinterpret_cast<const float4*>(q + (((int64_t)b * S + s) * H + h) * dh)[c];
+#pragma unroll
+  for (int o2 = 1; o2 < 4; o2 <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, o2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, o2);
   }
-
-  const int t = cache_len[b] - 1;
-  const int ring = nb * P;
-  const int qpos0 = t - (S - 1);
-
-  // phase A lanes: PP positions x RPP rows per pass; each lane scores RPL
-  // of the warp's 8 rows at one position per pass
-  constexpr int RPP = kRowsPerWarp / RPL;
-  const int PP = P < 32 ? P : 32;
-  const int pl = lane % PP, rl = lane / PP;
-  const bool warp_live = wrow < rows;  // warp-uniform: any row of its 8
-  // phase B lanes: four per row
-  const int br = wrow + (lane >> 2), bs = lane & 3;
-  float m_row = kNegInf, l_row = 0.f;  // online-softmax state of row br
-  float acc[kRowsPerWarp][4 * NJ];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int e = 0; e < 4 * NJ; ++e) acc[r][e] = 0.f;
-
-  for (int j = 0; j < nb; ++j) {
-    const int pid = page_table[(int64_t)b * nb + j];
-    if (pid == trash) continue;  // uniform across the block
-    bool any = false;
-    for (int idx = threadIdx.x; idx < rows * P; idx += kThreads) {
-      const int r = idx / P, p = idx - r * P;
-      const int qpos = qpos0 + (row0 + r) / G;
-      any |= position_valid(ring_token(t, j * P + p, ring), qpos, window);
+  for (int half = 0; half < 2; ++half) {
+    const int r = warp * 16 + g + 8 * half;
+    if (r >= rows) continue;
+    const float m = half ? m_b : m_a, l = half ? l_b : l_a;
+    float* dst;
+    float mul = 1.f;
+    if (p.n_splits == 1) {
+      const int i = row0 + r;
+      dst = p.out + (((int64_t)b * p.S + i / G) * p.H + kh * G + i % G) *
+                        p.dh;
+      mul = 1.f / fmaxf(l, 1e-30f);
+    } else {
+      const size_t pi = partial_index(p, b, kh, rt, r, split);
+      if (t4 == 0) p.part_ml[pi] = make_float2(m, l);
+      if (!(l > 0.f)) continue;
+      dst = p.part_acc + pi * p.dh;
     }
-    // also orders the previous page's reads before this page's loads
-    if (!__syncthreads_or(any)) continue;
-
-    const T* kp = pool_k + ((int64_t)pid * P * Hkv + kh) * dh;
-    const T* vp = pool_v + ((int64_t)pid * P * Hkv + kh) * dh;
-    for (int idx = threadIdx.x; idx < P * dh4; idx += kThreads) {
-      const int p = idx / dh4, c = idx - p * dh4;
-      const int64_t off = (int64_t)p * Hkv * dh;
-      reinterpret_cast<Unit*>(k_s + p * L.ld)[c] =
-          reinterpret_cast<const Unit*>(kp + off)[c];
-      reinterpret_cast<Unit*>(v_s + p * dh)[c] =
-          reinterpret_cast<const Unit*>(vp + off)[c];
-    }
-    // this page's scales (8-bit pools), one read each per block
-    float ksc = 1.f, vsc = 1.f;
-    if (kQuant) {
-      ksc = k_scale[(int64_t)pid * Hkv + kh];
-      vsc = v_scale[(int64_t)pid * Hkv + kh];
-    }
-    __syncthreads();
-
-    // (A) masked scores of the warp's rows
-    if (warp_live && rl < RPP) {
-      for (int p0 = 0; p0 < P; p0 += PP) {
-        const int p = p0 + pl;
-        const T* kr = k_s + p * L.ld;
-        float dot[RPL];
 #pragma unroll
-        for (int i = 0; i < RPL; ++i) dot[i] = 0.f;
-        for (int c = 0; c < dh4; ++c) {
-          const float4 kv = load4(kr + 4 * c);
-#pragma unroll
-          for (int i = 0; i < RPL; ++i)
-            dot[i] = dot4(reinterpret_cast<const float4*>(
-                              q_s + (wrow + rl + RPP * i) * L.ld)[c],
-                          kv, dot[i]);
-        }
-        const int u = ring_token(t, j * P + p, ring);
-#pragma unroll
-        for (int i = 0; i < RPL; ++i) {
-          const int r = wrow + rl + RPP * i;
-          if (r < rows) {
-            float sc = kInvalid;
-            if (position_valid(u, qpos0 + (row0 + r) / G, window)) {
-              sc = dot[i] * scale;
-              if (kQuant) sc *= ksc;  // dequant K: before the softcap
-              if (softcap > 0.f) sc = tanhf(sc / softcap) * softcap;
-            }
-            w_s[r * L.sp + p] = sc;
-          }
-        }
-      }
-    }
-    __syncwarp();
-
-    // (B) online softmax: row br's running max, weights and denominator
-    {
-      const bool live = br < rows;
-      float mloc = kNegInf;
-      if (live)
-        for (int p = bs; p < P; p += 4) mloc = fmaxf(mloc, w_s[br * L.sp + p]);
-      mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 1));
-      mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 2));
-      const float m_new = fmaxf(m_row, mloc);
-      float lsum = 0.f;
-      if (live)
-        for (int p = bs; p < P; p += 4) {
-          const float sc = w_s[br * L.sp + p];
-          const float w = (sc == kInvalid) ? 0.f : expf(sc - m_new);
-          w_s[br * L.sp + p] = w;
-          lsum += w;
-        }
-      lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-      lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-      const float corr = expf(m_row - m_new);
-      l_row = l_row * corr + lsum;
-      m_row = m_new;
-      if (bs == 0 && live) c_s[br] = corr;
-    }
-    __syncwarp();
-
-    // (C) acc = acc * corr + w @ V for the warp's rows
-    if (!warp_live) continue;
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      if (wrow + r < rows) {
-        const float corr = c_s[wrow + r];
-#pragma unroll
-        for (int e = 0; e < 4 * NJ; ++e) acc[r][e] *= corr;
-      }
-    }
-    for (int p = 0; p < P; ++p) {
-      float4 vv[NJ];
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const int c = lane + 32 * jj;
-        vv[jj] = c < dh4 ? load4(v_s + p * dh + 4 * c)
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        if (wrow + r < rows) {
-          // dequant V: the page's scale enters the accumulator, not l
-          const float w = kQuant ? w_s[(wrow + r) * L.sp + p] * vsc
-                                 : w_s[(wrow + r) * L.sp + p];
-#pragma unroll
-          for (int jj = 0; jj < NJ; ++jj) {
-            acc[r][4 * jj + 0] = fmaf(w, vv[jj].x, acc[r][4 * jj + 0]);
-            acc[r][4 * jj + 1] = fmaf(w, vv[jj].y, acc[r][4 * jj + 1]);
-            acc[r][4 * jj + 2] = fmaf(w, vv[jj].z, acc[r][4 * jj + 2]);
-            acc[r][4 * jj + 3] = fmaf(w, vv[jj].w, acc[r][4 * jj + 3]);
-          }
-        }
-      }
-    }
-  }
-
-  if (bs == 0 && br < rows) l_s[br] = l_row;
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int rr = wrow + r;
-    if (rr < rows) {
-      const int i = row0 + rr;
-      const int s = i / G, h = kh * G + i % G;
-      float4* o = reinterpret_cast<float4*>(
-          out + (((int64_t)b * S + s) * H + h) * dh);
-      const float inv = 1.f / fmaxf(l_s[rr], 1e-30f);
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const int c = lane + 32 * jj;
-        if (c < dh4)
-          o[c] = make_float4(acc[r][4 * jj] * inv, acc[r][4 * jj + 1] * inv,
-                             acc[r][4 * jj + 2] * inv, acc[r][4 * jj + 3] * inv);
-      }
+    for (int j = 0; j < NT; ++j) {
+      const int c = 8 * j + 2 * t4;
+      if (c < p.dh)
+        *reinterpret_cast<float2*>(dst + c) =
+            make_float2(o[j][2 * half] * mul, o[j][2 * half + 1] * mul);
     }
   }
 }
 
-template <typename T, int NJ, int RPL>
-cudaError_t launch(dim3 grid, cudaStream_t stream, const float* q,
-                   const void* pool_k, const void* pool_v,
-                   const float* k_scale, const float* v_scale,
-                   const int* page_table, const int* cache_len, float* out,
-                   int S, int H, int Hkv, int dh, int P, int nb, int trash,
-                   int window, float softcap, float scale) {
-  const size_t smem = Smem<T>(dh, P).total;
-  static size_t configured = 48 * 1024;  // dynamic smem allowed so far
+// ---------------------------------------------------------------------------
+// The GEMV path: S*G < 16 rows, fp32 CUDA cores, bytes-bound.  Each warp
+// owns 8 positions of every step (4 lanes per position for the scores) and
+// keeps its own online softmax and accumulator over them, so a step needs
+// no barrier between its phases; the 4 warps' partials are merged once at
+// the end with the log-sum-exp rule.
+// RMAX >= rows; NJ: 128-wide head-dim chunks per lane in PV (dh <= 128 NJ).
+// ---------------------------------------------------------------------------
+template <typename T, int RMAX, int NJ>
+__global__ void __launch_bounds__(kThreads)
+    paged_attention_gemv_kernel(const Params p) {
+  constexpr bool kQuant = !std::is_same<T, float>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x, kh = blockIdx.y, split = blockIdx.z;
+  const int G = p.H / p.Hkv;
+  const int rows = p.S * G;  // < kGemvRows: one row tile
+  const int dh = p.dh, dh4 = dh >> 2;
+  const Smem L(false, sizeof(T), dh, p.ld, rows);
+  Meta& M = *reinterpret_cast<Meta*>(smem_raw);
+  float* q_s = reinterpret_cast<float*>(smem_raw + L.q);     // [rows][dh]
+  T* st = reinterpret_cast<T*>(smem_raw + L.stage);
+  float* red = reinterpret_cast<float*>(smem_raw + L.red);   // [4][rows][dh]
+  float* m_w = red + kWarps * rows * dh;                     // [4][rows]
+  float* l_w = m_w + kWarps * rows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const int t = p.cache_len[b] - 1;
+  setup_split<kQuant>(p, M, b, kh, split, 0, rows, t);
+  if (!any_live(M)) {
+    write_empty(p, b, kh, 0, split, rows);
+    return;
+  }
+  for (int idx = tid; idx < rows * dh4; idx += kThreads) {  // q: group 0
+    const int r = idx / dh4, c = idx - r * dh4;
+    cp_async16(q_s + r * dh + 4 * c,
+               p.q + (((int64_t)b * p.S + r / G) * p.H + kh * G + r % G) *
+                             dh + 4 * c,
+               true);
+  }
+  const int qpos0 = t - (p.S - 1);
+
+  float m_r[RMAX], l_r[RMAX];
+  float4 acc[RMAX][NJ];
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) {
+    m_r[r] = kNegInf;
+    l_r[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[r][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const float kInvalid = __int_as_float(0xff800000);
+  const int pa = tid >> 2, ca = tid & 3;  // scores: position, quarter of dh
+
+  walk_steps<kStages>(p, M, st, num_steps(p, split), kh,
+                      [&](int s, const T* ks, const T* vs, unsigned live) {
+    float d[RMAX];
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) d[r] = 0.f;
+    const T* kr = ks + pa * p.ld;
+    for (int c = ca; c < dh4; c += 4) {
+      const float4 kv = load4(kr + 4 * c);
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r)
+        if (r < rows)
+          d[r] = dot4(reinterpret_cast<const float4*>(q_s + r * dh)[c], kv,
+                      d[r]);
+    }
+    const int ps = s * kStep + pa;
+    const bool on = (live >> pa) & 1u;
+    const int u = M.u[ps];
+    float w[RMAX], corr[RMAX];
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) {
+      d[r] += __shfl_xor_sync(0xffffffffu, d[r], 1);
+      d[r] += __shfl_xor_sync(0xffffffffu, d[r], 2);
+      float x = kInvalid;
+      if (r < rows && on && position_valid(u, qpos0 + r / G, p.window)) {
+        x = d[r] * p.scale;
+        if (kQuant) x *= M.ksc[ps];  // dequant K: before the softcap
+        if (p.softcap > 0.f) x = tanhf(x / p.softcap) * p.softcap;
+        x *= kLog2e;
+      }
+      // the warp's 8 positions sit in lane bits 2..4
+      float mx = fmaxf(kNegInf, x);
+#pragma unroll
+      for (int o2 = 4; o2 < 32; o2 <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o2));
+      const float mn = fmaxf(m_r[r], mx);
+      corr[r] = exp2f(m_r[r] - mn);
+      m_r[r] = mn;
+      w[r] = x == kInvalid ? 0.f : exp2f(x - mn);
+      float sum = w[r];
+#pragma unroll
+      for (int o2 = 4; o2 < 32; o2 <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o2);
+      l_r[r] = l_r[r] * corr[r] + sum;
+      // dequant V: the page's scale enters the product, not l
+      if (kQuant) w[r] *= M.vsc[ps];
+    }
+    // acc = acc * corr + w @ V over the warp's positions, lanes on dh
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        acc[r][j].x *= corr[r];
+        acc[r][j].y *= corr[r];
+        acc[r][j].z *= corr[r];
+        acc[r][j].w *= corr[r];
+      }
+#pragma unroll 2
+    for (int pp = 0; pp < 8; ++pp) {
+      const T* vr = vs + (8 * warp + pp) * p.ld;
+      float4 vv[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = lane + 32 * j;
+        vv[j] = c < dh4 ? load4(vr + 4 * c)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) {
+        const float wp = __shfl_sync(0xffffffffu, w[r], 4 * pp);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          acc[r][j].x = fmaf(wp, vv[j].x, acc[r][j].x);
+          acc[r][j].y = fmaf(wp, vv[j].y, acc[r][j].y);
+          acc[r][j].z = fmaf(wp, vv[j].z, acc[r][j].z);
+          acc[r][j].w = fmaf(wp, vv[j].w, acc[r][j].w);
+        }
+      }
+    }
+  });
+
+  // merge the 4 warps' partials, one writer per (row, 4 head dims)
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) {
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = lane + 32 * j;
+      if (c < dh4)
+        reinterpret_cast<float4*>(red + (warp * rows + r) * dh)[c] =
+            acc[r][j];
+    }
+    if (lane == 0) {
+      m_w[warp * rows + r] = m_r[r];
+      l_w[warp * rows + r] = l_r[r];
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < rows * dh4; idx += kThreads) {
+    const int r = idx / dh4, c = idx - r * dh4;
+    float m = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      if (l_w[w * rows + r] > 0.f) m = fmaxf(m, m_w[w * rows + r]);
+    float l = 0.f;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float lw = l_w[w * rows + r];
+      if (!(lw > 0.f)) continue;  // no valid position in this warp's share
+      const float f = exp2f(m_w[w * rows + r] - m);
+      const float4 x =
+          reinterpret_cast<const float4*>(red + (w * rows + r) * dh)[c];
+      l += f * lw;
+      v.x = fmaf(f, x.x, v.x);
+      v.y = fmaf(f, x.y, v.y);
+      v.z = fmaf(f, x.z, v.z);
+      v.w = fmaf(f, x.w, v.w);
+    }
+    float4* dst;
+    if (p.n_splits == 1) {
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      v = make_float4(v.x * inv, v.y * inv, v.z * inv, v.w * inv);
+      dst = reinterpret_cast<float4*>(
+          p.out + (((int64_t)b * p.S + r / G) * p.H + kh * G + r % G) * dh);
+    } else {
+      const size_t pi = partial_index(p, b, kh, 0, r, split);
+      if (c == 0) p.part_ml[pi] = make_float2(m, l);
+      if (!(l > 0.f)) continue;
+      dst = reinterpret_cast<float4*>(p.part_acc + pi * dh);
+    }
+    dst[c] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The split combine: one warp per row, the log-sum-exp rule over the
+// splits with l > 0.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+    paged_attention_combine_kernel(const Params p, int B) {
+  const int G = p.H / p.Hkv;
+  const int rows = p.S * G;
+  const int64_t gw = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (gw >= (int64_t)B * p.Hkv * rows) return;
+  const int i = (int)(gw % rows);
+  const int64_t bk = gw / rows;
+  const int kh = (int)(bk % p.Hkv), b = (int)(bk / p.Hkv);
+  const size_t base = partial_index(p, b, kh, i / kTileRows, i % kTileRows, 0);
+  float M = kNegInf;
+  for (int sp = 0; sp < p.n_splits; ++sp) {
+    const float2 ml = p.part_ml[base + sp];
+    if (ml.y > 0.f) M = fmaxf(M, ml.x);
+  }
+  const int dh4 = p.dh >> 2;
+  float4 acc[2] = {make_float4(0.f, 0.f, 0.f, 0.f),
+                   make_float4(0.f, 0.f, 0.f, 0.f)};
+  float l = 0.f;
+  for (int sp = 0; sp < p.n_splits; ++sp) {
+    const float2 ml = p.part_ml[base + sp];
+    if (!(ml.y > 0.f)) continue;  // no valid position: acc never written
+    const float w = exp2f(ml.x - M);
+    l += w * ml.y;
+    const float4* a =
+        reinterpret_cast<const float4*>(p.part_acc + (base + sp) * p.dh);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = lane + 32 * j;
+      if (c < dh4) {
+        const float4 x = a[c];
+        acc[j].x = fmaf(w, x.x, acc[j].x);
+        acc[j].y = fmaf(w, x.y, acc[j].y);
+        acc[j].z = fmaf(w, x.z, acc[j].z);
+        acc[j].w = fmaf(w, x.w, acc[j].w);
+      }
+    }
+  }
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  float4* o = reinterpret_cast<float4*>(
+      p.out + (((int64_t)b * p.S + i / G) * p.H + kh * G + i % G) * p.dh);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int c = lane + 32 * j;
+    if (c < dh4)
+      o[c] = make_float4(acc[j].x * inv, acc[j].y * inv, acc[j].z * inv,
+                         acc[j].w * inv);
+  }
+}
+
+// Stage row strides, in elements of T: fp32 rows of dh8 + 4 words (= 4
+// mod 8: the tile path's fragment reads hit 32 distinct banks), 8-bit rows
+// of roundup(dh8, 32) + 16 bytes (= 16 mod 32).
+int stage_ld(int esize, int dh) {
+  const int dh8 = (dh + 7) & ~7;
+  if (esize == 1) return ((dh8 + 31) & ~31) + 16;
+  return dh8 + 4;
+}
+
+// Launch one instantiation, opting in to its dynamic shared memory once.
+template <auto Kernel>
+cudaError_t launch_kernel(dim3 grid, size_t smem, cudaStream_t st,
+                          const Params& p) {
+  static size_t configured = 48 * 1024;
   if (smem > configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<T, NJ, RPL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     configured = smem;
   }
-  paged_attention_kernel<T, NJ, RPL><<<grid, kThreads, smem, stream>>>(
-      q, static_cast<const T*>(pool_k), static_cast<const T*>(pool_v),
-      k_scale, v_scale, page_table, cache_len, out, S, H, Hkv, dh, P, nb,
-      trash, window, softcap, scale);
+  Kernel<<<grid, kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
-// The (NJ, RPL) specialisation for this head dim and page size.
 template <typename T>
-cudaError_t dispatch(dim3 grid, cudaStream_t st, const float* q,
-                     const void* pool_k, const void* pool_v,
-                     const float* k_scale, const float* v_scale,
-                     const int* page_table, const int* cache_len, float* out,
-                     int S, int H, int Hkv, int dh, int P, int nb, int trash,
-                     int window, float softcap, float scale) {
-  const int rpl = P >= 32 ? 8 : P == 16 ? 4 : P == 8 ? 2 : 1;
-#define PA_LAUNCH(nj, r)                                                   \
-  return launch<T, nj, r>(grid, st, q, pool_k, pool_v, k_scale, v_scale,  \
-                          page_table, cache_len, out, S, H, Hkv, dh, P,   \
-                          nb, trash, window, softcap, scale)
-  if (dh <= 128) {
-    if (rpl == 8) PA_LAUNCH(1, 8);
-    if (rpl == 4) PA_LAUNCH(1, 4);
-    if (rpl == 2) PA_LAUNCH(1, 2);
-    PA_LAUNCH(1, 1);
+cudaError_t dispatch(int B, const Params& p0, cudaStream_t st) {
+  Params p = p0;
+  const int rows = p.S * (p.H / p.Hkv);
+  const bool tile = rows >= kGemvRows;
+  p.ld = stage_ld(sizeof(T), p.dh);
+  const size_t smem = Smem(tile, sizeof(T), p.dh, p.ld, rows).total;
+  const dim3 grid(B, p.Hkv * p.row_tiles, p.n_splits);
+  cudaError_t e;
+  if (tile) {
+    e = p.dh <= 128
+            ? launch_kernel<paged_attention_tile_kernel<T, 16>>(grid, smem,
+                                                                st, p)
+            : launch_kernel<paged_attention_tile_kernel<T, 32>>(grid, smem,
+                                                                st, p);
+  } else {
+#define PA_GEMV(r)                                                    \
+  e = p.dh <= 128 ? launch_kernel<paged_attention_gemv_kernel<T, r, 1>>( \
+                        grid, smem, st, p)                            \
+                  : launch_kernel<paged_attention_gemv_kernel<T, r, 2>>( \
+                        grid, smem, st, p)
+    if (rows <= 2)
+      PA_GEMV(2);
+    else if (rows <= 4)
+      PA_GEMV(4);
+    else
+      PA_GEMV(16);
+#undef PA_GEMV
   }
-  if (rpl == 8) PA_LAUNCH(2, 8);
-  if (rpl == 4) PA_LAUNCH(2, 4);
-  if (rpl == 2) PA_LAUNCH(2, 2);
-  PA_LAUNCH(2, 1);
-#undef PA_LAUNCH
+  if (e != cudaSuccess || p.n_splits == 1) return e;
+  const int64_t warps = (int64_t)B * p.Hkv * rows;
+  const dim3 cgrid((unsigned)((warps + kWarps - 1) / kWarps));
+  paged_attention_combine_kernel<<<cgrid, kThreads, 0, st>>>(p, B);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// Floats of fp32 scratch one call needs, 0 when the ring is one split
+// (the blocks then write out directly).  The call cuts a slot's ring into
+// n_splits = ceil(nb * P / 128) blocks; with more than one, the scratch
+// holds the splits' (m, l) pairs ([B, Hkv, row_tiles * 64, n_splits]
+// float2, row_tiles = ceil(S * H / Hkv / 64)) and then their acc rows (the
+// same rows x dh floats).  Shapes only: the caller reads no cache length.
+long long paged_attention_scratch_floats(int B, int S, int H, int Hkv,
+                                         int dh, int P, int nb) {
+  if (B < 1 || S < 1 || Hkv < 1 || H < Hkv || dh < 1 || P < 1 || nb < 1)
+    return 0;
+  const long long n_splits = ((long long)nb * P + kSplit - 1) / kSplit;
+  if (n_splits == 1) return 0;
+  const long long row_tiles = (S * (H / Hkv) + kTileRows - 1) / kTileRows;
+  return (long long)B * Hkv * row_tiles * kTileRows * n_splits * (dh + 2);
+}
+
 // Pool element types (kv_dtype): 0 fp32 (scales must be null), 1 int8,
-// 2 fp8_e4m3 (both need k_scale and v_scale).
+// 2 fp8_e4m3 (both need k_scale and v_scale).  scratch holds
+// paged_attention_scratch_floats(...) floats, 16-byte aligned, and may be
+// null when that is 0.
 // Returns a cudaError_t: cudaErrorInvalidValue for a dtype code or shapes
-// the kernel does not take, else the launch's cudaGetLastError().
+// the kernel does not take, else the launches' cudaGetLastError().
 // window <= 0: no window; softcap <= 0: no softcap.  npg counts pool rows
 // including the trash page.
 int paged_attention_fwd(const float* q, const void* pool_k,
                         const void* pool_v, const float* k_scale,
                         const float* v_scale, const int* page_table,
-                        const int* cache_len, float* out, int B, int S, int H,
-                        int Hkv, int dh, int P, int nb, int npg, int kv_dtype,
-                        int window, float softcap, float scale, void* stream) {
+                        const int* cache_len, float* out, float* scratch,
+                        int B, int S, int H, int Hkv, int dh, int P, int nb,
+                        int npg, int kv_dtype, int window, float softcap,
+                        float scale, void* stream) {
   if (B < 0 || S < 1 || Hkv < 1 || H % Hkv != 0 || dh < 4 || dh % 4 != 0 ||
       dh > kMaxHeadDim || P < 1 || P > kMaxPageSize || (P & (P - 1)) != 0 ||
       nb < 1 || npg < 1)
@@ -424,20 +821,27 @@ int paged_attention_fwd(const float* q, const void* pool_k,
   if (kv_dtype == 0 ? (k_scale != nullptr || v_scale != nullptr)
                     : (kv_dtype == 1 || kv_dtype == 2) ? !scaled : true)
     return (int)cudaErrorInvalidValue;
+  const long long ring = (long long)nb * P;
+  if (ring > (1 << 30)) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
+  const int n_splits = (int)((ring + kSplit - 1) / kSplit);
+  if (n_splits > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
   const int row_tiles = (S * (H / Hkv) + kTileRows - 1) / kTileRows;
-  if (Hkv > 65535 || row_tiles > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B, Hkv, row_tiles);
+  if ((long long)Hkv * row_tiles > 65535 || n_splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  // the (m, l) pairs, then the acc rows: their offset is a multiple of 128
+  // floats (row_tiles * 64 rows of pairs), so float4 reads stay aligned
+  const size_t pairs = (size_t)B * Hkv * row_tiles * kTileRows * n_splits;
+  float* part_acc = n_splits > 1 ? scratch + 2 * pairs : nullptr;
+  Params p{q,        pool_k,   pool_v, k_scale, v_scale, page_table,
+           cache_len, out,     reinterpret_cast<float2*>(scratch),
+           part_acc, S,        H,      Hkv,     dh,      P,
+           nb,       npg - 1,  window, row_tiles, n_splits, 0,
+           softcap,  scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int trash = npg - 1;
-#define PA_DISPATCH(T)                                                     \
-  return (int)dispatch<T>(grid, st, q, pool_k, pool_v, k_scale, v_scale,  \
-                          page_table, cache_len, out, S, H, Hkv, dh, P,   \
-                          nb, trash, window, softcap, scale)
-  if (kv_dtype == 1) PA_DISPATCH(int8_t);
-  if (kv_dtype == 2) PA_DISPATCH(__nv_fp8_e4m3);
-  PA_DISPATCH(float);
-#undef PA_DISPATCH
+  if (kv_dtype == 1) return (int)dispatch<int8_t>(B, p, st);
+  if (kv_dtype == 2) return (int)dispatch<__nv_fp8_e4m3>(B, p, st);
+  return (int)dispatch<float>(B, p, st);
 }
 
 const char* paged_attention_error_string(int err) {

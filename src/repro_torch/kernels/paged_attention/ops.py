@@ -11,9 +11,15 @@ query lies, and nothing else:
 
 Pools are fp32, or int8 / fp8_e4m3 with ``k_scale``/``v_scale``
 [num_pages+1, Hkv] fp32 (one kernel, its element type a template
-parameter).  ``launches`` counts kernel launches (one per call on a
-CUDA tensor) and ``launches_by_dtype`` the same launches by pool
-dtype, so a run can show that its main path went through the kernel.
+parameter).  The kernel splits the ring across blocks; with more than
+one split the wrapper allocates the partials' fp32 scratch
+(``torch.empty`` of the size the library's
+``paged_attention_scratch_floats`` gives from shapes only, so a call
+stays free of host syncs) and the call makes two device kernels, the
+second combining the splits.  ``launches`` counts
+calls that launched (one per call on a CUDA tensor) and
+``launches_by_dtype`` the same by pool dtype, so a run can show that
+its main path went through the kernel.
 ``supported(kv_dtype)`` runs the smallest real launch in that pool
 dtype; tests use it to skip.
 """
@@ -41,10 +47,12 @@ launches = 0    # kernel launches since import (callers may reset it)
 launches_by_dtype = {name: 0 for name in KV_DTYPE_NAMES.values()}
 
 
-# the C signature of csrc's paged_attention_fwd: 8 tensor pointers, 10
-# ints (shapes, dtype code, window), softcap and scale, the stream
-FWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+# the C signatures of csrc's paged_attention_fwd (8 tensor pointers and
+# the scratch, 10 ints: shapes, dtype code, window; softcap and scale, the
+# stream) and paged_attention_scratch_floats (7 shapes)
+FWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+SCRATCH_ARGTYPES = [ctypes.c_int] * 7
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,9 +61,18 @@ def _lib() -> ctypes.CDLL:
     i32 = ctypes.c_int
     lib.paged_attention_fwd.argtypes = FWD_ARGTYPES
     lib.paged_attention_fwd.restype = i32
+    lib.paged_attention_scratch_floats.argtypes = SCRATCH_ARGTYPES
+    lib.paged_attention_scratch_floats.restype = ctypes.c_longlong
     lib.paged_attention_error_string.argtypes = [i32]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_floats(*shape: int) -> int:
+    """The library's scratch size for these shapes (B, S, H, Hkv, dh, P,
+    nb), asked once per shape."""
+    return _lib().paged_attention_scratch_floats(*shape)
 
 
 def _check(q, pool_k, pool_v, page_table, cache_len, k_scale,
@@ -125,7 +142,10 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     _check(q4, pool_k, pool_v, page_table, cache_len, k_scale, v_scale)
     b, s, h, dh = q4.shape
     npg, page_size, hkv, _ = pool_k.shape
+    nb = page_table.shape[1]
     out = torch.empty_like(q4)
+    n = _scratch_floats(b, s, h, hkv, dh, page_size, nb)
+    scratch = torch.empty(n, device=q.device) if n else None
     vp = ctypes.c_void_p
 
     def ptr(x):
@@ -134,9 +154,10 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     lib = _lib()
     rc = lib.paged_attention_fwd(
         ptr(q4), ptr(pool_k), ptr(pool_v), ptr(k_scale), ptr(v_scale),
-        ptr(page_table), ptr(cache_len), ptr(out), b, s, h, hkv, dh,
-        page_size, page_table.shape[1], npg, KV_DTYPE_CODES[pool_k.dtype],
-        int(window or 0), float(softcap or 0.0), float(dh ** -0.5),
+        ptr(page_table), ptr(cache_len), ptr(out), ptr(scratch),
+        b, s, h, hkv, dh, page_size, nb, npg,
+        KV_DTYPE_CODES[pool_k.dtype], int(window or 0),
+        float(softcap or 0.0), float(dh ** -0.5),
         vp(torch.cuda.current_stream(q.device).cuda_stream))
     if rc != 0:
         raise RuntimeError("paged_attention kernel launch failed: "
