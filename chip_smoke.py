@@ -34,9 +34,11 @@ plain PyTorch version.  Phases, each printing JSON lines:
    kernel faster than its bound fails the run).  The fused chunk's
    S = 32 and both S = 1 decode shapes are timed.  Then the ``moe_gmm``
    kernel in fp32 and bf16 at dbrx's and grok's expert shapes, with and
-   without row
-   counts, with a group dimension and at ragged edges (fp32 max abs error
-   <= 1e-4, bf16 <= 2e-2 x max|want|, rows past a count exactly 0).
+   without row counts, with a group dimension and at ragged edges,
+   counts 65, 72 and 80 at full width, counts 0 and 1 beside a full
+   expert, C = 300 with every row live and D, F not multiples of 4 (fp32
+   max abs error <= 1e-4, bf16 <= 2e-2 x max|want|, rows past a count
+   exactly 0; the rows the kernel computes printed beside each case).
    Then the ``flash_attention`` kernel in fp32 and bf16 at internlm2's
    prefill shapes (S = 128, 512, 1024) and at edge cases (window,
    softcap, non-causal Sq != Skv, GQA 8:1, dh 32/64/256, odd lengths,
@@ -66,11 +68,14 @@ plain PyTorch version.  Phases, each printing JSON lines:
 3b. fused_matmul: the kernel against ``matmul1`` on int8 x with fp32 w,
    scaled and unscaled, at fig09's n = 256, 512, 1024 and 2048; on
    tests/test_kernels.py's three shapes in fp32 and bf16, scaled and
-   unscaled; on fp16 x; at ragged edges (37x53x29, M = 1, K = 1) and
-   with a bf16 output from fp32 w (fp32 out <= 1e-4 x max|want|, bf16
-   <= 2e-2 x max|want|).  fig11's case (int8 x, scaled, fp32 out) timed
-   at n = 1024 and 2048 beside the plain version (prep + cuBLAS), bare
-   cuBLAS on the prepared x (a yardstick) and the bound.  ``matmul``'s
+   unscaled; on fp16 x; at ragged edges (37x53x29, M = 1, K = 1), with
+   int8 x whose K is not a multiple of 16 or odd, bf16 w whose N is not
+   a multiple of 8 or odd, and with a bf16 output from fp32 w (fp32 out
+   <= 1e-4 x max|want|, bf16 <= 2e-2 x max|want|).  fig11's case (int8
+   x, scaled, fp32 out) timed at n = 1024 and 2048 beside the plain
+   version (prep + cuBLAS), bare cuBLAS on the prepared x (a yardstick)
+   and the bound at the kernel's 2 TF32 products per fp32 product, each
+   call also by its device time from the profiler (``device_ms``).  ``matmul``'s
    gradients (forward through the kernel) against autograd through
    ``matmul1``: dw and dscale for int8 x, dx too for fp32 x (<= 1e-4 x
    max|want|).  Then the slice's main path: fig09's and fig11's
@@ -149,7 +154,10 @@ plain PyTorch version.  Phases, each printing JSON lines:
    layer on those 256 tokens (``moe.apply``, through the kernel) against
    the same layer recomposed here from the port's ``route`` and
    ``_dispatch_indices`` with the plain ``moe_gmm_ref`` (<= 1e-3).  The
-   kernel is timed there, at the main path's shapes and counts.
+   kernel is timed there, at the main path's shapes and counts, on the
+   gate/up and the down product, by ``cuda_ms`` and by its device time,
+   beside the plain version, ``torch.bmm`` and the bound (3 TF32 products
+   per fp32 product on the tensor cores; the fp32-core bound beside it).
 
 The last three lines are the card's name and power limit (again), the
 kernel table (paged attention per pool dtype, with its S = 1 rows under
@@ -188,7 +196,11 @@ FLASH_BF16_TOL = 2e-2  # x max|want| of each row: both round fp32 to bf16
 MOE_LAYER_TOL = 1e-3  # one MoE layer, kernel vs recomposed plain version
 DBRX_DEPTH = 4        # of 40 layers: ~57 GB of fp32 weights on an 80 GB card
 # moe_gmm cases: name, (G, E, C, D, F), row counts ("pattern": C, C//2,
-# 0, 1, ... per expert; None: every row live)
+# 0, 1, ... per expert; None: every row live; a list: one count per
+# expert).  The last four are the tensor-core redesign's: counts just past
+# the old 64-row tile at full width, counts 0 and 1 beside a full expert,
+# C = 300 with every row live (three passes over each F tile), D and F
+# not multiples of 4 (4-byte and element copies).
 GMM_CASES = [
     ("dbrx_gate_up", (1, 16, 80, 6144, 10752), "pattern"),
     ("dbrx_gate_up_all_rows", (1, 16, 80, 6144, 10752), None),
@@ -197,6 +209,10 @@ GMM_CASES = [
     ("grok_gate_up", (1, 8, 80, 6144, 32768), "pattern"),
     ("odd_edges", (1, 4, 37, 200, 72), "pattern"),
     ("odd_edges_groups2_all_rows", (2, 4, 37, 200, 72), None),
+    ("dbrx_rows_65_72_80", (1, 4, 80, 6144, 10752), [65, 72, 80, 64]),
+    ("dbrx_rows_0_1_full", (1, 3, 80, 6144, 10752), [0, 1, 80]),
+    ("c300_all_live", (1, 4, 300, 1024, 2048), [300, 300, 300, 300]),
+    ("ragged_d203_f77", (2, 4, 37, 203, 77), "pattern"),
 ]
 # flash_attention cases: name, (B, H, Hkv, Sq, Skv, dh), options; "main"
 # cases are internlm2-1.8b's prefill at three buckets, and are timed
@@ -294,6 +310,15 @@ FMM_CASES += [
     ("ragged_bf16_x", (37, 53, 29), "bfloat16", "float32", "float32", False),
     ("bf16_out_fp32_w", (1024, 1024, 1024), "int8", "float32", "bfloat16",
      True),
+    # the tensor-core redesign's copy paths: int8 x with K not a multiple
+    # of 16 (4-byte copies) and odd (element copies), w rows not a
+    # multiple of 16 bytes (4-byte) and of 4 bytes (element copies)
+    ("int8_k1000", (200, 1000, 130), "int8", "float32", "float32", True),
+    ("int8_k1001_n131", (200, 1001, 131), "int8", "float32", "float32",
+     True),
+    ("bf16_w_n130", (256, 256, 130), "bfloat16", "bfloat16", "bfloat16",
+     True),
+    ("bf16_w_n77", (64, 96, 77), "int8", "bfloat16", "float32", True),
 ]
 FMM_TIMED = (1024, 2048)
 # rwkv6's path checks, x max|want| of each leaf.  Full-depth rwkv6-7b
@@ -356,6 +381,41 @@ def cuda_ms(torch, fn, iters: int = 30, flush=None) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(torch, fn, flush, iters: int = 10):
+    """Device time of one call of ``fn``, from ``torch.profiler``: ``iters``
+    calls made as ``cuda_ms`` makes them (``flush`` rewritten before
+    each), the CUDA kernels of each call (those between two of the flush's
+    fills) summed, and the median over the calls.  A call whose kernels
+    the trace lost is left out rather than read as 0 (the count of calls
+    traced rides along).  The wrapper's host work, which ``cuda_ms``
+    holds, is not in it.  (None, 0) when no kernel was traced."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((evt.time_range.start, evt.time_range.elapsed_us() / 1e3,
+                      "fill" in evt.name.lower()) for evt in prof.events()
+                     if evt.device_type == torch.autograd.DeviceType.CUDA)
+    calls, current = [], None
+    for _start, ms, is_flush in kernels:
+        if is_flush:
+            current = None
+        elif current is None:
+            current = [ms]
+            calls.append(current)
+        else:
+            current.append(ms)
+    per_call = sorted(sum(call) for call in calls)
+    if not per_call:
+        return None, 0
+    return per_call[len(per_call) // 2], len(per_call)
 
 
 # ---------------------------------------------------------------------------
@@ -612,15 +672,22 @@ def gmm_pattern_counts(torch, G, E, C):
 
 def phase_gmm_kernels(torch, gmm):
     """Every ``GMM_CASES`` case in fp32 and bf16 at the model's scale
-    (x ~ N(0, 1), w ~ N(0, 1/D)).  Returns the worst fp32 max abs error
-    and the worst bf16 error relative to max|want|."""
+    (x ~ N(0, 1), w ~ N(0, 1/D)), with the rows the kernel computes for
+    its counts.  Returns the worst fp32 max abs error and the worst bf16
+    error relative to max|want|."""
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_rows_computed
     gen = torch.Generator(device=DEV).manual_seed(4321)
     worst = {"fp32": 0.0, "bf16": 0.0}
     for name, (G, E, C, D, F), counts_kind in GMM_CASES:
         x32 = torch.randn(G, E, C, D, generator=gen, device=DEV)
         w32 = torch.randn(E, D, F, generator=gen, device=DEV).mul_(D ** -0.5)
-        counts = (gmm_pattern_counts(torch, G, E, C)
-                  if counts_kind == "pattern" else None)
+        if counts_kind == "pattern":
+            counts = gmm_pattern_counts(torch, G, E, C)
+        elif counts_kind is None:
+            counts = None
+        else:
+            counts = torch.tensor([counts_kind] * G, dtype=torch.int32,
+                                  device=DEV)
         for dt_name, dt in (("fp32", torch.float32),
                             ("bf16", torch.bfloat16)):
             x, w = x32.to(dt), w32.to(dt)
@@ -639,7 +706,10 @@ def phase_gmm_kernels(torch, gmm):
             scale = float(want.float().abs().max())
             rec = {"case": name, "dtype": dt_name, "shape": [G, E, C, D, F],
                    "row_counts": counts_kind, "max_abs_err": err,
-                   "max_abs_want": scale}
+                   "max_abs_want": scale,
+                   "rows_computed": moe_gmm_rows_computed(
+                       [C] * (G * E) if counts is None
+                       else counts.flatten().tolist(), C)}
             if counts is not None:
                 g4 = got.reshape(G, E, C, F)
                 pad = (torch.arange(C, device=DEV)[None, None, :]
@@ -994,8 +1064,11 @@ def phase_fused_matmul_kernels(torch, fops, fig11):
     timed beside the plain version, bare cuBLAS on the prepared x (the
     library yardstick, never called by the port) and the bound: fig11's
     ``fused_bytes`` (int8 x, the scales, fp32 w and out, each once) and
-    2n^3 flops.  Returns
+    2n^3 flops at the kernel's 2 TF32 products per fp32 product (x is
+    exact in TF32), each call's device time from the profiler beside its
+    ``cuda_ms``.  Returns
     the worst relative errors and the timed records by n."""
+    from repro_torch.kernels.tf32 import products
     gen = torch.Generator(device=DEV).manual_seed(97531)
     worst = {"fp32": 0.0, "bf16": 0.0}
     timed = {}
@@ -1025,19 +1098,20 @@ def phase_fused_matmul_kernels(torch, fops, fig11):
         if M == K == N and M in FMM_TIMED and xd == "int8" and scaled \
                 and od == "float32":
             xf = fops.prep(x, sc)
+            calls = {
+                "": lambda: fops.fused_matmul(x, w, sc,
+                                              out_dtype=torch.float32),
+                "plain_": lambda: fops.matmul1(x, w, sc,
+                                               out_dtype=torch.float32),
+                "library_": lambda: torch.matmul(xf, w)}
+            for key, fn in calls.items():
+                rec[key + "ms"] = cuda_ms(torch, fn, flush=flush)
+                rec[key + "device_ms"], rec[key + "calls_traced"] = \
+                    device_ms(torch, fn, flush=flush)
             nbytes, flops = fig11.fused_bytes(M), 2 * M * N * K
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_flops = flops / FP32_FLOPS * 1e3
-            rec.update(
-                ms=cuda_ms(torch, lambda: fops.fused_matmul(
-                    x, w, sc, out_dtype=torch.float32), flush=flush),
-                plain_ms=cuda_ms(torch, lambda: fops.matmul1(
-                    x, w, sc, out_dtype=torch.float32), flush=flush),
-                library_ms=cuda_ms(torch, lambda: torch.matmul(xf, w),
-                                   flush=flush),
-                bound_ms=max(t_bytes, t_flops),
-                bound_by="bytes" if t_bytes >= t_flops else "operations",
-                bytes=nbytes, flops=flops)
+            rec.update(bytes=nbytes, flops=flops,
+                       **bounds(nbytes, flops, products(x.dtype, w.dtype)))
+            roofline(rec, f"fused_matmul n = {M}")
             timed[M] = rec
             del xf
         emit("kernel_check", kernel="fused_matmul", **rec)
@@ -2121,12 +2195,16 @@ def moe_recomposed(torch, moe, ref, p, x, cfg):
     return y.reshape(x.shape), buf, counts, hidden
 
 
-def gmm_timing(torch, gmm, x, w, counts, flush) -> dict:
+def gmm_timing(torch, gmm, x, w, counts, flush, product: str) -> dict:
     """The kernel, its plain version and ``torch.bmm`` (fp32, TF32 off: a
     yardstick the port never calls) on one expert product of the main
-    path, with its bound: bytes of x, of the live experts' w and of the
-    output over the memory rate, 2 * sum(counts) * D * F flops over the
-    fp32 rate."""
+    path, each with its device time from the profiler, and the bound:
+    bytes of x, of the live experts' w and of the output over the memory
+    rate against 2 * sum(counts) * D * F flops at the kernel's TF32
+    products per fp32 product (3 for fp32) over the TF32 rate.  The rows
+    the kernel computes ride along beside the live ones."""
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_rows_computed
+    from repro_torch.kernels.tf32 import products
     E, C, D = x.shape
     F = w.shape[2]
     x4, c2 = x[None], counts[None]
@@ -2138,19 +2216,20 @@ def gmm_timing(torch, gmm, x, w, counts, flush) -> dict:
     live = int((counts > 0).sum())
     nbytes = (x.numel() + live * D * F + E * C * F) * x.element_size()
     flops = 2 * int(counts.sum()) * D * F
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / FP32_FLOPS * 1e3
-    return {"shape": [E, C, D, F], "row_counts": counts.tolist(),
-            "max_abs_err": err,
-            "ms": cuda_ms(torch, lambda: gmm.moe_gmm(x4, w, c2),
-                          flush=flush),
-            "plain_ms": cuda_ms(torch, lambda: gmm.moe_gmm_ref(x4, w, c2),
-                                flush=flush),
-            "library_ms": cuda_ms(torch, lambda: torch.bmm(x, w),
-                                  flush=flush),
-            "bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "bytes": nbytes, "flops": flops}
+    rec = {"shape": [E, C, D, F], "row_counts": counts.tolist(),
+           "live_rows": int(counts.sum()),
+           "rows_computed": moe_gmm_rows_computed(counts.tolist(), C),
+           "max_abs_err": err, "bytes": nbytes, "flops": flops,
+           **bounds(nbytes, flops, products(x.dtype, w.dtype))}
+    calls = {"": lambda: gmm.moe_gmm(x4, w, c2),
+             "plain_": lambda: gmm.moe_gmm_ref(x4, w, c2),
+             "library_": lambda: torch.bmm(x, w)}
+    for key, fn in calls.items():
+        rec[key + "ms"] = cuda_ms(torch, fn, flush=flush)
+        rec[key + "device_ms"], rec[key + "calls_traced"] = device_ms(
+            torch, fn, flush=flush)
+    roofline(rec, f"moe_gmm {product}")
+    return rec
 
 
 def phase_moe_chunk(torch, gmm, rt, cfg, params):
@@ -2203,9 +2282,9 @@ def phase_moe_chunk(torch, gmm, rt, cfg, params):
     check(err <= MOE_LAYER_TOL, f"MoE layer kernel vs plain: {err}")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
     timed = {"gate_up": gmm_timing(torch, gmm, buf, p["w_gate"], counts,
-                                   flush),
+                                   flush, "gate_up"),
              "down": gmm_timing(torch, gmm, hidden, p["w_down"], counts,
-                                flush)}
+                                flush, "down")}
     for name, rec in timed.items():
         emit("kernel_time", kernel="moe_gmm", product=name, **rec)
     return timed
@@ -2391,6 +2470,9 @@ def main() -> int:
     entries[0]["launches_dbrx"] = dbrx_launches
     entries[0]["launches_zamba2"] = zamba2["paged"]
     main_gmm = gmm_rows["gate_up"]
+    timing_keys = ("ms", "device_ms", "plain_ms", "plain_device_ms",
+                   "library_ms", "library_device_ms", "bound_ms", "bound_by",
+                   "bound_fp32_cores_ms", "tensor_terms", "roofline_share")
     entries.append({
         "name": "moe_gmm", "route": "cuda",
         "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
@@ -2398,14 +2480,13 @@ def main() -> int:
         "launches": gmm_launches,
         "max_abs_err": max(gmm_worst["fp32"], main_gmm["max_abs_err"],
                            gmm_rows["down"]["max_abs_err"]),
-        "ms": main_gmm["ms"], "plain_ms": main_gmm["plain_ms"],
-        "bound_ms": main_gmm["bound_ms"], "bound_by": main_gmm["bound_by"],
-        "library_ms": main_gmm["library_ms"],
+        **{key: main_gmm[key] for key in timing_keys},
         "bf16_relative_err": gmm_worst["bf16"],
-        "down_ms": gmm_rows["down"]["ms"],
-        "down_bound_ms": gmm_rows["down"]["bound_ms"],
+        "live_rows": main_gmm["live_rows"],
+        "rows_computed": main_gmm["rows_computed"],
+        "down": {key: gmm_rows["down"][key] for key in timing_keys},
         "shape": "dbrx gate/up: E=16 C=80 D=6144 F=10752 fp32, "
-                 f"sum(counts)={sum(main_gmm['row_counts'])}"})
+                 f"sum(counts)={main_gmm['live_rows']}"})
     main_fa = flash_timed["main_s1024"]
     entries.append({
         "name": "flash_attention", "route": "cuda",
@@ -2474,14 +2555,9 @@ def main() -> int:
         "max_relative_err_all_cases": fmm_worst["fp32"],
         "bf16_relative_err": fmm_worst["bf16"],
         "grad_relative_err": fmm_grad_worst,
-        "ms": fmm["ms"], "plain_ms": fmm["plain_ms"],
-        "bound_ms": fmm["bound_ms"], "bound_by": fmm["bound_by"],
-        "library_ms": fmm["library_ms"],
-        "ms_by_n": {n: rec["ms"] for n, rec in fmm_timed.items()},
-        "plain_ms_by_n": {n: rec["plain_ms"] for n, rec in fmm_timed.items()},
-        "library_ms_by_n": {n: rec["library_ms"]
-                            for n, rec in fmm_timed.items()},
-        "bound_ms_by_n": {n: rec["bound_ms"] for n, rec in fmm_timed.items()},
+        **{key: fmm[key] for key in timing_keys},
+        "by_n": {n: {key: rec[key] for key in timing_keys}
+                 for n, rec in fmm_timed.items()},
         "fig11_speedup": fig11_res["speedup"],
         "shape": "fig11: int8 x [1024,1024] scaled, f32 w [1024,1024], "
                  "f32 out"})

@@ -1,7 +1,7 @@
 // Grouped per-expert matmul for MoE FFNs on NVIDIA Hopper (sm_90a).
 //
-// Replaces repro/kernels/moe_gmm/kernel.py::moe_gmm (the Pallas TPU
-// kernel).  For each group g and expert e:
+// Replaces src/repro/kernels/moe_gmm/kernel.py:49 (moe_gmm, the Pallas TPU
+// kernel; its body _kernel at :24).  For each group g and expert e:
 //   out[g, e] = x[g, e] @ w[e]
 //   x          [G, E, C, D]   float or bf16 (C = capacity rows per expert)
 //   w          [E, D, F]      same type, shared by all groups
@@ -10,165 +10,126 @@
 // Rows at or past the count are written as exactly 0, as the oracle
 // (ref.py::moe_gmm_ref) does.  The Pallas kernel skips only the tiles
 // whose first row is past the count and computes the other padding rows;
-// both agree inside the MoE layer, where padding rows of x are 0.
+// both agree inside the MoE layer, where padding rows of x are 0.  The
+// kernel reads row_counts itself; the host never does.
 //
-// Grid (ceil(F / 128), ceil(C / 64), G * E).  One block of 256 threads
-// owns a 64 x 128 output tile of one (group, expert).  A block whose first
-// row is at or past the count writes zeros and does no K loop (the TPU
-// kernel's tile skip).  Otherwise it walks D in steps of 16: the x tile
-// (64 x 16, stored transposed so a thread reads its 4 rows as one float4)
-// and the w tile (16 x 128) are staged in shared memory as fp32, the next
-// step's tiles are loaded into registers while this step's are used, and
-// each thread keeps a 4 x 8 register micro-tile (rows ty*4.., columns
-// tx*4.. and 64+tx*4.., so a warp's float4 reads of the w tile hit 32
-// distinct banks).  Rows past the count are loaded as 0 and never read
-// from memory.  Every edge is bounds-checked: C, D and F need not divide
-// the tile.
+// What bounds it on this card: bytes.  At the main path's shape (dbrx
+// gate/up: E = 16, C = 80, D = 6144, F = 10752, 978 live rows) a call
+// needs x, the live experts' w and the output, 4.32 GB (1.29 ms at 3.35
+// TB/s), and 2 * sum(counts) * D * F = 129 GFLOP, which at 3 TF32 products
+// per fp32 product on the tensor cores take 0.78 ms at 495 TFLOP/s (1.93
+// ms on the fp32 CUDA cores).  So each live expert's w must stream from
+// device memory once, with the products hidden under the stream.
 //
-// What bounds it on this card: operations.  At the main path's shape
-// (dbrx: E = 16, C = 80, D = 6144, F = 10752; about 60 of the 80 rows of
-// an expert are live at capacity factor 1.25) a call does
-// 2 * sum(counts) * D * F flops (~130 GFLOP, ~1.9 ms at the 67 TFLOP/s
-// fp32 CUDA-core rate) against ~4.3 GB of x, live expert weights and
-// output (~1.3 ms at 3.35 TB/s).  Each output is one fp32 FMA chain in k
-// order.  This version is right and simple: fp32 FMAs on CUDA cores, no
-// cp.async or TMA pipeline, and a 64-row tile that wastes most of a
-// second tile when a count lies just above 64.  A later PR makes it fast
-// with bf16 / TF32 wgmma tiles fed by TMA (a different numeric result for
-// fp32, so only where the caller asks for it), a ragged row tiling, and a
-// persistent grid over (expert, tile).
+// Design (common/tf32_gemm.cuh): the product is computed transposed,
+// out^T = w^T x^T, so that F is the tensor cores' M side and the expert's
+// rows their N side, in n8 tiles that the 2 warps along the rows take in
+// turn, so a pass computes its live rows rounded up to 16: an expert with
+// 65-80 live rows computes 80, not two tiles of 64.  One block of 256
+// threads (4 x 2 warps) per (group, expert, 128-column F tile) covers
+// every live row of
+// that expert, so each w tile is read from device memory once per pass;
+// an expert with more than 128 live rows takes further passes over the
+// same F tile, 128 rows each.  The block reads its count: rows in
+// [count, ceil16(count)) are zero-filled copies, the n8 tiles past them
+// are neither loaded nor computed, and a block whose count is 0 writes zeros
+// and reads no w.  Products: mma.sync m16n8k8 TF32 with fp32
+// accumulation (common/tf32_gemm.cuh, Gemm), 3 TF32 products per fp32
+// product for fp32 (3xTF32, fp32 accuracy), 1 for bf16 (exact in TF32),
+// each 64-deep stage summed apart and promoted into the fp32 total.
+// mma.sync, not wgmma: the expert's live rows are the MMA's N side, which
+// wgmma fixes in the instruction (m64nNk8) and mma.sync steps by 8 at run
+// time, and the bound here is bytes, not the tensor rate.  Loads: a
+// 3-stage ring of 64-deep K stages (204 KB in fp32, one block per SM; 108
+// KB in bf16) filled by 16-byte cp.async where D and F allow, else 4-byte
+// or element copies.  Grid (ceil(F / 128), G * E): consecutive blocks
+// share one expert's x (from L2) and stream disjoint columns of its w.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../common/tf32_gemm.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 64;        // rows of the output tile
-constexpr int kBN = 128;       // columns of the output tile
-constexpr int kBK = 16;        // depth of one K step
-constexpr int kPadA = 4;       // keeps float4 reads aligned, spreads banks
-constexpr int kTM = 4;         // micro-tile rows per thread
-constexpr int kTN = 8;         // micro-tile columns per thread
-constexpr int kALoads = kBM * kBK / kThreads;   // 4
-constexpr int kBLoads = kBK * kBN / kThreads;   // 8
+using namespace tf32gemm;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int kBF = 128;    // F columns per block (the MMA's M side)
+constexpr int kBR = 128;    // expert rows per pass (the MMA's N side)
+constexpr int kRowStep = 16;  // rows computed per pass: n8 tiles x kWN
+constexpr int kWM = 4;      // warps along F
+constexpr int kWN = 2;      // warps along rows
+constexpr int kStages = 3;
+constexpr int kThreads = 32 * kWM * kWN;
+
 template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+using Mainloop = Gemm<T, false, T, true, kBF, kBR, kWM, kWN, kStages>;
 
-// Column of micro-tile column j of thread tx inside the 128-wide tile.
-__device__ __forceinline__ int tile_col(int tx, int j) {
-  return (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
+// One pass: up to kBR live rows of one expert (from ob, its first output
+// row) against a kBF-column tile of its w, with ntl n8 tiles per warp (a
+// compile-time NTL from 1 up to the mainloop's NT, chosen at run time).
+template <typename T, int NTL>
+__device__ __forceinline__ void pass(int ntl, unsigned char* smem,
+                                     const Src& w, const Src& x, T* ob,
+                                     int rows, int f0, int D, int F) {
+  using G = Mainloop<T>;
+  if constexpr (NTL < G::NT) {
+    if (ntl > NTL) {
+      pass<T, NTL + 1>(ntl, smem, w, x, ob, rows, f0, D, F);
+      return;
+    }
+  }
+  float acc[G::MT][NTL][4];
+  G::template run<NTL>(acc, smem, w, x, D);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp % kWM, wn = warp / kWM;
+  const int g = lane >> 2, t = lane & 3;
+  // C fragment element q of (m16 tile i, n8 tile j): column f = g (+8),
+  // row 2t (+1)
+#pragma unroll
+  for (int i = 0; i < G::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NTL; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int f = f0 + wm * (kBF / kWM) + 16 * i + g + 8 * (q >> 1);
+        const int r = (j * kWN + wn) * 8 + 2 * t + (q & 1);
+        if (r < rows && f < F)
+          ob[(size_t)r * F + f] = from_f32<T>(acc[i][j][q]);
+      }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    moe_gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   const int* __restrict__ row_counts, T* __restrict__ out,
-                   int E, int C, int D, int F) {
-  const int ge = blockIdx.z;  // group * E + expert
+    moe_gmm_kernel(Src w, Src x, const int* __restrict__ row_counts,
+                   T* __restrict__ out, int E, int C, int D, int F) {
+  using G = Mainloop<T>;
+  static_assert(kRowStep == 8 * kWN && G::kThreads == kThreads,
+                "the mainloop's n8 tiles and thread count");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ge = blockIdx.y;  // group * E + expert
   const int e = ge % E;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int f0 = blockIdx.x * kBF;
   int count = row_counts != nullptr ? row_counts[ge] : C;
   count = count < 0 ? 0 : (count > C ? C : count);
-
-  const T* xb = x + (size_t)ge * C * D;
-  const T* wb = w + (size_t)e * D * F;
   T* ob = out + (size_t)ge * C * F;
 
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-
-  if (m0 < count) {
-    __shared__ __align__(16) float As[kBK][kBM + kPadA];
-    __shared__ __align__(16) float Bs[kBK][kBN];
-    float ra[kALoads];
-    float rb[kBLoads];
-
-    auto load = [&](int k0) {
-#pragma unroll
-      for (int i = 0; i < kALoads; ++i) {
-        const int idx = tid + i * kThreads;
-        const int gm = m0 + idx / kBK;
-        const int gk = k0 + idx % kBK;
-        ra[i] = (gm < count && gk < D) ? to_float(xb[(size_t)gm * D + gk])
-                                       : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kBLoads; ++i) {
-        const int idx = tid + i * kThreads;
-        const int gk = k0 + idx / kBN;
-        const int gn = n0 + idx % kBN;
-        rb[i] = (gk < D && gn < F) ? to_float(wb[(size_t)gk * F + gn]) : 0.f;
-      }
-    };
-
-    load(0);
-    for (int k0 = 0; k0 < D; k0 += kBK) {
-#pragma unroll
-      for (int i = 0; i < kALoads; ++i) {
-        const int idx = tid + i * kThreads;
-        As[idx % kBK][idx / kBK] = ra[i];
-      }
-#pragma unroll
-      for (int i = 0; i < kBLoads; ++i) {
-        const int idx = tid + i * kThreads;
-        Bs[idx / kBN][idx % kBN] = rb[i];
-      }
-      __syncthreads();
-      if (k0 + kBK < D) load(k0 + kBK);  // in flight during the FMAs below
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-        const float av[kTM] = {a.x, a.y, a.z, a.w};
-        const float bv[kTN] = {b0.x, b0.y, b0.z, b0.w,
-                               b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j)
-            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
+  w.origin = (long long)e * D * w.ld + (long long)f0 * sizeof(T);
+  w.valid = F - f0;
+  for (int r0 = 0; r0 < count; r0 += kBR) {
+    const int rows = min(kBR, count - r0);
+    x.origin = ((long long)ge * C + r0) * x.ld;
+    x.valid = rows;
+    pass<T, 1>(G::tiles_for(rows), smem, w, x, ob + (size_t)r0 * F, rows, f0,
+               D, F);
+    __syncthreads();  // the next pass refills the ring
   }
-
-  // Epilogue (also the whole work of a skipped tile): rows past the count
-  // are written as 0.
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= C) continue;
-    const bool live = gm < count;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int gn = n0 + tile_col(tx, j);
-      if (gn < F)
-        ob[(size_t)gm * F + gn] = from_float<T>(live ? acc[i][j] : 0.f);
-    }
+  // rows at or past the count: exactly 0
+  const int cols = min(kBF, F - f0);
+  for (int idx = threadIdx.x; idx < (C - count) * cols; idx += kThreads) {
+    const int r = count + idx / cols, c = idx % cols;
+    ob[(size_t)r * F + f0 + c] = from_f32<T>(0.f);
   }
 }
 
@@ -176,10 +137,24 @@ template <typename T>
 cudaError_t launch(const void* x, const void* w, const int* row_counts,
                    void* out, int G, int E, int C, int D, int F,
                    cudaStream_t stream) {
-  const dim3 grid((F + kBN - 1) / kBN, (C + kBM - 1) / kBM, G * E);
-  moe_gmm_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), row_counts,
-      static_cast<T*>(out), E, C, D, F);
+  using M = Mainloop<T>;
+  static bool opted_in = false;  // the dynamic shared-memory opt-in, once
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        moe_gmm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        M::kSmemBytes);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const long long w_ld = (long long)F * sizeof(T);
+  const long long x_ld = (long long)D * sizeof(T);
+  const Src ws{static_cast<const unsigned char*>(w), w_ld, 0, 0,
+               copy_width(w, w_ld)};
+  const Src xs{static_cast<const unsigned char*>(x), x_ld, 0, 0,
+               copy_width(x, x_ld)};
+  const dim3 grid((F + kBF - 1) / kBF, G * E);
+  moe_gmm_kernel<T><<<grid, M::kThreads, M::kSmemBytes, stream>>>(
+      ws, xs, row_counts, static_cast<T*>(out), E, C, D, F);
   return cudaGetLastError();
 }
 
@@ -196,8 +171,7 @@ int moe_gmm_fwd(const void* x, const void* w, const int* row_counts,
                 void* stream) {
   if (G < 0 || E < 0 || C < 0 || D < 0 || F < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  if ((long long)G * E > 65535 || (C + kBM - 1) / kBM > 65535)
-    return (int)cudaErrorInvalidValue;
+  if ((long long)G * E > 65535) return (int)cudaErrorInvalidValue;
   if (G == 0 || E == 0 || C == 0 || F == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
