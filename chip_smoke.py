@@ -52,17 +52,23 @@ plain PyTorch version.  Phases, each printing JSON lines:
    4096).  Then the ``mamba2_scan``
    kernel on the reference's three test cases, S = 1000, an initial
    state with ragged P and N, the model's layout with b/c shared by the
-   heads (with and without an initial state) and zamba2's full prefill
-   shape (BH 112, S 1024, P = N = 64) in both layouts: y and the final
-   state within 1e-4 x max|want|; the model-layout call at zamba2's
-   shape timed beside the plain version and the bound (no PyTorch call
-   computes this function).  Then the ``rwkv6_wkv`` kernel likewise: the
+   heads (with and without an initial state), strong decay (a = -16, dt
+   up to 1.5: cum falls by ~770 over one of the kernel's 64-row chunks)
+   and zamba2's prefill shape (BH 112, P = N = 64) at S = 1024 in both
+   layouts and at S = 256 (a bucket the engine launches) in the model's:
+   y and the final state within 1e-4 x max|want|; the model-layout calls
+   at zamba2's shape timed (``cuda_ms`` and the profiler's device time)
+   beside the plain version and the bound (bytes against the chunked
+   form's products at 3 TF32 products per fp32 product; the recurrence
+   on the CUDA cores beside it; no PyTorch call computes this function).
+   Then the ``rwkv6_wkv`` kernel likewise: the
    reference's three test cases, S = 1000 and an initial state with a
    ragged S and K (neither S a multiple of the 16-step stage), the
    model's layout with r, k, v strided column slices and u shared by
    the batch (with and without an initial state) and rwkv6-7b's full
    prefill shape (BH 64, S 1024, K 64) in both layouts, within 1e-4 x
-   max|want|; the model-layout call at that shape timed; and 300 pad
+   max|want|; the model-layout call at that shape timed (``cuda_ms`` and
+   device time); and 300 pad
    steps (k = 0, lw = 0) at the end of that shape, whose final state
    must be bitwise the state before them.
 3b. fused_matmul: the kernel against ``matmul1`` on int8 x with fp32 w,
@@ -174,6 +180,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -248,25 +255,38 @@ FLASH_CASES = [
 FLASH_CASES.append(("zamba2_dh112_s1024",
                     dict(B=1, H=32, Hkv=32, dh=112, Sq=1024, Skv=1024),
                     {"window": 4096}))
-# mamba2_scan cases: name, shape, layout.  "kernel": the Pallas layout
-# (x [BH,S,P], b/c [BH,S,N]); "model": the model's (x [B,S,H,P], b/c
-# [B,S,N] column slices of one [B,S,2N] tensor, shared by the H heads).
-# The first three are tests/test_kernels.py's cases; "zamba2_full" is the
-# main path's call (zamba2-7b prefill in the 1024 bucket), and is timed.
+# mamba2_scan cases: name, shape, layout, h0, decay.  "kernel": the Pallas
+# layout (x [BH,S,P], b/c [BH,S,N]); "model": the model's (x [B,S,H,P],
+# b/c [B,S,N] column slices of one [B,S,2N] tensor, shared by the H
+# heads).  The first three are tests/test_kernels.py's cases;
+# "zamba2_full" is the main path's call (zamba2-7b prefill in the 1024
+# bucket) and "zamba2_s256" the same in the 256 bucket; both are timed
+# (MAMBA_TIMED).  "strong": a = -16 and dt up to 1.5.
 MAMBA_CASES = [
-    ("jax_s64_p32_n16", dict(B=3, H=1, S=64, P=32, N=16), "kernel", False),
-    ("jax_s128_p64_n32", dict(B=3, H=1, S=128, P=64, N=32), "kernel", False),
-    ("jax_s96_p64_n64", dict(B=3, H=1, S=96, P=64, N=64), "kernel", False),
-    ("s1000_not_pow2", dict(B=8, H=1, S=1000, P=64, N=64), "kernel", False),
+    ("jax_s64_p32_n16", dict(B=3, H=1, S=64, P=32, N=16), "kernel", False,
+     "default"),
+    ("jax_s128_p64_n32", dict(B=3, H=1, S=128, P=64, N=32), "kernel", False,
+     "default"),
+    ("jax_s96_p64_n64", dict(B=3, H=1, S=96, P=64, N=64), "kernel", False,
+     "default"),
+    ("s1000_not_pow2", dict(B=8, H=1, S=1000, P=64, N=64), "kernel", False,
+     "default"),
     ("h0_ragged_p20_n100", dict(B=3, H=1, S=77, P=20, N=100), "kernel",
-     True),
-    ("model_shared_bc", dict(B=2, H=16, S=300, P=64, N=64), "model", False),
+     True, "default"),
+    ("model_shared_bc", dict(B=2, H=16, S=300, P=64, N=64), "model", False,
+     "default"),
     ("model_shared_bc_h0", dict(B=2, H=16, S=37, P=64, N=64), "model",
-     True),
+     True, "default"),
+    ("strong_decay_h0", dict(B=3, H=1, S=300, P=64, N=64), "kernel", True,
+     "strong"),
     ("zamba2_kernel_layout", dict(B=112, H=1, S=1024, P=64, N=64), "kernel",
-     False),
-    ("zamba2_full", dict(B=1, H=112, S=1024, P=64, N=64), "model", False),
+     False, "default"),
+    ("zamba2_s256", dict(B=1, H=112, S=256, P=64, N=64), "model", False,
+     "default"),
+    ("zamba2_full", dict(B=1, H=112, S=1024, P=64, N=64), "model", False,
+     "default"),
 ]
+MAMBA_TIMED = ("zamba2_full", "zamba2_s256")
 # rwkv6_wkv cases: name, shape, layout.  "kernel": the Pallas layout (r,
 # k, v, lw [BH,S,K], u [BH,K]); "model": the model's (r, k, v [B,S,H,K]
 # column slices of one [B,S,3,H,K] tensor, lw [B,S,H,K], u [H,K] with a
@@ -835,22 +855,32 @@ def phase_flash_kernels(torch, fa):
 # Phase 3, mamba2_scan: the Mamba2 prefill scan against its plain version
 # ---------------------------------------------------------------------------
 
-def mamba_inputs(torch, gen, B, H, S, P, N, layout, h0):
+def mamba_inputs(torch, gen, B, H, S, P, N, layout, h0, decay="default"):
     """tests/test_kernels.py's distributions (dt = |N(0,1)| 0.4 + 0.01,
     b and c N(0, 0.25), a < -0.05; the model layout's a from a_log =
-    log U(1, 16)).  Returns the kernel call and the same inputs in the
-    plain version's layout (b/c broadcast to every head there)."""
+    log U(1, 16)); ``decay="strong"``: a = -16 (a_log = log 16) and dt
+    uniform in [0.01, 1.5).  Returns the kernel call and the same inputs
+    in the plain version's layout (b/c broadcast to every head there)."""
     dev = DEV
     rn = lambda *sh: torch.randn(*sh, generator=gen, device=dev)  # noqa: E731
     if layout == "kernel":
         x, b, c = rn(B, S, P), rn(B, S, N) * 0.5, rn(B, S, N) * 0.5
-        dt = rn(B, S).abs() * 0.4 + 0.01
-        a = -rn(B).abs() - 0.05
+        if decay == "strong":
+            dt = 0.01 + 1.49 * torch.rand(B, S, generator=gen, device=dev)
+            a = torch.full((B,), -16.0, device=dev)
+        else:
+            dt = rn(B, S).abs() * 0.4 + 0.01
+            a = -rn(B).abs() - 0.05
         hh = rn(B, N, P) if h0 else None
         return (x, dt, b, c, a, hh), (x, dt, b, c, a, hh)
     x, bc = rn(B, S, H, P), rn(B, S, 2 * N) * 0.5
-    dt = rn(B, S, H).abs() * 0.4 + 0.01
-    a_log = torch.log(1.0 + 15.0 * torch.rand(H, generator=gen, device=dev))
+    if decay == "strong":
+        dt = 0.01 + 1.49 * torch.rand(B, S, H, generator=gen, device=dev)
+        a_log = torch.full((H,), math.log(16.0), device=dev)
+    else:
+        dt = rn(B, S, H).abs() * 0.4 + 0.01
+        a_log = torch.log(1.0 + 15.0 * torch.rand(H, generator=gen,
+                                                  device=dev))
     hh = rn(B, H, N, P) if h0 else None
     bb = bc[..., :N][:, None].expand(B, H, S, N).reshape(B * H, S, N)
     cc = bc[..., N:][:, None].expand(B, H, S, N).reshape(B * H, S, N)
@@ -861,28 +891,44 @@ def mamba_inputs(torch, gen, B, H, S, P, N, layout, h0):
     return (x, dt, bc[..., :N], bc[..., N:], a_log, hh), plain
 
 
-def mamba_need(B, H, S, P, N, layout, h0):
-    """Bytes and flops of one call: x and dt read, y and the final state
-    written, b/c read once ([B,S,N] each in the model layout, [BH,S,N] in
-    the kernel's), h0 read when given, fp32; 4 * BH * S * N * P flops (a
-    multiply-add per state element for the update, one for y)."""
+def mamba_need(B, H, S, P, N, layout, h0, chunk):
+    """Bytes and flops of one call.  Bytes: x and dt read, y and the final
+    state written, b/c read once ([B,S,N] each in the model layout,
+    [BH,S,N] in the kernel's), h0 read when given, fp32.  Flops of the
+    chunked form the kernel runs (chunks of ``chunk`` rows, the last
+    ragged; q(q + 1) / 2 causal pairs in a chunk of q rows): C B^T on
+    the causal pairs, once per b/c stream (per batch row in the model
+    layout), and per head the masked scores times X (causal pairs x P),
+    (exp(cum) C) h_prev and the decayed B^T X (2 q N P each), 2 flops a
+    multiply-add.  And the recurrence's 4 * BH * S * N * P (a
+    multiply-add per state element and step for the update, one for y),
+    for the CUDA-core bound."""
     bh = B * H
-    bc_rows = B * S if layout == "model" else bh * S
-    nbytes = 4 * (2 * bh * S * P + bh * S + 2 * bc_rows * N
+    bc_streams = B if layout == "model" else bh
+    nbytes = 4 * (2 * bh * S * P + bh * S + 2 * bc_streams * S * N
                   + bh * N * P * (2 if h0 else 1))
-    return nbytes, 4 * bh * S * N * P
+    pairs = rows = 0
+    for t0 in range(0, S, chunk):
+        q = min(chunk, S - t0)
+        pairs += q * (q + 1) // 2
+        rows += q
+    chunk_flops = 2 * pairs * N * bc_streams \
+        + bh * (2 * pairs * P + 4 * rows * N * P)
+    return nbytes, chunk_flops, 4 * bh * S * N * P
 
 
 def phase_mamba_kernels(torch, mops):
     """Every ``MAMBA_CASES`` case: the kernel against its plain version
     on y and the final state, each within ``KERNEL_TOL`` x its max|want|.
-    Returns the worst relative error and the timed main-shape record."""
+    Returns the worst relative error and the timed records by case."""
+    from repro_torch.kernels.mamba2_scan.ref import CHUNK_ROWS
     gen = torch.Generator(device=DEV).manual_seed(1357)
     worst = 0.0
     timed = {}
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
-    for name, shape, layout, h0 in MAMBA_CASES:
-        call, plain = mamba_inputs(torch, gen, **shape, layout=layout, h0=h0)
+    for name, shape, layout, h0, decay in MAMBA_CASES:
+        call, plain = mamba_inputs(torch, gen, **shape, layout=layout, h0=h0,
+                                   decay=decay)
         op = mops.scan_model_layout if layout == "model" else mops.mamba2_scan
         before = mops.launches
         y, hf = op(*call)
@@ -896,7 +942,7 @@ def phase_mamba_kernels(torch, mops):
         check(bool(torch.isfinite(y).all() and torch.isfinite(hf).all()),
               f"mamba2 {name}: non-finite output")
         rec = {"case": name, "shape": shape, "layout": layout, "h0": h0,
-               "tol_relative": KERNEL_TOL}
+               "decay": decay, "tol_relative": KERNEL_TOL}
         for key, got, want in (("y", y, yw), ("state", hf, hw)):
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
@@ -907,18 +953,21 @@ def phase_mamba_kernels(torch, mops):
             worst = max(worst, rel)
             check(rel <= KERNEL_TOL, f"mamba2 {name} {key}: error {rel} x "
                                      "max|want|")
-        if name == "zamba2_full":
-            nbytes, flops = mamba_need(**shape, layout=layout, h0=h0)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_flops = flops / FP32_FLOPS * 1e3
-            rec.update(
-                ms=cuda_ms(torch, lambda: op(*call), flush=flush),
-                plain_ms=cuda_ms(torch, lambda: mops.mamba2_scan_ref(*plain),
-                                 flush=flush),
-                library_ms=None, bound_ms=max(t_bytes, t_flops),
-                bound_by="bytes" if t_bytes >= t_flops else "operations",
-                bytes=nbytes, flops=flops)
-            timed = rec
+        if name in MAMBA_TIMED:
+            nbytes, flops, rec_flops = mamba_need(**shape, layout=layout,
+                                                  h0=h0, chunk=CHUNK_ROWS)
+            rec.update(bytes=nbytes, flops=flops, recurrence_flops=rec_flops,
+                       **bounds(nbytes, flops, 3))     # 3xTF32
+            rec["bound_fp32_cores_ms"] = max(
+                nbytes / HBM_BYTES_PER_S, rec_flops / FP32_FLOPS) * 1e3
+            rec["ms"] = cuda_ms(torch, lambda: op(*call), flush=flush)
+            rec["device_ms"], rec["calls_traced"] = device_ms(
+                torch, lambda: op(*call), flush)
+            rec["plain_ms"] = cuda_ms(
+                torch, lambda: mops.mamba2_scan_ref(*plain), flush=flush)
+            rec["library_ms"] = None
+            roofline(rec, f"mamba2 {name}")
+            timed[name] = rec
         emit("kernel_check", kernel="mamba2_scan", **rec)
         del call, plain, y, hf, yw, hw
     torch.cuda.empty_cache()
@@ -1008,6 +1057,8 @@ def phase_rwkv6_kernels(torch, wops):
             nbytes, flops = rwkv_need(**shape, layout=layout, h0=h0)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_flops = flops / FP32_FLOPS * 1e3
+            rec["device_ms"], rec["calls_traced"] = device_ms(
+                torch, lambda: op(*call), flush)
             rec.update(
                 ms=cuda_ms(torch, lambda: op(*call), flush=flush),
                 plain_ms=cuda_ms(torch, lambda: wops.rwkv6_wkv_ref(*plain),
@@ -2520,16 +2571,20 @@ def main() -> int:
         "full_prefills": zamba2["prefills"],
         "shape": "zamba2-7b: B=1 H=Hkv=32 dh=112 causal window=4096 fp32 "
                  "S=1024"})
+    mamba_main = mamba_timed["zamba2_full"]
+    mamba_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                  "bound_fp32_cores_ms", "tensor_terms", "roofline_share")
     entries.append({
         "name": "mamba2_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/mamba2_scan/csrc/mamba2_scan.cu",
         "replaces": "src/repro/kernels/mamba2_scan/kernel.py:77",
-        "launches": zamba2["scans"], "max_abs_err": mamba_timed[
-            "y_max_abs_err"],
+        "launches": zamba2["scans"],
+        "max_abs_err": mamba_main["y_max_abs_err"],
         "max_relative_err_all_cases": mamba_worst,
-        "ms": mamba_timed["ms"], "plain_ms": mamba_timed["plain_ms"],
-        "bound_ms": mamba_timed["bound_ms"],
-        "bound_by": mamba_timed["bound_by"], "library_ms": None,
+        **{key: mamba_main[key] for key in mamba_keys},
+        "library_ms": None,
+        "by_case": {name: {key: rec[key] for key in mamba_keys}
+                    for name, rec in mamba_timed.items()},
         "full_prefills": zamba2["prefills"],
         "shape": "zamba2-7b prefill, model layout: B=1 H=112 S=1024 P=64 "
                  "N=64 fp32, b/c shared by the heads"})
@@ -2540,7 +2595,8 @@ def main() -> int:
         "launches": rwkv6["wkvs"], "max_abs_err": rwkv_timed[
             "y_max_abs_err"],
         "max_relative_err_all_cases": rwkv_worst,
-        "ms": rwkv_timed["ms"], "plain_ms": rwkv_timed["plain_ms"],
+        "ms": rwkv_timed["ms"], "device_ms": rwkv_timed["device_ms"],
+        "plain_ms": rwkv_timed["plain_ms"],
         "bound_ms": rwkv_timed["bound_ms"],
         "bound_by": rwkv_timed["bound_by"], "library_ms": None,
         "full_prefills": rwkv6["prefills"],

@@ -9,14 +9,18 @@ own (Pallas) layout.  Dispatch is by where ``x`` lies, and nothing else:
 * a CUDA tensor launches ``csrc/mamba2_scan.cu`` (built by
   ``kernels/build.py`` at first use) or raises — there is no fallback.
 
-The kernel takes fp32 operands with N <= 128 and any S.  Its one entry
-point addresses every operand through (batch, head, time) strides, so
-the model's layout, whose b/c rows ``[B,S,N]`` are shared by the H heads
-of a batch row, is read in place: no broadcast copy of b/c and no
-transpose of x.  ``launches`` counts kernel launches (one per call on a
-CUDA tensor), so a run can show that its main path went through the
-kernel.  ``supported()`` runs the smallest real launch; tests use it to
-skip.
+The kernel computes the same function in the chunked SSD form (chunks of
+64 steps, its four products in 3xTF32 on the tensor cores, the state
+carried in fp32; ``ref.mamba2_scan_chunked_ref`` is that decomposition in
+plain PyTorch, for the CPU tests).  It takes fp32 operands with N <= 128,
+any S and P, dt >= 0 and a <= 0 (so every exponent it takes is <= 0).
+Its one entry point addresses every operand through (batch, head, time)
+strides, so the model's layout, whose b/c rows ``[B,S,N]`` are shared by
+the H heads of a batch row, is read in place: no broadcast copy of b/c
+and no transpose of x.  ``launches`` counts calls that launch the kernel
+(one per call on a CUDA tensor), so a run can show that its main path
+went through the kernel.  ``supported()`` runs the smallest real launch;
+tests use it to skip.
 """
 
 from __future__ import annotations

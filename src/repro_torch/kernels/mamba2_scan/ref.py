@@ -1,16 +1,31 @@
-"""Plain PyTorch version of the Mamba2 scan (the oracle of
-``repro/kernels/mamba2_scan/ref.py``): the per-step recurrence
+"""Plain PyTorch versions of the Mamba2 scan.
+
+``mamba2_scan_ref`` (the oracle of ``repro/kernels/mamba2_scan/ref.py``)
+runs the per-step recurrence
 
     h_t = exp(dt_t * a) h_{t-1} + dt_t * b_t (x) x_t
     y_t = c_t . h_t
 
-in fp32, one step at a time, from an optional initial state ``h0``."""
+in fp32, one step at a time, from an optional initial state ``h0``.  It
+is what the wrapper runs on CPU tensors and what the kernel is held to.
+
+``mamba2_scan_chunked_ref`` is the CUDA kernel's decomposition of the same
+function, for the tests on the CPU: chunks of ``CHUNK_ROWS`` steps (the
+last one ragged, padded with zeros), the cumsum restarted per chunk, the
+exponent masked before exp is taken, the four products in 3xTF32 as
+``kernels/tf32.py`` models them, and the state passed between chunks in
+fp32.  Nothing on the main path calls it."""
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.tf32 import mma_sum
+
+CHUNK_ROWS = 64   # time steps per chunk (csrc/mamba2_scan.cu kQ)
 
 
 def mamba2_scan_ref(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
@@ -35,4 +50,60 @@ def mamba2_scan_ref(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         h = h * decay[:, None, None] + upd
         ys.append(torch.einsum("bn,bnp->bp", cf[:, t], h))
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros((bh, 0, p))
+    return y.to(x.dtype), h
+
+
+def mamba2_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor,
+                            b: torch.Tensor, c: torch.Tensor,
+                            a: torch.Tensor,
+                            h0: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's chunked SSD form, same arguments and results as
+    ``mamba2_scan_ref``.  Per chunk of Q = ``CHUNK_ROWS`` rows, with cum
+    the inclusive cumsum of dt * a restarted at the chunk:
+
+        L      = exp(cum_i - cum_j) for j <= i, else 0 (masked to -inf
+                 before exp, and clamped at 0 below it)
+        y      = ((C B^T) * L * dt_j) X + (exp(cum_i) C) h_prev
+        h_next = exp(cum_end) h_prev + (B * exp(cum_end - cum_j) dt_j)^T X
+
+    the last update as one fused multiply-add, and the four products as
+    the tensor cores sum them (``mma_sum``: 3xTF32, 64-deep
+    accumulators)."""
+    bh, s, p = x.shape
+    n = b.shape[-1]
+    q = CHUNK_ROWS
+    nc = -(-s // q)
+    pad = nc * q - s
+    f32 = torch.float32
+
+    def padded(t: torch.Tensor) -> torch.Tensor:
+        t = t.to(f32)
+        return F.pad(t, (0, 0, 0, pad)) if t.dim() == 3 else F.pad(t, (0, pad))
+
+    def mm(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        return mma_sum(u, v, False, False)
+
+    xf, dtf, bf, cf = padded(x), padded(dt), padded(b), padded(c)
+    af = a.to(f32)
+    h = (torch.zeros((bh, n, p), dtype=f32, device=x.device) if h0 is None
+         else h0.to(f32).clone())
+    lower = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    ys = []
+    for ci in range(nc):
+        rows = slice(ci * q, (ci + 1) * q)
+        xs, dts, bs, cs = xf[:, rows], dtf[:, rows], bf[:, rows], cf[:, rows]
+        cum = torch.cumsum(dts * af[:, None], dim=1)              # [BH,Q]
+        cum_end = cum[:, -1:]
+        diff = (cum[:, :, None] - cum[:, None, :]).clamp(max=0.0)
+        decay = torch.exp(torch.where(lower, diff, -torch.inf))
+        scores = mm(cs, bs.transpose(1, 2))
+        y = mm(scores * decay * dts[:, None, :], xs) \
+            + mm(cs * torch.exp(cum)[..., None], h)
+        wdec = torch.exp((cum_end - cum).clamp(max=0.0)) * dts   # [BH,Q]
+        upd = mm((bs * wdec[..., None]).transpose(1, 2), xs)
+        h = (torch.exp(cum_end)[..., None].double() * h.double()
+             + upd.double()).to(f32)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :s] if ys else xf.new_zeros((bh, 0, p))
     return y.to(x.dtype), h

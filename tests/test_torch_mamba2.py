@@ -56,14 +56,19 @@ def _fp32():
     torch.set_float32_matmul_precision("highest")
 
 
-def _scan_inputs(bh, s, p, n, seed, h0=False):
-    """tests/test_kernels.py's distributions, from numpy."""
+def _scan_inputs(bh, s, p, n, seed, h0=False, strong=False):
+    """tests/test_kernels.py's distributions, from numpy; ``strong``: a =
+    -16 and dt uniform in [0.01, 1.5) (cum falls by ~770 over one of the
+    kernel's 64-row chunks)."""
     rs = np.random.RandomState(seed)
     x = rs.randn(bh, s, p).astype(np.float32)
     dt = (np.abs(rs.randn(bh, s)) * 0.4 + 0.01).astype(np.float32)
     b = (rs.randn(bh, s, n) * 0.5).astype(np.float32)
     c = (rs.randn(bh, s, n) * 0.5).astype(np.float32)
     a = (-np.abs(rs.randn(bh)) - 0.05).astype(np.float32)
+    if strong:
+        dt = (0.01 + 1.49 * rs.rand(bh, s)).astype(np.float32)
+        a = np.full(bh, -16.0, np.float32)
     hh = rs.randn(bh, n, p).astype(np.float32) if h0 else None
     return x, dt, b, c, a, hh
 
@@ -393,14 +398,14 @@ def _rel(got, want):
                                                  1e-30)
 
 
-@pytest.mark.parametrize("bh,s,p,n,h0", [(3, 64, 32, 16, False),
-                                         (3, 128, 64, 32, False),
-                                         (3, 96, 64, 64, False),
-                                         (2, 1000, 64, 64, False),
-                                         (3, 77, 20, 100, True)])
-def test_cuda_kernel_vs_plain(cuda_kernel, bh, s, p, n, h0):
+@pytest.mark.parametrize("bh,s,p,n,h0,strong", [
+    (3, 64, 32, 16, False, False), (3, 128, 64, 32, False, False),
+    (3, 96, 64, 64, False, False), (2, 1000, 64, 64, False, False),
+    (3, 77, 20, 100, True, False), (3, 300, 64, 64, True, True)])
+def test_cuda_kernel_vs_plain(cuda_kernel, bh, s, p, n, h0, strong):
     args = [None if a is None else a.to(cuda_kernel)
-            for a in _t(*_scan_inputs(bh, s, p, n, seed=s, h0=h0))]
+            for a in _t(*_scan_inputs(bh, s, p, n, seed=s, h0=h0,
+                                      strong=strong))]
     before = ops.launches
     got = ops.mamba2_scan(*args)
     want = mamba2_scan_ref(*args)
