@@ -63,14 +63,17 @@ plain PyTorch version.  Phases, each printing JSON lines:
    on the CUDA cores beside it; no PyTorch call computes this function).
    Then the ``rwkv6_wkv`` kernel likewise: the
    reference's three test cases, S = 1000 and an initial state with a
-   ragged S and K (neither S a multiple of the 16-step stage), the
+   ragged S and K (neither S a multiple of the 64-step chunk), the
    model's layout with r, k, v strided column slices and u shared by
-   the batch (with and without an initial state) and rwkv6-7b's full
-   prefill shape (BH 64, S 1024, K 64) in both layouts, within 1e-4 x
-   max|want|; the model-layout call at that shape timed (``cuda_ms`` and
-   device time); and 300 pad
-   steps (k = 0, lw = 0) at the end of that shape, whose final state
-   must be bitwise the state before them.
+   the batch (with and without an initial state), strong (lw = -5 on
+   every channel), weak (|lw| near its smallest, 3.4e-4) and mixed
+   decay, and rwkv6-7b's prefill shape (BH 64, K 64) at S = 1024 in both
+   layouts and at S = 256, within 1e-4 x max|want|; the model-layout
+   calls at S = 1024 and 256 timed (``cuda_ms`` and device time) beside
+   the bound (bytes against the chunked form's tensor-core products at 3
+   TF32 products per fp32 product; the recurrence on the CUDA cores
+   beside it); and 300 pad steps (k = 0, lw = 0) at the end of the S =
+   1024 shape, whose final state must be bitwise the state before them.
 3b. fused_matmul: the kernel against ``matmul1`` on int8 x with fp32 w,
    scaled and unscaled, at fig09's n = 256, 512, 1024 and 2048; on
    tests/test_kernels.py's three shapes in fp32 and bf16, scaled and
@@ -287,26 +290,46 @@ MAMBA_CASES = [
      "default"),
 ]
 MAMBA_TIMED = ("zamba2_full", "zamba2_s256")
-# rwkv6_wkv cases: name, shape, layout.  "kernel": the Pallas layout (r,
-# k, v, lw [BH,S,K], u [BH,K]); "model": the model's (r, k, v [B,S,H,K]
-# column slices of one [B,S,3,H,K] tensor, lw [B,S,H,K], u [H,K] with a
-# batch stride of 0).  The first three are tests/test_kernels.py's
-# cases; "rwkv6_full" is the main path's call (rwkv6-7b prefill in the
-# 1024 bucket), and is timed.  S = 1000 and 77 are not multiples of the
-# kernel's 16-step stage.
+# rwkv6_wkv cases: name, shape, layout, h0, decay.  "kernel": the Pallas
+# layout (r, k, v, lw [BH,S,K], u [BH,K]); "model": the model's (r, k, v
+# [B,S,H,K] column slices of one [B,S,3,H,K] tensor, lw [B,S,H,K], u
+# [H,K] with a batch stride of 0).  The first three are
+# tests/test_kernels.py's cases; "rwkv6_full" is the main path's call
+# (rwkv6-7b prefill in the 1024 bucket) and "rwkv6_s256" the same in the
+# 256 bucket; both are timed (RWKV_TIMED).  S = 1000 and 77 are not
+# multiples of the kernel's 64-step chunk.  Decays: "strong" lw = -5
+# (the model's clamp) on every channel, "weak" lw in [-6.8e-4,
+# -3.4e-4] (|lw| >= exp(-8) = 3.35e-4 in the model), "mixed" the first
+# half of the channels strong and the second weak.
 RWKV_CASES = [
-    ("jax_s64_k32", dict(B=3, H=1, S=64, K=32), "kernel", False),
-    ("jax_s128_k64", dict(B=3, H=1, S=128, K=64), "kernel", False),
-    ("jax_s48_k64", dict(B=3, H=1, S=48, K=64), "kernel", False),
-    ("s1000_not_stage_multiple", dict(B=8, H=1, S=1000, K=64), "kernel",
-     False),
-    ("h0_ragged_s77_k100", dict(B=3, H=1, S=77, K=100), "kernel", True),
-    ("model_strided", dict(B=2, H=16, S=300, K=64), "model", False),
-    ("model_strided_h0", dict(B=2, H=16, S=37, K=64), "model", True),
+    ("jax_s64_k32", dict(B=3, H=1, S=64, K=32), "kernel", False,
+     "default"),
+    ("jax_s128_k64", dict(B=3, H=1, S=128, K=64), "kernel", False,
+     "default"),
+    ("jax_s48_k64", dict(B=3, H=1, S=48, K=64), "kernel", False,
+     "default"),
+    ("s1000_not_chunk_multiple", dict(B=8, H=1, S=1000, K=64), "kernel",
+     False, "default"),
+    ("h0_ragged_s77_k100", dict(B=3, H=1, S=77, K=100), "kernel", True,
+     "default"),
+    ("model_strided", dict(B=2, H=16, S=300, K=64), "model", False,
+     "default"),
+    ("model_strided_h0", dict(B=2, H=16, S=37, K=64), "model", True,
+     "default"),
+    ("strong_decay_h0", dict(B=3, H=1, S=300, K=64), "kernel", True,
+     "strong"),
+    ("weak_decay_h0", dict(B=3, H=1, S=1000, K=64), "kernel", True,
+     "weak"),
+    ("mixed_decay_model", dict(B=2, H=16, S=300, K=64), "model", True,
+     "mixed"),
     ("rwkv6_kernel_layout", dict(B=64, H=1, S=1024, K=64), "kernel",
-     False),
-    ("rwkv6_full", dict(B=1, H=64, S=1024, K=64), "model", False),
+     False, "default"),
+    ("rwkv6_s256", dict(B=1, H=64, S=256, K=64), "model", False,
+     "default"),
+    ("rwkv6_full", dict(B=1, H=64, S=1024, K=64), "model", False,
+     "default"),
 ]
+RWKV_TIMED = ("rwkv6_full", "rwkv6_s256")
 # fused_matmul cases: name, (M, K, N), x dtype, w dtype, out dtype, scaled.
 # fig09/fig11's int8 x at their four sizes; tests/test_kernels.py's
 # three shapes in fp32 and bf16; fp16 x; ragged edges; a bf16 output
@@ -978,22 +1001,38 @@ def phase_mamba_kernels(torch, mops):
 # Phase 3, rwkv6_wkv: the rwkv6 prefill recurrence against its plain version
 # ---------------------------------------------------------------------------
 
-def rwkv_inputs(torch, gen, B, H, S, K, layout, h0):
+def rwkv_inputs(torch, gen, B, H, S, K, layout, h0, decay="default"):
     """tests/test_kernels.py's distributions (r, k N(0, 0.25), v N(0, 1),
-    lw = clip(-2|N(0, 1)|, -5, 0), u N(0, 0.09)).  Returns the kernel
+    lw = clip(-2|N(0, 1)|, -5, 0), u N(0, 0.09)); ``decay`` "strong": lw
+    = -5; "weak": lw uniform in [-6.8e-4, -3.4e-4]; "mixed": the first
+    half of the channels strong, the second weak.  Returns the kernel
     call and the same inputs in the plain version's layout."""
     dev = DEV
     rn = lambda *sh: torch.randn(*sh, generator=gen, device=dev)  # noqa: E731
+
+    def log_decay(*shape):
+        lw = torch.clamp(-rn(*shape).abs() * 2, -5.0, 0.0)
+        weak = -3.4e-4 * (1.0 + torch.rand(*shape, generator=gen,
+                                           device=dev))
+        if decay == "strong":
+            return torch.full_like(lw, -5.0)
+        if decay == "weak":
+            return weak
+        if decay == "mixed":
+            return torch.cat([torch.full_like(lw[..., :K // 2], -5.0),
+                              weak[..., K // 2:]], dim=-1)
+        return lw
+
     if layout == "kernel":
         r, k, v = rn(B, S, K) * 0.5, rn(B, S, K) * 0.5, rn(B, S, K)
-        lw = torch.clamp(-rn(B, S, K).abs() * 2, -5.0, 0.0)
+        lw = log_decay(B, S, K)
         u = rn(B, K) * 0.3
         hh = rn(B, K, K) if h0 else None
         return (r, k, v, lw, u, hh), (r, k, v, lw, u, hh)
     rkv = rn(B, S, 3, H, K)
     rkv[:, :, :2] *= 0.5
     r, k, v = rkv[:, :, 0], rkv[:, :, 1], rkv[:, :, 2]
-    lw = torch.clamp(-rn(B, S, H, K).abs() * 2, -5.0, 0.0)
+    lw = log_decay(B, S, H, K)
     u = rn(H, K) * 0.3
     hh = rn(B, H, K, K) if h0 else None
 
@@ -1005,16 +1044,33 @@ def rwkv_inputs(torch, gen, B, H, S, K, layout, h0):
     return (r, k, v, lw, u, hh), plain
 
 
-def rwkv_need(B, H, S, K, layout, h0):
-    """Bytes and flops of one call: r, k, v, lw and u read, y and the
-    final state written, h0 read when given, fp32; 4 * BH * S * K^2
-    flops (a multiply-add per state element and step for the update and
-    one for y; the bonus term folds into y's)."""
+def rwkv_need(B, H, S, K, layout, h0, chunk, sub):
+    """Bytes and flops of one call.  Bytes: r, k, v, lw and u read, y and
+    the final state written, h0 read when given, fp32.  Flops of the
+    tensor-core products of the chunked form the kernel runs (chunks of
+    ``chunk`` rows, the last ragged, in sub-blocks of ``sub`` rows; 2
+    flops a multiply-add): A left of the diagonal (each sub-block's rows
+    against the keys before it) and in each diagonal sub-block's
+    lower-left quadrant (its second half of rows against its first half
+    of keys), the causal part of A V (q(q + 1) / 2 pairs in a chunk of q
+    rows), r h_prev and the update (q K^2 each).  And the recurrence's 4 *
+    BH * S * K^2 (a multiply-add per state element and step for the
+    update and one for y; the bonus folds into y's), for the CUDA-core
+    bound."""
     bh = B * H
     u_rows = H if layout == "model" else bh
     nbytes = 4 * (5 * bh * S * K + u_rows * K
                   + bh * K * K * (2 if h0 else 1))
-    return nbytes, 4 * bh * S * K * K
+    macs = 0
+    half = sub // 2
+    for t0 in range(0, S, chunk):
+        q = min(chunk, S - t0)
+        for b0 in range(0, q, sub):
+            rows = min(sub, q - b0)
+            macs += rows * b0 * K                          # left of it
+            macs += max(0, rows - half) * min(half, rows) * K  # quadrant
+        macs += q * (q + 1) // 2 * K + 2 * q * K * K
+    return nbytes, 2 * bh * macs, 4 * bh * S * K * K
 
 
 def phase_rwkv6_kernels(torch, wops):
@@ -1022,13 +1078,15 @@ def phase_rwkv6_kernels(torch, wops):
     y and the final state, each within ``KERNEL_TOL`` x its max|want|;
     then pad steps (k = 0, lw = 0, as the model masks bucket padding)
     at the full shape: the final state bitwise the state before them.
-    Returns the worst relative error and the timed main-shape record."""
+    Returns the worst relative error and the timed records by case."""
+    from repro_torch.kernels.rwkv6_wkv.ref import CHUNK_ROWS, SUB_ROWS
     gen = torch.Generator(device=DEV).manual_seed(2468)
     worst = 0.0
     timed = {}
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
-    for name, shape, layout, h0 in RWKV_CASES:
-        call, plain = rwkv_inputs(torch, gen, **shape, layout=layout, h0=h0)
+    for name, shape, layout, h0, decay in RWKV_CASES:
+        call, plain = rwkv_inputs(torch, gen, **shape, layout=layout, h0=h0,
+                                  decay=decay)
         op = wops.wkv_model_layout if layout == "model" else wops.rwkv6_wkv
         before = wops.launches
         y, hf = op(*call)
@@ -1042,7 +1100,7 @@ def phase_rwkv6_kernels(torch, wops):
         check(bool(torch.isfinite(y).all() and torch.isfinite(hf).all()),
               f"rwkv6 {name}: non-finite output")
         rec = {"case": name, "shape": shape, "layout": layout, "h0": h0,
-               "tol_relative": KERNEL_TOL}
+               "decay": decay, "tol_relative": KERNEL_TOL}
         for key, got, want in (("y", y, yw), ("state", hf, hw)):
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
@@ -1053,20 +1111,22 @@ def phase_rwkv6_kernels(torch, wops):
             worst = max(worst, rel)
             check(rel <= KERNEL_TOL, f"rwkv6 {name} {key}: error {rel} x "
                                      "max|want|")
-        if name == "rwkv6_full":
-            nbytes, flops = rwkv_need(**shape, layout=layout, h0=h0)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_flops = flops / FP32_FLOPS * 1e3
+        if name in RWKV_TIMED:
+            nbytes, flops, rec_flops = rwkv_need(
+                **shape, layout=layout, h0=h0, chunk=CHUNK_ROWS,
+                sub=SUB_ROWS)
+            rec.update(bytes=nbytes, flops=flops, recurrence_flops=rec_flops,
+                       **bounds(nbytes, flops, 3))     # 3xTF32
+            rec["bound_fp32_cores_ms"] = max(
+                nbytes / HBM_BYTES_PER_S, rec_flops / FP32_FLOPS) * 1e3
+            rec["ms"] = cuda_ms(torch, lambda: op(*call), flush=flush)
             rec["device_ms"], rec["calls_traced"] = device_ms(
                 torch, lambda: op(*call), flush)
-            rec.update(
-                ms=cuda_ms(torch, lambda: op(*call), flush=flush),
-                plain_ms=cuda_ms(torch, lambda: wops.rwkv6_wkv_ref(*plain),
-                                 flush=flush),
-                library_ms=None, bound_ms=max(t_bytes, t_flops),
-                bound_by="bytes" if t_bytes >= t_flops else "operations",
-                bytes=nbytes, flops=flops)
-            timed = rec
+            rec["plain_ms"] = cuda_ms(
+                torch, lambda: wops.rwkv6_wkv_ref(*plain), flush=flush)
+            rec["library_ms"] = None
+            roofline(rec, f"rwkv6 {name}")
+            timed[name] = rec
         emit("kernel_check", kernel="rwkv6_wkv", **rec)
         del call, plain, y, hf, yw, hw
     # pad steps: the last 300 of 1024 steps masked as the model masks them
@@ -2572,7 +2632,7 @@ def main() -> int:
         "shape": "zamba2-7b: B=1 H=Hkv=32 dh=112 causal window=4096 fp32 "
                  "S=1024"})
     mamba_main = mamba_timed["zamba2_full"]
-    mamba_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+    scan_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                   "bound_fp32_cores_ms", "tensor_terms", "roofline_share")
     entries.append({
         "name": "mamba2_scan", "route": "cuda",
@@ -2581,24 +2641,25 @@ def main() -> int:
         "launches": zamba2["scans"],
         "max_abs_err": mamba_main["y_max_abs_err"],
         "max_relative_err_all_cases": mamba_worst,
-        **{key: mamba_main[key] for key in mamba_keys},
+        **{key: mamba_main[key] for key in scan_keys},
         "library_ms": None,
-        "by_case": {name: {key: rec[key] for key in mamba_keys}
+        "by_case": {name: {key: rec[key] for key in scan_keys}
                     for name, rec in mamba_timed.items()},
         "full_prefills": zamba2["prefills"],
         "shape": "zamba2-7b prefill, model layout: B=1 H=112 S=1024 P=64 "
                  "N=64 fp32, b/c shared by the heads"})
+    rwkv_main = rwkv_timed["rwkv6_full"]
     entries.append({
         "name": "rwkv6_wkv", "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv.cu",
         "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:72",
-        "launches": rwkv6["wkvs"], "max_abs_err": rwkv_timed[
-            "y_max_abs_err"],
+        "launches": rwkv6["wkvs"],
+        "max_abs_err": rwkv_main["y_max_abs_err"],
         "max_relative_err_all_cases": rwkv_worst,
-        "ms": rwkv_timed["ms"], "device_ms": rwkv_timed["device_ms"],
-        "plain_ms": rwkv_timed["plain_ms"],
-        "bound_ms": rwkv_timed["bound_ms"],
-        "bound_by": rwkv_timed["bound_by"], "library_ms": None,
+        **{key: rwkv_main[key] for key in scan_keys},
+        "library_ms": None,
+        "by_case": {name: {key: rec[key] for key in scan_keys}
+                    for name, rec in rwkv_timed.items()},
         "full_prefills": rwkv6["prefills"],
         "shape": "rwkv6-7b prefill, model layout: B=1 H=64 S=1024 K=64 "
                  "fp32, u shared by the batch"})

@@ -9,14 +9,18 @@ every rwkv6 layer of a full prefill; ``rwkv6_wkv`` is the kernel's own
 * a CUDA tensor launches ``csrc/rwkv6_wkv.cu`` (built by
   ``kernels/build.py`` at first use) or raises — there is no fallback.
 
-The kernel takes fp32 operands with K <= 128 and any S.  Its one entry
-point addresses r, k, v, lw and y through (batch, head, time) strides
-and u through (batch, head) strides, so the model's layout (``[B,S,H,K]``
-views of the ``[B,S,d]`` projections, u ``[H,K]`` shared by the batch
-rows) is read in place: no transpose and no broadcast copy.
-``launches`` counts kernel launches (one per call on a CUDA tensor), so
-a run can show that its main path went through the kernel.
-``supported()`` runs the smallest real launch; tests use it to skip.
+The kernel takes fp32 operands with K <= 128 and any S, lw <= 0.  It runs
+the chunked form in three CUDA kernels (each chunk's update, the state
+carried across chunks, each chunk's output) through an fp32 scratch the
+wrapper allocates at the size ``rwkv6_wkv_scratch_floats`` gives from
+shapes.  Its one entry point addresses r, k, v, lw and y through (batch,
+head, time) strides and u through (batch, head) strides, so the model's
+layout (``[B,S,H,K]`` views of the ``[B,S,d]`` projections, u ``[H,K]``
+shared by the batch rows) is read in place: no transpose and no
+broadcast copy.  ``launches`` counts calls that launch the kernels (one
+per call on a CUDA tensor, however many CUDA kernels it issues), so a
+run can show that its main path went through the kernel.
+``supported()`` runs a small real call; tests use it to skip.
 """
 
 from __future__ import annotations
@@ -34,13 +38,15 @@ from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_wkv.cu"
 MAX_HEAD = 128
 
-launches = 0    # kernel launches since import (callers may reset it)
+launches = 0    # calls that launched the kernels (callers may reset it)
 
-# the C signature of csrc's rwkv6_wkv_fwd: 8 tensor pointers, B, H, S, K,
-# the strides of r, k, v, lw and y (batch, head, time) and of u (batch,
-# head), the stream
-FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 21 \
+# the C signatures of csrc's rwkv6_wkv_fwd (8 tensor pointers, the
+# scratch, B, H, S, K, the strides of r, k, v, lw and y (batch, head,
+# time) and of u (batch, head), the stream) and rwkv6_wkv_scratch_floats
+# (B, H, S, K)
+FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 21 \
     + [ctypes.c_void_p]
+SCRATCH_ARGTYPES = [ctypes.c_int] * 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,6 +54,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     lib.rwkv6_wkv_fwd.argtypes = FWD_ARGTYPES
     lib.rwkv6_wkv_fwd.restype = ctypes.c_int
+    lib.rwkv6_wkv_scratch_floats.argtypes = SCRATCH_ARGTYPES
+    lib.rwkv6_wkv_scratch_floats.restype = ctypes.c_longlong
     lib.rwkv6_wkv_error_string.argtypes = [ctypes.c_int]
     lib.rwkv6_wkv_error_string.restype = ctypes.c_char_p
     return lib
@@ -91,20 +99,25 @@ def _bht(t: torch.Tensor, layout: str) -> Tuple[int, int, int]:
 
 def _launch(r, k, v, lw, u, h0, *, B: int, H: int, S: int, K: int,
             layout: str, u_st: Tuple[int, int]):
-    """One kernel launch over B*H streams.  Returns (y contiguous in r's
-    shape, h_final [B*H,K,K])."""
+    """One call of the kernels over B*H streams.  Returns (y contiguous in
+    r's shape, h_final [B*H,K,K])."""
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the grid's 65535")
     y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     hout = torch.empty((B * H, K, K), dtype=torch.float32, device=r.device)
     vp = ctypes.c_void_p
     lib = _lib()
+    n = lib.rwkv6_wkv_scratch_floats(B, H, S, K)
+    scratch = torch.empty(n, dtype=torch.float32, device=r.device) \
+        if n else None
     strides = [s for t in (r, k, v, lw, y) for s in _bht(t, layout)]
     rc = lib.rwkv6_wkv_fwd(
         vp(r.data_ptr()), vp(k.data_ptr()), vp(v.data_ptr()),
         vp(lw.data_ptr()), vp(u.data_ptr()),
         vp(h0.data_ptr() if h0 is not None else 0), vp(y.data_ptr()),
-        vp(hout.data_ptr()), B, H, S, K, *strides, *u_st,
+        vp(hout.data_ptr()),
+        vp(scratch.data_ptr() if scratch is not None else 0), B, H, S, K,
+        *strides, *u_st,
         vp(torch.cuda.current_stream(r.device).cuda_stream))
     if rc != 0:
         raise RuntimeError("rwkv6_wkv kernel launch failed: "
@@ -172,9 +185,9 @@ def wkv_model_layout(rh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def supported() -> bool:
-    """Probe, don't version-sniff: True when the smallest real kernel
-    launch (a ragged K and S, an initial state) builds, runs and agrees
-    with the plain version.  Probe launches are not counted."""
+    """Probe, don't version-sniff: True when a small real call (a ragged
+    K, two chunks, the last ragged, an initial state) builds, runs and
+    agrees with the plain version.  Probe launches are not counted."""
     if not torch.cuda.is_available():
         return False
     global launches
@@ -182,9 +195,9 @@ def supported() -> bool:
     try:
         dev = torch.device("cuda")
         gen = torch.Generator(device=dev).manual_seed(0)
-        r, k, v = (torch.randn(2, 37, 20, generator=gen, device=dev) * 0.5
+        r, k, v = (torch.randn(2, 100, 20, generator=gen, device=dev) * 0.5
                    for _ in range(3))
-        lw = -torch.rand(2, 37, 20, generator=gen, device=dev) * 5.0
+        lw = -torch.rand(2, 100, 20, generator=gen, device=dev) * 5.0
         u = torch.randn(2, 20, generator=gen, device=dev) * 0.3
         h0 = torch.randn(2, 20, 20, generator=gen, device=dev)
         got = rwkv6_wkv(r, k, v, lw, u, h0)

@@ -1,16 +1,48 @@
-"""Plain PyTorch version of the RWKV6 wkv (the oracle of
-``repro/kernels/rwkv6_wkv/ref.py``): the per-step recurrence
+"""Plain PyTorch versions of the RWKV6 wkv.
+
+``rwkv6_wkv_ref`` (the oracle of ``repro/kernels/rwkv6_wkv/ref.py``) runs
+the per-step recurrence
 
     y_t = r_t . (S_{t-1} + (u * k_t) (x) v_t)
     S_t = diag(exp(lw_t)) S_{t-1} + k_t (x) v_t
 
-in fp32, one step at a time, from an optional initial state ``h0``."""
+in fp32, one step at a time, from an optional initial state ``h0``.  It
+is what the wrapper runs on CPU tensors and what the kernel is held to.
+
+``rwkv6_wkv_chunked_ref`` is the CUDA kernel's decomposition of the same
+function, for the tests on the CPU: chunks of ``CHUNK_ROWS`` steps (the
+last one ragged, padded with zeros), the cumsum of lw restarted per chunk
+and summed row by row in fp32, A built in sub-blocks of ``SUB_ROWS``
+rows (through a pivot left of the diagonal and in the lower-left quadrant
+of a diagonal sub-block, per element in its two triangles; every
+exponent <= 0), the products in 3xTF32 as ``kernels/tf32.py`` models
+them, and the state passed between chunks in fp32.  Nothing on
+the main path calls it."""
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.tf32 import mma_sum
+
+CHUNK_ROWS = 64   # time steps per chunk (csrc/rwkv6_wkv.cu kQ)
+SUB_ROWS = 16     # rows per sub-block of A (csrc/rwkv6_wkv.cu kSub)
+TRI_ROWS = 8      # rows per triangle summed per element (half a sub-block)
+
+
+def chunk_cumsum(lw: torch.Tensor) -> torch.Tensor:
+    """The inclusive cumsum of min(lw, 0) over a chunk's rows, lw
+    [BH,Q,K], summed row by row in fp32 as the kernel sums it, so it never
+    rises along the rows."""
+    run = torch.zeros_like(lw[:, 0], dtype=torch.float32)
+    out = []
+    for t in range(lw.shape[1]):
+        run = run + lw[:, t].to(torch.float32).clamp(max=0.0)
+        out.append(run)
+    return torch.stack(out, dim=1)
 
 
 def rwkv6_wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -32,4 +64,87 @@ def rwkv6_wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ys.append(torch.einsum("bk,bkv->bv", rf[:, t], h + uf * kv))
         h = torch.exp(lwf[:, t])[:, :, None] * h + kv
     y = torch.stack(ys, dim=1) if ys else rf.new_zeros((bh, 0, kk))
+    return y.to(r.dtype), h
+
+
+def rwkv6_wkv_chunked_ref(r: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, lw: torch.Tensor,
+                          u: torch.Tensor,
+                          h0: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's chunked form, same arguments and results as
+    ``rwkv6_wkv_ref``.  Per chunk of Q = ``CHUNK_ROWS`` rows, with c the
+    inclusive cumsum of min(lw, 0) restarted at the chunk (``chunk_cumsum``:
+    row by row in fp32, never rising) and cx_t = c_{t-1} (cx_0 = 0):
+
+        A[t, j] = sum_k r_t k_j exp(cx_t - c_j)  (j < t),  r_t . (u k_t)
+                  (j = t),  0 above the diagonal
+        y       = A V + (r exp(cx)) h_prev
+        h_next  = exp(c_end) h_prev + (k exp(c_end - c_j))^T V
+
+    A's sub-blocks of ``SUB_ROWS`` rows left of the diagonal are r^ k^^T
+    through the pivot p = c at the row before the row block (r^_t = r_t
+    exp(cx_t - p), k^_j = k_j exp(p - c_j)).  Each diagonal sub-block is
+    two triangles of ``TRI_ROWS`` rows summed per element in fp32, and its
+    lower-left quadrant r^ k^^T through the pivot c at its row
+    ``TRI_ROWS - 1``.  The last update is one fused multiply-add, and the
+    products are summed as the tensor cores sum them (``mma_sum``:
+    3xTF32, 64-deep accumulators)."""
+    bh, s, kk = r.shape
+    q, sub = CHUNK_ROWS, SUB_ROWS
+    nc = -(-s // q)
+    pad = nc * q - s
+    f32 = torch.float32
+
+    def padded(t: torch.Tensor) -> torch.Tensor:
+        return F.pad(t.to(f32), (0, 0, 0, pad))
+
+    def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return mma_sum(a, b, False, False)
+
+    rf, kf, vf, lwf = padded(r), padded(k), padded(v), padded(lw)
+    uf = u.to(f32)
+    h = (torch.zeros((bh, kk, kk), dtype=f32, device=r.device) if h0 is None
+         else h0.to(f32).clone())
+    tri_rows = TRI_ROWS
+    tri = torch.ones(tri_rows, tri_rows, dtype=torch.bool,
+                     device=r.device).tril(-1)
+
+    def through_pivot(rows: slice, keys: slice, p: int) -> torch.Tensor:
+        """r^ k^^T of these rows and keys through the pivot c_p (p at or
+        after every key, before every row)."""
+        pivot = c[:, p:p + 1]                                     # [BH,1,K]
+        r_hat = rs[:, rows] * torch.exp(cx[:, rows] - pivot)
+        k_hat = ks[:, keys] * torch.exp(pivot - c[:, keys])
+        return mm(r_hat, k_hat.transpose(1, 2))
+    ys = []
+    for ci in range(nc):
+        rows = slice(ci * q, (ci + 1) * q)
+        rs, ks, vs, ws = rf[:, rows], kf[:, rows], vf[:, rows], lwf[:, rows]
+        c = chunk_cumsum(ws)                                      # [BH,Q,K]
+        cx = torch.cat([torch.zeros_like(c[:, :1]), c[:, :-1]], dim=1)
+        amat = torch.zeros((bh, q, q), dtype=f32, device=r.device)
+        for b0 in range(0, q, sub):
+            blk = slice(b0, b0 + sub)
+            for e in (b0, b0 + tri_rows):
+                # a triangle, per element; the exponent masked before exp
+                tr = slice(e, e + tri_rows)
+                diff = cx[:, tr, None, :] - c[:, None, tr, :]    # [BH,t,j,K]
+                diff = torch.where(tri[None, :, :, None], diff, -torch.inf)
+                amat[:, tr, tr] = (rs[:, tr, None, :] * ks[:, None, tr, :]
+                                   * torch.exp(diff)).sum(-1)
+            amat[:, blk, blk] += torch.diag_embed(
+                (rs[:, blk] * uf[:, None, :] * ks[:, blk]).sum(-1))
+            mid = b0 + tri_rows
+            amat[:, mid:b0 + sub, b0:mid] = through_pivot(
+                slice(mid, b0 + sub), slice(b0, mid), mid - 1)
+            if b0:                                 # left of the diagonal
+                amat[:, blk, :b0] = through_pivot(blk, slice(0, b0), b0 - 1)
+        c_end = c[:, -1:]                                         # [BH,1,K]
+        y = mm(amat, vs) + mm(rs * torch.exp(cx), h)
+        upd = mm((ks * torch.exp(c_end - c)).transpose(1, 2), vs)
+        h = (torch.exp(c_end).transpose(1, 2).double() * h.double()
+             + upd.double()).to(f32)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :s] if ys else rf.new_zeros((bh, 0, kk))
     return y.to(r.dtype), h

@@ -18,8 +18,9 @@ Same numpy inputs on both sides (fp32, TF32 off), at these tolerances:
   (the shifts and picks bitwise);
 * ``time_mix`` and ``channel_mix`` in dense, padded prefill and decode
   modes, outputs and new state: 1e-5.
-* The Hopper kernel against its plain version (1e-4 x max|want|) runs
-  only where ``ops.supported()`` passes; here it skips.
+* The Hopper kernel against its plain version (1e-4 x max|want|), on
+  strong, weak and mixed decay too, runs only where ``ops.supported()``
+  passes; here it skips.
 """
 
 import ctypes
@@ -62,23 +63,34 @@ def _fp32():
     torch.set_float32_matmul_precision("highest")
 
 
-def _wkv_inputs(bh, s, k, seed, h0=False):
+def _wkv_inputs(bh, s, k, seed, h0=False, decay="default"):
     """tests/test_kernels.py's distributions, from numpy: r and k N(0,
-    0.25), v N(0, 1), lw = clip(-2|N(0, 1)|, -5, 0), u N(0, 0.09)."""
+    0.25), v N(0, 1), lw = clip(-2|N(0, 1)|, -5, 0), u N(0, 0.09).
+    ``decay`` "strong": lw = -5 (the model's clamp); "weak": lw uniform in
+    [-6.8e-4, -3.4e-4] (|lw| >= exp(-8) in the model); "mixed": the first
+    half of the channels strong, the second weak."""
     rs = np.random.RandomState(seed)
     r = (rs.randn(bh, s, k) * 0.5).astype(np.float32)
     kk = (rs.randn(bh, s, k) * 0.5).astype(np.float32)
     v = rs.randn(bh, s, k).astype(np.float32)
     lw = np.clip(-np.abs(rs.randn(bh, s, k)) * 2, -5.0, 0.0).astype(
         np.float32)
+    weak = (-3.4e-4 * (1.0 + rs.rand(bh, s, k))).astype(np.float32)
+    if decay == "strong":
+        lw = np.full_like(lw, -5.0)
+    elif decay == "weak":
+        lw = weak
+    elif decay == "mixed":
+        lw = np.concatenate([np.full_like(lw[..., :k // 2], -5.0),
+                             weak[..., k // 2:]], axis=-1)
     u = (rs.randn(bh, k) * 0.3).astype(np.float32)
     hh = rs.randn(bh, k, k).astype(np.float32) if h0 else None
     return r, kk, v, lw, u, hh
 
 
-def _model_inputs(b, s, h, k, seed, h0=False):
+def _model_inputs(b, s, h, k, seed, h0=False, decay="default"):
     """The model's layout: r, k, v, lw [B,S,H,K], u [H,K], h0 [B,H,K,K]."""
-    r, kk, v, lw, _u, _hh = _wkv_inputs(b * h, s, k, seed)
+    r, kk, v, lw, _u, _hh = _wkv_inputs(b * h, s, k, seed, decay=decay)
     rs = np.random.RandomState(seed + 1)
     u = (rs.randn(h, k) * 0.3).astype(np.float32)
     hh = rs.randn(b, h, k, k).astype(np.float32) if h0 else None
@@ -430,11 +442,11 @@ def test_wrapper_checks_before_launch():
     ops._check([("r", whole[..., 0, :])], {"r": (2, 8, 3, 4)})
 
 
-def test_ctypes_signature_matches_c_entry_point():
-    """The wrapper's argtypes follow the C signature in the CUDA source
-    (the compiler is on the card only)."""
+def _c_argtypes(fn: str):
+    """The ctypes argtypes of C function ``fn`` (its return type and name)
+    as declared in the CUDA source."""
     src = ops.SOURCE.read_text()
-    params = re.search(r"int rwkv6_wkv_fwd\(([^)]*)\)", src).group(1)
+    params = re.search(re.escape(fn) + r"\(([^)]*)\)", src).group(1)
     want = []
     for decl in params.split(","):
         decl = " ".join(decl.split())
@@ -443,7 +455,22 @@ def test_ctypes_signature_matches_c_entry_point():
         else:
             assert decl.startswith("int "), decl
             want.append(ctypes.c_int)
+    return want, params
+
+
+def test_ctypes_signature_matches_c_entry_point():
+    """The wrapper's argtypes follow the C signature in the CUDA source,
+    the scratch pointer among them (the compiler is on the card only)."""
+    want, params = _c_argtypes("int rwkv6_wkv_fwd")
     assert ops.FWD_ARGTYPES == want
+    assert "void* scratch" in params
+
+
+def test_ctypes_signature_of_scratch_size():
+    """The scratch the wrapper allocates is sized by the library from
+    shapes alone (B, H, S, K): its argtypes follow the source too."""
+    want, _params = _c_argtypes("long long rwkv6_wkv_scratch_floats")
+    assert ops.SCRATCH_ARGTYPES == want == [ctypes.c_int] * 4
 
 
 def test_wrapper_refuses_other_devices():
@@ -469,14 +496,20 @@ def _rel(got, want):
                                                  1e-30)
 
 
-@pytest.mark.parametrize("bh,s,k,h0", [(3, 64, 32, False),
-                                       (3, 128, 64, False),
-                                       (3, 48, 64, False),
-                                       (2, 1000, 64, True),
-                                       (3, 77, 100, True)])
-def test_cuda_kernel_vs_plain(cuda_kernel, bh, s, k, h0):
+@pytest.mark.parametrize("bh,s,k,h0,decay", [
+    (3, 64, 32, False, "default"),
+    (3, 128, 64, False, "default"),
+    (3, 48, 64, False, "default"),
+    (2, 1000, 64, True, "default"),
+    (3, 77, 100, True, "default"),
+    (3, 300, 64, True, "strong"),
+    (3, 1000, 64, True, "weak"),
+    (2, 300, 64, True, "mixed"),
+])
+def test_cuda_kernel_vs_plain(cuda_kernel, bh, s, k, h0, decay):
     args = [None if a is None else a.to(cuda_kernel)
-            for a in _t(*_wkv_inputs(bh, s, k, seed=s, h0=h0))]
+            for a in _t(*_wkv_inputs(bh, s, k, seed=s, h0=h0,
+                                     decay=decay))]
     before = ops.launches
     got = ops.rwkv6_wkv(*args)
     want = rwkv6_wkv_ref(*args)
@@ -486,10 +519,18 @@ def test_cuda_kernel_vs_plain(cuda_kernel, bh, s, k, h0):
         assert _rel(g, w) <= 1e-4
 
 
-@pytest.mark.parametrize("h0", [False, True])
-def test_cuda_model_layout_vs_plain(cuda_kernel, h0):
+@pytest.mark.parametrize("b,s,h,h0,decay", [
+    (2, 50, 8, False, "default"),
+    (2, 50, 8, True, "default"),
+    (1, 256, 64, False, "default"),
+    (2, 130, 8, True, "strong"),
+    (2, 130, 8, True, "weak"),
+    (2, 130, 8, True, "mixed"),
+])
+def test_cuda_model_layout_vs_plain(cuda_kernel, b, s, h, h0, decay):
     args = [None if a is None else a.to(cuda_kernel)
-            for a in _t(*_model_inputs(2, 50, 8, 64, seed=7, h0=h0))]
+            for a in _t(*_model_inputs(b, s, h, 64, seed=7, h0=h0,
+                                       decay=decay))]
     before = ops.launches
     got = ops.wkv_model_layout(*args)
     assert ops.launches == before + 1
