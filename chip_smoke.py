@@ -7,7 +7,9 @@ Drives the port's main paths — the fused chunked-prefill engine serving
 full-width internlm2-1.8b (random weights from a seed) from fp32, int8
 and fp8_e4m3 KV page pools, the two-executable engine (bucketed,
 suffix and segmented prefill, S = 1 decode) serving it from fp32 and
-int8 pools, full-width, full-depth zamba2-7b (Mamba2 + shared
+int8 pools, both engines serving it speculatively (n-gram and model
+drafters), full-width, full-depth gemma2-2b at max_len 8192 with a
+window ring that wraps, full-width, full-depth zamba2-7b (Mamba2 + shared
 attention) and rwkv6-7b (attention-free) through the two-executable
 engine, then full-width dbrx-132b (MoE, depth cut to 4 layers) from
 fp32 pools — and the paper's §5 operator study (fig09 and fig11, the
@@ -24,7 +26,10 @@ plain PyTorch version.  Phases, each printing JSON lines:
    number of splits, a split of trash pages only, dead slots on the
    tensor-core tile path and over three splits on both paths, a
    wrapping window on the tile path, S*G = 15 and 16 on
-   either side of the tile/GEMV boundary, dh 36) (max abs error <=
+   either side of the tile/GEMV boundary, dh 36) and at the
+   speculative verify shapes (internlm2 S = 5; gemma2 dh 256 with
+   window 4096 and softcap 50 on wrapped rings at S = 1, 5 and 32,
+   their launches from the engine phases below) (max abs error <=
    1e-4), timed with CUDA events beside its plain version, one library
    call as a yardstick (never used by the port) and its bound on this
    card: bytes at 3.35 TB/s against the products at 495 TFLOP/s times
@@ -123,7 +128,35 @@ plain PyTorch version.  Phases, each printing JSON lines:
    stop at 256, so each prefill runs as segments; it must complete with
    0 leaked pages; agreement with the same prompts served in one
    prefill is printed.
-5d. zamba2: internlm2's params and engines are freed, then zamba2-7b is
+5f. speculation, on internlm2 before it is freed: the 12 requests
+   through the fused engine with the n-gram drafter (k = 4,
+   ``prefill_budget`` 32; a sync-free chunk, paged launches == 24 x
+   micro-steps, drafts made), then through two executables with the
+   n-gram drafter (k = 4: S = 5 verify rows), the target as its own draft
+   (k = 3, its own tensors; acceptance >= 0.95), a disagreeing draft (2
+   layers, d 256, the target's vocab, seed 1; k = 3) and that draft
+   with half the requests sampled at temperature 0.8; each: 32 tokens,
+   0 leaked pages, a sync-free first round, paged launches == 24 x
+   micro-steps, flash launches == 24 x full prefills + draft layers x
+   draft prefills.  Every greedy run's emitted tokens are
+   teacher-forced: each is the argmax of ``prefill_hidden``'s logits
+   over prompt + emitted tokens, or within 1e-3 x max|logit| of the
+   top.  ``spec_stats()``, tokens equal to the plain fused run's,
+   tokens/s and ms per micro-step are printed.
+5g. gemma2: internlm2 is freed, then gemma2-2b is built at full width
+   and depth (26 layers, 4096-window layers alternating with global
+   ones, dh 256, softcaps 50/30; ~10.5 GB of fp32 weights) and serves
+   at max_len 8192 one 4600-token prompt (64 new tokens) beside 7 of the
+   main traffic's: its first-token logits through the fused path's
+   32-row slices and its second token's after a two-executable splice
+   into a 256-page windowed ring, each against ``forward_prefill``
+   (<= 1e-3 x max|want|); on each path, the kernel engine against the
+   gather engine (greedy tokens equal; one pass on the wrapped mid-run
+   cache <= 1e-3 x max|want|), 0 leaked pages, paged launches == 26 x
+   micro-steps, every token teacher-forced; then the long request alone
+   with ``SpecConfig(k=4)`` on both paths, teacher-forced.  Pool bytes
+   per group are printed.
+5d. zamba2: gemma2's params and engines are freed, then zamba2-7b is
    built at full width and depth (81 layers: 68 Mamba2, 13 applications
    of 2 shared attention blocks; ~24 GB of fp32 weights).  One 100-token
    prompt through ``forward_prefill`` in the 1024 bucket padded with 0s
@@ -390,6 +423,11 @@ BUCKET_PROMPT_LENS = (5, 12, 30, 60, 100, 200, 400, 900)
 # prompts spliced into int8 pools: 600 and 900 pad to the 1024 bucket,
 # wider than the 64-page ring by one logical page
 SPLICE_PROMPT_LENS = (100, 600, 900)
+# a teacher-forced token is the argmax of its logits, or within this
+# share of max|logit| of their top (a near-tie another order may flip)
+TF_TOL = 1e-3
+GEMMA2_MAX_LEN = 8192   # gemma2's 4096 windows wrap within it
+GEMMA2_LONG = 4600      # the long prompt: wider than the window
 
 
 class SmokeFailure(Exception):
@@ -535,6 +573,10 @@ def phase_kernels(torch, ops, quantize, kv_pool_dtype):
     # fused chunk's S = 32 rows (and plain decode's S = 1)
     main = dict(B=8, H=16, Hkv=8, dh=128, P=16, nb=64)
     lens32 = [1024, 900, 700, 512, 333, 200, 97, 40]
+    # gemma2-2b's windowed layers at max_len 8192: 5 of 8 slots past the
+    # window, their rings wrapped
+    gemma2 = dict(B=8, H=8, Hkv=4, dh=256, P=16, window=4096, softcap=50.0)
+    lens_g2 = [8192, 4700, 4129, 6000, 4097, 700, 300, 40]
     cases = [
         ("main_s32", dict(main, S=32, lens=lens32)),
         ("main_s1", dict(main, S=1, lens=lens32)),
@@ -590,6 +632,15 @@ def phase_kernels(torch, ops, quantize, kv_pool_dtype):
                            lens=[150, 20])),
         ("dh36_gemv", dict(B=2, H=16, Hkv=8, dh=36, P=16, nb=10, S=1,
                            lens=[150, 20])),
+        # speculative verify: internlm2 at k = 4 (S = 5, 10 rows per kv
+        # head: the GEMV path); gemma2 (dh 256, G = 2, window 4096,
+        # softcap 50) on rings that wrap: S = 1 decode (256 pages), the
+        # two-executable verify S = 5 (257: 4 tokens of slack) and the
+        # fused chunk's S = 32 (258: 31 of slack)
+        ("verify_internlm2_s5", dict(main, S=5, lens=lens32)),
+        ("gemma2_s1_wrap", dict(gemma2, S=1, nb=256, lens=lens_g2)),
+        ("gemma2_verify_s5_wrap", dict(gemma2, S=5, nb=257, lens=lens_g2)),
+        ("gemma2_fused_s32_wrap", dict(gemma2, S=32, nb=258, lens=lens_g2)),
     ]
     worst = {kv: 0.0 for kv in KV_DTYPES}
     rows = {kv: {} for kv in KV_DTYPES}
@@ -623,7 +674,7 @@ def phase_kernels(torch, ops, quantize, kv_pool_dtype):
                             "position are not 0")
             check(err <= KERNEL_TOL,
                   f"{kv_dtype} {name}: max abs err {err} > {KERNEL_TOL}")
-            if name.startswith(("main", "zamba2")):
+            if name.startswith(("main", "zamba2", "verify", "gemma2")):
                 nbytes, flops = paged_need(torch, case)
                 # S*G >= 16 rows run on the tensor cores (3 TF32 products
                 # per fp32 product, 2 on 8-bit pools), fewer on CUDA cores
@@ -1271,8 +1322,12 @@ def phase_fused_matmul_grads(torch, fops):
 
 
 def zero_launches(kernel_ops) -> None:
+    """Zero each kernel module's launch count (and the paged one's counts
+    by pool dtype)."""
     for mod in kernel_ops:
         mod.launches = 0
+        for k in getattr(mod, "launches_by_dtype", {}):
+            mod.launches_by_dtype[k] = 0
 
 
 def other_launches(kernel_ops, fops) -> int:
@@ -1373,24 +1428,8 @@ def phase_engine(torch, ops, gmm, rt, cfg, params, kv_dtype):
     for k in ops.launches_by_dtype:
         ops.launches_by_dtype[k] = 0
     gmm.launches = 0
-    t0 = time.time()
-    for r in reqs:
-        check(eng.submit(r) is None, f"rid {r.rid} rejected")
-    sync_checked = False
-    while eng.queue or eng._live():
-        if not sync_checked and eng.chunks >= 2 and eng._live():
-            eng._admit()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                toks = eng.step_chunk()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            eng._drain(toks)
-            sync_checked = True
-        else:
-            eng.step()
-    torch.cuda.synchronize()
-    wall = time.time() - t0
+    served = serve_fused(torch, eng, reqs)
+    wall, sync_checked = served["wall_s"], served["sync_free_chunk"]
     launches = ops.launches_by_dtype[kv_dtype]
     all_launches = ops.launches
     gmm_launches = gmm.launches
@@ -1581,17 +1620,18 @@ def make_legacy_engine(rt, cfg, params, kv_dtype, **kw):
                         device=DEV, **kw)
 
 
-def count_prefills(eng) -> dict:
+def count_prefills(eng, name: str = "prefill") -> dict:
     """Count the engine's full prefills: calls of ``Executor.prefill``
-    (suffix prefills and segments after the first are other calls)."""
-    inner = eng.executor.prefill
+    (suffix prefills and segments after the first are other calls), or
+    of another executor method (``draft_prefill``)."""
+    inner = getattr(eng.executor, name)
     box = {"n": 0}
 
-    def prefill(*args, **kw):
+    def counted(*args, **kw):
         box["n"] += 1
         return inner(*args, **kw)
 
-    eng.executor.prefill = prefill
+    setattr(eng.executor, name, counted)
     return box
 
 
@@ -1851,6 +1891,487 @@ def phase_segments(torch, rt, cfg, params, single):
               f"segments rid {r.rid}: {len(r.out_tokens)} tokens")
     check(eng.buckets[-1] == 256, f"segments grew buckets {eng.buckets}")
     check(eng.leaked_pages() == 0, "segments: leaked pages")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5f: speculative decoding at full width (internlm2-1.8b)
+# ---------------------------------------------------------------------------
+
+def teacher_forced_check(torch, rt, cfg, params, reqs, what: str) -> dict:
+    """Each emitted token against ``prefill_hidden`` over its request's
+    prompt and emitted tokens (bucket-padded, through the flash kernel):
+    it must be the argmax of the logits before it, or lie within
+    ``TF_TOL`` x max|logit| of their top (a near-tie that another
+    summation order may flip).  Returns the counts; fails on any other
+    token."""
+    import numpy as np
+    exact = total = 0
+    worst = 0.0
+    bad = []
+    for r in reqs:
+        seq = list(r.prompt) + list(r.out_tokens)
+        plen, n = len(r.prompt), len(r.out_tokens)
+        bucket = max(8, 1 << (len(seq) - 1).bit_length())
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :len(seq)] = seq
+        h, _ = rt["prefill_hidden"](
+            params, cfg, {"tokens": torch.tensor(padded, device=DEV)},
+            length=torch.tensor([len(seq)], dtype=torch.int32, device=DEV))
+        rows = h[0, plen - 1:plen - 1 + n]     # the rows before each token
+        logits = rt["logits"](params["embed"], cfg, rows)
+        toks = torch.tensor(r.out_tokens, dtype=torch.long, device=DEV)
+        top = logits.max(dim=-1).values
+        gap = ((top - logits.gather(1, toks[:, None])[:, 0])
+               / logits.abs().max(dim=-1).values)
+        is_exact = logits.argmax(dim=-1) == toks
+        gap = torch.where(is_exact, torch.zeros_like(gap), gap)
+        check(bool(torch.isfinite(logits).all()),
+              f"{what}: non-finite teacher-forced logits")
+        exact += int(is_exact.sum())
+        total += n
+        g = float(gap.max())
+        worst = max(worst, g)
+        if g > TF_TOL:
+            bad.append(r.rid)
+    rec = {"what": what, "tokens": total, "exact": exact,
+           "near_ties": total - exact, "worst_relative_gap": worst,
+           "tol": TF_TOL}
+    emit("teacher_forced", **rec)
+    check(not bad, f"{what}: tokens of rids {bad} are not the "
+                   "teacher-forced argmax (nor a near-tie)")
+    return rec
+
+
+def serve_fused(torch, eng, reqs) -> dict:
+    """Serve ``reqs`` through a fused engine; one chunk after the first
+    two runs under ``set_sync_debug_mode("error")``.  Returns the wall
+    seconds and whether the sync check ran."""
+    for r in reqs:
+        check(eng.submit(r) is None, f"rid {r.rid} rejected")
+    sync_checked = False
+    t0 = time.time()
+    while eng.queue or eng._live():
+        if not sync_checked and eng.chunks >= 2 and eng._live():
+            eng._admit()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                toks = eng.step_chunk()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            eng._drain(toks)
+            sync_checked = True
+        else:
+            eng.step()
+    torch.cuda.synchronize()
+    return {"wall_s": time.time() - t0, "sync_free_chunk": sync_checked}
+
+
+def same_tokens(ref: dict, got: dict) -> int:
+    """Positions where two runs of the same requests emitted one token."""
+    return sum(a == b for rid, toks in ref.items()
+               for a, b in zip(toks, got[rid]))
+
+
+def phase_spec_fused_ngram(torch, ops, rt, cfg, params, fused_tokens):
+    """The 12 requests through the fused engine with the n-gram drafter
+    (k = 4, ``prefill_budget`` 32: 32 rows per micro-step, the last 5 a
+    decoding slot's verify rows).  Gates: 32 tokens each, a sync-free
+    chunk, 0 leaked pages, paged launches == 24 x micro-steps, drafts
+    made, every emitted token teacher-forced.  Returns the paged
+    launches."""
+    eng = rt["Engine"](cfg, params, slots=8, max_len=1024, page_size=16,
+                       prefill_budget=32,
+                       spec=rt["SpecConfig"](draft="ngram", k=4), device=DEV)
+    check(eng.chunked_prefill and eng.paged_kernel
+          and eng.executor.chunk_rows == 32,
+          "spec fused: not the fused kernel path at 32 rows")
+    eng.warmup()
+    reqs = make_requests(rt["Request"], cfg.vocab_size, 12, seed=7, rid0=0)
+    steps0 = eng.steps
+    zero_launches([ops])
+    torch.cuda.reset_peak_memory_stats()
+    t = serve_fused(torch, eng, reqs)
+    paged = ops.launches_by_dtype["fp32"]
+    micro = eng.steps - steps0
+    st = eng.spec_stats()
+    tokens = {r.rid: list(r.out_tokens) for r in reqs}
+    gen_tokens = sum(len(v) for v in tokens.values())
+    emit("spec_fused_ngram", arch=cfg.name, requests=len(reqs),
+         micro_steps=micro, chunks=eng.chunks, spec_stats=st,
+         tokens_equal_to_plain_fused=same_tokens(fused_tokens["fp32"],
+                                                 tokens),
+         generated_tokens=gen_tokens,
+         generated_tokens_per_s=gen_tokens / t["wall_s"],
+         ms_per_micro_step=t["wall_s"] / micro * 1e3,
+         paged_attention_launches=paged,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         prefix_stats=eng.prefix_stats(), leaked_pages=eng.leaked_pages(),
+         **t)
+    for r in reqs:
+        check(r.done and len(r.out_tokens) == 32,
+              f"spec fused rid {r.rid}: {len(r.out_tokens)} tokens")
+    check(t["sync_free_chunk"], "spec fused: no chunk ran under sync "
+                                "debug mode")
+    check(paged == cfg.num_layers * micro and ops.launches == paged,
+          f"spec fused: paged launches {paged} != {cfg.num_layers} x "
+          f"{micro}")
+    check(eng.leaked_pages() == 0, "spec fused: leaked pages")
+    check(st["drafted_tokens"] > 0, "spec fused: nothing drafted")
+    teacher_forced_check(torch, rt, cfg, params, reqs, "spec_fused_ngram")
+    del eng
+    torch.cuda.empty_cache()
+    return paged
+
+
+def spec_legacy_run(torch, ops, fa, rt, cfg, params, spec, what: str,
+                    temps=None) -> dict:
+    """The 12 requests through ``Engine(chunked_prefill=False, spec=spec)``
+    (the first admission round and its chunk sync-free).  ``temps``: a
+    temperature per request (sampled rows) or None (greedy, then every
+    emitted token teacher-forced).  Gates: 32 tokens each, 0 leaked
+    pages, paged launches == 24 x micro-steps, flash launches == 24 x
+    full prefills + draft layers x draft prefills."""
+    eng = make_legacy_engine(rt, cfg, params, "fp32", spec=spec)
+    check(not eng.chunked_prefill and eng.paged_kernel,
+          f"{what}: not two executables on the kernel path")
+    eng.warmup()
+    reqs = make_requests(rt["Request"], cfg.vocab_size, 12, seed=7, rid0=0)
+    for r, temp in zip(reqs, temps or []):
+        r.temperature = temp
+    steps0 = eng.steps
+    prefills = count_prefills(eng)
+    drafts = count_prefills(eng, "draft_prefill")
+    zero_launches([ops, fa])
+    torch.cuda.reset_peak_memory_stats()
+    times = serve_legacy(torch, eng, reqs, sync_check=True)
+    paged, flash = ops.launches_by_dtype["fp32"], fa.launches
+    micro = eng.steps - steps0
+    st = eng.spec_stats()
+    draft_layers = (eng.drafter.cfg.num_layers
+                    if eng.drafter.kind == "model" else 0)
+    draft_bytes = sum(t.numel() * t.element_size()
+                      for lc in eng.cache.get("draft", [])
+                      for t in lc.values())
+    gen_tokens = sum(len(r.out_tokens) for r in reqs)
+    rec = {"what": what, "arch": cfg.name, "drafter": eng.drafter.kind,
+           "spec_k": eng.spec_config.k, "requests": len(reqs),
+           "sampled_requests": sum(1 for t in (temps or []) if t),
+           "decode_micro_steps": micro, "chunks": eng.chunks,
+           "spec_stats": st, "full_prefills": prefills["n"],
+           "draft_prefills": drafts["n"], "flash_attention_launches": flash,
+           "paged_attention_launches": paged,
+           "draft_cache_bytes": draft_bytes,
+           "generated_tokens": gen_tokens,
+           "generated_tokens_per_s": gen_tokens / times["wall_s"],
+           "ms_per_micro_step": (times["decode_s"]
+                                 / max(times["decode_micro_steps_timed"], 1)
+                                 * 1e3),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "leaked_pages": eng.leaked_pages(), **times}
+    emit("spec_legacy", **rec)
+    for r in reqs:
+        check(r.done and len(r.out_tokens) == 32,
+              f"{what} rid {r.rid}: {len(r.out_tokens)} tokens")
+    check(eng.leaked_pages() == 0, f"{what}: leaked pages")
+    check(paged == cfg.num_layers * micro and ops.launches == paged,
+          f"{what}: paged launches {paged} != {cfg.num_layers} x {micro}")
+    check(prefills["n"] > 0 and flash == cfg.num_layers * prefills["n"]
+          + draft_layers * drafts["n"],
+          f"{what}: flash launches {flash} != {cfg.num_layers} x "
+          f"{prefills['n']} + {draft_layers} x {drafts['n']}")
+    if temps is None:
+        rec["teacher_forced"] = teacher_forced_check(torch, rt, cfg, params,
+                                                     reqs, what)
+    rec["tokens"] = {r.rid: list(r.out_tokens) for r in reqs}
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_spec_legacy(torch, ops, fa, rt, cfg, params, fused_tokens):
+    """Speculation on two executables: the n-gram drafter at k = 4 (S = 5
+    verify rows, 10 per kv head: the GEMV path), then the model drafter
+    at k = 3 on the target itself (its own tensors; acceptance >= 0.95:
+    only near-ties between the dense draft path and the kernel path may
+    reject), on a disagreeing draft (2 layers, d 256, the target's vocab,
+    random weights from seed 1), and that draft once more with half the
+    requests sampled at temperature 0.8.  Returns the n-gram run's paged
+    launches (the S = 5 row's)."""
+    Spec = rt["SpecConfig"]
+    ngram = spec_legacy_run(torch, ops, fa, rt, cfg, params,
+                            Spec(draft="ngram", k=4), "spec_legacy_ngram")
+    selfspec = spec_legacy_run(
+        torch, ops, fa, rt, cfg, params,
+        Spec(draft="self", k=3, draft_cfg=cfg, draft_params=params),
+        "spec_legacy_model_self")
+    acc = selfspec["spec_stats"]["acceptance_rate"]
+    check(acc >= 0.95, f"self-speculation acceptance {acc} < 0.95")
+    dcfg = rt["reduced"](cfg, layers=2, d_model=256, heads=4, d_ff=1024,
+                         vocab=cfg.vocab_size)
+    dparams = rt["init_params"](rt["model_defs"](dcfg), 1, device=DEV)
+    spec = Spec(draft="small", k=3, draft_cfg=dcfg, draft_params=dparams)
+    small = spec_legacy_run(torch, ops, fa, rt, cfg, params, spec,
+                            "spec_legacy_model_disagreeing")
+    spec_legacy_run(torch, ops, fa, rt, cfg, params, spec,
+                    "spec_legacy_model_sampled",
+                    temps=[0.8 if i % 2 else 0.0 for i in range(12)])
+    emit("spec_legacy_agreement",
+         tokens_equal_to_plain_fused={
+             rec["what"]: same_tokens(fused_tokens["fp32"], rec["tokens"])
+             for rec in (ngram, selfspec, small)},
+         tokens_total=sum(len(v) for v in fused_tokens["fp32"].values()))
+    del dparams
+    torch.cuda.empty_cache()
+    return ngram["paged_attention_launches"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 5g: gemma2-2b at full width and depth, a window ring that wraps
+# ---------------------------------------------------------------------------
+
+def gemma2_long_logits(torch, rt, cfg, params, prompt) -> None:
+    """The long prompt (4600 tokens > the 4096 window) on both paths,
+    against ``forward_prefill`` over it in the 8192 bucket: (fused) its
+    first-token logits, teacher-forced through ``forward_verify`` in
+    right-aligned 32-row slices over fresh pools (the windowed ring of
+    258 pages wraps after 4128 tokens), and (two executables) the
+    second token's, from ``forward_decode`` of the first token after the
+    prompt's prefill was spliced into a 256-page windowed ring (its
+    4600 tokens wrap inside the one splice) against ``forward_prefill``
+    over prompt + first token.  Gate: max abs difference <= 1e-3 x
+    max|want|, both through the kernels."""
+    import numpy as np
+    L = len(prompt)
+
+    def prefill(seq):
+        bucket = 1 << (len(seq) - 1).bit_length()
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :len(seq)] = seq
+        return rt["forward_prefill"](
+            params, cfg, {"tokens": torch.tensor(padded, device=DEV)},
+            length=torch.tensor([len(seq)], dtype=torch.int32, device=DEV))
+
+    def gate(what, got, want, extra):
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        emit("gemma2_long_logits", path=what, prompt_len=L,
+             logits_max_abs_diff=err, max_abs_want=scale,
+             tol=PATH_TOL * scale,
+             same_argmax=bool(got.argmax() == want.argmax()), **extra)
+        check(bool(torch.isfinite(got).all()), f"gemma2 {what}: non-finite")
+        check(err <= PATH_TOL * scale,
+              f"gemma2 {what}: long-prompt logits differ by {err} "
+              f"(max|want| {scale})")
+
+    want, one = prefill(prompt)
+    S = 32
+    spec = rt["CacheSpec"].from_config(cfg, 1, GEMMA2_MAX_LEN, page_size=16,
+                                       spec_tokens=S - 1)
+    rows = {g.key: list(range(g.ring_blocks)) for g in spec.groups}
+    cache = spec.init_paged_cache(torch.device(DEV))
+    rt["install_slot_rows"](spec, cache, 0, 0, rows)
+    col = torch.arange(S, device=DEV)[None, :]
+    done = 0
+    while done < L:
+        n = min(S, L - done)
+        toks = np.zeros((1, S), np.int32)
+        toks[0, S - n:] = prompt[done:done + n]
+        logits, cache = rt["forward_verify"](
+            params, cfg, torch.tensor(toks, device=DEV), cache,
+            write_mask=col >= S - n, paged_kernel=True,
+            spec_slack=spec.spec_tokens,
+            n_rows=torch.tensor([n], dtype=torch.int32, device=DEV))
+        cache = dict(cache, len=cache["len"] + n)
+        done += n
+    gate("fused", logits[0, -1], want[0],
+         {"ring_blocks": {g.key: g.ring_blocks for g in spec.groups}})
+    del cache
+    first = int(want[0].argmax())
+    spec = rt["CacheSpec"].from_config(cfg, 1, GEMMA2_MAX_LEN, page_size=16)
+    rows = {g.key: list(range(g.ring_blocks)) for g in spec.groups}
+    cache = spec.init_paged_cache(torch.device(DEV))
+    rt["admit_cache"](spec, cache, one, 0, 0, L, rows)
+    del one
+    got, cache = rt["forward_decode"](
+        params, cfg, torch.tensor([[first]], dtype=torch.int32, device=DEV),
+        cache, paged_kernel=True)
+    want2, _ = prefill(list(prompt) + [first])
+    gate("legacy", got[0], want2[0],
+         {"ring_blocks": {g.key: g.ring_blocks for g in spec.groups}})
+    del cache
+    torch.cuda.empty_cache()
+
+
+def gemma2_requests(rt, cfg, long_prompt):
+    """The long request (64 new tokens) and 7 of the main traffic's."""
+    reqs = [rt["Request"](rid=0, prompt=list(long_prompt),
+                          max_new_tokens=64)]
+    return reqs + make_requests(rt["Request"], cfg.vocab_size, 7, seed=7,
+                                rid0=1)
+
+
+def gemma2_paths_check(torch, rt, cfg, eng) -> dict:
+    """One full-width pass on the engine's mid-run cache (the long slot's
+    window ring wrapped), through the kernel and through the gather
+    path, each on its own copy of the cache: the fused engine's next
+    micro-step rows (``forward_verify``), or the two-executable engine's
+    next decode step (``forward_decode``).  Gate: <= 1e-3 x max|want|
+    (want: the gather path) on the live rows."""
+    out = {}
+    ex = eng.executor
+    if eng.chunked_prefill:
+        toks, wm, n, _pre, _comp = ex.micro_inputs(eng.cache, eng.state)
+    for kernel in (True, False):
+        cache = dict(eng.cache, len=eng.cache["len"].clone(),
+                     layers=[{k: v.clone() for k, v in c.items()}
+                             for c in eng.cache["layers"]])
+        if eng.chunked_prefill:
+            logits, _ = rt["forward_verify"](
+                eng.params, cfg, toks, cache, write_mask=wm,
+                paged_kernel=kernel, spec_slack=eng.spec.spec_tokens,
+                n_rows=n)
+            real = wm
+        else:
+            logits, _ = rt["forward_decode"](
+                eng.params, cfg, eng.state["tokens"][:, None], cache,
+                write_mask=eng.state["active"], paged_kernel=kernel)
+            real = eng.state["active"]
+        out[kernel] = logits[real]
+        del cache
+        torch.cuda.empty_cache()
+    scale = float(out[False].abs().max())
+    err = float((out[True] - out[False]).abs().max())
+    rec = {"rows_compared": int(out[True].shape[0]),
+           "logits_max_abs_diff": err, "max_abs_want": scale,
+           "tol": PATH_TOL * scale,
+           "long_slot_len": int(eng.cache["len"][0])}
+    check(bool(torch.isfinite(out[True]).all()), "gemma2: non-finite logits")
+    check(err <= PATH_TOL * scale,
+          f"gemma2 {'fused' if eng.chunked_prefill else 'legacy'}: kernel "
+          f"vs gather logits differ by {err} (max|want| {scale})")
+    return rec
+
+
+def gemma2_serve(torch, ops, rt, cfg, params, long_prompt, *, fused: bool,
+                 kernel: bool, spec=None, only_long: bool = False) -> dict:
+    """Serve the gemma2 requests on one engine (``max_len`` 8192, page 16,
+    fp32 pools).  The kernel engine without speculation is checked
+    against the gather path once the long slot's window ring has wrapped
+    (``gemma2_paths_check``).  Gates: every request's budget emitted, 0
+    leaked pages, on the kernel path paged launches == 26 x
+    micro-steps."""
+    eng = rt["Engine"](cfg, params, slots=8, max_len=GEMMA2_MAX_LEN,
+                       page_size=16, chunked_prefill=fused,
+                       paged_kernel=kernel, spec=spec, device=DEV)
+    check(eng.chunked_prefill == fused and eng.paged_kernel == kernel,
+          "gemma2: engine mode")
+    reqs = gemma2_requests(rt, cfg, long_prompt)[:1 if only_long else None]
+    steps0 = eng.steps
+    zero_launches([ops])
+    paths = None
+    for r in reqs:
+        check(eng.submit(r) is None, f"gemma2 rid {r.rid} rejected")
+    t0 = time.time()
+    wrap_at = max(b.window for b in cfg.blocks if b.window) + 128
+    while eng.queue or eng._live():
+        if (kernel and spec is None and paths is None
+                and eng._slot_req[0] is reqs[0]
+                and (not fused or eng._slot_seen_len[0] >= wrap_at)):
+            # the check's own launches are not the engine's: restore
+            saved = ops.launches, dict(ops.launches_by_dtype)
+            paths = gemma2_paths_check(torch, rt, cfg, eng)
+            ops.launches = saved[0]
+            ops.launches_by_dtype.update(saved[1])
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    micro = eng.steps - steps0
+    paged = ops.launches_by_dtype["fp32"]
+    stats = eng.memory_stats()
+    groups = {g.key: {"ring_blocks": g.ring_blocks,
+                      "num_pages": g.num_pages,
+                      "pool_bytes": g.num_pages * eng.spec.group_page_bytes(g),
+                      "windowed": g.windowed} for g in eng.spec.groups}
+    gen = sum(len(r.out_tokens) for r in reqs)
+    rec = {"arch": cfg.name, "path": "fused" if fused else "legacy",
+           "paged_kernel": kernel, "spec": eng.spec_stats(),
+           "requests": len(reqs), "long_prompt_len": len(long_prompt),
+           "micro_steps": micro, "chunks": eng.chunks,
+           "paged_attention_launches": paged, "pool_groups": groups,
+           "pool_bytes": stats["paged_kv_bytes"], "wall_s": wall,
+           "generated_tokens": gen, "generated_tokens_per_s": gen / wall,
+           "ms_per_micro_step": wall / micro * 1e3,
+           "kernel_vs_gather": paths, "leaked_pages": eng.leaked_pages()}
+    emit("gemma2_engine", **rec)
+    for r in reqs:
+        check(r.done and len(r.out_tokens) == r.max_new_tokens,
+              f"gemma2 rid {r.rid}: {len(r.out_tokens)} tokens")
+    check(eng.leaked_pages() == 0, "gemma2: leaked pages")
+    if kernel:
+        check(paged == cfg.num_layers * micro and ops.launches == paged,
+              f"gemma2: paged launches {paged} != {cfg.num_layers} x "
+              f"{micro}")
+    else:
+        check(ops.launches == 0, "gemma2: the gather path launched the "
+                                 "paged kernel")
+    if kernel and spec is None:
+        check(paths is not None, "gemma2: the kernel/gather check never ran")
+    rec["reqs"] = reqs
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_gemma2(torch, ops, fa, rt):
+    """Full-width, full-depth gemma2-2b (26 layers alternating a 4096
+    window with global attention, dh 256, softcaps 50/30, tied and
+    scaled embeddings; ~10.5 GB of fp32 weights from seed 0) at
+    ``max_len`` 8192: the long-prompt logits check, then on each path
+    (fused, two executables) the 8 requests through the kernel and
+    through the gather path (greedy tokens equal), every emitted token
+    of the kernel run teacher-forced, then the long request alone with
+    ``SpecConfig(k=4)`` on both paths, teacher-forced.  Returns the
+    paged launches by verify shape."""
+    import numpy as np
+    cfg = rt["get_config"]("gemma2-2b")
+    t0 = time.time()
+    params = rt["init_params"](rt["model_defs"](cfg), 0, device=DEV)
+    torch.cuda.synchronize()
+    emit("params", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         head_dim=cfg.resolved_head_dim,
+         windows=sorted({b.window or 0 for b in cfg.blocks}),
+         params=sum(p.numel() for p in params.parameters()),
+         param_bytes=sum(p.numel() * p.element_size()
+                         for p in params.parameters()),
+         seconds=time.time() - t0)
+    long_prompt = np.random.default_rng(23).integers(
+        1, cfg.vocab_size, GEMMA2_LONG).tolist()
+    gemma2_long_logits(torch, rt, cfg, params, long_prompt)
+    launches = {}
+    for fused in (True, False):
+        path = "fused" if fused else "legacy"
+        runs = {kernel: gemma2_serve(torch, ops, rt, cfg, params,
+                                     long_prompt, fused=fused, kernel=kernel)
+                for kernel in (True, False)}
+        got = {r.rid: list(r.out_tokens) for r in runs[True]["reqs"]}
+        want = {r.rid: list(r.out_tokens) for r in runs[False]["reqs"]}
+        emit("gemma2_kernel_vs_gather", path=path,
+             tokens=sum(len(v) for v in want.values()),
+             tokens_equal=same_tokens(want, got))
+        check(got == want, f"gemma2 {path}: kernel and gather tokens differ")
+        teacher_forced_check(torch, rt, cfg, params, runs[True]["reqs"],
+                             f"gemma2_{path}")
+        launches[f"gemma2_{path}"] = runs[True]["paged_attention_launches"]
+        spec = gemma2_serve(torch, ops, rt, cfg, params, long_prompt,
+                            fused=fused, kernel=True,
+                            spec=rt["SpecConfig"](k=4), only_long=True)
+        teacher_forced_check(torch, rt, cfg, params, spec["reqs"],
+                             f"gemma2_{path}_spec")
+        launches[f"gemma2_{path}_spec"] = spec["paged_attention_launches"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2441,7 +2962,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch.configs import get_config
+        from repro_torch.configs import get_config, reduced
         from repro_torch.device import resolve_device
         from repro_torch.benchmarks import fig09_operator_scaling as fig09
         from repro_torch.benchmarks import fig11_fused_prep as fig11
@@ -2455,10 +2976,13 @@ def main() -> int:
         from repro_torch.models import (forward_decode, forward_prefill,
                                         forward_verify, model_defs)
         from repro_torch.models.attention import quantize_pages
+        from repro_torch.models.layers import logits
+        from repro_torch.models.transformer import prefill_hidden
         from repro_torch.models.module import init_params
         from repro_torch.serve.cache import (CacheSpec, admit_cache,
                                              install_slot_rows, kv_pool_dtype)
         from repro_torch.serve.engine import Engine, Request
+        from repro_torch.serve.spec import SpecConfig
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e}); run from the "
               "repository root", file=sys.stderr)
@@ -2468,7 +2992,9 @@ def main() -> int:
               forward_verify=forward_verify, forward_prefill=forward_prefill,
               forward_decode=forward_decode,
               install_slot_rows=install_slot_rows, admit_cache=admit_cache,
-              CacheSpec=CacheSpec, quantize_pages=quantize_pages)
+              CacheSpec=CacheSpec, quantize_pages=quantize_pages,
+              SpecConfig=SpecConfig, prefill_hidden=prefill_hidden,
+              logits=logits, reduced=reduced)
     try:
         resolve_device("cuda")        # TF32 off
         smi = subprocess.run(
@@ -2535,11 +3061,19 @@ def main() -> int:
                 phase_segments(torch, rt, cfg, params, eng)
             del eng
             torch.cuda.empty_cache()
-        # zamba2's ~24 GB, rwkv6's ~30 GB and dbrx's ~57 GB of weights
-        # fit only one at a time, and only once internlm2's are gone
+        # speculative decoding on the same model, both paths
+        verify_launches = {
+            "spec_fused_ngram": phase_spec_fused_ngram(
+                torch, ops, rt, cfg, params, tokens),
+            "spec_legacy_ngram": phase_spec_legacy(
+                torch, ops, fa, rt, cfg, params, tokens)}
+        # gemma2's ~10.5 GB, zamba2's ~24 GB, rwkv6's ~30 GB and dbrx's
+        # ~57 GB of weights fit only one at a time, and only once
+        # internlm2's are gone
         del params
         gc.collect()
         torch.cuda.empty_cache()
+        verify_launches.update(phase_gemma2(torch, ops, fa, rt))
         zamba2 = phase_zamba2(torch, ops, fa, mops, rt)
         rwkv6 = phase_rwkv6(torch, ops, fa, mops, wops, rt)
         full = get_config("dbrx-132b")
@@ -2578,6 +3112,17 @@ def main() -> int:
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "bound_fp32_cores_ms", "roofline_share", "path")}
                 for name, rec in rows[kv_dtype].items()}})
+    # the verify shapes' launches on their engine paths (fp32 pools)
+    for name, run in (("verify_internlm2_s5", "spec_legacy_ngram"),
+                      ("gemma2_s1_wrap", "gemma2_legacy"),
+                      ("gemma2_verify_s5_wrap", "gemma2_legacy_spec"),
+                      ("gemma2_fused_s32_wrap", "gemma2_fused")):
+        entries[0]["by_case"][name]["launches"] = verify_launches[run]
+        entries[0]["by_case"][name]["launched_by"] = run
+    entries[0]["launches_spec_fused_ngram"] = verify_launches[
+        "spec_fused_ngram"]
+    entries[0]["launches_gemma2_fused_spec"] = verify_launches[
+        "gemma2_fused_spec"]
     entries[0]["launches_dbrx"] = dbrx_launches
     entries[0]["launches_zamba2"] = zamba2["paged"]
     main_gmm = gmm_rows["gate_up"]

@@ -11,7 +11,7 @@ on a mixer or FFN it does not implement yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 ATTN = "attn"            # GQA attention mixer
 MAMBA2 = "mamba2"        # Mamba2 SSD mixer
@@ -107,6 +107,16 @@ def uniform_blocks(n: int, mixer: str = ATTN, ffn: str = FFN_DENSE,
                    window: Optional[int] = None) -> Tuple[BlockSpec, ...]:
     return tuple(BlockSpec(mixer=mixer, ffn=ffn, window=window)
                  for _ in range(n))
+
+
+def alternating_windows(n: int, pattern: Sequence[Optional[int]],
+                        ffn: str = FFN_DENSE) -> Tuple[BlockSpec, ...]:
+    """gemma-style local:global alternation: ``pattern`` repeats, e.g.
+    ``[4096, None]`` for gemma2 (1:1) or ``[1024]*5 + [None]`` for
+    gemma3 (5:1)."""
+    return tuple(BlockSpec(mixer=ATTN, ffn=ffn,
+                           window=pattern[i % len(pattern)])
+                 for i in range(n))
 
 
 def zamba2_blocks(n: int, shared_every: int, num_shared_groups: int,

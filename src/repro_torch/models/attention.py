@@ -22,9 +22,13 @@ of ``repro/models/attention.py``.
 8-bit pools (int8 / fp8_e4m3, with per-page, per-kv-head fp32 scales
 "ks"/"vs") are written by a re-quantizing read-modify-write of whole
 pages (``rmw_quantized_pages``) and read either through the kernel,
-which folds the scales in, or by gathering and dequantizing.  The dense
-(train / encoder) mode is ROADMAP A15 and the dense ring-buffer decode
-cache A7; both raise.
+which folds the scales in, or by gathering and dequantizing.
+
+``mode="decode"`` also runs over a dense per-slot cache ``{"k","v":
+[B,Hkv,T,dh]}`` (``init_cache_shape``; the model drafter's draft cache):
+one token per slot, written in place at ``(len - 1) mod T`` and read
+with a position-order mask.  The dense (train / encoder) mode is ROADMAP
+A15 and raises.
 
 Every function here is free of host synchronization: no ``.item()``,
 no boolean-mask indexing, no Python branch on a tensor value.
@@ -61,25 +65,37 @@ def _softcap(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 
 def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                     valid: torch.Tensor, *,
-                     softcap: Optional[float] = None) -> torch.Tensor:
-    """q [B,Sq,H,dh]; cache [B,Hkv,S,dh] in ring order; ``valid`` the
-    ring-validity mask, [B,S] for Sq == 1 or per query row [B,Sq,S].
-    (The reference's position-order default mask serves its dense cache,
-    which the port does not have.)"""
+                     cache_len: Optional[torch.Tensor] = None, *,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None,
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [B,Sq,H,dh]; cache [B,Hkv,S,dh]; ``cache_len`` [B] counts valid
+    entries *including* the newest query token.
+
+    The default mask is position order (the dense decode cache: entry
+    ``j`` holds position ``j``, valid below ``cache_len`` and, with
+    ``window``, at or past ``cache_len - window``).  ``valid`` overrides
+    it: [B,S] for Sq == 1 (the paged gather path's ring-order mask) or
+    one mask per query row [B,Sq,S], which Sq > 1 requires."""
     b, sq, h, dh = q.shape
-    hkv = ck.shape[1]
+    hkv, s = ck.shape[1], ck.shape[2]
     g = h // hkv
     scale = dh ** -0.5
     if sq == 1:
         q2 = q[:, 0].reshape(b, hkv, g, dh)
         scores = torch.einsum("bkgd,bksd->bkgs", q2, ck).float() * scale
         scores = _softcap(scores, softcap)
+        if valid is None:
+            pos = torch.arange(s, device=q.device)[None, :]
+            cl = cache_len.long()[:, None]
+            valid = pos < cl                                   # [B, S]
+            if window is not None:
+                valid = valid & (pos >= cl - window)
         scores = torch.where(valid[:, None, None], scores, NEG_INF)
         p = torch.softmax(scores, dim=-1).to(cv.dtype)
         out = torch.einsum("bkgs,bksd->bkgd", p, cv)
         return out.reshape(b, 1, h, dh)
-    if valid.dim() != 3:
+    if valid is None or valid.dim() != 3:
         raise ValueError("multi-query decode attention needs a per-query "
                          "[B,Sq,S] mask")
     q2 = q.reshape(b, sq, hkv, g, dh)
@@ -311,8 +327,8 @@ def paged_decode_step(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
                                   k_scale=ks, v_scale=vs)
             return out[:, None], new
         ck, cv = _gather_ring(pool_k, pool_v, table, ring, ks, vs)
-        return decode_attention(q, ck, cv, ring_valid(cache_len, ring, window),
-                                softcap=softcap), new
+        return decode_attention(q, ck, cv, softcap=softcap,
+                                valid=ring_valid(cache_len, ring, window)), new
 
     # multi-row step: the table is the layer's own group table, so its
     # width IS the ring width
@@ -346,7 +362,7 @@ def paged_decode_step(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
     valid = (u >= 0)[:, None, :] & (u[:, None, :] <= g_pos[:, :, None])
     if window is not None:
         valid = valid & (u[:, None, :] > g_pos[:, :, None] - window)
-    return decode_attention(q, ck, cv, valid, softcap=softcap), new
+    return decode_attention(q, ck, cv, softcap=softcap, valid=valid), new
 
 
 def _write_quantized_rows(pool_k, pool_v, ks, vs, pt, kk, vv, g_pos, off,
@@ -415,17 +431,15 @@ def apply(params, x: torch.Tensor, *, cfg: ModelConfig,
     page ids, "off": prefix length}``) the layer's queries sit at
     ``off + i`` (``positions`` already carry the offset) and attend to
     the ``off`` prefix tokens gathered from the pool.  ``mode="decode"``
-    needs a paged cache (``paged_kernel``: read it through the kernel).
-    The dense mode (A15) and the dense ring-buffer decode cache (A7) are
-    not ported and raise."""
+    over a paged cache (``"pk"``; ``paged_kernel``: read it through the
+    kernel) takes S >= 1 rows; over a dense cache (``{"k","v":
+    [B,Hkv,T,dh]}``, the model drafter's) one row, written in place at
+    ``(cache_len - 1) mod T``.  The dense mode (A15) is not ported and
+    raises."""
     if mode == "dense":
         raise NotImplementedError(
             "attention mode 'dense' (training / encoders) is not ported "
             "yet (ROADMAP A15)")
-    if mode == "decode" and (cache is None or "pk" not in cache):
-        raise NotImplementedError(
-            "decode over a dense ring-buffer cache is not ported yet "
-            "(ROADMAP A7); the port decodes over paged caches")
     if mode not in ("prefill", "decode"):
         raise ValueError(f"unknown attention mode {mode!r}")
     b, s, d = x.shape
@@ -438,10 +452,27 @@ def apply(params, x: torch.Tensor, *, cfg: ModelConfig,
         b, s, hkv, dh)
     q = rope(q, positions, cfg.rope_theta)
     kk = rope(kk, positions, cfg.rope_theta)
-    if mode == "decode":
+    if mode == "decode" and "pk" in cache:
         out, new_cache = paged_decode_step(
             q, kk, vv, cache, cache_len, window=window,
             softcap=cfg.attn_softcap, paged_kernel=paged_kernel)
+    elif mode == "decode":
+        if s != 1:
+            raise NotImplementedError(
+                "multi-token decode (speculative verify) needs a paged "
+                "cache; the dense ring-buffer path is single-token only")
+        size = cache["k"].shape[2]
+        # a windowed layer may keep a ring of ``window`` entries; keys
+        # carry absolute rope positions, so entry order does not matter
+        # and ring occupancy enforces the window
+        idx = torch.remainder(cache_len.long() - 1, size)
+        ck = _update_cache(cache["k"], kk.transpose(1, 2), idx)
+        cv = _update_cache(cache["v"], vv.transpose(1, 2), idx)
+        ring = window is not None and size <= window
+        out = decode_attention(q, ck, cv, cache_len,
+                               window=None if ring else window,
+                               softcap=cfg.attn_softcap)
+        new_cache = {"k": ck, "v": cv}
     elif ctx is not None:
         # prefix sharing: gather the matched prefix KV from the paged pool
         # (block order is position order in the non-wrapping full-attention
@@ -464,3 +495,18 @@ def apply(params, x: torch.Tensor, *, cfg: ModelConfig,
     y = torch.matmul(out.reshape(b * s, h * dh),
                      params["wo"].reshape(h * dh, d)).view(b, s, d)
     return y, new_cache
+
+
+def init_cache_shape(cfg: ModelConfig, batch: int,
+                     max_len: int) -> Tuple[int, int, int, int]:
+    """Shape of one layer's dense decode cache (K or V)."""
+    return (batch, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
+
+
+def _update_cache(cache: torch.Tensor, new: torch.Tensor,
+                  idx: torch.Tensor) -> torch.Tensor:
+    """Write ``new`` [B,Hkv,1,dh] at sequence position ``idx`` [B] of
+    ``cache`` [B,Hkv,T,dh], in place; returns ``cache``."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, :, idx] = new[:, :, 0].to(cache.dtype)
+    return cache

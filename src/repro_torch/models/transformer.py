@@ -15,9 +15,10 @@ attention runs ``kernels/flash_attention`` on the card, or a suffix
 prefill against paged context; its Mamba2 layers run
 ``kernels/mamba2_scan``, its rwkv6 layers ``kernels/rwkv6_wkv``); it
 returns per-layer KV for the splice and each recurrent layer's state.
-``forward_decode`` writes KV into the pools in place and returns new
-state tensors for the Mamba2 and rwkv6 layers.  ``forward_verify`` runs
-attention-only stacks (the fused chunk).  Encoders, cross-attention,
+``forward_decode`` writes KV into the pools (or a dense per-slot cache)
+in place and returns new state tensors for the Mamba2 and rwkv6 layers.
+``forward_verify`` runs attention-only stacks (the fused chunk and the
+speculative verify).  Encoders, cross-attention,
 modality frontends and the train pass are not ported yet and raise
 (A13, A15).  Serving drops the MoE router's aux values, as the
 reference's entry points do.
@@ -176,6 +177,31 @@ def _decoder(params, cfg: ModelConfig, h: torch.Tensor, *, mode: str,
     return layers.rmsnorm(params["final_ln"], h, cfg.norm_eps), new_caches
 
 
+def prefill_hidden(params, cfg: ModelConfig, batch: Dict, *,
+                   length: Optional[torch.Tensor] = None,
+                   ctx: Optional[Dict] = None
+                   ) -> Tuple[torch.Tensor, List]:
+    """:func:`forward_prefill` up to the final norm: the hidden states of
+    every position [B,S,d] and the per-layer caches, so a caller that
+    needs logits at other positions than the last (a teacher-forced
+    check of generated tokens) pays the LM head for those rows only."""
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    ctx_list = None
+    if ctx is not None:
+        positions = ctx["off"] + positions
+        ctx_list = [None if lc is None else
+                    {"pk": lc["pk"], "pv": lc["pv"], "ks": lc.get("ks"),
+                     "vs": lc.get("vs"), "row": ctx["row"],
+                     "off": ctx["off"]}
+                    for lc in ctx["layers"]]
+    h = layers.embed(params["embed"], cfg, tokens)
+    return _decoder(params, cfg, h, mode="prefill", positions=positions,
+                    caches=None, cache_len=None, length=length,
+                    ctx_list=ctx_list)
+
+
 def forward_prefill(params, cfg: ModelConfig, batch: Dict, *,
                     length: Optional[torch.Tensor] = None,
                     ctx: Optional[Dict] = None
@@ -200,19 +226,7 @@ def forward_prefill(params, cfg: ModelConfig, batch: Dict, *,
     returned cache carries suffix KV only, for a splice at ``off``."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device)[None, :]
-    ctx_list = None
-    if ctx is not None:
-        positions = ctx["off"] + positions
-        ctx_list = [None if lc is None else
-                    {"pk": lc["pk"], "pv": lc["pv"], "ks": lc.get("ks"),
-                     "vs": lc.get("vs"), "row": ctx["row"],
-                     "off": ctx["off"]}
-                    for lc in ctx["layers"]]
-    h = layers.embed(params["embed"], cfg, tokens)
-    h, caches = _decoder(params, cfg, h, mode="prefill", positions=positions,
-                         caches=None, cache_len=None, length=length,
-                         ctx_list=ctx_list)
+    h, caches = prefill_hidden(params, cfg, batch, length=length, ctx=ctx)
     if length is None:
         h_last = h[:, -1:]
         clen = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
@@ -251,10 +265,12 @@ def forward_decode(params, cfg: ModelConfig, tokens: torch.Tensor,
                    paged_kernel: bool = False
                    ) -> Tuple[torch.Tensor, Dict]:
     """tokens [B,1]; ``cache["len"]`` counts tokens already cached.  Writes
-    the new KV through the page tables and returns next-token logits
-    [B,V] and the cache with ``len`` advanced by one and each recurrent
-    (Mamba2, rwkv6) layer's new state (every row's: the write mask does
-    not cover state, as in the reference)."""
+    the new KV through the page tables (a cache with ``page_tables``) or
+    into a dense per-slot cache (per-layer ``{"k","v": [B,Hkv,T,dh]}``
+    and no ``page_tables``: the model drafter's draft cache), and returns
+    next-token logits [B,V] and the cache with ``len`` advanced by one
+    and each recurrent (Mamba2, rwkv6) layer's new state (every row's:
+    the write mask does not cover state, as in the reference)."""
     cache_len = cache["len"] + 1
     positions = cache["len"][:, None]
     layer_caches = _thread_page_tables(cfg, cache, write_mask)
@@ -317,4 +333,4 @@ def forward_verify(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 __all__ = ["model_defs", "forward_prefill", "forward_decode",
-           "forward_verify", "verify_hidden"]
+           "forward_verify", "prefill_hidden", "verify_hidden"]

@@ -27,16 +27,25 @@ Three layers, as in the reference:
     suffix against the shared pages, and a prompt longer than the
     largest bucket runs as bucket-sized segments.  Each micro-step of
     the chunk is one S = 1 decode step.
+
+  With ``spec=`` (``serve/spec``) each decode micro-step becomes a
+  speculative round: a drafter proposes ``K`` tokens per slot (n-gram
+  lookup in the slot's history, or a small model on its own dense draft
+  cache), one multi-row pass verifies the ``K + 1`` rows (two
+  executables: ``S = K + 1``; fused: the last ``K + 1`` columns of the
+  ``[slots, max(prefill_budget, K + 1)]`` matrix), and on-device
+  rejection sampling commits a variable number of tokens: greedy output
+  is token-identical to plain decoding.
 * **Driver** (``Engine``) — glues them: admission at chunk boundaries,
   one batched device-to-host drain per chunk (prefill-sampled first
   tokens included), finish reporting.
 
 Decode attention reads the pools pool-direct through the Hopper
 paged-attention kernel (``paged_kernel="auto"`` on a CUDA device) or
-gathers each slot's ring (``paged_kernel=False``).  Speculation,
-preemption, deadlines, SLO policy, tracing, fault injection and
-sharding are not ported yet; their arguments raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+gathers each slot's ring (``paged_kernel=False``).  Preemption,
+deadlines, SLO policy, tracing, fault injection and sharding are not
+ported yet; their arguments raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -47,10 +56,13 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, host_to_device, resolve_device
 from repro_torch.models import layers
+from repro_torch.models.module import init_params
 from repro_torch.models.transformer import (forward_decode, forward_prefill,
+                                            forward_verify, model_defs,
                                             verify_hidden)
 from repro_torch.serve import cache as cache_mod
 from repro_torch.serve import sampling
@@ -58,7 +70,9 @@ from repro_torch.serve.cache import CacheSpec
 from repro_torch.serve.scheduler import (PagePoolExhausted, Request,
                                          RequestRejected, RequestStatus,
                                          Scheduler)
-from repro_torch.serve.spec import spec_unsupported_reason
+from repro_torch.serve.spec import (ModelDrafter, NGramDrafter, SpecConfig,
+                                    check_spec_capable,
+                                    spec_unsupported_reason)
 
 
 class Executor:
@@ -71,51 +85,75 @@ class Executor:
 
     def __init__(self, cfg: ModelConfig, spec: CacheSpec, *, top_k: int,
                  sync_interval: int, paged_kernel: bool, chunked: bool,
-                 prefill_budget: int, device: torch.device):
+                 prefill_budget: int, device: torch.device,
+                 drafter=None, draft_params=None):
         self.cfg = cfg
         self.spec = spec
         self.top_k = int(top_k)
         self.sync_interval = int(sync_interval)
         self.paged_kernel = bool(paged_kernel)
         self.chunked = bool(chunked)
-        self.chunk_rows = int(prefill_budget)
         self.device = device
+        # speculation: ``drafter`` proposes ``drafter.k`` tokens per slot
+        # and each micro-step verifies k1 = k + 1 rows per decoding slot
+        self.drafter = drafter
+        self.draft_params = draft_params
+        self.k1 = drafter.k + 1 if drafter is not None else 1
+        # fused: prefill slices and verify rows share one [slots, S] matrix
+        self.chunk_rows = max(int(prefill_budget), self.k1)
 
     # ------------------------------------------------------ fused chunk
-    def micro_inputs(self, cache: Dict, state: Dict):
+    def micro_inputs(self, cache: Dict, state: Dict,
+                     drafts: Optional[torch.Tensor] = None):
         """One fused micro-step's right-aligned token matrix and masks:
         ``(toks [B,S], write_mask [B,S], n_rows [B], prefilling [B],
-        completing [B])``."""
-        S = self.chunk_rows
+        completing [B])``.  A mid-prefill slot's rows are its next
+        ``min(plen - len, S)`` prompt tokens; a decoding slot's are its
+        pending token, followed by its ``drafts`` [B,K] under
+        speculation, in the last ``k1`` columns."""
+        S, k1 = self.chunk_rows, self.k1
         col = torch.arange(S, device=self.device, dtype=torch.int32)[None, :]
         len_ = cache["len"]
         active = state["active"]
         rem = state["plen"] - len_
         prefilling = active & (rem > 0)
-        n = torch.where(prefilling, torch.clamp(rem, max=S), 1)
+        n = torch.where(prefilling, torch.clamp(rem, max=S), k1)
         completing = prefilling & (rem <= S)
         gidx = len_[:, None] + col - (S - n)[:, None]
         pcap = state["prompt"].shape[1]
         ptoks = torch.gather(state["prompt"], 1,
                              torch.clamp(gidx, 0, pcap - 1).long())
         wm = active[:, None] & (col >= (S - n)[:, None])
-        toks = torch.where(
-            prefilling[:, None], ptoks,
-            torch.where(col == S - 1, state["tokens"][:, None], 0))
+        dec = [torch.zeros((S - k1,), dtype=torch.int32,
+                           device=self.device).expand(len_.shape[0], -1),
+               state["tokens"][:, None]]
+        if drafts is not None:
+            dec.append(drafts)
+        toks = torch.where(prefilling[:, None], ptoks, torch.cat(dec, dim=1))
         return toks, wm, n, prefilling, completing
 
     def chunk(self, params, cache: Dict, state: Dict,
               gen: torch.Generator):
         """``sync_interval`` micro-steps: forward (KV written through the
         page tables) + sample + bookkeeping, all on the device.  Returns
-        the [T, slots] token history (-1 where a slot committed nothing),
-        the cache and the state."""
-        step = self._fused_step if self.chunked else self._decode_step
+        the token history (-1 where a slot committed nothing), the cache
+        and the state.  The history is [T, slots], or under speculation
+        [T*(K+1), slots] (each round's up to K+1 committed tokens in
+        order), so each slot's new tokens are its column's non-negative
+        entries."""
+        if self.drafter is not None:
+            step = (self._fused_spec_step if self.chunked
+                    else self._spec_decode_step)
+        else:
+            step = self._fused_step if self.chunked else self._decode_step
         emitted: List[torch.Tensor] = []
         for _ in range(self.sync_interval):
             em, cache, state = step(params, cache, state, gen)
             emitted.append(em)
-        return torch.stack(emitted), cache, state
+        toks = torch.stack(emitted)
+        if toks.dim() == 3:      # [T, slots, K+1] -> time-major rows
+            toks = toks.transpose(1, 2).reshape(-1, toks.shape[1])
+        return toks, cache, state
 
     def _decode_step(self, params, cache: Dict, state: Dict,
                      gen: torch.Generator):
@@ -152,6 +190,56 @@ class Executor:
             prefilling, n, active.to(torch.int32)))
         return em, cache, state
 
+    def _spec_decode_step(self, params, cache: Dict, state: Dict,
+                          gen: torch.Generator):
+        """Two executables, one speculative round: draft ``K``, verify the
+        current token and the drafts (``S = K + 1`` rows, ``active`` as
+        write mask), accept, and advance ``len`` by the committed count
+        (rejected drafts roll back by not being counted)."""
+        drafts, qprobs = self.drafter.propose(self.draft_params, cache,
+                                              state, gen, self.top_k)
+        toks = torch.cat([state["tokens"][:, None], drafts], dim=1)
+        logits, cache = forward_verify(
+            params, self.cfg, toks, cache, write_mask=state["active"],
+            paged_kernel=self.paged_kernel, spec_slack=self.spec.spec_tokens)
+        cand, n_acc = sampling.spec_accept(logits, drafts, qprobs,
+                                           state["temp"], self.top_k, gen)
+        state, em, n_emit = sampling.spec_update(state, cand, n_acc)
+        cache = dict(cache, len=cache["len"] + n_emit)
+        return em, cache, state
+
+    def _fused_spec_step(self, params, cache: Dict, state: Dict,
+                         gen: torch.Generator):
+        """One fused speculative micro-step: prompt slices of mid-prefill
+        slots beside the verify rows of decoding slots.  A slot whose
+        prefill completes commits exactly its first token (drafting
+        starts the next micro-step); a mid-prefill slot's draft rows are
+        not fed and its accept verdict is discarded.  Only the last
+        ``K + 1`` rows go through the LM head."""
+        S, k1 = self.chunk_rows, self.k1
+        len_, active = cache["len"], state["active"]
+        drafts, qprobs = self.drafter.propose(self.draft_params, cache,
+                                              state, gen, self.top_k)
+        toks, wm, n, prefilling, completing = self.micro_inputs(
+            cache, state, drafts)
+        decoding = active & ~prefilling
+        h, cache = verify_hidden(
+            params, self.cfg, toks, cache, write_mask=wm,
+            paged_kernel=self.paged_kernel,
+            spec_slack=self.spec.spec_tokens, n_rows=n)
+        logits = layers.logits(params["embed"], self.cfg, h[:, S - k1:])
+        cand, n_acc = sampling.spec_accept(logits, drafts, qprobs,
+                                           state["temp"], self.top_k, gen)
+        first = sampling.sample(logits[:, -1], gen, temperature=state["temp"],
+                                top_k=self.top_k)
+        state, _ = sampling.decode_update(state, first, commit=completing)
+        state, em, n_emit = sampling.spec_update(state, cand, n_acc,
+                                                 commit=decoding)
+        idx = torch.arange(k1, device=self.device)[None, :]
+        em = torch.where(completing[:, None] & (idx == 0), first[:, None], em)
+        cache = dict(cache, len=len_ + torch.where(prefilling, n, n_emit))
+        return em, cache, state
+
     # --------------------------------------------- two-executable prefill
     def prefill(self, params, tokens: torch.Tensor, length: torch.Tensor,
                 temp: torch.Tensor, gen: torch.Generator):
@@ -186,6 +274,15 @@ class Executor:
                               top_k=self.top_k)
         return tok, one
 
+    def draft_prefill(self, tokens: torch.Tensor,
+                      length: torch.Tensor) -> List[Dict]:
+        """The model drafter's prefill of the whole prompt (same bucket):
+        per-layer dense KV ``{"k","v": [1,Hkv,bucket,dh]}``; its logits
+        are dropped, the first proposal comes from a draft decode step."""
+        _, one = forward_prefill(self.draft_params, self.drafter.cfg,
+                                 {"tokens": tokens}, length=length)
+        return one["layers"]
+
     # --------------------------------------------------------- admission
     def admit_prefilled(self, cache: Dict, state: Dict, en: Dict) -> None:
         """Two-executable admission of one slot, in place: splice its
@@ -195,6 +292,14 @@ class Executor:
         slot = en["slot"]
         cache_mod.admit_cache(self.spec, cache, en["one_cache"], slot,
                               en["start"], en["plen"], en["rows"])
+        if en.get("draft") is not None:
+            # the draft prefill into the slot's row of the dense draft
+            # cache, positions 0..; its pad tail is overwritten by later
+            # draft decode writes before any read
+            for big, small in zip(cache["draft"], en["draft"]):
+                for key in ("k", "v"):
+                    n = min(small[key].shape[2], big[key].shape[2])
+                    big[key][slot:slot + 1, :, :n].copy_(small[key][:, :, :n])
         at = slice(slot, slot + 1)   # fill_: no blocking copy
         state["tokens"][at].copy_(en["tok"])
         state["out_len"][at].fill_(en["out_len0"])
@@ -203,6 +308,18 @@ class Executor:
         state["temp"][at].fill_(en["temp"])
         # a max_new = 1 request is done with its first token
         state["active"][at].fill_(en["out_len0"] < en["max_new"])
+        if "hist" in state:
+            # the n-gram corpus: the prompt, then the prefill-sampled
+            # token (in the spill column when the prompt fills the row)
+            hist = state["hist"]
+            cap = hist.shape[1] - 1
+            row = np.zeros((1, cap + 1), np.int32)
+            head = en["prompt"][:cap]
+            row[0, :len(head)] = head
+            hist[at].copy_(host_to_device(row, self.device))
+            pos = min(en["plen"], cap)
+            hist[at, pos:pos + 1].copy_(en["tok"][:, None])
+            state["hist_len"][at].fill_(en["plen"] + 1)
 
     def admit(self, cache: Dict, state: Dict, entries: List[Dict]) -> None:
         """Fused admission, in place: install each slot's page-table rows,
@@ -229,6 +346,15 @@ class Executor:
             torch.bool)
         put("plen", [en["plen"] for en in entries])
         put("prompt", np.stack([en["prompt"] for en in entries]))
+        if "hist" in state:
+            # the n-gram corpus starts as the prompt; the chunk appends
+            cap1 = state["hist"].shape[1]
+            rows = np.zeros((len(entries), cap1), np.int32)
+            for i, en in enumerate(entries):
+                m = min(en["plen"], cap1)
+                rows[i, :m] = en["prompt"][:m]
+            put("hist", rows)
+            put("hist_len", [en["plen"] for en in entries])
 
     def copy_page(self, cache: Dict, src: int, dst: int,
                   group_key: str) -> None:
@@ -276,7 +402,15 @@ class Engine:
     fp32 scales).  One departure from the reference, which falls back to
     fp32 pools when it cannot store a dtype: the port never does.  An
     8-bit dtype is served in 8 bits, through the quantized kernel on the
-    card, or the launch raises."""
+    card, or the launch raises.
+
+    ``spec`` turns on speculative decoding for attention-only archs:
+    ``"ngram"``, a draft config name (``reduced(get_config(name))``), or
+    a ``SpecConfig``.  A model drafter forces two executables (its dense
+    draft cache is filled by a draft prefill) and, without
+    ``draft_params``, draws its weights from a generator seeded
+    ``seed + 17`` on the engine's device.  Windowed rings carry the
+    verify rows' slack (``CacheSpec(spec_tokens=...)``)."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  max_len: int = 256, greedy: bool = True,
@@ -294,8 +428,6 @@ class Engine:
                  policy: str = "fifo", rules: Any = None,
                  queue_limit: Optional[int] = None,
                  shed_policy: str = "reject"):
-        if spec not in (None, False, "off"):
-            raise _unsupported("speculative decoding (spec=)", "A10")
         if chaos is not None:
             raise _unsupported("fault injection (chaos=)", "A11")
         if trace not in (None, False):
@@ -311,13 +443,30 @@ class Engine:
             raise ValueError(
                 f"kv_dtype must be 'auto' or one of {cache_mod.KV_DTYPES}, "
                 f"got {kv_dtype!r}")
+        if spec in (None, False, "off"):
+            spec_cfg = None
+        elif isinstance(spec, SpecConfig):
+            spec_cfg = spec
+        elif isinstance(spec, str):
+            spec_cfg = SpecConfig(draft=spec)
+        else:
+            raise TypeError(f"spec must be None, 'ngram', a draft config "
+                            f"name, or a SpecConfig; got {spec!r}")
+        if spec_cfg is not None:
+            check_spec_capable(cfg)
+            if spec_cfg.k < 1:
+                raise ValueError(f"spec.k must be >= 1, got {spec_cfg.k}")
+        model_draft = spec_cfg is not None and spec_cfg.draft != "ngram"
         reason = spec_unsupported_reason(cfg)
+        # fused exactly where the reference picks it: attention-only
+        # stacks, and no model drafter (its draft cache needs a prefill)
         if chunked_prefill == "auto":
-            chunked_prefill = reason is None
-        elif chunked_prefill and reason is not None:
+            chunked_prefill = reason is None and not model_draft
+        elif chunked_prefill and (reason is not None or model_draft):
             raise ValueError(
                 f"{cfg.name}: chunked_prefill needs paged KV for every "
-                f"mixer (attention-only stack); reason: {reason}")
+                "mixer (attention-only stack) and no model drafter; "
+                f"reason: {reason or 'model drafter'}")
         if cfg.cross_attention or cfg.frontend:
             # every mixer is served; encoders and frontends are not
             raise _unsupported(f"{cfg.name} ({reason})", "A13")
@@ -351,13 +500,33 @@ class Engine:
         self.buckets = sorted(set(int(b) for b in buckets))
         self.requested_kv_dtype = requested
         self.kv_dtype = requested
-        # fused: windowed rings need ring >= window + S - 1 so a
-        # full-width prefill slice may write-wrap legitimately (capped in
-        # CacheSpec); the S = 1 decode of two executables needs no slack
+        self.spec_config = spec_cfg
+        k = spec_cfg.k if spec_cfg is not None else 0
+        self.drafter = None
+        self.draft_params = None
+        if spec_cfg is not None and not model_draft:
+            self.drafter = NGramDrafter(k, spec_cfg.ngram)
+        elif spec_cfg is not None:
+            dcfg = spec_cfg.draft_cfg
+            if dcfg is None:
+                dcfg = reduced(get_config(spec_cfg.draft))
+            self.drafter = ModelDrafter(dcfg, k, cache_tokens=max_len + k + 1)
+            self.draft_params = spec_cfg.draft_params
+            if self.draft_params is None:
+                self.draft_params = init_params(model_defs(dcfg), seed + 17,
+                                                device=self.device)
+        # the history buffer is the n-gram drafter's lookup corpus; a
+        # model drafter never reads it
+        self._hist_cap = (max_len + k + 2
+                          if isinstance(self.drafter, NGramDrafter) else 0)
+        # windowed rings need ring >= window + S - 1 so the widest
+        # micro-step (a fused prefill slice of ``prefill_budget`` rows or
+        # K + 1 verify rows) may write-wrap legitimately (capped in
+        # CacheSpec)
+        cache_slack = max(k, self.prefill_budget - 1)
         self.spec = CacheSpec.from_config(
             cfg, slots, max_len, page_size=page_size, num_pages=num_pages,
-            spec_tokens=max(self.prefill_budget - 1, 0),
-            kv_dtype=self.kv_dtype)
+            spec_tokens=cache_slack, kv_dtype=self.kv_dtype)
         if paged_kernel == "auto":
             paged_kernel = self.device.type == "cuda"
         # an arch with no paged layer (rwkv6) has no pools to read
@@ -371,7 +540,8 @@ class Engine:
                                  paged_kernel=self.paged_kernel,
                                  chunked=self.chunked_prefill,
                                  prefill_budget=self.prefill_budget,
-                                 device=self.device)
+                                 device=self.device, drafter=self.drafter,
+                                 draft_params=self.draft_params)
         self._slot_req: List[Optional[Request]] = [None] * slots
         # two executables: each slot's prefill-sampled first token, on the
         # device until the drain fetches it with the chunk's history
@@ -381,8 +551,11 @@ class Engine:
         self._slot_seen_len: List[int] = [0] * slots
         self._slot_plen: List[int] = [0] * slots
         self.cache = self.spec.init_paged_cache(self.device)
+        if isinstance(self.drafter, ModelDrafter):
+            self.cache["draft"] = self.drafter.init_cache(slots, self.device)
         self.state = sampling.make_slot_state(
-            slots, self.device, max_len if self.chunked_prefill else 0)
+            slots, self.device, max_len if self.chunked_prefill else 0,
+            hist_cap=self._hist_cap, spec=spec_cfg is not None)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self._clock = time.monotonic
@@ -412,6 +585,29 @@ class Engine:
 
     def prefix_stats(self) -> Dict[str, Any]:
         return self.scheduler.prefix_stats()
+
+    def spec_stats(self) -> Dict[str, Any]:
+        """Speculative-decoding telemetry: acceptance rate (accepted over
+        drafted tokens) and committed tokens per verify step, from the
+        device counters ``sampling.spec_update`` keeps.  Reading them is
+        one device-to-host copy: call it between runs."""
+        if self.spec_config is None:
+            return {"spec": False}
+        steps, drafted, accepted, emitted = torch.stack(
+            [self.state[c] for c in ("spec_steps", "spec_drafted",
+                                     "spec_accepted", "spec_emitted")]
+        ).tolist()
+        return {
+            "spec": True,
+            "drafter": self.drafter.kind,
+            "spec_k": self.spec_config.k,
+            "spec_steps": steps,
+            "drafted_tokens": drafted,
+            "accepted_tokens": accepted,
+            "acceptance_rate": accepted / drafted if drafted else 0.0,
+            "emitted_tokens": emitted,
+            "tokens_per_step": emitted / steps if steps else 0.0,
+        }
 
     def leaked_pages(self) -> int:
         """Pages leased beyond what live slots and the radix index hold;
@@ -475,6 +671,8 @@ class Engine:
                                      device=self.device)
                 self.executor.prefill(self.params, tokens, zero,
                                       zero.float(), self.gen)
+                if self.draft_params is not None:
+                    self.executor.draft_prefill(tokens, zero)
         _, self.cache, self.state = self.executor.chunk(
             self.params, self.cache, self.state, self.gen)
         # the S = 1 decode advanced every idle slot's len
@@ -508,8 +706,10 @@ class Engine:
     @property
     def _chunked_ok(self) -> bool:
         """Prompts longer than the largest bucket run as segments when the
-        arch has the suffix machinery (one full-attention pool group)."""
-        return self.spec.prefix_sharing_capable
+        arch has the suffix machinery (one full-attention pool group) and
+        no model drafter (whose draft prefill has no suffix path)."""
+        return (self.spec.prefix_sharing_capable
+                and not isinstance(self.drafter, ModelDrafter))
 
     def _bucketed(self, toks: List[int]):
         """(tokens [1, bucket] zero-padded, length [1]) on the device,
@@ -575,9 +775,13 @@ class Engine:
         if plen - s > self.buckets[-1] and self._chunked_ok:
             s = self._chunked_prefill(adm, s)
         tok, one = self._prefill_at(adm, list(prompt[s:]), s, temp)
+        draft = None
+        if self.draft_params is not None:
+            draft = self.executor.draft_prefill(*self._bucketed(list(prompt)))
         self.executor.admit_prefilled(self.cache, self.state, {
             "slot": slot, "start": s, "plen": plen, "rows": adm.rows,
-            "tok": tok, "one_cache": one,
+            "tok": tok, "one_cache": one, "draft": draft,
+            "prompt": list(prompt),
             "out_len0": len(req.out_tokens) + 1,
             "max_new": req.max_new_tokens,
             "eos": -1 if req.eos_id is None else int(req.eos_id),

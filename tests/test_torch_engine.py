@@ -196,7 +196,7 @@ def test_engine_without_device_needs_cuda(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"spec": "ngram"}, "A10"), ({"chaos": object()}, "A11"),
+    ({"chaos": object()}, "A11"),
     ({"trace": True}, "A11"), ({"policy": "slo"}, "A11"),
     ({"rules": object()}, "A14"),
     ({"queue_limit": 4}, "A11"), ({"shed_policy": "block"}, "A11")])

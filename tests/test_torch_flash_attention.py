@@ -230,7 +230,8 @@ def test_apply_unported_modes_raise(layer):
     pos = torch.arange(4)[None]
     with pytest.raises(NotImplementedError, match="A15"):
         tatt.apply(tw, x, cfg=cfg, window=None, positions=pos, mode="dense")
-    with pytest.raises(NotImplementedError, match="A7"):
+    # the dense decode cache (the model drafter's) takes one row per slot
+    with pytest.raises(NotImplementedError, match="needs a paged cache"):
         tatt.apply(tw, x, cfg=cfg, window=None, positions=pos,
                    mode="decode", cache={"k": x, "v": x},
                    cache_len=torch.ones(1, dtype=torch.int32))

@@ -58,8 +58,8 @@ def test_config_fields_match_reference(make):
 
 
 def test_unregistered_arch_raises():
-    with pytest.raises(KeyError, match="A5"):
-        get_config("gemma2-2b")
+    with pytest.raises(KeyError, match="A13"):
+        get_config("gemma3-12b")
 
 
 def test_rmsnorm(tiny):
