@@ -8,7 +8,10 @@ full-width internlm2-1.8b (random weights from a seed) from fp32, int8
 and fp8_e4m3 KV page pools, the two-executable engine (bucketed,
 suffix and segmented prefill, S = 1 decode) serving it from fp32 and
 int8 pools, both engines serving it speculatively (n-gram and model
-drafters), full-width, full-depth gemma2-2b at max_len 8192 with a
+drafters), the serving launcher serving it as a user would start it,
+the dense ``ReferenceEngine`` against both engines, fig14's dispatch
+study (per-op costs and the old engine against the new), full-width,
+full-depth gemma2-2b at max_len 8192 with a
 window ring that wraps, full-width, full-depth zamba2-7b (Mamba2 + shared
 attention) and rwkv6-7b (attention-free) through the two-executable
 engine, then full-width dbrx-132b (MoE, depth cut to 4 layers) from
@@ -46,7 +49,7 @@ plain PyTorch version.  Phases, each printing JSON lines:
    exactly 0; the rows the kernel computes printed beside each case).
    Then the ``flash_attention`` kernel in fp32 and bf16 at internlm2's
    prefill shapes (S = 128, 512, 1024) and at edge cases (window,
-   softcap, non-causal Sq != Skv, GQA 8:1, dh 32/64/256, odd lengths,
+   softcap, non-causal Sq != Skv, GQA 8:1, dh 16/32/64/256, odd lengths,
    B = 2, zamba2's dh 112 with H = Hkv = 32, a window starting mid-tile,
    one query row, causal Sq < Skv, three batches of ragged tiles, dh 112
    with GQA and a window), same gates (bf16 per query row, against the
@@ -143,6 +146,29 @@ plain PyTorch version.  Phases, each printing JSON lines:
    over prompt + emitted tokens, or within 1e-3 x max|logit| of the
    top.  ``spec_stats()``, tokens equal to the plain fused run's,
    tokens/s and ms per micro-step are printed.
+5h. launcher: ``python -m repro_torch.launch.serve`` as a subprocess at
+   full width on internlm2-1.8b (``--no-smoke --slots 8 --max-len 1024
+   --page-size 16 --num-pages 512 --requests 12 --max-new 32
+   --shared-prefix 264 --warmup --slo-class interactive``), fused, then
+   with ``--chunked-prefill off --spec-draft ngram --spec-k 4``; it
+   loads the kernels the build phase left under ``build/``.  Its summary
+   lines are printed and gated: 12 requests of 32 tokens, pool-direct
+   decode on fp32 pools, a prefix hit rate > 0, finite TTFT/TPOT
+   p50/p99, paged launches == 24 x (micro-steps + the warmup chunk's 8).
+5i. reference_engine: the 12 requests through ``ReferenceEngine`` (the
+   dense per-slot cache, a prefill per prompt length, a host read per
+   token), the fused engine and the two-executable one: 32 tokens each,
+   the tokens equal to the reference's (or else every run's tokens
+   teacher-forced), the reference's flash launches == 24 x 12 prefills
+   and no paged launch, the engines' paged launches == 24 x
+   micro-steps, host syncs per step >= 1 on the reference and exactly
+   1/8 on the engines; tokens/s and ms per step printed.
+5j. fig14: the port's ``fig14_dispatch_overhead.main`` at the
+   reference's sizes (reduced internlm2): the dispatch trio (eager
+   launches, one CUDA-graph replay, a host read per op) and the serve
+   workloads, the record in ``build/BENCH_serve_torch.json``; its own
+   asserts, every workload's chunk sync-free, and paged and flash
+   launches > 0.  Its emit lines and a summary are printed.
 5g. gemma2: internlm2 is freed, then gemma2-2b is built at full width
    and depth (26 layers, 4096-window layers alternating with global
    ones, dh 256, softcaps 50/30; ~10.5 GB of fp32 weights) and serves
@@ -285,6 +311,8 @@ FLASH_CASES = [
     ("batch3_s700", dict(B=3, H=4, Hkv=2, dh=128, Sq=700, Skv=700), {}),
     ("dh112_gqa_window", dict(B=1, H=8, Hkv=2, dh=112, Sq=333, Skv=333),
      {"window": 70}),
+    # the reduced internlm2 fig14 serves (4:2 heads of dh 16), ragged S
+    ("dh16_reduced", dict(B=1, H=4, Hkv=2, dh=16, Sq=77, Skv=77), {}),
 ]
 # zamba2-7b's shared attention at full width: H = Hkv = 32, dh = 112,
 # window 4096 (wider than any prompt here); timed like the main cases
@@ -577,6 +605,7 @@ def phase_kernels(torch, ops, quantize, kv_pool_dtype):
     # window, their rings wrapped
     gemma2 = dict(B=8, H=8, Hkv=4, dh=256, P=16, window=4096, softcap=50.0)
     lens_g2 = [8192, 4700, 4129, 6000, 4097, 700, 300, 40]
+    fig14 = dict(B=4, H=4, Hkv=2, dh=16, P=8)
     cases = [
         ("main_s32", dict(main, S=32, lens=lens32)),
         ("main_s1", dict(main, S=1, lens=lens32)),
@@ -641,6 +670,17 @@ def phase_kernels(torch, ops, quantize, kv_pool_dtype):
         ("gemma2_s1_wrap", dict(gemma2, S=1, nb=256, lens=lens_g2)),
         ("gemma2_verify_s5_wrap", dict(gemma2, S=5, nb=257, lens=lens_g2)),
         ("gemma2_fused_s32_wrap", dict(gemma2, S=32, nb=258, lens=lens_g2)),
+        # fig14's reduced internlm2 (dh 16, 4:2 heads, page 8, 4 slots):
+        # S = 1 decode at max_len 64 (8 pages) and 256 (32 pages); the
+        # n-gram verify (k = 4: S = 5) and the fused chunk at budget 4
+        # (S = 4) on 33-page rings; all on the GEMV path
+        ("fig14_dh16_s1", dict(fig14, S=1, nb=8, lens=[64, 40, 17, 3])),
+        ("fig14_dh16_s1_ring32", dict(fig14, S=1, nb=32,
+                                      lens=[256, 120, 37, 5])),
+        ("fig14_dh16_verify_s5", dict(fig14, S=5, nb=33,
+                                      lens=[260, 120, 37, 5])),
+        ("fig14_dh16_fused_s4", dict(fig14, S=4, nb=33,
+                                     lens=[259, 120, 37, 2])),
     ]
     worst = {kv: 0.0 for kv in KV_DTYPES}
     rows = {kv: {} for kv in KV_DTYPES}
@@ -2126,6 +2166,288 @@ def phase_spec_legacy(torch, ops, fa, rt, cfg, params, fused_tokens):
 
 
 # ---------------------------------------------------------------------------
+# Phases 5h-5j: the launcher, ReferenceEngine and fig14 on internlm2
+# ---------------------------------------------------------------------------
+
+LAUNCHER_FLAGS = ["--no-smoke", "--slots", "8", "--max-len", "1024",
+                  "--page-size", "16", "--num-pages", "512", "--requests",
+                  "12", "--max-new", "32", "--shared-prefix", "264",
+                  "--warmup", "--slo-class", "interactive"]
+LAUNCHER_RUNS = {
+    "fused": [],
+    "legacy_ngram_k4": ["--chunked-prefill", "off", "--spec-draft",
+                        "ngram", "--spec-k", "4"],
+}
+LAUNCHER_TIMEOUT_S = 300
+
+
+def parse_launcher(out: str, what: str, layers: int,
+                   sync_interval: int = 8) -> dict:
+    """The launcher's summary lines, gated: 12 requests of 32 tokens,
+    pool-direct decode on fp32 pools, a prefix hit rate > 0, finite
+    positive TTFT/TPOT percentiles, and the paged kernel launched once
+    per layer and micro-step (warmup's chunk included)."""
+    import re
+    lines = out.splitlines()
+
+    def line(prefix: str) -> str:
+        got = [ln for ln in lines if ln.startswith(prefix)]
+        check(len(got) == 1, f"launcher {what}: {len(got)} lines start "
+                             f"with {prefix!r}")
+        return got[0]
+
+    reqs = {}
+    for ln in lines:
+        m = re.match(r"req (\d+): \[(.*)\]$", ln)
+        if m:
+            reqs[int(m.group(1))] = [int(t) for t in m.group(2).split(",")]
+    check(sorted(reqs) == list(range(12))
+          and all(len(v) == 32 for v in reqs.values()),
+          f"launcher {what}: requests {sorted(reqs)}, tokens "
+          f"{sorted({len(v) for v in reqs.values()})}")
+    totals = [ln for ln in lines if re.match(r"\d+ requests, ", ln)]
+    check(len(totals) == 1, f"launcher {what}: no totals line")
+    m = re.match(r"(\d+) requests, (\d+) tokens in ([0-9.]+)s \(([0-9.]+) "
+                 r"tok/s, (\d+) engine steps, (\d+) host syncs, (\d+) "
+                 r"prefill shapes / (\d+) suffix shapes / (\d+) decode "
+                 r"shapes / (\d+) admit shapes\)", totals[0])
+    check(m is not None, f"launcher {what}: totals line {totals[0]!r}")
+    (n_req, toks, secs, tps, steps, syncs, prefill_shapes, suffix_shapes,
+     decode_shapes, admit_shapes) = m.groups()
+    check(int(n_req) == 12 and int(toks) == 384,
+          f"launcher {what}: {n_req} requests, {toks} tokens")
+    paged = line("paged KV:")
+    check("decode_attention=pool-direct" in paged
+          and "kv_dtype=fp32" in paged,
+          f"launcher {what}: not the kernel path on fp32 pools: {paged}")
+    prefix = line("prefix sharing:")
+    hit_rate = float(re.search(r"hit_rate=([0-9.]+)", prefix).group(1))
+    check(hit_rate > 0, f"launcher {what}: no prefix hits: {prefix}")
+    slo = line("slo[interactive]:")
+    m = re.search(r"ttft_p50/p99=(\S+)/(\S+)s tpot_p50/p99=(\S+)/(\S+)s$",
+                  slo)
+    check(m is not None, f"launcher {what}: {slo!r}")
+    lat = {}
+    for key, val in zip(("ttft_p50_s", "ttft_p99_s", "tpot_p50_s",
+                         "tpot_p99_s"), m.groups()):
+        try:
+            lat[key] = float(val)
+        except ValueError:
+            raise SmokeFailure(f"launcher {what}: {key} is {val}")
+        check(math.isfinite(lat[key]) and lat[key] > 0,
+              f"launcher {what}: {key} = {val}")
+    check(lat["ttft_p50_s"] <= lat["ttft_p99_s"]
+          and lat["tpot_p50_s"] <= lat["tpot_p99_s"],
+          f"launcher {what}: percentiles out of order: {lat}")
+    launches = {k: int(v) for k, v in (
+        kv.split("=") for kv in line("kernel launches:").split(": ", 1)[1]
+        .split())}
+    want = layers * (int(steps) + sync_interval)
+    check(launches["paged_attention"] == want,
+          f"launcher {what}: paged launches {launches['paged_attention']} "
+          f"!= {layers} x ({steps} micro-steps + {sync_interval} warmup)")
+    return {"tokens_per_s": float(tps), "seconds": float(secs),
+            "micro_steps": int(steps), "host_syncs": int(syncs),
+            "shapes": {"prefill": int(prefill_shapes),
+                       "suffix": int(suffix_shapes),
+                       "decode": int(decode_shapes),
+                       "admit": int(admit_shapes)},
+            "prefix_hit_rate": hit_rate, **lat,
+            "kernel_launches": launches,
+            "tokens": reqs}
+
+
+def phase_launcher(torch, rt, cfg, params) -> dict:
+    """``python -m repro_torch.launch.serve`` as a subprocess at full
+    width on internlm2-1.8b (``--no-smoke``), fused, then two
+    executables with the n-gram drafter.  It finds the kernels the build
+    phase left under ``build/`` (or builds them).  Each run's summary
+    lines are printed and gated (``parse_launcher``), and every token it
+    served is teacher-forced on ``params`` (the launcher's weights: both
+    draw them from seed 0 on the card) over the prompts its workload
+    sent."""
+    import os
+    from repro_torch.launch.serve import parse_args, prompts
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    torch.cuda.empty_cache()
+    res = {}
+    for what, extra in LAUNCHER_RUNS.items():
+        argv = LAUNCHER_FLAGS + extra
+        t0 = time.time()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+                cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=LAUNCHER_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"launcher {what}: no exit within "
+                               f"{LAUNCHER_TIMEOUT_S} s")
+        seconds = time.time() - t0
+        summary = [ln for ln in proc.stdout.splitlines()
+                   if not ln.startswith("req ")]
+        emit("launcher_output", run=what, argv=argv, rc=proc.returncode,
+             seconds=seconds, lines=summary,
+             stderr_tail=proc.stderr.splitlines()[-20:])
+        check(proc.returncode == 0,
+              f"launcher {what}: exit code {proc.returncode}")
+        rec = parse_launcher(proc.stdout, what, cfg.num_layers)
+        tokens = rec.pop("tokens")
+        emit("launcher", run=what, process_seconds=seconds, **rec)
+        served = []
+        for rid, prompt in enumerate(prompts(parse_args(argv))):
+            r = rt["Request"](rid=rid, prompt=prompt, max_new_tokens=32)
+            r.out_tokens = tokens[rid]
+            served.append(r)
+        rec["teacher_forced"] = teacher_forced_check(
+            torch, rt, cfg, params, served, f"launcher_{what}")
+        res[what] = dict(rec, tokens=tokens)
+    return res
+
+
+def phase_reference_engine(torch, ops, fa, rt, cfg, params) -> dict:
+    """The 12 requests through ``ReferenceEngine`` (8 slots, ``max_len``
+    1024, the dense cache), the fused ``Engine`` (fp32 pools) and the
+    two-executable one.  Gates: 32 tokens each; the tokens equal across
+    the three, or else every token of each run teacher-forced; the
+    reference's flash launches == layers x 12 exact-length prefills and
+    no paged launch; the engines' paged launches == layers x
+    micro-steps; host syncs per step >= 1 on the reference and exactly
+    1 / sync_interval on both engines.  Returns the flash launches of
+    the reference's run."""
+    def requests():
+        return make_requests(rt["Request"], cfg.vocab_size, 12, seed=7,
+                             rid0=0)
+
+    ref = rt["ReferenceEngine"](cfg, params, slots=8, max_len=1024,
+                                device=DEV)
+    ref_reqs = requests()
+    for r in ref_reqs:
+        ref.submit(r)
+    zero_launches([ops, fa])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    done = ref.run(max_steps=100_000)
+    torch.cuda.synchronize()
+    ref_wall = time.time() - t0
+    ref_flash, ref_paged = fa.launches, ops.launches
+    check(len(done) == 12 and all(len(r.out_tokens) == 32 for r in done),
+          "reference: not 12 requests of 32 tokens")
+    check(ref_flash == cfg.num_layers * 12 and ref_paged == 0,
+          f"reference: flash launches {ref_flash} != {cfg.num_layers} x 12 "
+          f"or paged launches {ref_paged} != 0")
+    ref_syncs = ref.host_syncs / ref.steps
+    check(ref_syncs >= 1.0, f"reference: {ref_syncs} host syncs per step")
+    runs = {"reference": ref_reqs}
+    gen = 12 * 32
+    rec = {"reference": {
+        "wall_s": ref_wall, "steps": ref.steps, "host_syncs": ref.host_syncs,
+        "host_syncs_per_step": ref_syncs,
+        "generated_tokens_per_s": gen / ref_wall,
+        "ms_per_step": ref_wall / ref.steps * 1e3,
+        "prefill_shapes": ref.prefill_compiles,
+        "decode_shapes": ref.decode_compiles,
+        "flash_attention_launches": ref_flash}}
+
+    for what in ("fused", "legacy"):
+        eng = rt["Engine"](cfg, params, slots=8, max_len=1024, page_size=16,
+                           chunked_prefill=what == "fused", device=DEV)
+        check(eng.paged_kernel, f"{what}: not the kernel path")
+        eng.warmup()
+        reqs = requests()
+        steps0, syncs0 = eng.steps, eng.host_syncs
+        zero_launches([ops, fa])
+        torch.cuda.synchronize()
+        if what == "fused":
+            t = serve_fused(torch, eng, reqs)
+            sync_checked = t["sync_free_chunk"]
+        else:
+            t = serve_legacy(torch, eng, reqs, sync_check=True)
+            sync_checked = True
+        micro = eng.steps - steps0
+        syncs = (eng.host_syncs - syncs0) / micro
+        for r in reqs:
+            check(r.done and len(r.out_tokens) == 32,
+                  f"{what}: rid {r.rid}: {len(r.out_tokens)} tokens")
+        check(sync_checked, f"{what}: no chunk ran under sync debug mode")
+        check(ops.launches == cfg.num_layers * micro,
+              f"{what}: paged launches {ops.launches} != "
+              f"{cfg.num_layers} x {micro}")
+        check(syncs == 1.0 / eng.sync_interval,
+              f"{what}: {syncs} host syncs per step, not "
+              f"1/{eng.sync_interval}")
+        check(eng.leaked_pages() == 0, f"{what}: leaked pages")
+        rec[what] = {"wall_s": t["wall_s"], "micro_steps": micro,
+                     "host_syncs_per_step": syncs,
+                     "generated_tokens_per_s": gen / t["wall_s"],
+                     "ms_per_micro_step": t["wall_s"] / micro * 1e3,
+                     "paged_attention_launches": ops.launches,
+                     "flash_attention_launches": fa.launches,
+                     "shapes": {"prefill": eng.prefill_compiles,
+                                "suffix": eng.suffix_prefill_compiles,
+                                "decode": eng.decode_compiles,
+                                "admit": eng.admit_compiles}}
+        runs[what] = reqs
+        del eng
+        torch.cuda.empty_cache()
+    tokens = {what: {r.rid: list(r.out_tokens) for r in reqs}
+              for what, reqs in runs.items()}
+    equal = {what: same_tokens(tokens["reference"], toks)
+             for what, toks in tokens.items() if what != "reference"}
+    emit("reference_engine", arch=cfg.name, tokens_equal_to_reference=equal,
+         tokens_total=gen, **rec)
+    if any(n != gen for n in equal.values()):
+        # near-ties with random weights: each run must be teacher-forced
+        for what, reqs in runs.items():
+            teacher_forced_check(torch, rt, cfg, params, reqs,
+                                 f"reference_engine_{what}")
+    del ref
+    torch.cuda.empty_cache()
+    return ref_flash
+
+
+def phase_fig14(torch, ops, fa, fig14) -> dict:
+    """The port's fig14 at the reference's sizes (reduced internlm2, 4
+    slots, 12 requests of 16 new tokens): the dispatch trio, then the
+    serve workloads, the record written under ``build/``.  Its own
+    asserts gate sync-free chunks, host syncs per step and clean
+    teardown; here, every workload's chunk must have run sync-free, the
+    tokens of its engines and of the dense reference must be equal in
+    every workload, and both attention kernels must have launched."""
+    out = ROOT / "build" / "BENCH_serve_torch.json"
+    zero_launches([ops, fa])
+    t0 = time.time()
+    rec = fig14.main(["--out", str(out)])
+    seconds = time.time() - t0
+    sync_free = {k: rec[k] for k in rec if k.endswith("sync_free")}
+    match = {k: rec[k] for k in rec if "outputs_match" in k}
+    keys = ("per_dispatch_us", "per_op_fused_us", "per_op_eager_us",
+            "speedup", "ref_tokens_per_s", "new_tokens_per_s",
+            "ref_steps_per_s", "new_steps_per_s", "ref_host_syncs_per_step",
+            "new_host_syncs_per_step", "ref_prefill_compiles",
+            "new_prefill_compiles", "new_decode_compiles",
+            "new_admit_compiles", "prefix_hit_rate",
+            "paged_kernel_speedup", "spec_acceptance_rate",
+            "spec_decode_speedup", "cp_decode_latency_p99_ratio",
+            "cp_fused_chunk_token_p99_ms", "cp_legacy_chunk_token_p99_ms",
+            "cp_fused_ttft_p50_s", "cp_fused_ttft_p99_s",
+            "cp_legacy_ttft_p50_s", "cp_legacy_ttft_p99_s")
+    emit("fig14", seconds=seconds, record=str(out.relative_to(ROOT)),
+         outputs_match=match, sync_free=sync_free,
+         paged_attention_launches=ops.launches,
+         flash_attention_launches=fa.launches,
+         **{k: rec[k] for k in keys})
+    check(all(sync_free.values()), f"fig14: a chunk synchronized: "
+                                   f"{sync_free}")
+    check(all(match.values()), f"fig14: engines' tokens differ: {match}")
+    check(ops.launches > 0 and fa.launches > 0,
+          f"fig14: paged {ops.launches}, flash {fa.launches} launches")
+    return {"paged": ops.launches, "flash": fa.launches}
+
+
+# ---------------------------------------------------------------------------
 # Phase 5g: gemma2-2b at full width and depth, a window ring that wraps
 # ---------------------------------------------------------------------------
 
@@ -2966,6 +3288,7 @@ def main() -> int:
         from repro_torch.device import resolve_device
         from repro_torch.benchmarks import fig09_operator_scaling as fig09
         from repro_torch.benchmarks import fig11_fused_prep as fig11
+        from repro_torch.benchmarks import fig14_dispatch_overhead as fig14
         from repro_torch.kernels import build
         from repro_torch.kernels.flash_attention import ops as fa
         from repro_torch.kernels.fused_matmul import ops as fops
@@ -2982,6 +3305,7 @@ def main() -> int:
         from repro_torch.serve.cache import (CacheSpec, admit_cache,
                                              install_slot_rows, kv_pool_dtype)
         from repro_torch.serve.engine import Engine, Request
+        from repro_torch.serve.reference import ReferenceEngine
         from repro_torch.serve.spec import SpecConfig
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e}); run from the "
@@ -2994,7 +3318,8 @@ def main() -> int:
               install_slot_rows=install_slot_rows, admit_cache=admit_cache,
               CacheSpec=CacheSpec, quantize_pages=quantize_pages,
               SpecConfig=SpecConfig, prefill_hidden=prefill_hidden,
-              logits=logits, reduced=reduced)
+              logits=logits, reduced=reduced,
+              ReferenceEngine=ReferenceEngine)
     try:
         resolve_device("cuda")        # TF32 off
         smi = subprocess.run(
@@ -3067,6 +3392,10 @@ def main() -> int:
                 torch, ops, rt, cfg, params, tokens),
             "spec_legacy_ngram": phase_spec_legacy(
                 torch, ops, fa, rt, cfg, params, tokens)}
+        # the launcher, the dense reference engine and fig14
+        launcher = phase_launcher(torch, rt, cfg, params)
+        ref_flash = phase_reference_engine(torch, ops, fa, rt, cfg, params)
+        fig14_launches = phase_fig14(torch, ops, fa, fig14)
         # gemma2's ~10.5 GB, zamba2's ~24 GB, rwkv6's ~30 GB and dbrx's
         # ~57 GB of weights fit only one at a time, and only once
         # internlm2's are gone
@@ -3124,6 +3453,10 @@ def main() -> int:
     entries[0]["launches_gemma2_fused_spec"] = verify_launches[
         "gemma2_fused_spec"]
     entries[0]["launches_dbrx"] = dbrx_launches
+    entries[0]["launches_fig14"] = fig14_launches["paged"]
+    entries[0]["launches_launcher"] = {
+        what: run["kernel_launches"]["paged_attention"]
+        for what, run in launcher.items()}
     entries[0]["launches_zamba2"] = zamba2["paged"]
     main_gmm = gmm_rows["gate_up"]
     timing_keys = ("ms", "device_ms", "plain_ms", "plain_device_ms",
@@ -3158,6 +3491,11 @@ def main() -> int:
         "bf16_relative_err": flash_worst["bf16"],
         "full_prefills": legacy["fp32"][1],
         "launches_int8": legacy["int8"][0],
+        "launches_reference_engine": ref_flash,
+        "launches_fig14": fig14_launches["flash"],
+        "launches_launcher": {
+            what: run["kernel_launches"]["flash_attention"]
+            for what, run in launcher.items()},
         "ms_by_seq": {name: rec["ms"] for name, rec in flash_timed.items()},
         "library_ms_by_seq": {name: rec["library_ms"]
                               for name, rec in flash_timed.items()},

@@ -1,10 +1,13 @@
-"""Shared benchmark helpers: timing and CSV output, as the reference's
-``benchmarks/common.py`` prints them."""
+"""Shared benchmark helpers: timing, CSV output, the serve workloads'
+teardown check and JSON trajectories, as the reference's
+``benchmarks/common.py`` has them."""
 
 from __future__ import annotations
 
+import json
+import pathlib
 import time
-from typing import Callable, List
+from typing import Callable, Dict, List, Union
 
 import torch
 
@@ -36,3 +39,49 @@ def time_fn(fn: Callable, *args, device: torch.device, warmup: int = 2,
 
 def emit(name: str, us_per_call: float, derived: str) -> None:
     print(f"{name},{us_per_call:.1f},{derived}")
+
+
+def assert_clean_teardown(eng, requests=(), label: str = "workload") -> int:
+    """End-of-workload invariants every serve workload must satisfy
+    before its numbers enter the record: zero leaked page references
+    (``Engine.leaked_pages``), a drained admission queue, no slot still
+    holding a request, and every tracked request in a terminal status.
+    Returns the leak count (0 on success)."""
+    from repro_torch.serve.scheduler import RequestStatus
+
+    leaked = eng.leaked_pages()
+    assert leaked == 0, f"{label}: {leaked} page refs leaked at teardown"
+    assert not eng.queue, (
+        f"{label}: {len(eng.queue)} requests still queued at teardown")
+    live = [r.rid for r in eng._slot_req if r is not None]
+    assert not live, f"{label}: slots still live at teardown: {live}"
+    bad = [(r.rid, r.status) for r in requests
+           if r.status not in RequestStatus.TERMINAL]
+    assert not bad, f"{label}: non-terminal requests at teardown: {bad}"
+    return leaked
+
+
+def write_bench_json(path: Union[str, pathlib.Path],
+                     record: Dict) -> pathlib.Path:
+    """Append ``record`` (stamped with wall time) to the trajectory file
+    ``{"runs": [...]}`` at ``path``, so successive runs accumulate a
+    history.  An unreadable file is kept beside it as ``.corrupt``."""
+    path = pathlib.Path(path)
+    data = {"runs": []}
+    if path.exists():
+        loaded = None
+        try:
+            loaded = json.loads(path.read_text())
+        except (ValueError, OSError):
+            pass
+        if isinstance(loaded, dict) and \
+                isinstance(loaded.get("runs", []), list):
+            data = loaded
+        else:
+            bak = path.with_suffix(".corrupt")
+            path.rename(bak)
+            print(f"# {path.name} unreadable; preserved as {bak.name}")
+    data.setdefault("runs", []).append({"ts": time.time(), **record})
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(data, indent=2, sort_keys=True) + "\n")
+    return path

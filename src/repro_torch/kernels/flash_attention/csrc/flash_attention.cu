@@ -287,6 +287,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                      int causal, int window, float softcap, float scale,
                      cudaStream_t st) {
   switch (dh) {
+    case 16:
+      return launch<T, 16>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window,
+                           softcap, scale, st);
     case 32:
       return launch<T, 32>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window,
                            softcap, scale, st);
@@ -312,7 +315,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // Element types (dtype): 0 float, 1 bf16 (q, k, v and out share it).
-// dh is 32, 64, 112, 128 or 256; window <= 0 means none, softcap <= 0
+// dh is 16, 32, 64, 112, 128 or 256; window <= 0 means none, softcap <= 0
 // none.
 // Returns a cudaError_t: cudaErrorInvalidValue for a dtype code or
 // shapes the kernel does not take, else the launch's cudaGetLastError().

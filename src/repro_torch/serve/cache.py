@@ -31,6 +31,10 @@ into the slot's row in place; decode replaces the leaves with the step's
 new state.  An arch with no paged layer (rwkv6) has no pool groups, no
 page tables and needs no pages (``blocks_needed == {}``).  Encoder and
 cross-attention caches are not ported (ROADMAP A13).
+
+``empty_batch_cache`` (``CacheSpec.init_dense_cache``) is the dense
+pre-paging layout ``serve/reference.ReferenceEngine`` decodes on: one
+``max_len``-or-window KV row per slot per attention layer.
 """
 
 from __future__ import annotations
@@ -284,6 +288,30 @@ class CacheSpec:
                                device=device),
         }
 
+    def init_dense_cache(self, device: torch.device,
+                         dtype=torch.float32) -> Dict[str, Any]:
+        """Zeroed dense (pre-paging) cache on ``device``: one
+        ``max_len``-or-window row per slot per attention layer
+        (``{"k","v"}`` shaped by ``attention.init_cache_shape``), the
+        zeroed state leaves of a recurrent layer, and ``len``.
+        ``ReferenceEngine`` decodes on it, as the reference's does."""
+        layer_caches: List[Dict] = []
+        for block, ls in zip(self.cfg.blocks, self.layers):
+            if ls.kind == PAGED_KV:
+                shape = attention.init_cache_shape(
+                    self.cfg, self.slots,
+                    min(self.max_len, block.window or self.max_len))
+                layer_caches.append({
+                    "k": torch.zeros(shape, dtype=dtype, device=device),
+                    "v": torch.zeros(shape, dtype=dtype, device=device)})
+            else:
+                layer_caches.append({
+                    k: torch.zeros(shape, dtype=dtype, device=device)
+                    for k, shape in ls.state.items()})
+        return {"layers": layer_caches,
+                "len": torch.zeros((self.slots,), dtype=torch.int32,
+                                   device=device)}
+
     # ------------------------------------------------------- memory stats
     def group_page_bytes(self, group: PoolGroup,
                          dtype_bytes: Optional[int] = None) -> int:
@@ -526,3 +554,11 @@ def free_slot_cache(spec: CacheSpec, cache: Dict, slot: int) -> Dict:
         cache["page_tables"][g.key][slot].fill_(g.trash_page)
     cache["len"][slot:slot + 1].fill_(0)
     return cache
+
+
+def empty_batch_cache(cfg: ModelConfig, slots: int, max_len: int,
+                      device: torch.device) -> Dict[str, Any]:
+    """Zeroed dense slot-batched decode cache (``ReferenceEngine``'s
+    layout).  ``CacheSpec`` construction refuses cross-attention."""
+    return CacheSpec.from_config(cfg, slots, max_len).init_dense_cache(
+        device)

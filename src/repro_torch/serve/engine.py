@@ -46,10 +46,17 @@ gathers each slot's ring (``paged_kernel=False``).  Preemption,
 deadlines, SLO policy, tracing, fault injection and sharding are not
 ported yet; their arguments raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
+
+Telemetry, as the reference's: ``memory_stats``, ``prefix_stats``,
+``spec_stats``, ``latency_stats`` (TTFT/TPOT percentiles from the
+drain's host stamps; the pure functions above ``Executor``) and the
+shape counters ``prefill_compiles``, ``suffix_prefill_compiles``,
+``decode_compiles`` and ``admit_compiles``.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Any, Dict, List, Optional
 
@@ -73,6 +80,96 @@ from repro_torch.serve.scheduler import (PagePoolExhausted, Request,
 from repro_torch.serve.spec import (ModelDrafter, NGramDrafter, SpecConfig,
                                     check_spec_capable,
                                     spec_unsupported_reason)
+
+
+# ---------------------------------------------------------------------------
+# Latency telemetry: percentile / goodput math over host-stamped requests
+# (the reference's functions, line for line).  Pure functions of Request
+# timestamp fields, so tests/test_torch_latency_stats.py grades them by
+# hand.
+# ---------------------------------------------------------------------------
+
+def percentile(values: List[float], q: float) -> Optional[float]:
+    """Nearest-rank percentile: the ``ceil(q/100 * n)``-th smallest
+    value.  None on an empty sample."""
+    if not values:
+        return None
+    vals = sorted(values)
+    n = len(vals)
+    rank = max(1, math.ceil(q * n / 100.0))
+    return vals[min(rank, n) - 1]
+
+
+def request_ttft(req: Request) -> Optional[float]:
+    """Submit -> first token, from the original submit time.  None until
+    a first token is drained."""
+    if req.first_token_time is None or req.submit_time is None:
+        return None
+    return req.first_token_time - req.submit_time
+
+
+def request_tpot(req: Request) -> Optional[float]:
+    """Mean per-token delta after the first token (TPOT).  Tokens drained
+    in one chunk share a stamp, so this is the chunk-boundary average.
+    None below 2 tokens."""
+    if len(req.token_times) < 2:
+        return None
+    span = req.token_times[-1] - req.token_times[0]
+    return span / (len(req.token_times) - 1)
+
+
+def request_slo_met(req: Request) -> bool:
+    """Only FINISHED requests can meet their SLO; a measured latency over
+    target, or a target with no measurement, is a miss, and an absent
+    target (best-effort) always passes."""
+    if req.status != RequestStatus.FINISHED:
+        return False
+    for target, got in ((req.resolved_ttft_target, request_ttft(req)),
+                        (req.resolved_tpot_target, request_tpot(req))):
+        if target is None:
+            continue
+        if got is None or got > target:
+            return False
+    return True
+
+
+def compute_latency_stats(requests: List[Request]) -> Dict[str, Any]:
+    """TTFT/TPOT p50/p99 per SLO class + goodput over ``requests``.
+    Percentiles cover every request with the measurement; goodput is the
+    fraction of terminal requests that FINISHED meeting their targets.
+    Classes with no samples report None percentiles and goodput 0.0."""
+    by_class: Dict[str, List[Request]] = {}
+    for req in requests:
+        by_class.setdefault(req.slo_class, []).append(req)
+
+    def _summary(reqs: List[Request]) -> Dict[str, Any]:
+        ttfts = [t for t in (request_ttft(r) for r in reqs)
+                 if t is not None]
+        tpots = [t for t in (request_tpot(r) for r in reqs)
+                 if t is not None]
+        terminal = [r for r in reqs
+                    if r.status in RequestStatus.TERMINAL]
+        met = sum(request_slo_met(r) for r in terminal)
+        return {
+            "count": len(reqs),
+            "terminal": len(terminal),
+            "finished": sum(r.status == RequestStatus.FINISHED
+                            for r in reqs),
+            "slo_met": met,
+            "goodput": met / len(terminal) if terminal else 0.0,
+            "ttft_p50": percentile(ttfts, 50),
+            "ttft_p99": percentile(ttfts, 99),
+            "tpot_p50": percentile(tpots, 50),
+            "tpot_p99": percentile(tpots, 99),
+        }
+
+    stats: Dict[str, Any] = {
+        "classes": {cls: _summary(reqs)
+                    for cls, reqs in sorted(by_class.items())},
+        "overall": _summary(list(requests)),
+    }
+    stats["goodput"] = stats["overall"]["goodput"]
+    return stats
 
 
 class Executor:
@@ -565,6 +662,40 @@ class Engine:
         self.host_syncs = 0
         self.chunks = 0
         self.peak_live_slots = 0
+        # the distinct prefill shape signatures run, keyed as the
+        # reference keys its jit caches (see ``prefill_compiles``)
+        self._shapes: Dict[str, set] = {"prefill": set(), "suffix": set()}
+        self._warmed = False
+
+    # ------------------------------------------------------ shape counters
+    @property
+    def prefill_compiles(self) -> int:
+        """Distinct full-prefill shapes run: (bucket, largest bucket).
+        Eager torch compiles nothing; these counters count what the
+        reference's ``jit`` caches hold on the same traffic (the
+        executables it compiles) and the CUDA graphs one capture per
+        shape would need.  0 in the fused mode, which has no prefill."""
+        return len(self._shapes["prefill"])
+
+    @property
+    def suffix_prefill_compiles(self) -> int:
+        """Distinct suffix-prefill shapes: (suffix bucket, context pages
+        rounded up to a power of two and capped at the ring, largest
+        bucket)."""
+        return len(self._shapes["suffix"])
+
+    @property
+    def admit_compiles(self) -> int:
+        """Distinct admission-splice shapes: one once a request was
+        admitted (the fused mode has one splice shape; on two executables
+        the reference pads every prefill's KV to the largest bucket)."""
+        return int(self.scheduler.admissions_total > 0)
+
+    @property
+    def decode_compiles(self) -> int:
+        """Distinct chunk shapes: one once a chunk ran (warmup's
+        included)."""
+        return int(self._warmed or self.steps > 0)
 
     # ---------------------------------------------------------- telemetry
     @property
@@ -608,6 +739,20 @@ class Engine:
             "emitted_tokens": emitted,
             "tokens_per_step": emitted / steps if steps else 0.0,
         }
+
+    def latency_stats(self) -> Dict[str, Any]:
+        """TTFT/TPOT p50/p99 per SLO class + goodput (seconds), from the
+        host-side stamps the drain puts on every request
+        (``compute_latency_stats``), over every request this engine has
+        seen: finished, rejected, running and queued.
+        ``budget_throttles`` is the SLO policy's count (ROADMAP A11); the
+        FIFO policy never throttles."""
+        reqs = (list(self.finished) + list(self.rejected)
+                + [r for r in self._slot_req if r is not None]
+                + list(self.scheduler.queue))
+        stats = compute_latency_stats(reqs)
+        stats["budget_throttles"] = 0
+        return stats
 
     def leaked_pages(self) -> int:
         """Pages leased beyond what live slots and the radix index hold;
@@ -667,12 +812,14 @@ class Engine:
         if not self.chunked_prefill:
             zero = torch.zeros((1,), dtype=torch.int32, device=self.device)
             for b in self.buckets:
+                self._shapes["prefill"].add((b, self.buckets[-1]))
                 tokens = torch.zeros((1, b), dtype=torch.int32,
                                      device=self.device)
                 self.executor.prefill(self.params, tokens, zero,
                                       zero.float(), self.gen)
                 if self.draft_params is not None:
                     self.executor.draft_prefill(tokens, zero)
+        self._warmed = True
         _, self.cache, self.state = self.executor.chunk(
             self.params, self.cache, self.state, self.gen)
         # the S = 1 decode advanced every idle slot's len
@@ -726,10 +873,16 @@ class Engine:
         """Prefill ``toks`` at positions ``s..``: a full prefill from 0,
         else a suffix prefill against the slot's first ``s`` tokens."""
         tokens, length = self._bucketed(toks)
+        bucket, bmax = tokens.shape[1], self.buckets[-1]
         if s == 0:
+            self._shapes["prefill"].add((bucket, bmax))
             return self.executor.prefill(self.params, tokens, length, temp,
                                          self.gen)
-        row = host_to_device(self._ctx_row(adm, s), self.device)
+        ctx_row = self._ctx_row(adm, s)
+        ring = self.spec.group_of(self.spec.share_group_key).ring_blocks
+        self._shapes["suffix"].add(
+            (bucket, min(_next_pow2(len(ctx_row)), ring), bmax))
+        row = host_to_device(ctx_row, self.device)
         return self.executor.prefill_suffix(self.params, tokens, length, s,
                                             row, self.cache, temp, self.gen)
 
