@@ -10,7 +10,10 @@ suffix and segmented prefill, S = 1 decode) serving it from fp32 and
 int8 pools, both engines serving it speculatively (n-gram and model
 drafters), the serving launcher serving it as a user would start it,
 the dense ``ReferenceEngine`` against both engines, fig14's dispatch
-study (per-op costs and the old engine against the new), full-width,
+study (per-op costs and the old engine against the new), the engine's
+robustness, SLO policy and lifecycle tracing (pool-pressure preemption,
+deadlines, cancellation, a chaos schedule, a traced run, a seeded
+traffic replay under both policies, the launcher's flags), full-width,
 full-depth gemma2-2b at max_len 8192 with a
 window ring that wraps, full-width, full-depth zamba2-7b (Mamba2 + shared
 attention) and rwkv6-7b (attention-free) through the two-executable
@@ -169,6 +172,38 @@ plain PyTorch version.  Phases, each printing JSON lines:
    workloads, the record in ``build/BENCH_serve_torch.json``; its own
    asserts, every workload's chunk sync-free, and paged and flash
    launches > 0.  Its emit lines and a summary are printed.
+5k. fault_tolerance: the 12 requests, one request cancelled after the
+   first drain and one whose deadline has passed, on 160 pages of 16 (a
+   700 + 32-token request reserves up to 46, so 8 slots cannot all hold
+   one and pool-pressure preemption must fire), through the fused
+   engine and the two-executable one, each boundary's host work
+   (reaping, admission with preemption) apart from its chunk: the 12
+   requests' tokens equal the uncontended fused fp32 run's (two
+   executables: equal, or else teacher-forced), pressure preemptions
+   >= 1, the expired request TIMED_OUT and never admitted, the cancelled
+   one CANCELLED, 0 leaked pages, one chunk under
+   ``set_sync_debug_mode("error")``, paged launches == 24 x micro-steps
+   (flash == 24 x full prefills on two executables).  The share of
+   replayed tokens recovered through the radix index and wall ms per
+   micro-step are printed.
+5l. chaos: the 12 requests through the fused engine under
+   ``ChaosMonkey(0, p_deny_admission=0.15, p_preempt=0.6, p_stall=0.05,
+   p_sharing_fault=0.25)``: every request FINISHED with 32 tokens equal
+   to the unfaulted run's, 0 leaked pages, one chunk shape, chaos
+   preemptions >= 1, a sync-free chunk; ``fault_stats()`` printed.
+5m. trace: 5k's fused configuration with ``trace=True``: 5k's gates,
+   tokens equal to 5k's untraced run, the export valid under
+   ``benchmarks/check_trace``, ``explain`` of a preempted request naming
+   its preempt and resume; wall ms per micro-step against 5k's.
+5n. slo_mix: 24 requests of ``TrafficGenerator(0, rate=8.0)`` replayed
+   on a ``VirtualClock`` under 'fifo' and 'slo': tokens equal per rid,
+   0 leaked pages; throttles and per-class TTFT/TPOT p50/p99 and goodput
+   printed.
+5o. launcher_a11: ``python -m repro_torch.launch.serve --no-smoke
+   --traffic poisson:0 --policy slo --chaos 0 --trace OUT.json`` as a
+   subprocess: exit 0, every arrival served, its ``faults:``, ``chaos``
+   and ``trace:`` lines, a clean chaos drain, paged launches == 24 x
+   engine steps, the trace file valid.
 5g. gemma2: internlm2 is freed, then gemma2-2b is built at full width
    and depth (26 layers, 4096-window layers alternating with global
    ones, dh 256, softcaps 50/30; ~10.5 GB of fp32 weights) and serves
@@ -2448,6 +2483,379 @@ def phase_fig14(torch, ops, fa, fig14) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 5k-5o: robustness, SLO policy and lifecycle tracing at full width
+# ---------------------------------------------------------------------------
+
+FT_NUM_PAGES = 160   # a 700 + 32-token request reserves up to 46 pages of 16
+# the smoke preset's rates, the storm rate raised to 0.6: at its 10% a
+# short drain can see no storm at all
+FT_CHAOS = dict(p_deny_admission=0.15, p_preempt=0.6, p_stall=0.05,
+                p_sharing_fault=0.25)
+SLO_MIX_REQUESTS = 24
+LAUNCHER_A11_FLAGS = ["--no-smoke", "--traffic", "poisson:0", "--policy",
+                      "slo", "--chaos", "0"]
+
+
+def timed_phase(name: str, fn, *args):
+    """``fn(*args)``, then one line with the phase's seconds (warmups and
+    checks included)."""
+    t0 = time.time()
+    out = fn(*args)
+    emit("phase_seconds", name=name, seconds=time.time() - t0)
+    return out
+
+
+def a11_engine(rt, cfg, params, fused: bool = True, **kw):
+    return rt["Engine"](cfg, params, slots=8, max_len=1024, page_size=16,
+                        chunked_prefill=fused, device=DEV, **kw)
+
+
+def ft_traffic(rt, cfg):
+    """The 12 requests, one request to cancel after the first drain
+    (submitted first, so that it runs) and one whose deadline has
+    already passed (submitted last): the order of submission."""
+    reqs = make_requests(rt["Request"], cfg.vocab_size, 12, seed=7, rid0=0)
+    cancelled = rt["Request"](rid=12, prompt=list(reqs[1].prompt[:60]),
+                              max_new_tokens=32)
+    expired = rt["Request"](rid=13, prompt=list(reqs[0].prompt[:40]),
+                            max_new_tokens=32, deadline=0.0)
+    return reqs, cancelled, expired
+
+
+def serve_boundaries(torch, eng, order, cancel=None) -> dict:
+    """Submit ``order``, then serve boundary by boundary: the host's
+    boundary work (``Engine._boundary``: reaping, chaos, admission with
+    preemption, the SLO budget upload), then the chunk and its drain.
+    The chunk after the second drain runs under
+    ``set_sync_debug_mode("error")``, the boundary work before it
+    outside.  ``cancel`` is cancelled after the first drain."""
+    for r in order:
+        check(eng.submit(r) is None, f"rid {r.rid} rejected")
+    steps0 = eng.steps
+    sync_checked = False
+    torch.cuda.synchronize()
+    t0 = time.time()
+    while eng.queue or eng._live():
+        if not eng._boundary():
+            continue
+        checked = not sync_checked and eng.chunks >= 2
+        if checked:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            toks = eng.step_chunk()
+        finally:
+            if checked:
+                torch.cuda.set_sync_debug_mode(0)
+        sync_checked = sync_checked or checked
+        eng._drain(toks)
+        if cancel is not None and eng.chunks == 1:
+            cancel.cancel()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    micro = eng.steps - steps0
+    return {"wall_s": wall, "micro_steps": micro,
+            "ms_per_micro_step": wall / max(micro, 1) * 1e3,
+            "sync_free_chunk": sync_checked}
+
+
+def phase_fault_tolerance(torch, ops, fa, rt, cfg, params, fused_tokens,
+                          trace: bool = False) -> dict:
+    """The 12 requests, a cancelled and an expired one on ``num_pages``
+    160 (8 slots cannot all hold a 46-page reservation: pressure
+    preemption must fire), through the fused engine and the
+    two-executable one (``trace``: the fused one only, traced).  Gates:
+    the 12 requests' tokens equal the uncontended fused run's
+    (``fused_tokens``; two executables: equal, or else teacher-forced),
+    pressure preemptions >= 1, the expired request TIMED_OUT without
+    ever holding a slot, the cancelled one CANCELLED, 0 leaked pages, a
+    sync-free chunk, paged launches == layers x micro-steps (and flash
+    launches == layers x full prefills on two executables)."""
+    res = {}
+    for what in (("fused",) if trace else ("fused", "legacy")):
+        eng = a11_engine(rt, cfg, params, fused=what == "fused",
+                         num_pages=FT_NUM_PAGES, trace=trace)
+        check(eng.paged_kernel, f"fault_tolerance {what}: not the kernel")
+        eng.warmup()
+        reqs, cancelled, expired = ft_traffic(rt, cfg)
+        prefills = count_prefills(eng)
+        zero_launches([ops, fa])
+        t = serve_boundaries(torch, eng, [cancelled] + reqs + [expired],
+                             cancel=cancelled)
+        paged, flash = ops.launches, fa.launches
+        fs = eng.fault_stats()
+        tokens = {r.rid: list(r.out_tokens) for r in reqs}
+        equal = same_tokens(fused_tokens, tokens)
+        admitted = {entry[1] for entry in eng.scheduler.admission_log}
+        rec = dict(t, path=what, traced=trace, num_pages=FT_NUM_PAGES,
+                   tokens_equal_to_uncontended=equal, tokens_total=12 * 32,
+                   fault_stats=fs,
+                   resume_recovered_share=fs["recovered_prefill_fraction"],
+                   preempted_requests=sorted(r.rid for r in reqs
+                                             if r.preemptions > 0),
+                   cancelled_tokens=len(cancelled.out_tokens),
+                   statuses={"cancelled": cancelled.status,
+                             "expired": expired.status},
+                   peak_pages_in_use=eng.scheduler.peak_pages_in_use,
+                   paged_attention_launches=paged,
+                   flash_attention_launches=flash,
+                   full_prefills=prefills["n"],
+                   leaked_pages=eng.leaked_pages())
+        if trace:
+            obj = eng.export_trace()
+            failures = rt["validate_trace"](obj)
+            victim = next((r for r in reqs if r.preemptions > 0), None)
+            text = eng.explain(victim.rid) if victim is not None else ""
+            rec.update(trace_events=len(eng.tracer),
+                       trace_dropped=eng.tracer.dropped,
+                       trace_export_events=len(obj["traceEvents"]),
+                       schema_failures=failures[:5],
+                       explained_rid=None if victim is None else victim.rid,
+                       explain_head=text.splitlines()[:12])
+        emit("fault_tolerance" if not trace else "trace", **rec)
+        for r in reqs:
+            check(r.status == "FINISHED" and len(r.out_tokens) == 32,
+                  f"ft {what}: rid {r.rid} {r.status} with "
+                  f"{len(r.out_tokens)} tokens")
+        if what == "fused":
+            check(equal == 12 * 32, f"ft {what}: {equal} of 384 tokens "
+                                    "equal the uncontended run's")
+        elif equal != 12 * 32:
+            teacher_forced_check(torch, rt, cfg, params, reqs,
+                                 "fault_tolerance_legacy")
+        check(fs["pressure_preemptions"] >= 1,
+              f"ft {what}: no pressure preemption on {FT_NUM_PAGES} pages")
+        check(expired.status == "TIMED_OUT" and not expired.out_tokens
+              and expired.rid not in admitted,
+              f"ft {what}: expired request {expired.status}, admitted="
+              f"{expired.rid in admitted}")
+        check(cancelled.status == "CANCELLED",
+              f"ft {what}: cancelled request ended {cancelled.status}")
+        check(eng.leaked_pages() == 0, f"ft {what}: leaked pages")
+        check(t["sync_free_chunk"], f"ft {what}: no chunk sync-checked")
+        check(paged == cfg.num_layers * t["micro_steps"],
+              f"ft {what}: paged launches {paged} != {cfg.num_layers} x "
+              f"{t['micro_steps']}")
+        if what == "legacy":
+            check(prefills["n"] > 0
+                  and flash == cfg.num_layers * prefills["n"],
+                  f"ft legacy: flash launches {flash} != "
+                  f"{cfg.num_layers} x {prefills['n']} full prefills")
+        if trace:
+            check(not failures, f"trace: export fails the schema: "
+                                f"{failures[:3]}")
+            check(victim is not None, "trace: no preempted request")
+            check(" preempt " in text and " resume " in text,
+                  f"trace: explain({victim.rid}) names no preempt and "
+                  "resume")
+        res[what] = dict(rec, tokens={r.rid: list(r.out_tokens)
+                                      for r in [cancelled] + reqs})
+        del eng
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_trace(torch, ops, fa, rt, cfg, params, fused_tokens,
+                untraced) -> dict:
+    """The fault_tolerance phase's fused configuration with
+    ``trace=True`` (so preemptions are traced): that phase's gates, and
+    its tokens (the cancelled request's too) equal the untraced run's,
+    the export valid under ``benchmarks/check_trace``, ``explain`` of a
+    preempted request naming its preempt and resume.  Wall ms per
+    micro-step, traced against untraced, is printed."""
+    rec = phase_fault_tolerance(torch, ops, fa, rt, cfg, params,
+                                fused_tokens, trace=True)["fused"]
+    same = rec["tokens"] == untraced["tokens"]
+    emit("trace_vs_untraced", tokens_equal=same,
+         ms_per_micro_step_traced=rec["ms_per_micro_step"],
+         ms_per_micro_step_untraced=untraced["ms_per_micro_step"],
+         micro_steps_traced=rec["micro_steps"],
+         micro_steps_untraced=untraced["micro_steps"],
+         trace_events=rec["trace_events"])
+    check(same, "trace: tokens differ from the untraced run's")
+    return rec
+
+
+def phase_chaos(torch, ops, rt, cfg, params, fused_tokens) -> dict:
+    """The 12 requests through the fused engine under
+    ``ChaosMonkey(0, **FT_CHAOS)``: admission denials, preemption
+    storms, stalls ended by the watchdog, sharing faults.  Gates: every
+    request FINISHED with 32 tokens equal to the unfaulted fused run's,
+    0 leaked pages, one chunk shape, chaos preemptions >= 1, a
+    sync-free chunk, paged launches == layers x micro-steps."""
+    chaos = rt["ChaosMonkey"](0, **FT_CHAOS)
+    eng = a11_engine(rt, cfg, params, chaos=chaos)
+    eng.warmup()
+    reqs = make_requests(rt["Request"], cfg.vocab_size, 12, seed=7, rid0=0)
+    zero_launches([ops])
+    t = serve_boundaries(torch, eng, reqs)
+    fs = eng.fault_stats()
+    tokens = {r.rid: list(r.out_tokens) for r in reqs}
+    equal = same_tokens(fused_tokens, tokens)
+    emit("chaos", **t, fault_stats=fs, tokens_equal_to_unfaulted=equal,
+         tokens_total=12 * 32, decode_shapes=eng.decode_compiles,
+         paged_attention_launches=ops.launches,
+         leaked_pages=eng.leaked_pages())
+    for r in reqs:
+        check(r.status == "FINISHED" and len(r.out_tokens) == 32,
+              f"chaos: rid {r.rid} {r.status} with {len(r.out_tokens)} "
+              "tokens")
+    check(equal == 12 * 32, f"chaos: {equal} of 384 tokens equal the "
+                            "unfaulted run's")
+    check(eng.leaked_pages() == 0, "chaos: leaked pages")
+    check(eng.decode_compiles == 1, "chaos: more than one chunk shape")
+    check(fs["chaos_preemptions"] >= 1, "chaos: no storm preemption")
+    check(t["sync_free_chunk"], "chaos: no chunk sync-checked")
+    check(ops.launches == cfg.num_layers * t["micro_steps"],
+          f"chaos: paged launches {ops.launches} != {cfg.num_layers} x "
+          f"{t['micro_steps']}")
+    del eng
+    torch.cuda.empty_cache()
+    return dict(t, fault_stats=fs, paged=ops.launches)
+
+
+def phase_slo_mix(torch, ops, rt, cfg, params) -> dict:
+    """24 requests of ``TrafficGenerator(0, rate=8.0)`` (the reference's
+    class mix and profiles: prompts of 2-24 tokens, 4-24 new tokens)
+    replayed on a ``VirtualClock`` (0.05 per chunk) under 'fifo' and
+    'slo' on the fused engine.  Gates: every request finished, greedy
+    tokens equal per rid between the policies (batch prompts of 9-24
+    tokens against a throttled budget of 8: where the reference's
+    completion rule goes wrong), 0 leaked pages, paged launches == layers
+    x micro-steps.  Reported: throttles, per-class TTFT/TPOT p50/p99 and
+    goodput (virtual units), wall ms per micro-step."""
+    traffic = rt["traffic"]
+    trace = traffic.TrafficGenerator(0, rate=8.0, process="poisson") \
+        .generate(SLO_MIX_REQUESTS)
+    out = {}
+    for policy in ("fifo", "slo"):
+        clk = traffic.VirtualClock(dt=0.05)
+        eng = a11_engine(rt, cfg, params, policy=policy, clock=clk)
+        eng.warmup()
+        zero_launches([ops])
+        steps0 = eng.steps
+        torch.cuda.synchronize()
+        t0 = time.time()
+        results = traffic.replay(eng, trace, clock=clk)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        micro = eng.steps - steps0
+        ls = eng.latency_stats()
+        done = {r.rid: list(r.out_tokens) for r in eng.finished}
+        out[policy] = {
+            "wall_s": wall, "micro_steps": micro,
+            "ms_per_micro_step": wall / micro * 1e3,
+            "budget_throttles": ls["budget_throttles"],
+            "goodput": ls["goodput"],
+            "classes": {name: {k: c[k] for k in (
+                "count", "finished", "goodput", "ttft_p50", "ttft_p99",
+                "tpot_p50", "tpot_p99")}
+                for name, c in ls["classes"].items()},
+            "preemptions": eng.fault_stats()["preemptions"],
+            "paged_attention_launches": ops.launches,
+            "tokens": done}
+        check(all(v is None for v in results.values())
+              and sorted(done) == list(range(SLO_MIX_REQUESTS)),
+              f"slo_mix {policy}: finished {sorted(done)}")
+        check(eng.leaked_pages() == 0, f"slo_mix {policy}: leaked pages")
+        check(ops.launches == cfg.num_layers * micro,
+              f"slo_mix {policy}: paged launches {ops.launches} != "
+              f"{cfg.num_layers} x {micro}")
+        del eng
+        torch.cuda.empty_cache()
+    equal = same_tokens(out["fifo"]["tokens"], out["slo"]["tokens"])
+    total = sum(map(len, out["fifo"]["tokens"].values()))
+    emit("slo_mix", requests=SLO_MIX_REQUESTS, rate=8.0, clock_dt=0.05,
+         classes=sorted({tr.slo_class for tr in trace}),
+         tokens_equal_across_policies=equal, tokens_total=total,
+         **{policy: {k: v for k, v in rec.items() if k != "tokens"}
+            for policy, rec in out.items()})
+    check(equal == total, f"slo_mix: {equal} of {total} tokens equal "
+                          "across the policies")
+    return out
+
+
+def phase_launcher_a11(torch, cfg) -> dict:
+    """``python -m repro_torch.launch.serve --no-smoke --traffic
+    poisson:0 --policy slo --chaos 0 --trace OUT.json`` as a subprocess
+    at full width.  Gates: exit code 0, every traffic request served, the
+    ``faults:``, ``chaos`` and ``trace:`` lines present, the chaos drain
+    clean, paged launches == layers x engine steps, and the trace file
+    valid under ``benchmarks/check_trace``."""
+    import os
+    import re
+    from repro_torch.benchmarks.check_trace import validate
+    out = ROOT / "build" / "launcher_a11_trace.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    if out.exists():
+        out.unlink()
+    argv = LAUNCHER_A11_FLAGS + ["--trace", str(out)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=LAUNCHER_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"launcher_a11: no exit within "
+                           f"{LAUNCHER_TIMEOUT_S} s")
+    seconds = time.time() - t0
+    lines = proc.stdout.splitlines()
+    summary = [ln for ln in lines if not ln.startswith("req ")]
+    emit("launcher_a11_output", argv=argv, rc=proc.returncode,
+         seconds=seconds, lines=summary[:40],
+         stderr_tail=proc.stderr.splitlines()[-20:])
+    check(proc.returncode == 0, f"launcher_a11: exit code "
+                                f"{proc.returncode}")
+
+    def line(prefix: str) -> str:
+        got = [ln for ln in lines if ln.startswith(prefix)]
+        check(len(got) == 1, f"launcher_a11: {len(got)} lines start with "
+                             f"{prefix!r}")
+        return got[0]
+
+    traffic_line = line("traffic[poisson:0]:")
+    m = re.match(r"traffic\[poisson:0\]: (\d+) arrivals", traffic_line)
+    arrivals = int(m.group(1)) if m else -1
+    totals = [ln for ln in lines if re.match(r"\d+ requests, ", ln)]
+    check(len(totals) == 1, "launcher_a11: no totals line")
+    m = re.match(r"(\d+) requests, (\d+) tokens in [0-9.]+s \(([0-9.]+) "
+                 r"tok/s, (\d+) engine steps", totals[0])
+    check(m is not None, f"launcher_a11: totals line {totals[0]!r}")
+    n_req, n_tok, tps, steps = (int(m.group(1)), int(m.group(2)),
+                                float(m.group(3)), int(m.group(4)))
+    faults = line("faults:")
+    chaos_line = line("chaos[seed=0]:")
+    check("chaos: clean drain" in proc.stdout,
+          "launcher_a11: no clean chaos drain")
+    trace_line = line("trace:")
+    launches = {k: int(v) for k, v in (
+        kv.split("=") for kv in line("kernel launches:").split(": ", 1)[1]
+        .split())}
+    check(n_req == arrivals > 0, f"launcher_a11: {n_req} of {arrivals} "
+                                 "arrivals served")
+    check(launches["paged_attention"] == cfg.num_layers * steps,
+          f"launcher_a11: paged launches {launches['paged_attention']} "
+          f"!= {cfg.num_layers} x {steps} steps")
+    check(out.exists(), "launcher_a11: no trace file written")
+    failures = validate(json.loads(out.read_text()))
+    rec = {"process_seconds": seconds, "requests": n_req, "tokens": n_tok,
+           "tokens_per_s": tps, "engine_steps": steps,
+           "faults": faults, "chaos": chaos_line, "trace": trace_line,
+           "slo": [ln for ln in lines if ln.startswith("slo")],
+           "kernel_launches": launches,
+           "trace_schema_failures": failures[:5]}
+    emit("launcher_a11", **rec)
+    check(not failures, f"launcher_a11: trace fails the schema: "
+                        f"{failures[:3]}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # Phase 5g: gemma2-2b at full width and depth, a window ring that wraps
 # ---------------------------------------------------------------------------
 
@@ -3302,8 +3710,11 @@ def main() -> int:
         from repro_torch.models.layers import logits
         from repro_torch.models.transformer import prefill_hidden
         from repro_torch.models.module import init_params
+        from repro_torch.benchmarks.check_trace import validate
+        from repro_torch.serve import traffic
         from repro_torch.serve.cache import (CacheSpec, admit_cache,
                                              install_slot_rows, kv_pool_dtype)
+        from repro_torch.serve.chaos import ChaosMonkey
         from repro_torch.serve.engine import Engine, Request
         from repro_torch.serve.reference import ReferenceEngine
         from repro_torch.serve.spec import SpecConfig
@@ -3319,7 +3730,8 @@ def main() -> int:
               CacheSpec=CacheSpec, quantize_pages=quantize_pages,
               SpecConfig=SpecConfig, prefill_hidden=prefill_hidden,
               logits=logits, reduced=reduced,
-              ReferenceEngine=ReferenceEngine)
+              ReferenceEngine=ReferenceEngine, ChaosMonkey=ChaosMonkey,
+              traffic=traffic, validate_trace=validate)
     try:
         resolve_device("cuda")        # TF32 off
         smi = subprocess.run(
@@ -3396,6 +3808,19 @@ def main() -> int:
         launcher = phase_launcher(torch, rt, cfg, params)
         ref_flash = phase_reference_engine(torch, ops, fa, rt, cfg, params)
         fig14_launches = phase_fig14(torch, ops, fa, fig14)
+        # robustness, SLO policy and tracing on the same model
+        t_a11 = time.time()
+        ft = timed_phase("fault_tolerance", phase_fault_tolerance, torch,
+                         ops, fa, rt, cfg, params, tokens["fp32"])
+        chaos_run = timed_phase("chaos", phase_chaos, torch, ops, rt, cfg,
+                                params, tokens["fp32"])
+        traced = timed_phase("trace", phase_trace, torch, ops, fa, rt, cfg,
+                             params, tokens["fp32"], ft["fused"])
+        slo_mix = timed_phase("slo_mix", phase_slo_mix, torch, ops, rt,
+                              cfg, params)
+        launcher_a11 = timed_phase("launcher_a11", phase_launcher_a11,
+                                   torch, cfg)
+        emit("a11_phases_done", seconds=time.time() - t_a11)
         # gemma2's ~10.5 GB, zamba2's ~24 GB, rwkv6's ~30 GB and dbrx's
         # ~57 GB of weights fit only one at a time, and only once
         # internlm2's are gone
@@ -3458,6 +3883,14 @@ def main() -> int:
         what: run["kernel_launches"]["paged_attention"]
         for what, run in launcher.items()}
     entries[0]["launches_zamba2"] = zamba2["paged"]
+    entries[0]["launches_a11"] = {
+        "fault_tolerance_fused": ft["fused"]["paged_attention_launches"],
+        "fault_tolerance_legacy": ft["legacy"]["paged_attention_launches"],
+        "chaos": chaos_run["paged"],
+        "trace": traced["paged_attention_launches"],
+        "slo_mix_fifo": slo_mix["fifo"]["paged_attention_launches"],
+        "slo_mix_slo": slo_mix["slo"]["paged_attention_launches"],
+        "launcher_a11": launcher_a11["kernel_launches"]["paged_attention"]}
     main_gmm = gmm_rows["gate_up"]
     timing_keys = ("ms", "device_ms", "plain_ms", "plain_device_ms",
                    "library_ms", "library_device_ms", "bound_ms", "bound_by",
@@ -3491,6 +3924,8 @@ def main() -> int:
         "bf16_relative_err": flash_worst["bf16"],
         "full_prefills": legacy["fp32"][1],
         "launches_int8": legacy["int8"][0],
+        "launches_fault_tolerance_legacy":
+            ft["legacy"]["flash_attention_launches"],
         "launches_reference_engine": ref_flash,
         "launches_fig14": fig14_launches["flash"],
         "launches_launcher": {

@@ -85,3 +85,25 @@ def write_bench_json(path: Union[str, pathlib.Path],
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(data, indent=2, sort_keys=True) + "\n")
     return path
+
+
+def merge_into_last_run(path: Union[str, pathlib.Path],
+                        record: Dict) -> pathlib.Path:
+    """Merge ``record`` into the last run of the trajectory file at
+    ``path``, for workloads that live in another benchmark module but
+    belong to the same run (fig04's ``--slo-mix`` and ``--trace-report``
+    extend fig14's serve record).  Appends a fresh run when the file has
+    none."""
+    path = pathlib.Path(path)
+    data = None
+    if path.exists():
+        try:
+            data = json.loads(path.read_text())
+        except (ValueError, OSError):
+            data = None
+    if not (isinstance(data, dict) and isinstance(data.get("runs"), list)
+            and data["runs"]):
+        return write_bench_json(path, record)
+    data["runs"][-1].update(record)
+    path.write_text(json.dumps(data, indent=2, sort_keys=True) + "\n")
+    return path

@@ -33,20 +33,30 @@ internlm2-1.8b at the reference's sizes (4 slots, ``max_len`` 64 or
   card (the reference's transfer guard; on the CPU both are vacuous),
   and the engine's own count is exactly ``1 / sync_interval`` syncs per
   step.
+  Its traced twin (``trace=True``) runs the same trials: tokens/s
+  against the untraced engine (``trace_overhead_ratio``), a sync-free
+  traced chunk, and its ``export_trace`` validated in-process by the
+  port's ``benchmarks/check_trace.validate`` with a complete
+  submit-to-terminal chain for every request (``trace_*`` keys).
 * ``shared_prefix_comparison``, ``paged_kernel_comparison``,
   ``speculative_comparison``, ``chunked_prefill_comparison``: as the
   reference's, token parity among the engines and the dense reference
   recorded beside the times.
+* ``fault_tolerance_comparison``: an oversubscribed pool (12 pages
+  against 16 for full occupancy) that must preempt, one request whose
+  deadline has passed (reaped ``TIMED_OUT``, never admitted), and token
+  parity of the preempted-then-resumed run against an uncontended
+  engine (``ft_*`` keys).
 
 Left out, and absent from the record (not zero): the HLO checks of
 ``paged_kernel_comparison`` and ``chunked_prefill_comparison``
 (``_decode_executable``, ``_ring_gather_shapes``: keys
 ``paged_kernel_gather_free``, ``gather_path_materializes_ring``,
 ``paged_kernel_peak_temp_bytes``, ``paged_gather_peak_temp_bytes``,
-``cp_fused_gather_free``), which have no torch counterpart;
-``serve_engine_comparison``'s traced twin (``trace_*``) and
-``fault_tolerance_comparison`` (``ft_*``), which need ROADMAP A11; and
+``cp_fused_gather_free``), which have no torch counterpart; and
 ``quantized_pool_comparison`` (``qp_*``), which trains a model (A15).
+fig04's ``slo_*`` and ``trep_*`` keys come from the port's
+``benchmarks/fig04_scheduling.py``, merged into the same run.
 ``main`` writes the record to ``BENCH_serve_torch.json``, never to the
 reference's ``BENCH_serve.json``.
 """
@@ -266,6 +276,41 @@ def serve_engine_comparison(n_req: int = 12, max_new: int = 16, *,
     mem_end = eng.memory_stats()
     assert_clean_teardown(eng, seen[id(eng)], label="serve_engine")
 
+    # tracing overhead on the same workload: a traced twin runs the same
+    # trials; the tracer records host-side at chunk boundaries, so the
+    # chunk stays sync-free and every request leaves a complete chain
+    from repro_torch.benchmarks.check_trace import validate
+    from repro_torch.serve.trace import TERMINAL_KINDS
+
+    traced = Engine(cfg, params, slots=4, max_len=64, sync_interval=16,
+                    chunked_prefill=False, trace=True, device=dev)
+    traced.warmup()
+    trace_tps, _, _ = timed_trials(traced)
+    toks, trace_sync_free = _sync_free_chunk(traced)
+    if trace_sync_free:
+        traced._drain(toks)
+    assert_clean_teardown(traced, seen[id(traced)],
+                          label="serve_engine_traced")
+    trace_failures = validate(traced.export_trace())
+    term_events = [e for e in traced.tracer.events()
+                   if e.kind in TERMINAL_KINDS]
+    # one warm run and ``trials`` timed ones of n_req requests each
+    chains_complete = not any("without" in f for f in trace_failures) \
+        and len(term_events) >= (1 + trials) * n_req \
+        and {e.rid for e in term_events} >= set(range(n_req))
+    for f in trace_failures:
+        print(f"# trace schema failure: {f}")
+    rec_trace = {
+        "trace_tokens_per_s": trace_tps,
+        "trace_overhead_ratio": trace_tps / eng_tps,
+        "trace_decode_sync_free": trace_sync_free,
+        "trace_decode_compiles": traced.decode_compiles,
+        "trace_events": len(traced.tracer),
+        "trace_dropped": traced.tracer.dropped,
+        "trace_schema_valid": not trace_failures,
+        "trace_complete_chains": chains_complete,
+    }
+
     rec = {
         "arch": cfg.name,
         "requests": n_req,
@@ -297,6 +342,11 @@ def serve_engine_comparison(n_req: int = 12, max_new: int = 16, *,
         "kv_dtype": mem_end["kv_dtype"],
         "peak_live_slots": mem_end["peak_live_slots"],
     }
+    rec.update(rec_trace)
+    emit("fig14.trace_overhead_ratio", rec["trace_overhead_ratio"],
+         f"traced={trace_tps:.0f}tok/s,untraced={eng_tps:.0f}tok/s,"
+         f"events={rec['trace_events']},"
+         f"schema_valid={rec['trace_schema_valid']}")
     emit("fig14.engine_ref_steps_per_s", 1e6 / rec["ref_steps_per_s"],
          f"syncs_per_step={rec['ref_host_syncs_per_step']:.2f}")
     emit("fig14.engine_new_steps_per_s", 1e6 / rec["new_steps_per_s"],
@@ -545,6 +595,103 @@ def speculative_comparison(max_new: int = 48, *, device: DeviceLike = None,
     return rec
 
 
+def fault_tolerance_comparison(n_req: int = 8, max_new: int = 16, *,
+                               device: DeviceLike = None) -> dict:
+    """Oversubscribed pool + deadlines: survive instead of throwing.
+
+    4 slots would reserve 16 worst-case pages against a 12-page budget,
+    so the engine must preempt: victims' prompt pages are preserved in
+    the radix index, they requeue and resume with their emitted tokens
+    replayed.  One extra request is submitted with a deadline already
+    past and must be reaped ``TIMED_OUT`` without taking a slot.  Goodput
+    is deadline attainment over everything submitted
+    (``n_req / (n_req + 1)``); the preempted-then-resumed tokens must
+    equal an uncontended engine's; zero leaked pages, one chunk shape, a
+    sync-free chunk.  The recovered-prefill fraction is reported, not
+    gated: under pure page pressure the preserved pages are refcount-1
+    radix leaves that the admission which caused the eviction usually
+    reclaims at once."""
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.scheduler import RequestStatus
+
+    dev = resolve_device(device)
+    cfg, params = _model(dev)
+    kw = dict(slots=4, max_len=64, page_size=8, sync_interval=8,
+              chunked_prefill=False, device=dev)
+    prompts = [[(3 * i + j) % 250 + 1 for j in range(2 + (5 * i) % 11)]
+               for i in range(n_req)]
+    seen = {}
+
+    def load(eng, ttl=None, doomed=False):
+        for i, p in enumerate(prompts):
+            assert eng.submit(Request(rid=i, prompt=list(p),
+                                      max_new_tokens=max_new,
+                                      ttl=ttl)) is None
+        if doomed:
+            # a deadline in the past (the monotonic clock is > 0): reaped
+            # TIMED_OUT at the first chunk boundary, no slot wasted
+            assert eng.submit(Request(rid=n_req, prompt=[1, 2, 3],
+                                      max_new_tokens=max_new,
+                                      deadline=0.0)) is None
+        done = eng.run(max_steps=100_000)
+        assert len(done) == n_req + (1 if doomed else 0)
+        out = {r.rid: list(r.out_tokens) for r in done
+               if r.status == RequestStatus.FINISHED}
+        statuses = {r.rid: r.status for r in done}
+        preempted = sorted(r.rid for r in done if r.preemptions > 0)
+        seen.setdefault(id(eng), []).extend(done)
+        eng.finished = []
+        return out, statuses, preempted
+
+    calm = Engine(cfg, params, **kw)
+    calm.warmup()
+    out_calm, _, calm_preempted = load(calm)
+    assert not calm_preempted, "uncontended run must not preempt"
+
+    eng = Engine(cfg, params, num_pages=12, **kw)
+    eng.warmup()
+    out_ft, statuses, preempted = load(eng, ttl=600.0, doomed=True)
+    fs = eng.fault_stats()
+    submitted = n_req + 1
+    goodput = len(out_ft) / submitted
+    outputs_match = out_ft == out_calm
+    timed_out = sum(1 for s in statuses.values()
+                    if s == RequestStatus.TIMED_OUT)
+    leaked = eng.leaked_pages()
+    toks, sync_free = _sync_free_chunk(eng)
+    if sync_free:
+        eng._drain(toks)
+
+    rec = {
+        "ft_requests": submitted,
+        "ft_goodput": goodput,
+        "ft_preemptions": fs["preemptions"],
+        "ft_pressure_preemptions": fs["pressure_preemptions"],
+        "ft_resumes": fs["resumes"],
+        "ft_preempted_requests": len(preempted),
+        "ft_outputs_match": outputs_match,
+        "ft_recovered_prefill_fraction": fs["recovered_prefill_fraction"],
+        "ft_resume_replayed_tokens": fs["resume_replayed_tokens"],
+        "ft_timed_out": timed_out,
+        "ft_leaked_pages": leaked,
+        "ft_num_pages": 12,
+        "ft_peak_pages": eng.scheduler.peak_pages_in_use,
+        "ft_decode_compiles": eng.decode_compiles,
+        "ft_decode_sync_free": sync_free,
+    }
+    rec.update(_pool_telemetry(eng, "ft_"))
+    assert_clean_teardown(calm, seen[id(calm)], label="ft_calm")
+    assert_clean_teardown(eng, seen[id(eng)], label="ft_oversubscribed")
+    emit("fig14.ft_goodput", goodput,
+         f"preemptions={fs['preemptions']},"
+         f"resumes={fs['resumes']},"
+         f"preempted_reqs={len(preempted)},match={outputs_match}")
+    emit("fig14.ft_recovered_prefill", fs["recovered_prefill_fraction"],
+         f"timed_out={timed_out},leaked={leaked},"
+         f"peak_pages={rec['ft_peak_pages']}/12")
+    return rec
+
+
 def chunked_prefill_comparison(n_arrivals: int = 3, prompt_len: int = 120,
                                budget: int = 4, *,
                                device: DeviceLike = None,
@@ -699,6 +846,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     rec.update(shared_prefix_comparison(device=dev))
     rec.update(paged_kernel_comparison(device=dev, trials=args.trials))
     rec.update(speculative_comparison(device=dev))
+    rec.update(fault_tolerance_comparison(device=dev))
     rec.update(chunked_prefill_comparison(device=dev))
     path = write_bench_json(args.out, rec)
     print(f"# serve trajectory appended to {path}", flush=True)

@@ -14,17 +14,29 @@ The flags are the reference's, with its names, defaults and meanings.
 The synthetic workload sends every request the same ``--shared-prefix``
 prompt head, so prefix sharing shows in the printed hit rate.
 ``--spec-draft ngram --spec-k 4`` turns on speculative decoding
-(``serve/spec``).  ``--slo-class`` tags every request and prints the
-per-class TTFT/TPOT percentiles (seconds) from
-``Engine.latency_stats()``.
+(``serve/spec``).  ``--slo-class`` tags every request, and it,
+``--policy slo`` or ``--traffic`` print the per-class TTFT/TPOT
+percentiles and goodput from ``Engine.latency_stats()`` (seconds, or
+virtual units ``vu`` under ``--traffic``).
 
-Not ported yet (ROADMAP A11): ``--chaos``, ``--queue-limit``,
-``--shed-policy``, ``--ttl``, ``--policy slo``, ``--traffic`` and
-``--trace`` parse and then raise ``NotImplementedError`` naming A11, and
-the reference's ``faults:`` and ``chaos`` lines are not printed: the
-port has no preemption, reaping, rejection or fault injection yet.  An
-8-bit ``--kv-dtype`` is served in 8 bits or the launch raises; the port
-never falls back to fp32 pools.
+Robustness and SLO flags, as the reference's: ``--chaos SEED`` serves
+under ``ChaosMonkey.smoke(SEED)`` (admission denials, preemption storms,
+slot stalls ended by the watchdog, sharing faults) and fails unless
+every request ends in a terminal status with zero leaked pages;
+``--queue-limit`` with ``--shed-policy reject|block|evict-lru-prefix``,
+``--ttl`` (a deadline per request, reaped at the next chunk boundary),
+``--policy slo``; ``--traffic poisson:SEED`` or ``bursty:SEED``
+replays a seeded mixed-class arrival trace (``serve/traffic.py``,
+``--traffic-rate`` arrivals per unit) on a virtual clock that ticks 0.05
+per chunk, in place of the synthetic workload; ``--trace OUT.json``
+records the request lifecycle and writes its Chrome-trace / Perfetto
+timeline there, then prints ``Engine.observe()``'s trace counts and
+``Engine.explain()`` of the first request
+(``python -m repro_torch.benchmarks.check_trace OUT.json`` validates
+it).  The ``faults:`` line (preemptions by cause, resumes, recovered
+prefill, timeouts, cancellations, rejections, leaked pages) is printed
+on every run.  An 8-bit ``--kv-dtype`` is served in 8 bits or the
+launch raises; the port never falls back to fp32 pools.
 
 The totals line prints the engine's shape counters where the reference
 prints its compile counts: the distinct shapes each path ran, which are
@@ -117,32 +129,46 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "the first request (kernel builds, first use of "
                          "each shape)")
     ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
-                    help="seeded fault injection (not ported: ROADMAP "
-                         "A11)")
+                    help="run under a seeded fault-injection schedule "
+                         "(serve/chaos.py smoke preset: admission "
+                         "denials, preemption storms, slot stalls, "
+                         "sharing faults); fails unless every request "
+                         "reaches a terminal status and zero pages leak")
     ap.add_argument("--queue-limit", type=int, default=None,
-                    help="bound the admission queue (not ported: ROADMAP "
-                         "A11)")
+                    help="bound the admission queue; overflow is "
+                         "handled by --shed-policy")
     ap.add_argument("--shed-policy", default="reject",
                     choices=["reject", "block", "evict-lru-prefix"],
-                    help="load-shedding at a full admission queue; only "
-                         "'reject' is ported (the others: ROADMAP A11)")
+                    help="load-shedding at a full admission queue")
     ap.add_argument("--ttl", type=float, default=None,
-                    help="per-request deadline in seconds from submit "
-                         "(not ported: ROADMAP A11)")
+                    help="per-request deadline in seconds from submit; "
+                         "expired requests are reaped as TIMED_OUT at "
+                         "the next chunk boundary")
     ap.add_argument("--policy", default="fifo", choices=["fifo", "slo"],
-                    help="admission/victim policy; only 'fifo' is ported "
-                         "('slo': ROADMAP A11)")
+                    help="admission/victim policy: 'slo' orders the "
+                         "queue least-slack-first by SLO class "
+                         "(interactive > batch > best_effort), picks "
+                         "lowest-class preemption victims, and throttles "
+                         "non-interactive prefill budgets when an "
+                         "interactive TTFT slack goes negative")
     ap.add_argument("--slo-class", default=None,
                     choices=["interactive", "batch", "best_effort"],
                     help="SLO class for every synthetic request (default: "
                          "best_effort); prints the per-class TTFT/TPOT "
                          "percentiles and goodput")
     ap.add_argument("--traffic", default=None, metavar="PROC:SEED",
-                    help="seeded arrival-trace replay (not ported: "
-                         "ROADMAP A11)")
+                    help="replace the synthetic workload with a seeded "
+                         "arrival trace from serve/traffic.py: "
+                         "'poisson:SEED' or 'bursty:SEED' (mixed SLO "
+                         "classes and lengths, virtual-clock replay)")
+    ap.add_argument("--traffic-rate", type=float, default=8.0,
+                    help="arrivals per virtual clock unit for --traffic")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
-                    help="request-lifecycle trace export (not ported: "
-                         "ROADMAP A11)")
+                    help="record request-lifecycle trace events "
+                         "(serve/trace.py ring buffer, recorded on the "
+                         "host at chunk boundaries) and write a "
+                         "Chrome-trace/Perfetto timeline JSON here at "
+                         "exit")
     return ap.parse_args(argv)
 
 
@@ -153,11 +179,11 @@ def build_engine(args: argparse.Namespace, params=None):
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import model_defs
     from repro_torch.models.module import init_params
-    from repro_torch.serve.engine import Engine, _unsupported
+    from repro_torch.serve.chaos import ChaosMonkey
+    from repro_torch.serve.engine import Engine
     from repro_torch.serve.spec import SpecConfig
+    from repro_torch.serve.traffic import VirtualClock
 
-    if args.traffic is not None:
-        raise _unsupported("seeded traffic replay (--traffic)", "A11")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
@@ -166,8 +192,14 @@ def build_engine(args: argparse.Namespace, params=None):
     spec = None
     if args.spec_draft != "off":
         spec = SpecConfig(draft=args.spec_draft, k=args.spec_k)
+    chaos = None
+    if args.chaos is not None:
+        chaos = ChaosMonkey.smoke(args.chaos)
+    # --traffic: arrival times, TTFT/TPOT and deadlines all move in trace
+    # units, one tick per chunk boundary (``run`` ticks the engine's clock)
+    clock = VirtualClock(dt=0.05) if args.traffic is not None else None
     return Engine(cfg, params, slots=args.slots, max_len=args.max_len,
-                  policy=args.policy, page_size=args.page_size,
+                  policy=args.policy, clock=clock, page_size=args.page_size,
                   num_pages=args.num_pages,
                   prefix_sharing=not args.no_prefix_sharing,
                   paged_kernel={"auto": "auto", "on": True,
@@ -175,7 +207,7 @@ def build_engine(args: argparse.Namespace, params=None):
                   spec=spec, temperature=args.temperature, top_k=args.top_k,
                   sync_interval=args.sync_interval,
                   queue_limit=args.queue_limit,
-                  shed_policy=args.shed_policy, chaos=args.chaos,
+                  shed_policy=args.shed_policy, chaos=chaos,
                   chunked_prefill={"auto": "auto", "on": True,
                                    "off": False}[args.chunked_prefill],
                   prefill_budget=args.prefill_budget,
@@ -191,9 +223,11 @@ def prompts(args: argparse.Namespace) -> List[List[int]]:
 
 
 def run(eng, args: argparse.Namespace) -> None:
-    """Warm up (``--warmup``), serve the synthetic workload and print the
-    reference's summary lines."""
+    """Warm up (``--warmup``), serve the synthetic workload or replay the
+    ``--traffic`` trace, and print the reference's summary lines."""
     from repro_torch.serve.engine import Request
+    from repro_torch.serve.scheduler import RequestStatus
+    from repro_torch.serve.traffic import TrafficGenerator, replay
 
     if args.warmup:
         t0 = time.perf_counter()
@@ -207,11 +241,28 @@ def run(eng, args: argparse.Namespace) -> None:
                   f"{eng.buckets} + decode chunk ran in "
                   f"{time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
-    for i, prompt in enumerate(prompts(args)):
-        eng.submit(Request(rid=i, prompt=prompt,
-                           max_new_tokens=args.max_new, ttl=args.ttl,
-                           slo_class=args.slo_class or "best_effort"))
-    done = eng.run(max_steps=1000)
+    if args.traffic is not None:
+        proc, _, seed = args.traffic.partition(":")
+        seed = int(seed or 0)
+        trace = TrafficGenerator(seed, rate=args.traffic_rate,
+                                 process=proc).generate(args.requests)
+        # the engine's clock is the VirtualClock ``build_engine`` gave it
+        replay(eng, trace, clock=eng._clock)
+        done = list(eng.finished)
+        submitted = done + list(eng.rejected)
+        print(f"traffic[{proc}:{seed}]: {len(trace)} arrivals over "
+              f"{trace[-1].arrival:.2f} virtual units, classes="
+              f"{sorted(set(tr.slo_class for tr in trace))}")
+    else:
+        submitted = []
+        for i, prompt in enumerate(prompts(args)):
+            req = Request(rid=i, prompt=prompt,
+                          max_new_tokens=args.max_new, ttl=args.ttl,
+                          slo_class=args.slo_class or "best_effort")
+            submitted.append(req)
+            eng.submit(req)
+        done = eng.run(max_steps=100_000 if eng.chaos is not None
+                       else 1000)
     dt = time.perf_counter() - t0
     toks = sum(len(r.out_tokens) for r in done)
     for r in sorted(done, key=lambda r: r.rid):
@@ -243,13 +294,42 @@ def run(eng, args: argparse.Namespace) -> None:
               f"({ss['accepted_tokens']}/{ss['drafted_tokens']} drafts), "
               f"{ss['tokens_per_step']:.2f} tokens/verify-step over "
               f"{ss['spec_steps']} steps")
-    if args.slo_class is not None:
+    fs = eng.fault_stats()
+    print(f"faults: {fs['preemptions']} preemptions "
+          f"({fs['pressure_preemptions']} pressure / "
+          f"{fs['chaos_preemptions']} chaos / "
+          f"{fs['watchdog_preemptions']} watchdog), "
+          f"{fs['resumes']} resumes "
+          f"(recovered_prefill={fs['recovered_prefill_fraction']:.2f}), "
+          f"{fs['timed_out']} timed out, {fs['cancelled']} cancelled, "
+          f"{fs['rejected']} rejected, "
+          f"{eng.leaked_pages()} leaked pages")
+    if eng.chaos is not None:
+        cs = fs["chaos"]
+        print(f"chaos[seed={cs['seed']}]: "
+              f"{cs['admission_denials']} admission denials, "
+              f"{cs['forced_preemptions']} forced preemptions, "
+              f"{cs['stalls_started']} stalls, "
+              f"{cs['sharing_faults']} sharing faults")
+        bad = [r for r in submitted
+               if r.status not in RequestStatus.TERMINAL]
+        if bad:
+            raise RuntimeError(f"non-terminal requests after drain: "
+                               f"{[(r.rid, r.status) for r in bad]}")
+        if eng.leaked_pages():
+            raise RuntimeError(f"leaked {eng.leaked_pages()} pages at "
+                               "drain")
+        print("chaos: clean drain (all terminal statuses, zero leaked "
+              "pages)")
+    if args.traffic is not None or args.slo_class is not None \
+            or args.policy != "fifo":
         ls = eng.latency_stats()
+        unit = "vu" if args.traffic is not None else "s"
         for name, c in sorted(ls["classes"].items()):
             print(f"slo[{name}]: n={c['count']} "
                   f"goodput={c['goodput']} "
-                  f"ttft_p50/p99={c['ttft_p50']}/{c['ttft_p99']}s "
-                  f"tpot_p50/p99={c['tpot_p50']}/{c['tpot_p99']}s")
+                  f"ttft_p50/p99={c['ttft_p50']}/{c['ttft_p99']}{unit} "
+                  f"tpot_p50/p99={c['tpot_p50']}/{c['tpot_p99']}{unit}")
         print(f"slo overall: goodput={ls['goodput']} "
               f"budget_throttles={ls['budget_throttles']} "
               f"policy={args.policy}")
@@ -262,6 +342,15 @@ def run(eng, args: argparse.Namespace) -> None:
               f"{ps['cow_copies']} CoW copies, "
               f"{ps['radix_evictions']} evictions, "
               f"{ps['radix_pages']} pages indexed")
+    if args.trace is not None:
+        eng.export_trace(args.trace)
+        obs = eng.observe(spec=False)
+        print(f"trace: {obs['trace.events']} lifecycle events "
+              f"({obs['trace.dropped']} dropped) over "
+              f"{obs['engine.chunks']} chunks -> {args.trace} "
+              f"(open in ui.perfetto.dev)")
+        if done:
+            print(eng.explain(min(r.rid for r in done)))
     print("kernel launches: " + " ".join(
         f"{name}={mod.launches}" for name, mod in _kernel_ops()))
 

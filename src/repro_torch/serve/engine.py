@@ -4,9 +4,9 @@ reference's two modes.
 
 Three layers, as in the reference:
 
-* **Scheduler** (``serve/scheduler``) — host-side policy: FIFO queue,
-  slot admission, per-group page reservation, refcounted prefix sharing
-  over a radix index.
+* **Scheduler** (``serve/scheduler``) — host-side policy: FIFO or SLO
+  queue order, slot admission, per-group page reservation, refcounted
+  prefix sharing over a radix index.
 * **Executor** (below) — the device layer.  A chunk is ``sync_interval``
   micro-steps, sampled and booked on the device with no host
   synchronization inside it (the reference's ``lax.scan`` becomes a
@@ -15,9 +15,10 @@ Three layers, as in the reference:
   - *fused chunked prefill* (``chunked_prefill=True``): each micro-step
     feeds a right-aligned ``[slots, S]`` token matrix
     (``S = prefill_budget``) to the model: a mid-prefill slot
-    contributes its next ``min(plen - len, S)`` prompt tokens, a
-    decoding slot its pending token, and pad rows are write-masked so
-    their KV lands on the trash page;
+    contributes its next ``min(plen - len, pbudget)`` prompt tokens
+    (``pbudget``: its per-slot budget, ``S`` unless the SLO policy
+    throttles it), a decoding slot its pending token, and pad rows are
+    write-masked so their KV lands on the trash page;
   - *two executables* (``chunked_prefill=False``): admission runs a
     batch-1 prefill of the prompt padded to a power-of-two bucket
     (``models/transformer.forward_prefill``, whose attention is
@@ -36,29 +37,48 @@ Three layers, as in the reference:
   ``[slots, max(prefill_budget, K + 1)]`` matrix), and on-device
   rejection sampling commits a variable number of tokens: greedy output
   is token-identical to plain decoding.
-* **Driver** (``Engine``) — glues them: admission at chunk boundaries,
-  one batched device-to-host drain per chunk (prefill-sampled first
-  tokens included), finish reporting.
+* **Driver** (``Engine``) — glues them: at each chunk boundary it reaps
+  cancelled and expired requests, applies chaos faults, admits (with
+  pool-pressure preemption), sets the SLO prefill budgets, launches one
+  chunk and drains it in one batched device-to-host copy (prefill-
+  sampled first tokens included), with the stall watchdog.
 
 Decode attention reads the pools pool-direct through the Hopper
 paged-attention kernel (``paged_kernel="auto"`` on a CUDA device) or
-gathers each slot's ring (``paged_kernel=False``).  Preemption,
-deadlines, SLO policy, tracing, fault injection and sharding are not
-ported yet; their arguments raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+gathers each slot's ring (``paged_kernel=False``).  Robustness, SLO
+policy and tracing are the reference's: preemption (a victim's pages
+preserved in the radix index, its request requeued and resumed with its
+emitted tokens replayed as prompt), deadlines, TTLs and cancellation,
+queue limits with the ``reject``, ``block``, ``evict-lru-prefix`` and
+``shed-lowest-class`` policies, the ``slo`` admission order and its
+prefill-budget throttle, seeded fault injection (``serve/chaos``), the
+lifecycle tracer (``serve/trace``) and the metric registry
+(``serve/metrics``).  All of it runs on the host at chunk boundaries:
+the chunk stays free of host synchronization.  Sharded serving
+(``rules=``, ROADMAP A14) raises ``NotImplementedError``.
+
+One deliberate departure from the reference: a fused slot completes its
+prefill when this micro-step's ``n`` rows reach the end of its prompt
+(``rem <= n``).  The reference tests ``rem <= S``, so under the SLO
+throttle (``n = pbudget < rem <= S``) it commits a "first token" sampled
+from a mid-prompt row; the port does not.  Without a throttle the two
+rules coincide.
 
 Telemetry, as the reference's: ``memory_stats``, ``prefix_stats``,
-``spec_stats``, ``latency_stats`` (TTFT/TPOT percentiles from the
-drain's host stamps; the pure functions above ``Executor``) and the
-shape counters ``prefill_compiles``, ``suffix_prefill_compiles``,
-``decode_compiles`` and ``admit_compiles``.
+``spec_stats``, ``fault_stats``, ``latency_stats`` (TTFT/TPOT
+percentiles and goodput from the drain's host stamps; the pure
+functions above ``Executor``), ``observe`` (stable dotted names),
+``export_trace``, ``explain`` and the shape counters
+``prefill_compiles``, ``suffix_prefill_compiles``, ``decode_compiles``
+and ``admit_compiles``.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -72,8 +92,11 @@ from repro_torch.models.transformer import (forward_decode, forward_prefill,
                                             forward_verify, model_defs,
                                             verify_hidden)
 from repro_torch.serve import cache as cache_mod
+from repro_torch.serve import metrics as metrics_mod
 from repro_torch.serve import sampling
+from repro_torch.serve import trace as trace_mod
 from repro_torch.serve.cache import CacheSpec
+from repro_torch.serve.chaos import ChaosMonkey, GarbageDrafter
 from repro_torch.serve.scheduler import (PagePoolExhausted, Request,
                                          RequestRejected, RequestStatus,
                                          Scheduler)
@@ -205,17 +228,22 @@ class Executor:
         """One fused micro-step's right-aligned token matrix and masks:
         ``(toks [B,S], write_mask [B,S], n_rows [B], prefilling [B],
         completing [B])``.  A mid-prefill slot's rows are its next
-        ``min(plen - len, S)`` prompt tokens; a decoding slot's are its
-        pending token, followed by its ``drafts`` [B,K] under
-        speculation, in the last ``k1`` columns."""
+        ``n = min(plen - len, pbudget)`` prompt tokens (``pbudget``
+        clamped into ``[1, S]``: a value, never a shape); a decoding
+        slot's are its pending token, followed by its ``drafts`` [B,K]
+        under speculation, in the last ``k1`` columns.  A slot completes
+        its prefill when its ``n`` rows reach the prompt's end
+        (``rem <= n``; the reference's ``rem <= S`` commits a mid-prompt
+        row's sample under the SLO throttle)."""
         S, k1 = self.chunk_rows, self.k1
         col = torch.arange(S, device=self.device, dtype=torch.int32)[None, :]
         len_ = cache["len"]
         active = state["active"]
         rem = state["plen"] - len_
         prefilling = active & (rem > 0)
-        n = torch.where(prefilling, torch.clamp(rem, max=S), k1)
-        completing = prefilling & (rem <= S)
+        budget = torch.clamp(state["pbudget"], 1, S)
+        n = torch.where(prefilling, torch.minimum(rem, budget), k1)
+        completing = prefilling & (rem <= n)
         gidx = len_[:, None] + col - (S - n)[:, None]
         pcap = state["prompt"].shape[1]
         ptoks = torch.gather(state["prompt"], 1,
@@ -460,6 +488,13 @@ class Executor:
     def free_slot(self, cache: Dict, slot: int) -> None:
         cache_mod.free_slot_cache(self.spec, cache, slot)
 
+    def deactivate(self, state: Dict, slot: int) -> None:
+        """Clear a slot's active flag in place (preemption or reaping at
+        a chunk boundary): its dead-tail micro-steps neither sample nor,
+        with its table rows trashed by ``free_slot``, write KV anywhere
+        that matters.  ``fill_``: no host synchronization."""
+        state["active"][slot:slot + 1].fill_(False)
+
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
@@ -507,7 +542,29 @@ class Engine:
     draft cache is filled by a draft prefill) and, without
     ``draft_params``, draws its weights from a generator seeded
     ``seed + 17`` on the engine's device.  Windowed rings carry the
-    verify rows' slack (``CacheSpec(spec_tokens=...)``)."""
+    verify rows' slack (``CacheSpec(spec_tokens=...)``).
+
+    Robustness and SLO policy, as the reference's (all of it on the host
+    at chunk boundaries).  ``preemption``: under page-pool pressure with
+    a slot free, evict a victim (lowest SLO class, fewest tokens
+    decoded, most radix-recoverable pages, lowest slot), preserve its
+    written pages in the radix index and requeue it; it resumes with its
+    emitted tokens replayed as prompt.  ``clock`` (default
+    ``time.monotonic``) stamps submits, tokens and deadlines; a
+    ``serve/traffic.VirtualClock`` makes them replayable.
+    ``queue_limit`` bounds the queue and ``shed_policy`` handles a
+    submit to a full one: ``"reject"``, ``"block"`` (serve until there
+    is room), ``"evict-lru-prefix"`` (reclaim unreferenced radix pages
+    and admit first) or ``"shed-lowest-class"`` (drop the lowest-class
+    queued request for a more urgent one).  ``policy="slo"`` orders the
+    queue by class then TTFT slack, picks victims by class, and
+    throttles non-interactive slots' prompt slices to ``max(1, S // 4)``
+    while an interactive request waits past its TTFT target.
+    ``stall_patience``: drains without progress before the watchdog
+    preempts a slot (0: off; 4 under a chaos schedule with stalls).
+    ``chaos``: a ``serve/chaos.ChaosMonkey``.  ``trace``: ``True``, a
+    ring capacity or a ``serve/trace.Tracer`` records lifecycle events
+    (``export_trace``, ``explain``)."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  max_len: int = 256, greedy: bool = True,
@@ -521,20 +578,33 @@ class Engine:
                  prefill_budget: int = 32,
                  kv_dtype: str = "auto",
                  device: DeviceLike = None,
-                 spec: Any = None, chaos: Any = None, trace: Any = None,
-                 policy: str = "fifo", rules: Any = None,
+                 spec: Any = None, rules: Any = None,
+                 preemption: bool = True,
                  queue_limit: Optional[int] = None,
-                 shed_policy: str = "reject"):
-        if chaos is not None:
-            raise _unsupported("fault injection (chaos=)", "A11")
-        if trace not in (None, False):
-            raise _unsupported("lifecycle tracing (trace=)", "A11")
-        if policy != "fifo":
-            raise _unsupported(f"policy={policy!r}", "A11")
+                 shed_policy: str = "reject",
+                 policy: str = "fifo",
+                 clock: Optional[Callable[[], float]] = None,
+                 stall_patience: int = 0,
+                 chaos: Optional[ChaosMonkey] = None,
+                 trace: Any = None):
         if rules is not None:
             raise _unsupported("sharded serving (rules=)", "A14")
-        if queue_limit is not None or shed_policy != "reject":
-            raise _unsupported("queue limits and shed policies", "A11")
+        if shed_policy not in ("reject", "block", "evict-lru-prefix",
+                               "shed-lowest-class"):
+            raise ValueError(f"shed_policy must be 'reject', 'block', "
+                             f"'evict-lru-prefix' or 'shed-lowest-class', "
+                             f"got {shed_policy!r}")
+        if trace in (None, False):
+            tracer = None
+        elif isinstance(trace, trace_mod.Tracer):
+            tracer = trace
+        elif trace is True:
+            tracer = trace_mod.Tracer()
+        elif isinstance(trace, int):
+            tracer = trace_mod.Tracer(capacity=trace)
+        else:
+            raise TypeError(f"trace must be None/bool/int/Tracer, "
+                            f"got {trace!r}")
         requested = "fp32" if kv_dtype == "auto" else kv_dtype
         if requested not in cache_mod.KV_DTYPES:
             raise ValueError(
@@ -612,10 +682,15 @@ class Engine:
             if self.draft_params is None:
                 self.draft_params = init_params(model_defs(dcfg), seed + 17,
                                                 device=self.device)
+        if chaos is not None and chaos.garbage_drafter \
+                and self.drafter is not None:
+            # fault isolation: rejection sampling keeps the output
+            # token-identical however bad the drafts are
+            self.drafter = GarbageDrafter(self.drafter)
         # the history buffer is the n-gram drafter's lookup corpus; a
         # model drafter never reads it
         self._hist_cap = (max_len + k + 2
-                          if isinstance(self.drafter, NGramDrafter) else 0)
+                          if spec_cfg is not None and not model_draft else 0)
         # windowed rings need ring >= window + S - 1 so the widest
         # micro-step (a fused prefill slice of ``prefill_budget`` rows or
         # K + 1 verify rows) may write-wrap legitimately (capped in
@@ -629,9 +704,12 @@ class Engine:
         # an arch with no paged layer (rwkv6) has no pools to read
         self.paged_kernel = bool(paged_kernel) and self.spec.has_paged
         # fused prompts enter the radix index once their pages are written
-        # (a later drain); a two-executable admission writes them at once
+        # (a later drain); a two-executable admission writes them at once.
+        # policy: "fifo" (arrival order) or "slo" (class, then TTFT slack)
+        self.policy = policy
         self.scheduler = Scheduler(self.spec, prefix_sharing=prefix_sharing,
-                                   defer_radix_insert=self.chunked_prefill)
+                                   defer_radix_insert=self.chunked_prefill,
+                                   policy=policy)
         self.executor = Executor(cfg, self.spec, top_k=self.top_k,
                                  sync_interval=self.sync_interval,
                                  paged_kernel=self.paged_kernel,
@@ -643,29 +721,64 @@ class Engine:
         # two executables: each slot's prefill-sampled first token, on the
         # device until the drain fetches it with the chunk's history
         self._slot_first_tok: List[Optional[torch.Tensor]] = [None] * slots
+        # drains in a row without progress (the stall watchdog's count)
+        self._slot_stale: List[int] = [0] * slots
         # host-visible prefill cursor (trails the device's cache["len"] by
         # one drain) and the admission-time prompt length it counts toward
         self._slot_seen_len: List[int] = [0] * slots
         self._slot_plen: List[int] = [0] * slots
         self.cache = self.spec.init_paged_cache(self.device)
-        if isinstance(self.drafter, ModelDrafter):
+        if self.drafter is not None and self.drafter.kind == "model":
             self.cache["draft"] = self.drafter.init_cache(slots, self.device)
+        S = self.executor.chunk_rows
         self.state = sampling.make_slot_state(
             slots, self.device, max_len if self.chunked_prefill else 0,
-            hist_cap=self._hist_cap, spec=spec_cfg is not None)
+            hist_cap=self._hist_cap, spec=spec_cfg is not None,
+            prefill_budget=S if self.chunked_prefill else 0)
+        # host mirror of state["pbudget"]: the SLO boundary policy uploads
+        # a new vector only when the wanted one changes
+        self._budget_vec: Optional[List[int]] = (
+            [S] * slots if self.chunked_prefill else None)
+        self.budget_throttles = 0
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
-        self._clock = time.monotonic
+        self._clock = clock if clock is not None else time.monotonic
         self.finished: List[Request] = []
         self.rejected: List[Request] = []
         self.steps = 0          # micro-steps run
         self.host_syncs = 0
+        # chunk sequence number: one per drain, stamped on every drained
+        # token (Request.token_chunks), every admission (the admission
+        # log's 5th element) and every trace event at the boundary
         self.chunks = 0
         self.peak_live_slots = 0
         # the distinct prefill shape signatures run, keyed as the
         # reference keys its jit caches (see ``prefill_compiles``)
         self._shapes: Dict[str, set] = {"prefill": set(), "suffix": set()}
         self._warmed = False
+
+        # ---- robustness: preemption / deadlines / admission control
+        self.preemption = bool(preemption)
+        self.queue_limit = queue_limit
+        self.shed_policy = shed_policy
+        self.tracer = tracer
+        self.chaos = chaos
+        self.scheduler.chaos = chaos
+        if chaos is not None and self.tracer is not None:
+            chaos.on_event = self._chaos_event
+        if chaos is not None and chaos.p_stall > 0 and stall_patience <= 0:
+            stall_patience = 4   # a stall must end in watchdog recovery
+        self.stall_patience = int(stall_patience)
+        self.fault_counters: Dict[str, int] = {
+            "preemptions": 0, "pressure_preemptions": 0,
+            "chaos_preemptions": 0, "watchdog_preemptions": 0,
+            "resumes": 0, "timed_out": 0, "cancelled": 0,
+            "rejected": 0, "rejected_infeasible": 0,
+            "rejected_queue_full": 0, "rejected_shed_lower_class": 0,
+        }
+        # every preemption, in order: the victim's class and the classes
+        # of the other preemptable slots live at that instant
+        self.preemption_log: List[Dict[str, Any]] = []
 
     # ------------------------------------------------------ shape counters
     @property
@@ -745,13 +858,31 @@ class Engine:
         host-side stamps the drain puts on every request
         (``compute_latency_stats``), over every request this engine has
         seen: finished, rejected, running and queued.
-        ``budget_throttles`` is the SLO policy's count (ROADMAP A11); the
-        FIFO policy never throttles."""
+        ``budget_throttles`` counts the SLO policy's prefill-budget
+        throttles (fused engines; 0 elsewhere)."""
         reqs = (list(self.finished) + list(self.rejected)
                 + [r for r in self._slot_req if r is not None]
                 + list(self.scheduler.queue))
         stats = compute_latency_stats(reqs)
-        stats["budget_throttles"] = 0
+        stats["budget_throttles"] = self.budget_throttles
+        return stats
+
+    def fault_stats(self) -> Dict[str, Any]:
+        """Robustness telemetry: preemption / resume / timeout /
+        cancellation / rejection counters, the recovered-prefill fraction
+        of resumed admissions (replayed tokens that rode on radix pages
+        instead of being recomputed), and the chaos schedule's own event
+        counts when fault injection is active."""
+        sched = self.scheduler
+        stats: Dict[str, Any] = dict(self.fault_counters)
+        stats["resume_admissions"] = sched.resume_admissions
+        stats["resume_replayed_tokens"] = sched.resume_replayed_tokens
+        stats["resume_recovered_tokens"] = sched.resume_recovered_tokens
+        stats["recovered_prefill_fraction"] = (
+            sched.resume_recovered_tokens / sched.resume_replayed_tokens
+            if sched.resume_replayed_tokens else 0.0)
+        if self.chaos is not None:
+            stats["chaos"] = self.chaos.stats()
         return stats
 
     def leaked_pages(self) -> int:
@@ -772,12 +903,65 @@ class Engine:
             leaked += pool.in_use - len(accounted)
         return leaked
 
+    # ------------------------------------------------------ observability
+    def _trace(self, kind: str, rid: Optional[int] = None,
+               slot: Optional[int] = None, ts: Optional[float] = None,
+               **attrs: Any) -> None:
+        """Record one lifecycle event when tracing is on.  Host-only, at
+        chunk boundaries, with the boundary's clock read where one exists
+        (``ts``): the chunk stays sync-free and traced runs stay
+        token-identical."""
+        if self.tracer is None:
+            return
+        self.tracer.record(kind, self._clock() if ts is None else ts,
+                           rid=rid, slot=slot, **attrs)
+
+    def _chaos_event(self, fault: str, **attrs: Any) -> None:
+        slot = attrs.pop("slot", None)
+        self._trace("chaos", slot=slot, fault=fault, **attrs)
+
+    def observe(self, *, spec: bool = True) -> Dict[str, Any]:
+        """One flat snapshot of every stats surface under the stable
+        dotted names of ``serve/metrics`` (``pool.pages_in_use``,
+        ``sched.preemptions.pressure``, ``spec.acceptance``, ...).
+        ``spec=False`` skips the one device read behind
+        ``spec_stats``."""
+        return metrics_mod.snapshot(self, spec=spec)
+
+    def export_trace(self, path: Optional[str] = None) -> Dict[str, Any]:
+        """Chrome-trace / Perfetto JSON of the buffered lifecycle events
+        (per-slot tracks, per-request flow arrows across preempt/resume,
+        counter tracks for pool occupancy and queue depth), written to
+        ``path`` when given.  ``benchmarks/check_trace.py`` validates
+        it."""
+        if self.tracer is None:
+            raise ValueError("tracing is disabled; construct the Engine "
+                             "with trace=True (or a capacity / Tracer)")
+        obj = trace_mod.to_chrome_trace(self.tracer.events())
+        if path is not None:
+            with open(path, "w") as f:
+                json.dump(obj, f)
+        return obj
+
+    def explain(self, rid: int) -> str:
+        """Per-request text explain: the causal chain from submit to
+        terminal with per-phase durations, from the lifecycle trace."""
+        if self.tracer is None:
+            raise ValueError("tracing is disabled; construct the Engine "
+                             "with trace=True (or a capacity / Tracer)")
+        return trace_mod.explain(self.tracer.events(), rid)
+
     # ------------------------------------------------------------ serving
     def submit(self, req: Request) -> Optional[RequestRejected]:
-        """Enqueue a request; returns a typed rejection when its
-        worst-case page reservation can never fit the pool."""
-        if req.deadline is not None or req.ttl is not None:
-            raise _unsupported("request deadlines and TTLs", "A11")
+        """Enqueue a request, or shed it with a typed result.
+
+        Never raises ``PagePoolExhausted``: a request whose worst-case
+        reservation exceeds the pool's total budget gets an
+        ``"infeasible"`` ``RequestRejected``, and one arriving at a full
+        bounded queue is handled by ``shed_policy``.  A ``ttl`` resolves
+        to ``deadline = clock() + ttl`` here.  Returns ``None`` when the
+        request was accepted.  A request breaking the ``max_len``
+        contract still raises ``ValueError``: a caller bug, not load."""
         if not req.prompt:
             raise ValueError("the port serves non-empty prompts only")
         if len(req.prompt) + req.max_new_tokens > self.max_len and (
@@ -791,15 +975,85 @@ class Engine:
         try:
             self.scheduler.validate(req)
         except PagePoolExhausted as e:
-            req.status = RequestStatus.REJECTED
-            req.reject_reason = str(e)
-            req.done = True
-            self.rejected.append(req)
-            return RequestRejected(req=req, kind="infeasible", reason=str(e))
-        if req.submit_time is None:
-            req.submit_time = self._clock()
+            return self._reject(req, "infeasible", str(e))
+        if req.submit_time is None:       # TTFT clock starts here; a
+            req.submit_time = self._clock()   # resume keeps the original
+        if req.deadline is None and req.ttl is not None:
+            req.deadline = self._clock() + req.ttl
+        self._trace("submit", rid=req.rid, ts=req.submit_time,
+                    slo_class=req.slo_class, plen=len(req.prompt),
+                    max_new=req.max_new_tokens)
+        if self.queue_limit is not None \
+                and len(self.scheduler.queue) >= self.queue_limit:
+            shed = self._shed(req)
+            if shed is not None:
+                return shed
         self.scheduler.submit(req)
         return None
+
+    def _reject(self, req: Request, kind: str,
+                reason: str) -> RequestRejected:
+        req.status = RequestStatus.REJECTED
+        req.reject_reason = reason
+        req.done = True
+        if req.finish_time is None:
+            req.finish_time = self._clock()
+        self.fault_counters["rejected"] += 1
+        self.fault_counters[f"rejected_{kind}"] += 1
+        self.rejected.append(req)
+        self._trace("reject", rid=req.rid, ts=req.finish_time,
+                    why=kind, status=req.status)
+        return RequestRejected(req=req, kind=kind, reason=reason)
+
+    def _shed(self, req: Request) -> Optional[RequestRejected]:
+        """Apply the shed policy to a submission hitting a full queue.
+        Returns the rejection, or None once there is room."""
+        def room() -> bool:
+            return len(self.scheduler.queue) < self.queue_limit
+
+        if self.shed_policy == "block":
+            # submission backpressure: serve until the queue drains
+            # (bounded: every step finishes or reaps work)
+            for _ in range(100_000):
+                if room():
+                    return None
+                if not (self.scheduler.queue or self._live()):
+                    break
+                self.step()
+            if room():
+                return None
+        elif self.shed_policy == "evict-lru-prefix":
+            sched = self.scheduler
+            if sched.radix is not None:
+                pool = sched.pools[sched.share_key]
+                while sched.radix.evict_one(pool) is not None:
+                    sched.radix_evictions += 1
+            self._reap()
+            self._admit()
+            if room():
+                return None
+        elif self.shed_policy == "shed-lowest-class":
+            # drop the queued request of the strictly lowest-priority
+            # class (worst slack on ties) to make room for a more urgent
+            # arrival; when none ranks below the arrival, it sheds itself
+            now = self._clock()
+            queue = self.scheduler.queue
+            victim = max(
+                (r for r in queue if r.priority > req.priority),
+                key=lambda r: (r.priority, -r.ttft_slack(now)),
+                default=None)
+            if victim is not None:
+                queue.remove(victim)
+                self.fault_counters["rejected_shed_lower_class"] += 1
+                self._reject(
+                    victim, "queue_full",
+                    f"shed for higher-priority rid={req.rid} "
+                    f"({req.slo_class} over {victim.slo_class})")
+                return None
+        return self._reject(
+            req, "queue_full",
+            f"admission queue full ({self.queue_limit} waiting, "
+            f"shed_policy={self.shed_policy})")
 
     def warmup(self) -> None:
         """Run one inert prefill per bucket (two executables; results
@@ -856,7 +1110,7 @@ class Engine:
         arch has the suffix machinery (one full-attention pool group) and
         no model drafter (whose draft prefill has no suffix path)."""
         return (self.spec.prefix_sharing_capable
-                and not isinstance(self.drafter, ModelDrafter))
+                and (self.drafter is None or self.drafter.kind != "model"))
 
     def _bucketed(self, toks: List[int]):
         """(tokens [1, bucket] zero-padded, length [1]) on the device,
@@ -943,18 +1197,185 @@ class Engine:
         self._slot_first_tok[slot] = tok
 
     def _admit(self) -> None:
-        """Chunk-boundary admission: admit while the queue head fits,
-        otherwise wait (pool-pressure preemption is ROADMAP A11)."""
+        """Chunk-boundary admission with pool-pressure preemption: admit
+        while the queue head fits; when it does not but a slot is free
+        (pages, not slots, are the bottleneck), evict a victim
+        (``_pick_victim``) and retry.  Victims requeue at the back and
+        resume through the radix / suffix path; each carries a
+        ``max_preemptions`` cap, and at most ``slots`` evictions happen
+        per boundary, so admission cannot livelock."""
+        if self.chaos is not None and self._live() \
+                and self.chaos.deny_admission():
+            return   # injected admission-time exhaustion (delay, not loss)
+        self._do_admissions()
+        if not self.preemption:
+            return
+        guard = 0
+        while self.scheduler.queue and guard < self.slots \
+                and any(r is None for r in self._slot_req):
+            victim = self._pick_victim()
+            if victim is None:
+                return
+            guard += 1
+            qlen = len(self.scheduler.queue)
+            self._preempt_slot(victim, "pressure")
+            self._do_admissions()
+            if len(self.scheduler.queue) > qlen:
+                return   # eviction did not unblock the head; stop churning
+
+    def _pick_victim(self) -> Optional[int]:
+        """Victim policy: lowest SLO-class priority first, then fewest
+        tokens decoded (least work lost), then most radix-recoverable
+        pages (cheapest to resume), then lowest slot.  Slots at their
+        preemption cap are never picked."""
+        best, best_score = None, None
+        P = self.spec.page_size
+        for slot in range(self.slots):
+            req = self._slot_req[slot]
+            if req is None or req.preemptions >= req.max_preemptions:
+                continue
+            valid = len(req.effective_prompt) - (1 if req.out_tokens else 0)
+            recoverable = valid // P if self.scheduler.radix is not None \
+                else 0
+            score = (-req.priority, len(req.out_tokens), -recoverable,
+                     slot)
+            if best_score is None or score < best_score:
+                best, best_score = slot, score
+        return best
+
+    def _clear_slot(self, slot: int) -> None:
+        """Device and host teardown shared by preemption and reaping:
+        drop page references, trash the table rows, clear the active flag
+        so the next chunk's dead-tail steps neither sample nor write."""
+        self._slot_req[slot] = None
+        self._slot_first_tok[slot] = None
+        self._slot_stale[slot] = 0
+        self._slot_seen_len[slot] = 0
+        self._slot_plen[slot] = 0
+        if self.chaos is not None:
+            self.chaos.clear_stall(slot)
+        self.scheduler.release(slot)
+        self.executor.free_slot(self.cache, slot)
+        self.executor.deactivate(self.state, slot)
+
+    def _finish_terminal(self, req: Request, status: str) -> None:
+        req.status = status
+        req.done = True
+        if req.finish_time is None:
+            req.finish_time = self._clock()
+        if status == RequestStatus.TIMED_OUT:
+            self.fault_counters["timed_out"] += 1
+        elif status == RequestStatus.CANCELLED:
+            self.fault_counters["cancelled"] += 1
+        self.finished.append(req)
+        self._trace("finish", rid=req.rid, ts=req.finish_time,
+                    status=req.status, tokens=len(req.out_tokens))
+
+    def _evict_slot(self, slot: int, status: str) -> None:
+        req = self._slot_req[slot]
+        self._clear_slot(slot)
+        self._finish_terminal(req, status)
+
+    def _preempt_slot(self, slot: int, why: str) -> None:
+        """Evict a running slot and requeue its request for resumption:
+        its emitted tokens replay as prompt tail on re-admission, and its
+        written full pages are preserved in the radix index first, so the
+        resume recovers them as a prefix hit instead of recomputing."""
+        req = self._slot_req[slot]
+        if len(req.out_tokens) >= req.max_new_tokens or (
+                req.eos_id is not None and req.out_tokens
+                and req.out_tokens[-1] == int(req.eos_id)):
+            # everything was already drained (a stalled slot can hide its
+            # own finish): complete, don't resume an empty remainder
+            self._evict_slot(slot, RequestStatus.FINISHED)
+            return
+        req.preemptions += 1
+        self.fault_counters["preemptions"] += 1
+        self.fault_counters[f"{why}_preemptions"] += 1
+        self.preemption_log.append({
+            "rid": req.rid, "slo_class": req.slo_class, "why": why,
+            "candidate_classes": [
+                r.slo_class for s2, r in enumerate(self._slot_req)
+                if r is not None and s2 != slot
+                and r.preemptions < r.max_preemptions]})
+        self._trace("preempt", rid=req.rid, slot=slot, why=why,
+                    preemptions=req.preemptions)
+        upto = None
+        if self.chunked_prefill \
+                and self._slot_seen_len[slot] < self._slot_plen[slot]:
+            # preempted mid-prefill: only the pages the host has SEEN
+            # covered are certainly written (a chaos-stalled drain may
+            # trail the device); preserve exactly that prefix
+            upto = self._slot_seen_len[slot]
+        self.scheduler.preserve(slot, req, upto=upto)
+        self._clear_slot(slot)
+        self.scheduler.requeue(req)
+
+    def _reap(self) -> None:
+        """Chunk-boundary reaping of cancelled and deadline-expired
+        requests, queued or running: pages free at once, the typed
+        terminal status lands in ``finished``, and the same boundary's
+        admission pass can re-lease the freed slot."""
+        now = self._clock()
+
+        def dead(req: Request) -> bool:
+            return req.cancel_requested or (
+                req.deadline is not None and now > req.deadline)
+
+        for req in [r for r in self.scheduler.queue if dead(r)]:
+            self.scheduler.queue.remove(req)
+            self._trace("reap", rid=req.rid, ts=now,
+                        why="cancelled" if req.cancel_requested
+                        else "timed_out")
+            self._finish_terminal(
+                req, RequestStatus.CANCELLED if req.cancel_requested
+                else RequestStatus.TIMED_OUT)
+        for slot in range(self.slots):
+            req = self._slot_req[slot]
+            if req is None or not dead(req):
+                continue
+            self._trace("reap", rid=req.rid, slot=slot, ts=now,
+                        why="cancelled" if req.cancel_requested
+                        else "timed_out")
+            self._evict_slot(
+                slot, RequestStatus.CANCELLED if req.cancel_requested
+                else RequestStatus.TIMED_OUT)
+
+    def _do_admissions(self) -> None:
+        """One pass of admissions into the free slots.  Two executables:
+        each is prefilled and armed at once (``_admit_prefilled``); fused:
+        staged, then armed together by one ``Executor.admit``."""
         free = [i for i in range(self.slots) if self._slot_req[i] is None]
         entries: List[Dict] = []
+        # stamp this boundary's admissions with the current chunk id
         self.scheduler.current_chunk = self.chunks
-        for adm in self.scheduler.admissions(free, now=self._clock()):
+        now = self._clock()
+        for adm in self.scheduler.admissions(free, now=now):
+            req, slot = adm.req, adm.slot
+            prompt = req.effective_prompt   # resume: replay emitted tail
+            plen = len(prompt)
+            if self.tracer is not None:
+                resume = req.preemptions > 0
+                if adm.suffix_start > 0:
+                    self._trace("radix_hit", rid=req.rid, slot=slot,
+                                ts=now, matched_tokens=adm.suffix_start,
+                                resume=resume)
+                if adm.cow is not None:
+                    self._trace("cow", rid=req.rid, slot=slot, ts=now,
+                                src_page=adm.cow[1], dst_page=adm.cow[2])
+                if resume:
+                    self._trace("resume", rid=req.rid, slot=slot, ts=now,
+                                preemptions=req.preemptions)
+                self._trace("admit", rid=req.rid, slot=slot, ts=now,
+                            chunk=self.chunks,
+                            suffix_start=adm.suffix_start, plen=plen,
+                            resume=resume)
+            if req.preemptions > 0:
+                self.fault_counters["resumes"] += 1
+            self._slot_stale[slot] = 0
             if not self.chunked_prefill:
                 self._admit_prefilled(adm)
                 continue
-            req, slot = adm.req, adm.slot
-            prompt = req.effective_prompt
-            plen = len(prompt)
             if adm.cow is not None:
                 # the slot will write into a shared page: give it a
                 # private copy before the generator drops the source pin
@@ -977,6 +1398,35 @@ class Engine:
         self.peak_live_slots = max(
             self.peak_live_slots, sum(r is not None for r in self._slot_req))
 
+    def _update_prefill_budgets(self) -> None:
+        """``prefill_budget`` as a dynamic SLO knob, applied at the chunk
+        boundary: while an interactive request has blown its TTFT slack
+        and still waits on a first token, non-interactive slots' prompt
+        slices shrink to a quarter chunk (floor 1); full budgets return
+        once the pressure is gone.  A host-to-device copy of a value made
+        here, outside the chunk, and only when the vector changes: no
+        new shape, and nothing is read from the device."""
+        if not self.chunked_prefill or self.policy != "slo":
+            return
+        S = self.executor.chunk_rows
+        now = self._clock()
+
+        def urgent(r: Request) -> bool:
+            return (r.priority == 0 and r.first_token_time is None
+                    and r.ttft_slack(now) < 0.0)
+
+        pressure = any(urgent(r) for r in self.scheduler.queue) or any(
+            r is not None and urgent(r) for r in self._slot_req)
+        throttled = max(1, S // 4)
+        vec = [throttled if (pressure and r is not None
+                             and r.priority > 0) else S
+               for r in self._slot_req]
+        if vec != self._budget_vec:
+            if pressure:
+                self.budget_throttles += 1
+            self._budget_vec = vec
+            self.state["pbudget"] = host_to_device(vec, self.device)
+
     def step_chunk(self) -> torch.Tensor:
         """Launch one chunk.  No host synchronization: safe under
         ``torch.cuda.set_sync_debug_mode("error")``."""
@@ -991,7 +1441,9 @@ class Engine:
         prefill-sampled first tokens (two executables).  Each slot's new
         tokens are the non-negative entries of its history column;
         finished slots are evicted (page references dropped, table rows
-        trashed)."""
+        trashed).  A chaos-stalled slot reports nothing, and a slot that
+        reports no progress for ``stall_patience`` drains is preempted by
+        the watchdog."""
         n_tok = toks.numel()
         s = self.slots
         firsts = [i for i in range(s) if self._slot_first_tok[i] is not None]
@@ -1005,12 +1457,45 @@ class Engine:
         active = packed[n_tok + s:n_tok + 2 * s]
         cache_len = packed[n_tok + 2 * s:n_tok + 3 * s]
         first = dict(zip(firsts, packed[n_tok + 3 * s:].tolist()))
-        now = self._clock()
+        now = self._clock()     # one clock read stamps every token
         self.chunks += 1
+        if self.tracer is not None:
+            self._trace("chunk", ts=now, chunk=self.chunks,
+                        queue_depth=len(self.scheduler.queue),
+                        pages_in_use=self.scheduler.pages_in_use,
+                        live_slots=sum(r is not None
+                                       for r in self._slot_req))
+        watchdog: List[int] = []
         for slot in range(self.slots):
             req = self._slot_req[slot]
             if req is None:
                 continue
+            if self.chaos is not None and self.chaos.stalled(slot):
+                # injected straggler: the slot reported nothing this
+                # boundary.  Progress stalls host-side until the watchdog
+                # preempts it; tokens lost meanwhile regenerate on resume
+                self._slot_stale[slot] += 1
+                if self.stall_patience \
+                        and self._slot_stale[slot] >= self.stall_patience:
+                    watchdog.append(slot)
+                continue
+            progressed = False
+            if self.chunked_prefill:
+                plen0 = self._slot_plen[slot]
+                seen = min(int(cache_len[slot]), plen0)
+                if seen > self._slot_seen_len[slot]:
+                    progressed = True   # mid-prefill progress is no stall
+                    prev = self._slot_seen_len[slot]
+                    self._slot_seen_len[slot] = seen
+                    if prev < plen0:
+                        self._trace("prefill", rid=req.rid, slot=slot,
+                                    ts=now, seen=seen, plen=plen0,
+                                    chunk=self.chunks)
+                    if prev < plen0 <= seen:
+                        # prefill completed: every prompt page is now
+                        # written, so the prompt becomes visible to the
+                        # radix index
+                        self.scheduler.index_slot(slot, req, plen0)
             if slot in first:
                 # the prefill-sampled token, counted by out_len already
                 self._slot_first_tok[slot] = None
@@ -1019,15 +1504,6 @@ class Engine:
                 req.token_chunks.append(self.chunks)
                 if req.first_token_time is None:
                     req.first_token_time = now
-            plen0 = self._slot_plen[slot]
-            seen = min(int(cache_len[slot]), plen0)
-            if self.chunked_prefill and seen > self._slot_seen_len[slot]:
-                prev = self._slot_seen_len[slot]
-                self._slot_seen_len[slot] = seen
-                if prev < plen0 <= seen:
-                    # prefill completed: every prompt page is now written,
-                    # so the prompt becomes visible to the radix index
-                    self.scheduler.index_slot(slot, req, plen0)
             k = int(out_len[slot]) - len(req.out_tokens)
             if k > 0:
                 vals = [int(t) for t in toks_np[:, slot] if t >= 0]
@@ -1037,33 +1513,73 @@ class Engine:
                 req.out_tokens.extend(vals[-k:])
                 req.token_times.extend([now] * len(vals[-k:]))
                 req.token_chunks.extend([self.chunks] * len(vals[-k:]))
-                if req.first_token_time is None:
+                if req.first_token_time is None and req.token_times:
+                    # TTFT from the original submit time, across resumes
                     req.first_token_time = now
+                self._slot_stale[slot] = 0
+            elif self.stall_patience and not progressed:
+                self._slot_stale[slot] += 1
+                if self._slot_stale[slot] >= self.stall_patience:
+                    watchdog.append(slot)
+                    continue
             if not active[slot]:
                 req.status = RequestStatus.FINISHED
                 req.done = True
                 req.finish_time = now
                 self.finished.append(req)
+                self._trace("finish", rid=req.rid, slot=slot, ts=now,
+                            status=req.status, tokens=len(req.out_tokens))
                 self._slot_req[slot] = None
+                self._slot_stale[slot] = 0
                 self.scheduler.release(slot)
                 self.executor.free_slot(self.cache, slot)
+        for slot in watchdog:
+            # straggler recovery: treat the unresponsive slot as lost and
+            # resume its request from the last drained token
+            self._preempt_slot(slot, "watchdog")
 
     def _live(self) -> bool:
         return any(r is not None for r in self._slot_req)
 
-    def step(self) -> None:
-        """One admit + chunk + drain round (``sync_interval``
-        micro-steps)."""
+    def _boundary(self) -> bool:
+        """The host's work at a chunk boundary: reap cancelled and
+        expired requests, apply chaos (stalls, preemption storms; under
+        the SLO policy the class-aware victim rule picks who), admit with
+        pool-pressure preemption, set the SLO prefill budgets.  Returns
+        whether a slot is live, i.e. whether a chunk should run."""
+        self._reap()
+        if self.chaos is not None:
+            live = [i for i in range(self.slots)
+                    if self._slot_req[i] is not None]
+            self.chaos.tick(live)
+            for slot in self.chaos.storm_victims(live):
+                if self.policy == "slo":
+                    # chaos decides THAT a storm hits; under the SLO
+                    # policy the class-aware victim rule decides WHO
+                    picked = self._pick_victim()
+                    if picked is None:
+                        continue
+                    slot = picked
+                if self._slot_req[slot] is not None:
+                    self._preempt_slot(slot, "chaos")
         self._admit()
-        if not self._live():
-            if not self.scheduler.can_progress(0, now=self._clock()):
-                head = self.queue[0]
-                raise PagePoolExhausted(
-                    f"wedged: rid={head.rid} cannot be admitted "
-                    f"({self.scheduler.pool.free_pages} pages free) and no "
-                    "slot is live to release more")
-            return
-        self._drain(self.step_chunk())
+        self._update_prefill_budgets()
+        if self._live():
+            return True
+        if not self.scheduler.can_progress(0, now=self._clock()):
+            head = self.queue[0]
+            raise PagePoolExhausted(
+                f"wedged: rid={head.rid} cannot be admitted "
+                f"({self.scheduler.pool.free_pages} pages free) and no "
+                "slot is live to release more")
+        return False
+
+    def step(self) -> None:
+        """One boundary (``_boundary``), then one chunk and its drain
+        (``sync_interval`` micro-steps).  All policy runs on the host at
+        the boundary; the chunk itself stays free of host syncs."""
+        if self._boundary():
+            self._drain(self.step_chunk())
 
     def run(self, max_steps: int = 1000) -> List[Request]:
         while (self.queue or self._live()) and self.steps < max_steps:

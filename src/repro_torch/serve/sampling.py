@@ -59,7 +59,8 @@ def sample(logits: torch.Tensor, gen: torch.Generator, *,
 
 def make_slot_state(slots: int, device: torch.device,
                     prompt_cap: int = 0, *, hist_cap: int = 0,
-                    spec: bool = False) -> Dict[str, torch.Tensor]:
+                    spec: bool = False,
+                    prefill_budget: int = 0) -> Dict[str, torch.Tensor]:
     """Device-side per-slot bookkeeping of the serving chunks.
 
     tokens:  last token fed/emitted per slot (decode input)
@@ -74,6 +75,10 @@ def make_slot_state(slots: int, device: torch.device,
     fused chunk a budgeted slice at a time, and ``plen``, its length;
     the prefill cursor is the cache ``len``.  The two-executable engine
     prefills outside the chunk and passes 0, as the reference does.
+    ``prefill_budget > 0`` adds ``pbudget`` [slots], each slot's cap on
+    prompt tokens per fused micro-step (clamped into ``[1, S]`` by the
+    chunk), which the SLO policy lowers at chunk boundaries: a value,
+    never a shape.
 
     ``spec`` adds the speculative counters (0-d int32): ``spec_steps``
     (slot-steps that drafted), ``spec_drafted``, ``spec_accepted`` and
@@ -105,6 +110,9 @@ def make_slot_state(slots: int, device: torch.device,
         state["prompt"] = torch.zeros((slots, prompt_cap), dtype=torch.int32,
                                       device=device)
         state["plen"] = zi()
+    if prefill_budget:
+        state["pbudget"] = torch.full((slots,), prefill_budget,
+                                      dtype=torch.int32, device=device)
     return state
 
 

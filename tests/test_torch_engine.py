@@ -38,6 +38,18 @@ from repro_torch.models.module import params_from_numpy  # noqa: E402
 from repro_torch.serve import cache as tcache  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the reduced models'
+    ops are tiny, so one thread runs them as fast, and test processes
+    that share the cores do not spin against each other's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "internlm2-1.8b"
 REPO = Path(__file__).resolve().parents[1]
 PROMPTS = [[(7 * j + i) % 200 + 1 for j in range(3 + 9 * i)]
@@ -195,22 +207,98 @@ def test_engine_without_device_needs_cuda(models):
         Engine(cfg, tp)
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"chaos": object()}, "A11"),
-    ({"trace": True}, "A11"), ({"policy": "slo"}, "A11"),
-    ({"rules": object()}, "A14"),
-    ({"queue_limit": 4}, "A11"), ({"shed_policy": "block"}, "A11")])
+@pytest.mark.parametrize("kw,item", [({"rules": object()}, "A14")])
 def test_unported_arguments_raise(models, kw, item):
     cfg, tp, _jcfg, _jp = models
     with pytest.raises(NotImplementedError, match=item):
         Engine(cfg, tp, device="cpu", **kw)
 
 
+def _a11_run(eng, req_cls, what):
+    """One small workload through ``eng`` for the argument ``what``;
+    returns the observations the argument changes."""
+    classes = ["batch", "best_effort", "interactive"]
+    reqs = [req_cls(rid=i, prompt=list(p), max_new_tokens=6,
+                    slo_class=classes[i % 3])
+            for i, p in enumerate(PROMPTS)]
+    results = [eng.submit(r) for r in reqs]
+    eng.run(max_steps=50_000)
+    out = {"tokens": {r.rid: list(r.out_tokens) for r in reqs},
+           "status": {r.rid: r.status for r in reqs},
+           "rejected": [r is not None for r in results],
+           "fault_stats": eng.fault_stats(),
+           "admission_log": list(eng.scheduler.admission_log),
+           "leaked": eng.leaked_pages()}
+    if what == "trace":
+        out["fingerprint"] = eng.tracer.fingerprint()
+    return out
+
+
+@pytest.mark.parametrize("what,kw", [
+    ("chaos", {"num_pages": 24}),
+    ("trace", {"trace": True}),
+    ("policy", {"policy": "slo"}),
+    ("queue_limit", {"queue_limit": 2}),
+    ("shed_policy", {"queue_limit": 2, "shed_policy": "block"}),
+])
+def test_a11_arguments_match_reference(models, what, kw):
+    """Each robustness / SLO / tracing argument runs on the CPU and has
+    the reference engine's effect on the same traffic: equal tokens,
+    statuses, rejections, fault counters (chaos: the storm's), the
+    admission order and, traced, the event stream."""
+    from repro.serve.chaos import ChaosMonkey as JChaos
+    from repro_torch.serve.chaos import ChaosMonkey
+
+    cfg, tp, jcfg, jp = models
+    runs = {}
+    for side in ("torch", "jax"):
+        extra = dict(kw)
+        if what == "chaos":
+            extra["chaos"] = (ChaosMonkey if side == "torch" else JChaos)(
+                1, p_preempt=0.6, p_stall=0.2)
+        if side == "torch":
+            eng = Engine(cfg, tp, device="cpu", clock=lambda: 0.0,
+                         **ENGINE_KW, **extra)
+            runs[side] = _a11_run(eng, Request, what)
+        else:
+            eng = JEngine(jcfg, jp, clock=lambda: 0.0, **ENGINE_KW, **extra)
+            runs[side] = _a11_run(eng, JRequest, what)
+    got = runs["torch"]
+    assert got == runs["jax"]
+    assert got["leaked"] == 0
+    fs = got["fault_stats"]
+    if what == "chaos":
+        assert fs["chaos_preemptions"] >= 1
+        assert fs["chaos"]["stalls_started"] >= 1
+        assert all(len(t) == 6 for t in got["tokens"].values())
+    elif what == "trace":
+        assert "preempt" not in got["fingerprint"]
+        assert got["fingerprint"].count("|finish|") == len(PROMPTS)
+    elif what == "policy":
+        # rid 2 (interactive) jumps the queued batch / best_effort rids
+        order = [rid for _, rid, _, _, _ in got["admission_log"]]
+        assert order.index(2) < order.index(1)
+    elif what == "queue_limit":
+        # submitted before any step: two queue, three are shed
+        assert got["rejected"] == [False, False, True, True, True]
+        assert fs["rejected_queue_full"] == 3
+    else:
+        assert fs["rejected"] == 0 and not any(got["rejected"])
+        assert all(s == "FINISHED" for s in got["status"].values())
+
+
 def test_submit_contracts(models):
-    cfg, tp, _jcfg, _jp = models
-    eng = Engine(cfg, tp, slots=1, max_len=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        eng.submit(Request(rid=0, prompt=[1, 2], max_new_tokens=2, ttl=1.0))
+    from repro.serve.engine import Engine as JEng
+    cfg, tp, jcfg, jp = models
+    eng = Engine(cfg, tp, slots=1, max_len=32, device="cpu",
+                 clock=lambda: 7.0)
+    req = Request(rid=0, prompt=[1, 2], max_new_tokens=2, ttl=1.0)
+    assert eng.submit(req) is None
+    jreq = JRequest(rid=0, prompt=[1, 2], max_new_tokens=2, ttl=1.0)
+    JEng(jcfg, jp, slots=1, max_len=32, clock=lambda: 7.0).submit(jreq)
+    # a ttl resolves to an absolute deadline at submit, on the engine's
+    # clock, as the reference resolves it
+    assert req.deadline == jreq.deadline == 8.0
     with pytest.raises(ValueError, match="non-empty"):
         eng.submit(Request(rid=1, prompt=[], max_new_tokens=4))
     with pytest.raises(ValueError, match="max_len"):

@@ -6,11 +6,18 @@ trial each at small request counts.
   ``1 / sync_interval`` host syncs per step, clean teardown), and the
   token parity it records holds: the paged engines against each other
   and the dense ``ReferenceEngine``.
-* The record's keys equal the JAX record's (the last run of
-  ``BENCH_serve.json``), less what the module docstring names as left
-  out: the A11 and A15 workloads (``trace_*``, ``ft_*``, ``qp_*``), the
-  HLO checks, and fig04's keys merged into the same run (``slo_*``,
-  ``trep_*``).
+* ``fault_tolerance_comparison``: an oversubscribed pool preempts and
+  resumes with the uncontended run's tokens, the expired request is
+  reaped, nothing leaks; the traced twin of ``serve_engine_comparison``
+  is sync-free and its export validates with complete chains.
+* fig04's ``slo_scheduling_comparison`` and ``trace_report`` (the port's
+  ``benchmarks/fig04_scheduling.py``): token parity across the policies,
+  a deterministic trace and fingerprint, a valid export, zero leaks;
+  its ``main`` merges the record into the last run of the file.
+* The record's keys, fig14's and fig04's together, equal the JAX
+  record's (the last run of ``BENCH_serve.json``), less what the module
+  docstring names as left out: the A15 workload (``qp_*``) and the HLO
+  checks.
 * The dispatch trio, and so ``main``, raise without CUDA, naming the
   device, and write no record.
 """
@@ -22,13 +29,26 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.benchmarks import fig04_scheduling as fig04  # noqa: E402
 from repro_torch.benchmarks import fig14_dispatch_overhead as fig14  # noqa: E402,E501
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the reduced models'
+    ops are tiny, so one thread runs them as fast, and test processes
+    that share the cores do not spin against each other's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 HLO_KEYS = {"paged_kernel_gather_free", "gather_path_materializes_ring",
             "paged_kernel_peak_temp_bytes", "paged_gather_peak_temp_bytes",
             "cp_fused_gather_free"}
-LEFT_OUT_PREFIXES = ("trace_", "ft_", "qp_", "slo_", "trep_")
+LEFT_OUT_PREFIXES = ("qp_",)
 
 
 @pytest.fixture(scope="module")
@@ -41,6 +61,9 @@ def records():
         "spec": fig14.speculative_comparison(max_new=16, **kw),
         "cp": fig14.chunked_prefill_comparison(n_arrivals=2, prompt_len=40,
                                                **kw),
+        "ft": fig14.fault_tolerance_comparison(device="cpu"),
+        "slo": fig04.slo_scheduling_comparison(device="cpu"),
+        "trep": fig04.trace_report(device="cpu"),
     }
 
 
@@ -84,6 +107,43 @@ def test_workload_telemetry(records):
     for key in ("cp_fused_ttft_p50_s", "cp_fused_ttft_p99_s",
                 "cp_legacy_ttft_p50_s", "cp_legacy_ttft_p99_s"):
         assert cp[key] > 0
+
+
+def test_fault_tolerance_and_traced_twin(records):
+    ft, serve = records["ft"], records["serve"]
+    assert ft["ft_outputs_match"] is True
+    assert ft["ft_preemptions"] >= 1 and ft["ft_resumes"] >= 1
+    assert ft["ft_timed_out"] == 1 and ft["ft_leaked_pages"] == 0
+    assert ft["ft_goodput"] == 8 / 9
+    assert ft["ft_decode_sync_free"] is True
+    assert ft["ft_decode_compiles"] == 1
+    assert serve["trace_schema_valid"] is True
+    assert serve["trace_complete_chains"] is True
+    assert serve["trace_decode_sync_free"] is True
+    assert serve["trace_dropped"] == 0 and serve["trace_events"] > 0
+
+
+def test_fig04_slo_mix_and_trace_report(records, tmp_path):
+    slo, trep = records["slo"], records["trep"]
+    assert slo["slo_outputs_match"] is True
+    assert slo["slo_trace_deterministic"] is True
+    assert slo["slo_leaked_pages"] == slo["slo_fifo_leaked_pages"] == 0
+    assert slo["slo_decode_sync_free"] is True
+    assert slo["slo_decode_compiles"] == 1
+    assert slo["slo_interactive_ttft_p99"] \
+        <= slo["slo_fifo_interactive_ttft_p99"]
+    assert trep["trep_schema_valid"] is True
+    assert trep["trep_fingerprint_deterministic"] is True
+    assert trep["trep_dropped"] == 0 and trep["trep_preemptions"] >= 1
+    assert trep["trep_explain_ok"] is True
+    out = tmp_path / "bench.json"
+    out.write_text(json.dumps({"runs": [{"ts": 1.0, "speedup": 2.0}]}))
+    rec = fig04.main(["--slo-mix", "--device", "cpu", "--out", str(out)])
+    runs = json.loads(out.read_text())["runs"]
+    assert len(runs) == 1 and runs[0]["speedup"] == 2.0
+    assert runs[0]["slo_outputs_match"] == rec["slo_outputs_match"]
+    with pytest.raises(SystemExit):
+        fig04.main(["--device", "cpu", "--out", str(out)])
 
 
 def test_record_keys_match_reference_record(records):

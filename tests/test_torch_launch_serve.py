@@ -7,12 +7,16 @@ against the JAX launcher (``repro.launch.serve``) on the same weights.
   (with and without ``--warmup``) and ``--spec-draft ngram --spec-k 4``,
   and the port's shape counters equal the JAX engine's compile counts
   (prefill, suffix, decode, admission) on that traffic.
-* Each flag of ROADMAP A11 parses and then raises, naming A11.
+* Each robustness / SLO / tracing flag (``--chaos``, ``--queue-limit``,
+  ``--shed-policy``, ``--ttl``, ``--policy slo``, ``--traffic``,
+  ``--trace``) runs to the end and prints the JAX launcher's summary
+  lines for it, and its ``req i:`` lines.
 * ``--no-smoke`` selects the unreduced config (no weights built here);
   the default serves the reduced one.
 * ``--slo-class`` prints the per-class TTFT/TPOT lines.
 """
 
+import json
 import re
 import sys
 
@@ -34,6 +38,18 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.module import params_from_numpy  # noqa: E402
 import repro_torch.serve.engine as engine_mod  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the reduced models'
+    ops are tiny, so one thread runs them as fast, and test processes
+    that share the cores do not spin against each other's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ARCH = "internlm2-1.8b"
 FLAG_SETS = {
@@ -101,20 +117,55 @@ def test_launcher_matches_jax_launcher(name, monkeypatch, capsys):
     assert ("warmup:" in got) == ("--warmup" in flags)
 
 
-@pytest.mark.parametrize("flags,what", [
-    (["--chaos", "1"], "fault injection"),
-    (["--queue-limit", "4"], "queue limits"),
-    (["--shed-policy", "block"], "shed policies"),
-    (["--ttl", "5"], "deadlines"),
-    (["--policy", "slo"], "policy='slo'"),
-    (["--traffic", "poisson:1"], "traffic"),
-    (["--trace", "out.json"], "tracing"),
-])
-def test_a11_flags_raise_naming_a11(flags, what):
+A11_FLAGS = {
+    "chaos": (["--chaos", "1"], ("faults:", "chaos[seed=1]:",
+                                 "chaos: clean drain")),
+    "queue_limit": (["--queue-limit", "4"], ("faults:",)),
+    "shed_policy": (["--queue-limit", "2", "--shed-policy", "block"],
+                    ("faults:",)),
+    "ttl": (["--ttl", "600"], ("faults:",)),
+    "policy": (["--policy", "slo"], ("slo overall:",)),
+    "traffic": (["--traffic", "poisson:1"], ("traffic[poisson:1]:",
+                                             "slo[", "slo overall:",
+                                             "faults:")),
+    "trace": (["--trace", "TRACE"], ("trace:",)),
+}
+
+
+def _lines(text, prefix):
+    return [ln.split(" -> ")[0] if prefix == "trace:" else ln
+            for ln in text.splitlines() if ln.startswith(prefix)]
+
+
+@pytest.mark.parametrize("name", list(A11_FLAGS))
+def test_a11_flags_match_jax_launcher(name, monkeypatch, capsys, tmp_path):
+    """Each robustness / SLO / tracing flag runs to the end on the CPU
+    and prints the reference launcher's summary line for it, on the same
+    weights: the ``req i:`` lines and the flag's lines equal (the
+    ``--policy slo`` line up to its measured latencies)."""
+    from repro_torch.benchmarks.check_trace import validate
+
+    flags, prefixes = A11_FLAGS[name]
+    path = tmp_path / "trace.json"
+    flags = [str(path) if f == "TRACE" else f for f in flags]
+    monkeypatch.setattr(sys, "argv", ["serve"] + flags)
+    jax_launch.main()
+    want = capsys.readouterr().out
+    want_trace = json.loads(path.read_text()) if name == "trace" else None
+
     args = serve.parse_args(flags + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A11") as err:
-        serve.run(serve.build_engine(args, params=_bridged()), args)
-    assert what in str(err.value)
+    serve.run(serve.build_engine(args, params=_bridged()), args)
+    got = capsys.readouterr().out
+
+    assert _req_lines(got) == _req_lines(want) and _req_lines(got)
+    for prefix in prefixes:
+        assert _lines(got, prefix) == _lines(want, prefix), prefix
+        assert _lines(got, prefix), prefix
+    assert any(ln.startswith("faults:") for ln in got.splitlines())
+    if name == "trace":
+        obj = json.loads(path.read_text())
+        assert validate(obj) == [] and validate(want_trace) == []
+        assert len(obj["traceEvents"]) == len(want_trace["traceEvents"])
 
 
 def test_no_smoke_selects_the_unreduced_config(monkeypatch):
