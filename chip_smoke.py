@@ -18,9 +18,12 @@ full-depth gemma2-2b at max_len 8192 with a
 window ring that wraps, full-width, full-depth zamba2-7b (Mamba2 + shared
 attention) and rwkv6-7b (attention-free) through the two-executable
 engine, then full-width dbrx-132b (MoE, depth cut to 4 layers) from
-fp32 pools — and the paper's §5 operator study (fig09 and fig11, the
-fused-prep matmul), and holds every CUDA kernel on them against its
-plain PyTorch version.  Phases, each printing JSON lines:
+fp32 pools, then the last four archs one at a time (whisper-medium's
+encoder and cross-attention, gemma3-12b, mistral-large-123b cut to 8
+layers, pixtral-12b's patch frontend) — and the paper's §5 operator
+study (fig09 and fig11, the fused-prep matmul), and holds every CUDA
+kernel on them against its plain PyTorch version.  Phases, each
+printing JSON lines:
 
 1. device: the card's name and power limit (as nvidia-smi reports them),
    torch and CUDA versions; TF32 off.
@@ -35,7 +38,9 @@ plain PyTorch version.  Phases, each printing JSON lines:
    either side of the tile/GEMV boundary, dh 36) and at the
    speculative verify shapes (internlm2 S = 5; gemma2 dh 256 with
    window 4096 and softcap 50 on wrapped rings at S = 1, 5 and 32,
-   their launches from the engine phases below) (max abs error <=
+   their launches from the engine phases below), at mistral-large's G =
+   12 (S = 1, GEMV; S = 32, tile) and on gemma3's wrapped 1024-window
+   rings at dh 256 (S = 1, S = 32) (max abs error <=
    1e-4), timed with CUDA events beside its plain version, one library
    call as a yardstick (never used by the port) and its bound on this
    card: bytes at 3.35 TB/s against the products at 495 TFLOP/s times
@@ -55,10 +60,16 @@ plain PyTorch version.  Phases, each printing JSON lines:
    softcap, non-causal Sq != Skv, GQA 8:1, dh 16/32/64/256, odd lengths,
    B = 2, zamba2's dh 112 with H = Hkv = 32, a window starting mid-tile,
    one query row, causal Sq < Skv, three batches of ragged tiles, dh 112
-   with GQA and a window), same gates (bf16 per query row, against the
-   row's own max|want|); the main shapes and zamba2's timed beside the
-   plain version, ``scaled_dot_product_attention`` (a yardstick) and the
-   bound (3 TF32 products per fp32 product on the tensor cores).  The
+   with GQA and a window) and at the last four archs' calls (whisper's
+   non-causal encoder, B 8 x 1500 frames at dh 64, and its
+   cross-attention of 16 rows and of one row against them; gemma3's dh
+   256 window 1024 at S = 1500 and 2048; mistral-large's 96:8 heads at S
+   = 1024; pixtral's at 2048), same gates (bf16 per query row, against
+   the row's own max|want|); the main shapes, zamba2's and the last four
+   archs' timed beside the plain version,
+   ``scaled_dot_product_attention`` (a yardstick: causal, non-causal or
+   with the window's band as a mask) and the bound (3 TF32 products per
+   fp32 product on the tensor cores).  The
    paged kernel also runs zamba2's S = 1 decode shape (dh 112, window
    4096).  Then the ``mamba2_scan``
    kernel on the reference's three test cases, S = 1000, an initial
@@ -261,13 +272,38 @@ plain PyTorch version.  Phases, each printing JSON lines:
    gate/up and the down product, by ``cuda_ms`` and by its device time,
    beside the plain version, ``torch.bmm`` and the bound (3 TF32 products
    per fp32 product on the tensor cores; the fp32-core bound beside it).
+7. The last four archs, each built from seed 0 and freed before the
+   next, each printing its peak device memory.  whisper-medium at full
+   width and depth (24 + 24 layers; ~4 GB of fp32 weights): 8 rows of
+   seeded stub frames [8, 1500, 1024] x 0.1 and 16-token prompts through
+   ``forward_prefill``, ``prepare_decode_cache(max_len=80)`` and 48
+   greedy ``forward_decode`` steps: flash launches exactly 24 (encoder)
+   + 24 (decoder) + 24 (cross prefill) + 24 x 48 (cross decode), no
+   paged launch, every step's logits within 1e-3 x max|logit| of
+   ``forward_dense_logits`` over prompt + generated tokens (its own 72
+   launches).  gemma3-12b with nothing cut (48 layers, ~47 GB) at
+   ``max_len`` 4096: a 1500-token prompt (its 1024-window rings wrap)
+   beside 7 of the main traffic's; mistral-large-123b, every width kept,
+   depth 88 -> 8 (~47.5 GB): the main traffic.  Each fused and on two
+   executables, each through the paged kernel and the gather path:
+   greedy tokens equal between the two, every kernel-path token
+   teacher-forced, 0 leaked pages, paged launches == layers x
+   micro-steps (0 on the gather path), flash launches == layers x full
+   prefills (0 fused); mistral also prefix hits with CoW.  pixtral-12b
+   with nothing cut (40 layers, ~49 GB): 8 prompts of 1100-1800 tokens
+   through ``Engine(max_len=2048)``, whose ``"auto"`` must pick two
+   executables (the engine's gates, no prefix hit), and through
+   ``ReferenceEngine`` (flash == 40 x 8 prefills, no paged launch):
+   tokens equal, or else both runs teacher-forced; the engine's tokens
+   teacher-forced with the zero frontend.
 
 The last three lines are the card's name and power limit (again), the
 kernel table (paged attention per pool dtype, with its S = 1 rows under
 ``by_case``, ``moe_gmm``,
-``flash_attention`` at dh 128 and at zamba2's dh 112, ``mamba2_scan``,
-``rwkv6_wkv``, ``fused_matmul`` at fig11's n = 1024 with its launches
-in fig11) and ``{"ok": true, "device": ...}``.
+``flash_attention`` at dh 128, at zamba2's dh 112, at whisper's
+encoder and at gemma3's dh 256 window, ``mamba2_scan``, ``rwkv6_wkv``,
+``fused_matmul`` at fig11's n = 1024 with its launches in fig11) and
+``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before them.  Without a CUDA device, or
 without the repository's ``src/`` beside it, it exits non-zero at once.
 """
@@ -354,6 +390,27 @@ FLASH_CASES = [
 FLASH_CASES.append(("zamba2_dh112_s1024",
                     dict(B=1, H=32, Hkv=32, dh=112, Sq=1024, Skv=1024),
                     {"window": 4096}))
+# the last four archs' calls on their main paths, each timed: whisper's
+# encoder (8 rows of 1500 frames, non-causal, dh 64) and its
+# cross-attention of a 16-token prompt and of one decode row against the
+# 1500 encoder positions; gemma3's local layers (dh 256, window 1024) at
+# the 1500-token prompt's own length and in its 2048 bucket;
+# mistral-large's prefill (GQA 96:8) in the 1024 bucket; pixtral's in the
+# 2048 bucket
+WHISPER = dict(B=8, H=16, Hkv=16, dh=64, Skv=1500)
+FLASH_CASES += [
+    ("whisper_enc", dict(WHISPER, Sq=1500), {"causal": False}),
+    ("whisper_cross_prefill", dict(WHISPER, Sq=16), {"causal": False}),
+    ("whisper_cross_decode", dict(WHISPER, Sq=1), {"causal": False}),
+    ("gemma3_dh256_w1024_s1500",
+     dict(B=1, H=16, Hkv=8, dh=256, Sq=1500, Skv=1500), {"window": 1024}),
+    ("gemma3_dh256_w1024_s2048",
+     dict(B=1, H=16, Hkv=8, dh=256, Sq=2048, Skv=2048), {"window": 1024}),
+    ("mistral_g12_s1024",
+     dict(B=1, H=96, Hkv=8, dh=128, Sq=1024, Skv=1024), {}),
+    ("pixtral_s2048", dict(B=1, H=32, Hkv=8, dh=128, Sq=2048, Skv=2048), {}),
+]
+FLASH_TIMED = ("main", "zamba2", "whisper", "gemma3", "mistral", "pixtral")
 # mamba2_scan cases: name, shape, layout, h0, decay.  "kernel": the Pallas
 # layout (x [BH,S,P], b/c [BH,S,N]); "model": the model's (x [B,S,H,P],
 # b/c [B,S,N] column slices of one [B,S,2N] tensor, shared by the H
@@ -491,6 +548,9 @@ SPLICE_PROMPT_LENS = (100, 600, 900)
 TF_TOL = 1e-3
 GEMMA2_MAX_LEN = 8192   # gemma2's 4096 windows wrap within it
 GEMMA2_LONG = 4600      # the long prompt: wider than the window
+GEMMA3_MAX_LEN = 4096
+GEMMA3_LONG = 1500      # wider than gemma3's 1024 windows
+MISTRAL_DEPTH = 8       # of 88 layers: ~47.5 GB of fp32 weights
 
 
 class SmokeFailure(Exception):
@@ -641,6 +701,8 @@ def phase_kernels(torch, ops, quantize, kv_pool_dtype):
     gemma2 = dict(B=8, H=8, Hkv=4, dh=256, P=16, window=4096, softcap=50.0)
     lens_g2 = [8192, 4700, 4129, 6000, 4097, 700, 300, 40]
     fig14 = dict(B=4, H=4, Hkv=2, dh=16, P=8)
+    gemma3 = dict(B=8, H=16, Hkv=8, dh=256, P=16, window=1024)
+    lens_g3 = [1532, 1100, 1025, 700, 333, 200, 97, 40]
     cases = [
         ("main_s32", dict(main, S=32, lens=lens32)),
         ("main_s1", dict(main, S=1, lens=lens32)),
@@ -716,6 +778,16 @@ def phase_kernels(torch, ops, quantize, kv_pool_dtype):
                                       lens=[260, 120, 37, 5])),
         ("fig14_dh16_fused_s4", dict(fig14, S=4, nb=33,
                                      lens=[259, 120, 37, 2])),
+        # mistral-large: G = 96 / 8 = 12 query heads per kv head; S = 1
+        # decode is 12 rows per kv head (the GEMV path), the fused
+        # chunk's S = 32 is 384 (six tiles of the tile path)
+        ("mistral_g12_s1", dict(main, H=96, S=1, lens=lens32)),
+        ("mistral_g12_s32", dict(main, H=96, S=32, lens=lens32)),
+        # gemma3's local layers (dh 256, window 1024) at max_len 4096:
+        # two-executable decode on a 64-page ring and the fused chunk on
+        # a 66-page one (31 tokens of slack), both wrapped
+        ("gemma3_s1_wrap", dict(gemma3, S=1, nb=64, lens=lens_g3)),
+        ("gemma3_fused_s32_wrap", dict(gemma3, S=32, nb=66, lens=lens_g3)),
     ]
     worst = {kv: 0.0 for kv in KV_DTYPES}
     rows = {kv: {} for kv in KV_DTYPES}
@@ -749,7 +821,8 @@ def phase_kernels(torch, ops, quantize, kv_pool_dtype):
                             "position are not 0")
             check(err <= KERNEL_TOL,
                   f"{kv_dtype} {name}: max abs err {err} > {KERNEL_TOL}")
-            if name.startswith(("main", "zamba2", "verify", "gemma2")):
+            if name.startswith(("main", "zamba2", "verify", "gemma2",
+                                "mistral", "gemma3")):
                 nbytes, flops = paged_need(torch, case)
                 # S*G >= 16 rows run on the tensor cores (3 TF32 products
                 # per fp32 product, 2 on 8-bit pools), fewer on CUDA cores
@@ -926,16 +999,27 @@ def flash_need(B, H, Hkv, Sq, Skv, dh, causal=True, window=None, **_kw):
     return nbytes, 4 * B * H * live * dh, live
 
 
-def flash_sdpa_ms(torch, q, k, v, flush) -> float:
+def flash_sdpa_ms(torch, q, k, v, flush, causal=True, window=None,
+                  **_kw) -> float:
     """Yardstick only (the port never calls it): PyTorch's
-    ``scaled_dot_product_attention`` with ``is_causal`` on the same fp32
-    inputs, kv heads repeated to H outside the timed call."""
+    ``scaled_dot_product_attention`` on the same fp32 inputs, kv heads
+    repeated to H outside the timed call: ``is_causal`` for a causal
+    call, no mask for a non-causal one, and a window's band as a boolean
+    mask built outside the timed call."""
     import torch.nn.functional as F
     g = q.shape[1] // k.shape[1]
     kr = k.repeat_interleave(g, dim=1).contiguous()
     vr = v.repeat_interleave(g, dim=1).contiguous()
+    if window is not None:
+        rows = torch.arange(q.shape[2], device=q.device)[:, None]
+        cols = torch.arange(k.shape[2], device=q.device)[None, :]
+        band = cols > rows - window
+        if causal:
+            band &= cols <= rows
+        return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, kr, vr, attn_mask=band), flush=flush)
     return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, kr, vr, is_causal=True), flush=flush)
+        q, kr, vr, is_causal=causal), flush=flush)
 
 
 def phase_flash_kernels(torch, fa):
@@ -972,14 +1056,15 @@ def phase_flash_kernels(torch, fa):
                 worst["fp32"] = max(worst["fp32"], err)
                 check(err <= KERNEL_TOL, f"flash {name} fp32: max abs err "
                                          f"{err} > {KERNEL_TOL}")
-                if name.startswith(("main", "zamba2")):
+                if name.startswith(FLASH_TIMED):
                     nbytes, flops, live = flash_need(**shape, **opts)
                     rec.update(
                         ms=cuda_ms(torch, lambda: fa.flash_attention(
                             q, k, v, **opts), flush=flush),
                         plain_ms=cuda_ms(torch, lambda: fa.flash_attention_ref(
                             q, k, v, **opts), flush=flush),
-                        library_ms=flash_sdpa_ms(torch, q, k, v, flush),
+                        library_ms=flash_sdpa_ms(torch, q, k, v, flush,
+                                                 **opts),
                         bytes=nbytes, flops=flops, live_scores=live,
                         **bounds(nbytes, flops, 3))   # fp32: 3xTF32
                     roofline(rec, f"flash {name}")
@@ -1974,7 +2059,8 @@ def phase_segments(torch, rt, cfg, params, single):
 
 def teacher_forced_check(torch, rt, cfg, params, reqs, what: str) -> dict:
     """Each emitted token against ``prefill_hidden`` over its request's
-    prompt and emitted tokens (bucket-padded, through the flash kernel):
+    prompt and emitted tokens (bucket-padded, through the flash kernel;
+    a patch-frontend arch with the engines' zero stub embeddings):
     it must be the argmax of the logits before it, or lie within
     ``TF_TOL`` x max|logit| of their top (a near-tie that another
     summation order may flip).  Returns the counts; fails on any other
@@ -1989,8 +2075,12 @@ def teacher_forced_check(torch, rt, cfg, params, reqs, what: str) -> dict:
         bucket = max(8, 1 << (len(seq) - 1).bit_length())
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :len(seq)] = seq
+        batch = {"tokens": torch.tensor(padded, device=DEV)}
+        if cfg.frontend:      # the engines' stub: zero patch embeddings
+            batch["frontend"] = torch.zeros(
+                (1, cfg.frontend_len, cfg.d_model), device=DEV)
         h, _ = rt["prefill_hidden"](
-            params, cfg, {"tokens": torch.tensor(padded, device=DEV)},
+            params, cfg, batch,
             length=torch.tensor([len(seq)], dtype=torch.int32, device=DEV))
         rows = h[0, plen - 1:plen - 1 + n]     # the rows before each token
         logits = rt["logits"](params["embed"], cfg, rows)
@@ -3684,6 +3774,337 @@ def phase_dbrx(torch, ops, gmm, rt, cfg):
     return launches, gmm_launches, timed
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the last four archs (whisper-medium, gemma3-12b,
+# mistral-large-123b, pixtral-12b)
+# ---------------------------------------------------------------------------
+
+def new_params(torch, rt, cfg, **extra):
+    """Seed-0 weights on the card for ``cfg``; emits their size."""
+    t0 = time.time()
+    params = rt["init_params"](rt["model_defs"](cfg), 0, device=DEV)
+    torch.cuda.synchronize()
+    emit("params", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         heads=[cfg.num_heads, cfg.num_kv_heads],
+         head_dim=cfg.resolved_head_dim,
+         params=sum(p.numel() for p in params.parameters()),
+         param_bytes=sum(p.numel() * p.element_size()
+                         for p in params.parameters()),
+         seconds=time.time() - t0, **extra)
+    return params
+
+
+def free(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_whisper(torch, ops, fa, rt) -> dict:
+    """whisper-medium at full width and depth (24 encoder + 24 decoder
+    layers, d 1024, 16 heads of 64): 8 rows of seeded stub frames [8,
+    1500, 1024] x 0.1 and 16-token prompts through ``forward_prefill``
+    (the encoder's non-causal flash over the frames, each decoder
+    layer's cross-attention KV), ``prepare_decode_cache(max_len=80)`` and
+    48 greedy ``forward_decode`` steps, each cross-attending through the
+    flash kernel (Sq = 1 against 1500).  Gates: flash launches exactly
+    24 (encoder) + 24 (decoder prefill) + 24 (cross prefill) + 24 x 48
+    (cross decode) and no paged launch; every step's logits against
+    ``forward_dense_logits`` over prompt + generated tokens (its own 72
+    launches), within ``TF_TOL`` x max|logit| of that position."""
+    cfg = rt["get_config"]("whisper-medium")
+    B, plen, steps, max_len = 8, 16, 48, 80
+    torch.cuda.reset_peak_memory_stats()
+    params = new_params(torch, rt, cfg, enc_layers=cfg.enc_layers,
+                        frames=cfg.frontend_len)
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    frames = torch.randn(B, cfg.frontend_len, cfg.d_model, generator=gen,
+                         device=DEV).mul_(0.1)
+    prompts = torch.randint(1, cfg.vocab_size, (B, plen), generator=gen,
+                            device=DEV, dtype=torch.int32)
+    zero_launches([ops, fa])
+    t0 = time.time()
+    logits, cache = rt["forward_prefill"](
+        params, cfg, {"tokens": prompts, "frames": frames})
+    cache = rt["prepare_decode_cache"](cfg, cache, max_len)
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    prefill_flash = fa.launches
+    outs, toks = [logits], [logits.argmax(-1).to(torch.int32)]
+    t0 = time.time()
+    for _ in range(steps):
+        logits, cache = rt["forward_decode"](params, cfg, toks[-1][:, None],
+                                             cache)
+        outs.append(logits)
+        toks.append(logits.argmax(-1).to(torch.int32))
+    torch.cuda.synchronize()
+    decode_s = time.time() - t0
+    flash, paged = fa.launches, ops.launches
+    L = cfg.num_layers
+    want_flash = cfg.enc_layers + L + L + L * steps
+    seq = torch.cat([prompts, torch.stack(toks[:steps], dim=1)], dim=1)
+    fa.launches = 0
+    dense = rt["forward_dense_logits"](params, cfg,
+                                       {"tokens": seq, "frames": frames})
+    torch.cuda.synchronize()
+    dense_flash = fa.launches
+    worst = 0.0
+    for j, got in enumerate(outs):
+        want = dense[:, plen - 1 + j]
+        rel = float((got - want).abs().max() / want.abs().max())
+        worst = max(worst, rel)
+    rec = {"arch": cfg.name, "rows": B, "prompt_len": plen,
+           "decode_steps": steps, "max_len": max_len,
+           "prefill_s": prefill_s, "decode_s": decode_s,
+           "ms_per_decode_step": decode_s / steps * 1e3,
+           "flash_attention_launches": flash,
+           "flash_attention_launches_prefill": prefill_flash,
+           "flash_attention_launches_expected": want_flash,
+           "flash_attention_launches_dense": dense_flash,
+           "paged_attention_launches": paged,
+           "worst_relative_logit_diff": worst, "tol": TF_TOL,
+           "dense_argmax_equal": bool(
+               (dense[:, plen - 1:].argmax(-1)
+                == torch.stack(toks, dim=1)).all()),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit("whisper", **rec)
+    check(bool(torch.isfinite(dense).all())
+          and all(bool(torch.isfinite(o).all()) for o in outs),
+          "whisper: non-finite logits")
+    check(flash == want_flash, f"whisper: flash launches {flash} != "
+                               f"{want_flash}")
+    check(dense_flash == cfg.enc_layers + 2 * L,
+          f"whisper: the dense pass launched flash {dense_flash} times")
+    check(paged == 0, "whisper: the paged kernel ran")
+    check(worst <= TF_TOL, f"whisper: decode logits differ from the dense "
+                           f"pass by {worst} x max|logit|")
+    del params, cache, dense, outs, frames
+    free(torch)
+    return rec
+
+
+def serve_arch(torch, ops, fa, rt, cfg, params, reqs, *, max_len: int,
+               fused: bool, kernel: bool, what: str) -> dict:
+    """Serve ``reqs`` on one engine (8 slots, page 16, fp32 pools) with
+    every count zeroed just before and read just after.  Gates: every
+    request's budget emitted, 0 leaked pages; paged launches == layers x
+    micro-steps on the kernel path and 0 on the gather path; flash
+    launches == layers x full prefills on two executables, 0 fused."""
+    eng = rt["Engine"](cfg, params, slots=8, max_len=max_len, page_size=16,
+                       chunked_prefill=fused, paged_kernel=kernel,
+                       device=DEV)
+    check(eng.chunked_prefill == fused and eng.paged_kernel == kernel,
+          f"{what}: engine mode")
+    path = ("fused" if fused else "legacy") + (
+        "_kernel" if kernel else "_gather")
+    prefills = count_prefills(eng)
+    steps0 = eng.steps
+    zero_launches([ops, fa])
+    torch.cuda.reset_peak_memory_stats()
+    for r in reqs:
+        check(eng.submit(r) is None, f"{what} rid {r.rid} rejected")
+    t0 = time.time()
+    while eng.queue or eng._live():
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    micro = eng.steps - steps0
+    paged, flash, n_prefill = ops.launches, fa.launches, prefills["n"]
+    L = cfg.num_layers
+    gen = sum(len(r.out_tokens) for r in reqs)
+    stats = eng.memory_stats()
+    rec = {"arch": cfg.name, "path": path, "requests": len(reqs),
+           "prompt_tokens": sum(len(r.prompt) for r in reqs),
+           "micro_steps": micro, "chunks": eng.chunks,
+           "full_prefills": n_prefill, "paged_attention_launches": paged,
+           "flash_attention_launches": flash, "wall_s": wall,
+           "generated_tokens": gen, "generated_tokens_per_s": gen / wall,
+           "ms_per_micro_step": wall / micro * 1e3,
+           "pool_bytes": stats["paged_kv_bytes"],
+           "pool_groups": {g.key: {"ring_blocks": g.ring_blocks,
+                                   "num_pages": g.num_pages,
+                                   "windowed": g.windowed}
+                           for g in eng.spec.groups},
+           "prefix_stats": eng.prefix_stats(),
+           "leaked_pages": eng.leaked_pages(),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit(f"{what}_engine", **rec)
+    for r in reqs:
+        check(r.done and len(r.out_tokens) == r.max_new_tokens,
+              f"{what} {path} rid {r.rid}: {len(r.out_tokens)} tokens")
+    check(eng.leaked_pages() == 0, f"{what} {path}: leaked pages")
+    want_paged = L * micro if kernel else 0
+    check(paged == want_paged and ops.launches_by_dtype["fp32"] == paged,
+          f"{what} {path}: paged launches {paged} != {want_paged}")
+    want_flash = 0 if fused else L * n_prefill
+    check((fused or n_prefill > 0) and flash == want_flash,
+          f"{what} {path}: flash launches {flash} != {L} x {n_prefill}")
+    rec["tokens"] = {r.rid: list(r.out_tokens) for r in reqs}
+    rec["reqs"] = reqs
+    del eng
+    free(torch)
+    return rec
+
+
+def serve_four_ways(torch, ops, fa, rt, cfg, params, make_reqs, *,
+                    max_len: int, what: str) -> dict:
+    """Fused and two executables, each through the paged kernel and the
+    gather path: greedy tokens equal between the two reads of each mode,
+    the kernel runs' tokens teacher-forced.  Returns the kernel runs by
+    mode."""
+    runs = {}
+    for fused in (True, False):
+        mode = "fused" if fused else "legacy"
+        got, want = (serve_arch(torch, ops, fa, rt, cfg, params, make_reqs(),
+                                max_len=max_len, fused=fused, kernel=kernel,
+                                what=what)
+                     for kernel in (True, False))
+        emit(f"{what}_kernel_vs_gather", path=mode,
+             tokens=sum(len(v) for v in want["tokens"].values()),
+             tokens_equal=same_tokens(want["tokens"], got["tokens"]))
+        check(got["tokens"] == want["tokens"],
+              f"{what} {mode}: kernel and gather tokens differ")
+        teacher_forced_check(torch, rt, cfg, params, got["reqs"],
+                             f"{what}_{mode}")
+        runs[mode] = got
+    return runs
+
+
+def phase_gemma3(torch, ops, fa, rt) -> dict:
+    """gemma3-12b with nothing cut (48 layers, five 1024-window layers
+    for every global one, dh 256, vocab 262144; ~47 GB of fp32 weights)
+    at ``max_len`` 4096: one 1500-token prompt, whose 1024-window rings
+    wrap, beside 7 of the main traffic's requests, each 32 new tokens,
+    served four ways (``serve_four_ways``)."""
+    import numpy as np
+    cfg = rt["get_config"]("gemma3-12b")
+    torch.cuda.reset_peak_memory_stats()
+    params = new_params(torch, rt, cfg,
+                        windows=sorted({b.window or 0 for b in cfg.blocks}))
+    long_prompt = np.random.default_rng(29).integers(
+        1, cfg.vocab_size, GEMMA3_LONG).tolist()
+
+    def make_reqs():
+        return [rt["Request"](rid=0, prompt=list(long_prompt),
+                              max_new_tokens=32)] + make_requests(
+            rt["Request"], cfg.vocab_size, 7, seed=7, rid0=1)
+
+    runs = serve_four_ways(torch, ops, fa, rt, cfg, params, make_reqs,
+                           max_len=GEMMA3_MAX_LEN, what="gemma3")
+    emit("gemma3_peak", peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del params
+    free(torch)
+    return runs
+
+
+def phase_mistral(torch, ops, fa, rt, depth: int) -> dict:
+    """mistral-large-123b with every width kept and its depth cut 88 ->
+    ``depth`` (~5.5 GB of fp32 weights a layer): the 12 requests of the
+    main traffic served four ways (``serve_four_ways``), with prefix
+    hits and copy-on-write on every run; the paged kernel's first G = 12
+    (96 query heads on 8 kv heads)."""
+    full = rt["get_config"]("mistral-large-123b")
+    cfg = cut_depth(full, depth)
+    emit("depth_cut", arch=full.name, layers_full=full.num_layers,
+         layers=cfg.num_layers,
+         kept=f"the first {cfg.num_layers} of {full.num_layers} uniform "
+              "attention + dense FFN blocks; every width kept")
+    torch.cuda.reset_peak_memory_stats()
+    params = new_params(torch, rt, cfg)
+    runs = serve_four_ways(
+        torch, ops, fa, rt, cfg, params,
+        lambda: make_requests(rt["Request"], cfg.vocab_size, 12, seed=7,
+                              rid0=0),
+        max_len=1024, what="mistral")
+    for mode, run in runs.items():
+        check(run["prefix_stats"]["prefix_hits"] > 0
+              and run["prefix_stats"]["cow_copies"] > 0,
+              f"mistral {mode}: no prefix hit with copy-on-write")
+    emit("mistral_peak", peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del params
+    free(torch)
+    return runs
+
+
+def pixtral_requests(rt, cfg):
+    """8 greedy requests of 1100-1800 prompt tokens, 32 new tokens each;
+    every other one shares a 264-token head (the frontend covers it, and
+    prefix sharing is off for a frontend arch)."""
+    import numpy as np
+    rng = np.random.default_rng(37)
+    head = rng.integers(1, cfg.vocab_size, SHARED_HEAD).tolist()
+    reqs = []
+    for i in range(8):
+        plen = int(rng.integers(1100, 1801))
+        lead = head if i % 2 == 0 else []
+        reqs.append(rt["Request"](
+            rid=i, prompt=lead + rng.integers(
+                1, cfg.vocab_size, plen - len(lead)).tolist(),
+            max_new_tokens=32))
+    return reqs
+
+
+def phase_pixtral(torch, ops, fa, rt) -> dict:
+    """pixtral-12b with nothing cut (40 layers, d 5120, vocab 131072;
+    ~49 GB of fp32 weights): the 8 requests through ``Engine(slots=8,
+    max_len=2048, page_size=16)``, whose ``"auto"`` must pick two
+    executables (every prefill in the 2048 bucket with the zero
+    frontend in its first 1024 positions), and through the port's
+    ``ReferenceEngine`` (an exact-length prefill each).  Gates: the
+    engine's (``serve_arch``) and no prefix hit; the reference's flash
+    launches == 40 x 8 prefills, no paged launch; tokens equal between
+    the two engines, or else both runs' tokens teacher-forced; the
+    engine's tokens teacher-forced."""
+    cfg = rt["get_config"]("pixtral-12b")
+    torch.cuda.reset_peak_memory_stats()
+    params = new_params(torch, rt, cfg, frontend_len=cfg.frontend_len)
+    eng = rt["Engine"](cfg, params, slots=8, max_len=2048, page_size=16,
+                       device=DEV)
+    check(not eng.chunked_prefill and eng.paged_kernel,
+          "pixtral: 'auto' did not pick two executables on the kernel")
+    del eng
+    run = serve_arch(torch, ops, fa, rt, cfg, params,
+                     pixtral_requests(rt, cfg), max_len=2048, fused=False,
+                     kernel=True, what="pixtral")
+    check(run["prefix_stats"]["prefix_hits"] == 0,
+          "pixtral: a prefix hit on a frontend arch")
+    ref = rt["ReferenceEngine"](cfg, params, slots=8, max_len=2048,
+                                device=DEV)
+    reqs = pixtral_requests(rt, cfg)
+    zero_launches([ops, fa])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    for r in reqs:
+        ref.submit(r)
+    ref.run(max_steps=10 ** 6)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    ref_tokens = {r.rid: list(r.out_tokens) for r in reqs}
+    L = cfg.num_layers
+    same = same_tokens(ref_tokens, run["tokens"])
+    rec = {"arch": cfg.name, "requests": len(reqs), "wall_s": wall,
+           "steps": ref.steps, "flash_attention_launches": fa.launches,
+           "paged_attention_launches": ops.launches,
+           "tokens": sum(len(v) for v in ref_tokens.values()),
+           "tokens_equal_to_engine": same,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit("pixtral_reference_engine", **rec)
+    check(fa.launches == L * len(reqs) and ops.launches == 0,
+          f"pixtral reference: flash {fa.launches}, paged {ops.launches}")
+    for r in reqs:
+        check(r.done and len(r.out_tokens) == 32,
+              f"pixtral reference rid {r.rid}: {len(r.out_tokens)} tokens")
+    del ref
+    free(torch)
+    teacher_forced_check(torch, rt, cfg, params, run["reqs"],
+                         "pixtral_engine")
+    if ref_tokens != run["tokens"]:
+        teacher_forced_check(torch, rt, cfg, params, reqs,
+                             "pixtral_reference")
+    del params
+    free(torch)
+    return {"engine": run, "reference": rec}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3704,8 +4125,9 @@ def main() -> int:
         from repro_torch.kernels.moe_gmm import ops as gmm
         from repro_torch.kernels.paged_attention import ops
         from repro_torch.kernels.rwkv6_wkv import ops as wops
-        from repro_torch.models import (forward_decode, forward_prefill,
-                                        forward_verify, model_defs)
+        from repro_torch.models import (forward_decode, forward_dense_logits,
+                                        forward_prefill, forward_verify,
+                                        model_defs, prepare_decode_cache)
         from repro_torch.models.attention import quantize_pages
         from repro_torch.models.layers import logits
         from repro_torch.models.transformer import prefill_hidden
@@ -3731,7 +4153,9 @@ def main() -> int:
               SpecConfig=SpecConfig, prefill_hidden=prefill_hidden,
               logits=logits, reduced=reduced,
               ReferenceEngine=ReferenceEngine, ChaosMonkey=ChaosMonkey,
-              traffic=traffic, validate_trace=validate)
+              traffic=traffic, validate_trace=validate,
+              forward_dense_logits=forward_dense_logits,
+              prepare_decode_cache=prepare_decode_cache)
     try:
         resolve_device("cuda")        # TF32 off
         smi = subprocess.run(
@@ -3838,6 +4262,13 @@ def main() -> int:
                   "uniform attention + MoE blocks; every width kept")
         dbrx_launches, gmm_launches, gmm_rows = phase_dbrx(
             torch, ops, gmm, rt, dbrx)
+        free(torch)
+        # the last four archs, one at a time: each frees its weights
+        whisper = timed_phase("whisper", phase_whisper, torch, ops, fa, rt)
+        gemma3 = timed_phase("gemma3", phase_gemma3, torch, ops, fa, rt)
+        mistral = timed_phase("mistral", phase_mistral, torch, ops, fa, rt,
+                              MISTRAL_DEPTH)
+        pixtral = timed_phase("pixtral", phase_pixtral, torch, ops, fa, rt)
     except SmokeFailure as e:
         emit("failed", reason=str(e))
         return 1
@@ -3883,6 +4314,22 @@ def main() -> int:
         what: run["kernel_launches"]["paged_attention"]
         for what, run in launcher.items()}
     entries[0]["launches_zamba2"] = zamba2["paged"]
+    # the last four archs' paged launches (whisper's decoder reads a dense
+    # cache: none), and their shapes' launches under ``by_case``
+    entries[0]["launches_a13"] = {
+        **{f"gemma3_{mode}": run["paged_attention_launches"]
+           for mode, run in gemma3.items()},
+        **{f"mistral_{mode}": run["paged_attention_launches"]
+           for mode, run in mistral.items()},
+        "pixtral_legacy": pixtral["engine"]["paged_attention_launches"]}
+    for name, run in (("mistral_g12_s1", mistral["legacy"]),
+                      ("mistral_g12_s32", mistral["fused"]),
+                      ("gemma3_s1_wrap", gemma3["legacy"]),
+                      ("gemma3_fused_s32_wrap", gemma3["fused"])):
+        entries[0]["by_case"][name]["launches"] = run[
+            "paged_attention_launches"]
+        entries[0]["by_case"][name]["launched_by"] = (
+            f"{run['arch']} {run['path']}")
     entries[0]["launches_a11"] = {
         "fault_tolerance_fused": ft["fused"]["paged_attention_launches"],
         "fault_tolerance_legacy": ft["legacy"]["paged_attention_launches"],
@@ -3931,10 +4378,40 @@ def main() -> int:
         "launches_launcher": {
             what: run["kernel_launches"]["flash_attention"]
             for what, run in launcher.items()},
+        "launches_mistral": mistral["legacy"]["flash_attention_launches"],
+        "launches_pixtral": pixtral["engine"]["flash_attention_launches"],
+        "launches_pixtral_reference":
+            pixtral["reference"]["flash_attention_launches"],
         "ms_by_seq": {name: rec["ms"] for name, rec in flash_timed.items()},
         "library_ms_by_seq": {name: rec["library_ms"]
                               for name, rec in flash_timed.items()},
         "shape": "B=1 H=16 Hkv=8 dh=128 causal fp32 S=1024"})
+    # whisper's non-causal calls (encoder, cross-attention) and gemma3's
+    # dh 256 window 1024 prefill, each an entry with its own launches
+    flash_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                  "bound_fp32_cores_ms", "roofline_share", "max_abs_err")
+    for name, case, launches, extra in (
+            ("flash_attention_whisper", "whisper_enc",
+             whisper["flash_attention_launches"],
+             {"launches_dense": whisper["flash_attention_launches_dense"],
+              "shape": "whisper-medium encoder: B=8 H=Hkv=16 dh=64 "
+                       "non-causal fp32 Sq=Skv=1500"}),
+            ("flash_attention_dh256_window", "gemma3_dh256_w1024_s2048",
+             gemma3["legacy"]["flash_attention_launches"],
+             {"full_prefills": gemma3["legacy"]["full_prefills"],
+              "shape": "gemma3-12b prefill: B=1 H=16 Hkv=8 dh=256 causal "
+                       "window=1024 fp32 S=2048"})):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
+            "launches": launches,
+            **{key: flash_timed[case][key] for key in flash_keys},
+            "by_case": {n: {key: flash_timed[n][key] for key in flash_keys}
+                        for n in flash_timed
+                        if n.startswith(case.split("_")[0])},
+            **extra})
     z_fa = flash_timed["zamba2_dh112_s1024"]
     entries.append({
         "name": "flash_attention_dh112", "route": "cuda",

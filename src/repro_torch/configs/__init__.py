@@ -1,11 +1,12 @@
 """Architecture registry of the port: ``get_config("internlm2-1.8b")``.
 
-Only the architectures the port can serve are registered: the dense
-internlm2-1.8b and gemma2-2b (local/global sliding windows, softcaps,
-tied and scaled embeddings), the MoE dbrx-132b and grok-1-314b, the
-hybrid zamba2-7b (Mamba2 backbone + shared attention) and the
-attention-free rwkv6-7b.  The others of the reference join as their
-configs and layers are ported (ROADMAP A13).
+All ten architectures of the reference, in its order: the hybrid
+zamba2-7b (Mamba2 backbone + shared attention), the attention-free
+rwkv6-7b, the MoE dbrx-132b and grok-1-314b, pixtral-12b (a patch
+frontend stub before a dense decoder), the dense mistral-large-123b,
+internlm2-1.8b, gemma2-2b and gemma3-12b (local/global sliding windows,
+tied and scaled embeddings; gemma2's softcaps) and the encoder-decoder
+whisper-medium (a frame frontend stub, cross-attention).
 """
 
 from __future__ import annotations
@@ -17,12 +18,16 @@ from repro_torch.configs.base import (ModelConfig, alternating_windows,
                                       reduced)
 
 _ARCH_MODULES = {
-    "internlm2-1.8b": "repro_torch.configs.internlm2_1p8b",
-    "gemma2-2b": "repro_torch.configs.gemma2_2b",
-    "dbrx-132b": "repro_torch.configs.dbrx_132b",
-    "grok-1-314b": "repro_torch.configs.grok1_314b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "grok-1-314b": "repro_torch.configs.grok1_314b",
+    "pixtral-12b": "repro_torch.configs.pixtral_12b",
+    "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
+    "internlm2-1.8b": "repro_torch.configs.internlm2_1p8b",
+    "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "gemma3-12b": "repro_torch.configs.gemma3_12b",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
@@ -33,9 +38,7 @@ _cache: Dict[str, ModelConfig] = {}
 def get_config(arch: str) -> ModelConfig:
     if arch not in _cache:
         if arch not in _ARCH_MODULES:
-            raise KeyError(f"unknown arch {arch!r} for the PyTorch port; "
-                           f"known: {ARCH_IDS} (more arrive with ROADMAP "
-                           "A13)")
+            raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
         _cache[arch] = importlib.import_module(_ARCH_MODULES[arch]).config()
     return _cache[arch]
 

@@ -1,7 +1,7 @@
-"""GQA attention of the port: the paged decode half and the prefill half
-of ``repro/models/attention.py``.
+"""GQA attention of the port: the paged decode, prefill, dense and
+cross-attention parts of ``repro/models/attention.py``.
 
-``apply`` runs in two modes:
+``apply`` runs in these modes:
 
 * ``mode="decode"`` over a paged cache (the serving engines' chunks):
   projections + rope, then ``paged_decode_step`` writes the new KV
@@ -25,10 +25,16 @@ pages (``rmw_quantized_pages``) and read either through the kernel,
 which folds the scales in, or by gathering and dequantizing.
 
 ``mode="decode"`` also runs over a dense per-slot cache ``{"k","v":
-[B,Hkv,T,dh]}`` (``init_cache_shape``; the model drafter's draft cache):
-one token per slot, written in place at ``(len - 1) mod T`` and read
-with a position-order mask.  The dense (train / encoder) mode is ROADMAP
-A15 and raises.
+[B,Hkv,T,dh]}`` (``init_cache_shape``; the model drafter's draft cache
+and ``transformer.prepare_decode_cache``'s): one token per slot, written
+in place at ``(len - 1) mod T`` and read with a position-order mask.
+``mode="dense"`` (teacher-forced logits, whisper's encoder) is
+``chunked_attention`` with no cache, causal or not.
+
+Cross-attention (whisper's decoder): ``encode_kv`` projects the encoder
+output once into ``{"k","v": [B,Hkv,Senc,dh]}``, the flash kernel's
+layout, and ``cross_apply`` attends to it, non-causal, through
+``kernels/flash_attention``.
 
 Every function here is free of host synchronization: no ``.item()``,
 no boolean-mask indexing, no Python branch on a tensor value.
@@ -434,13 +440,10 @@ def apply(params, x: torch.Tensor, *, cfg: ModelConfig,
     over a paged cache (``"pk"``; ``paged_kernel``: read it through the
     kernel) takes S >= 1 rows; over a dense cache (``{"k","v":
     [B,Hkv,T,dh]}``, the model drafter's) one row, written in place at
-    ``(cache_len - 1) mod T``.  The dense mode (A15) is not ported and
-    raises."""
-    if mode == "dense":
-        raise NotImplementedError(
-            "attention mode 'dense' (training / encoders) is not ported "
-            "yet (ROADMAP A15)")
-    if mode not in ("prefill", "decode"):
+    ``(cache_len - 1) mod T``.  ``mode="dense"`` attends over ``x``
+    alone (``causal``: query ``i`` at position ``i``; whisper's encoder
+    passes ``causal=False``) and returns no cache."""
+    if mode not in ("dense", "prefill", "decode"):
         raise ValueError(f"unknown attention mode {mode!r}")
     b, s, d = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -491,7 +494,8 @@ def apply(params, x: torch.Tensor, *, cfg: ModelConfig,
     else:
         out = chunked_attention(q, kk, vv, causal=causal, window=window,
                                 softcap=cfg.attn_softcap, q_chunk=q_chunk)
-        new_cache = {"k": kk.transpose(1, 2), "v": vv.transpose(1, 2)}
+        new_cache = None if mode == "dense" else {
+            "k": kk.transpose(1, 2), "v": vv.transpose(1, 2)}
     y = torch.matmul(out.reshape(b * s, h * dh),
                      params["wo"].reshape(h * dh, d)).view(b, s, d)
     return y, new_cache
@@ -510,3 +514,43 @@ def _update_cache(cache: torch.Tensor, new: torch.Tensor,
     rows = torch.arange(cache.shape[0], device=cache.device)
     cache[rows, :, idx] = new[:, :, 0].to(cache.dtype)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper's decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attn_defs(cfg: ModelConfig) -> Dict:
+    return attn_defs(cfg)
+
+
+def cross_apply(params, x: torch.Tensor, enc_kv: Dict, *,
+                cfg: ModelConfig) -> torch.Tensor:
+    """x [B,S,d]; enc_kv ``{"k","v": [B,Hkv,Senc,dh]}`` precomputed by
+    :func:`encode_kv` -> y [B,S,d].  No rope and no mask: every query row
+    sees every encoder position.  ``enc_kv`` is already in the flash
+    kernel's layout, so it goes to the kernel as it is (``contiguous`` is
+    a no-op on ``encode_kv``'s tensors)."""
+    b, s, d = x.shape
+    h, dh = cfg.num_heads, cfg.resolved_head_dim
+    q = torch.matmul(x.reshape(b * s, d), params["wq"].reshape(d, h * dh))
+    q = q.view(b, s, h, dh).transpose(1, 2).contiguous()
+    out = flash_ops.flash_attention(
+        q, enc_kv["k"].to(q.dtype).contiguous(),
+        enc_kv["v"].to(q.dtype).contiguous(), causal=False)
+    return torch.matmul(out.transpose(1, 2).reshape(b * s, h * dh),
+                        params["wo"].reshape(h * dh, d)).view(b, s, d)
+
+
+def encode_kv(params, enc_out: torch.Tensor, *, cfg: ModelConfig) -> Dict:
+    """The encoder output [B,Senc,d] projected once per decoder layer:
+    ``{"k","v": [B,Hkv,Senc,dh]}``, contiguous."""
+    b, s, d = enc_out.shape
+    hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    x2 = enc_out.reshape(b * s, d)
+
+    def proj(w):
+        y = torch.matmul(x2, w.reshape(d, hkv * dh)).view(b, s, hkv, dh)
+        return y.transpose(1, 2).contiguous()
+
+    return {"k": proj(params["wk"]), "v": proj(params["wv"])}

@@ -1,27 +1,36 @@
 """Model assembly for the port: decoder stacks of attention blocks with
 dense or MoE FFNs, the zamba2 hybrid (Mamba2 backbone + shared
-attention blocks) and the attention-free rwkv6 stack (time-mix +
-channel-mix), over block-paged KV and dense recurrent state
-(counterpart of ``repro/models/transformer.py``).
+attention blocks), the attention-free rwkv6 stack (time-mix +
+channel-mix), pixtral's patch frontend and whisper's encoder and
+cross-attention, over block-paged KV, dense KV and dense recurrent
+state (counterpart of ``repro/models/transformer.py``).
 
 Entry points:
-    forward_prefill(params, cfg, {"tokens": [B,S]}, length=, ctx=)
+    forward_dense_logits(params, cfg, batch)  -> logits [B,S,V]
+    forward_prefill(params, cfg, batch, length=, ctx=)
                                    -> (last-token logits [B,V], cache)
-    forward_decode(params, cfg, tokens [B,1], cache)  -> (logits [B,V], cache)
-    forward_verify(params, cfg, tokens [B,S], cache)  -> (logits [B,S,V], cache)
+    prepare_decode_cache(cfg, cache, max_len) -> dense decode cache
+    forward_decode(params, cfg, tokens [B,1], cache) -> (logits [B,V], cache)
+    forward_verify(params, cfg, tokens [B,S], cache)
+                                   -> (logits [B,S,V], cache)
 
-``forward_prefill`` is the two-executable engine's bucketed prefill (its
-attention runs ``kernels/flash_attention`` on the card, or a suffix
-prefill against paged context; its Mamba2 layers run
+``batch`` holds ``tokens`` [B,S] and, for a frontend arch, its stub:
+``frames`` [B,F,d] (whisper: the encoder's input) or ``frontend``
+[B,F,d] (pixtral: it replaces the first F token embeddings).
+
+``forward_dense_logits`` is the teacher-forced pass (every attention
+layer through ``kernels/flash_attention`` on the card, causal; whisper's
+encoder non-causal).  ``forward_prefill`` is the two-executable engine's
+bucketed prefill (its attention runs ``kernels/flash_attention`` on the
+card, or a suffix prefill against paged context; its Mamba2 layers run
 ``kernels/mamba2_scan``, its rwkv6 layers ``kernels/rwkv6_wkv``); it
-returns per-layer KV for the splice and each recurrent layer's state.
+returns per-layer KV for the splice, each recurrent layer's state and,
+for whisper, each decoder layer's cross-attention KV (``enc_kv``).
 ``forward_decode`` writes KV into the pools (or a dense per-slot cache)
 in place and returns new state tensors for the Mamba2 and rwkv6 layers.
 ``forward_verify`` runs attention-only stacks (the fused chunk and the
-speculative verify).  Encoders, cross-attention,
-modality frontends and the train pass are not ported yet and raise
-(A13, A15).  Serving drops the MoE router's aux values, as the
-reference's entry points do.
+speculative verify).  The train pass is not ported yet (A15).  Serving
+drops the MoE router's aux values, as the reference's entry points do.
 """
 
 from __future__ import annotations
@@ -29,30 +38,13 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import (ATTN, FFN_DENSE, FFN_MOE, FFN_NONE,
                                       FFN_RWKV, MAMBA2, RWKV6, SHARED_ATTN,
                                       BlockSpec, ModelConfig)
 from repro_torch.models import attention, layers, mamba2, moe, rwkv6
 from repro_torch.models.module import ParamDef
-
-_PORTED = {(ATTN, FFN_DENSE), (ATTN, FFN_MOE), (MAMBA2, FFN_NONE),
-           (SHARED_ATTN, FFN_DENSE), (RWKV6, FFN_RWKV)}
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.cross_attention or cfg.enc_layers or cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: encoders, cross-attention and modality frontends "
-            "are not ported yet (ROADMAP A13)")
-    for b in cfg.blocks:
-        if (b.mixer, b.ffn) not in _PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: a {b.mixer}/{b.ffn} block is not ported yet; "
-                "the port runs attention blocks with dense or MoE FFNs, "
-                "Mamba2 blocks, shared attention blocks and rwkv6 blocks "
-                "(ROADMAP A13)")
-
 
 def _block_defs(cfg: ModelConfig, block: BlockSpec) -> Dict:
     """The reference's per-layer keys: a shared attention layer keeps
@@ -86,14 +78,34 @@ def _shared_group_defs(cfg: ModelConfig) -> Dict:
             "mlp": layers.mlp_defs(cfg)}
 
 
+def _encoder_block_defs(cfg: ModelConfig) -> Dict:
+    return {"ln1": layers.rmsnorm_defs(cfg.d_model),
+            "attn": attention.attn_defs(cfg),
+            "ln2": layers.rmsnorm_defs(cfg.d_model),
+            "ffn": layers.mlp_defs(cfg)}
+
+
 def model_defs(cfg: ModelConfig) -> Dict:
-    _check_supported(cfg)
+    """The reference's tree: a cross-attention arch's decoder layers gain
+    ``ln_cross`` and ``cross``, an encoder arch an ``encoder`` of learned
+    positions ``pos [frontend_len, d]``, its layers and ``final_ln``."""
     defs = {"embed": layers.embedding_defs(cfg),
             "final_ln": layers.rmsnorm_defs(cfg.d_model),
             "layers": [_block_defs(cfg, b) for b in cfg.blocks]}
     if cfg.num_shared_groups:
         defs["shared"] = [_shared_group_defs(cfg)
                           for _ in range(cfg.num_shared_groups)]
+    if cfg.cross_attention:
+        for lp in defs["layers"]:
+            lp.update(ln_cross=layers.rmsnorm_defs(cfg.d_model),
+                      cross=attention.cross_attn_defs(cfg))
+    if cfg.enc_layers:
+        defs["encoder"] = {
+            "pos": ParamDef((cfg.frontend_len, cfg.d_model), init="normal",
+                            scale=0.02),
+            "layers": [_encoder_block_defs(cfg)
+                       for _ in range(cfg.enc_layers)],
+            "final_ln": layers.rmsnorm_defs(cfg.d_model)}
     return defs
 
 
@@ -102,16 +114,18 @@ def _apply_block(lp, shared, h: torch.Tensor, h0: torch.Tensor,
                  positions: torch.Tensor, cache: Optional[Dict],
                  cache_len: Optional[torch.Tensor], paged_kernel: bool,
                  length: Optional[torch.Tensor] = None,
-                 ctx: Optional[Dict] = None
-                 ) -> Tuple[torch.Tensor, Dict]:
-    """One decoder layer.  Attention: pre-norm attention, then a pre-norm
-    SwiGLU or MoE FFN (the MoE aux values are dropped).  Mamba2: a
-    pre-norm Mamba2 mixer and no FFN (``length``: the true lengths of a
-    right-padded prefill).  rwkv6: a pre-norm time-mix, then a pre-norm
-    channel-mix, their states ``{tshift, wkv}`` and ``{cshift}`` merged
-    into one dict.  Shared attention: the block of
-    ``shared[block.shared_group]`` on ``concat(h, h0)``, where ``h0`` is
-    the embedding output."""
+                 ctx: Optional[Dict] = None,
+                 enc_kv: Optional[Dict] = None
+                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """One decoder layer: a pre-norm mixer (attention, Mamba2 or the
+    rwkv6 time-mix), for a cross-attention arch a pre-norm
+    cross-attention over ``enc_kv``, then a pre-norm FFN (SwiGLU, MoE
+    with its aux values dropped, or the rwkv6 channel-mix), each added
+    to the residual.  ``length``: the true lengths of a right-padded
+    prefill (the recurrent mixers' state is taken there).  An rwkv6
+    block's states ``{tshift, wkv}`` and ``{cshift}`` merge into one
+    dict.  Shared attention: the block of ``shared[block.shared_group]``
+    on ``concat(h, h0)``, where ``h0`` is the embedding output."""
     if block.mixer == SHARED_ATTN:
         sp = shared[block.shared_group]
         d = h.shape[-1]
@@ -131,29 +145,38 @@ def _apply_block(lp, shared, h: torch.Tensor, h0: torch.Tensor,
             f"a suffix prefill reached a {block.mixer} layer; only pure "
             "full-attention stacks are sharing-capable")
     xn = layers.rmsnorm(lp["ln1"], h, cfg.norm_eps)
-    if block.mixer == MAMBA2:
+    if block.mixer == ATTN:
+        y, new_cache = attention.apply(
+            lp["mixer"], xn, cfg=cfg, window=block.window,
+            positions=positions, mode=mode, cache=cache,
+            cache_len=cache_len, ctx=ctx, paged_kernel=paged_kernel)
+    elif block.mixer == MAMBA2:
         y, new_cache = mamba2.apply(lp["mixer"], xn, cfg, mode=mode,
                                     state=cache, length=length)
-        return h + y, new_cache
-    if block.mixer == RWKV6:
-        y, tm_state = rwkv6.time_mix(lp["mixer"], xn, cfg, mode=mode,
-                                     state=cache, length=length)
-        h = h + y
-        y, cm_state = rwkv6.channel_mix(
-            lp["ffn"], layers.rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg,
-            mode=mode, state=cache, length=length)
-        new_cache = None if tm_state is None else {**tm_state, **cm_state}
-        return h + y, new_cache
-    y, new_cache = attention.apply(
-        lp["mixer"], xn, cfg=cfg, window=block.window, positions=positions,
-        mode=mode, cache=cache, cache_len=cache_len, ctx=ctx,
-        paged_kernel=paged_kernel)
-    h = h + y
-    xn = layers.rmsnorm(lp["ln2"], h, cfg.norm_eps)
-    if block.ffn == FFN_MOE:
-        y, _aux = moe.apply(lp["ffn"], xn, cfg)
+    elif block.mixer == RWKV6:
+        y, new_cache = rwkv6.time_mix(lp["mixer"], xn, cfg, mode=mode,
+                                      state=cache, length=length)
     else:
+        raise ValueError(f"unknown mixer {block.mixer!r}")
+    h = h + y
+    if cfg.cross_attention and enc_kv is not None:
+        h = h + attention.cross_apply(
+            lp["cross"], layers.rmsnorm(lp["ln_cross"], h, cfg.norm_eps),
+            enc_kv, cfg=cfg)
+    if block.ffn == FFN_NONE:
+        return h, new_cache
+    xn = layers.rmsnorm(lp["ln2"], h, cfg.norm_eps)
+    if block.ffn == FFN_DENSE:
         y = layers.mlp(lp["ffn"], xn)
+    elif block.ffn == FFN_MOE:
+        y, _aux = moe.apply(lp["ffn"], xn, cfg)
+    elif block.ffn == FFN_RWKV:
+        y, cm_state = rwkv6.channel_mix(lp["ffn"], xn, cfg, mode=mode,
+                                        state=cache, length=length)
+        if cm_state is not None:
+            new_cache = {**(new_cache or {}), **cm_state}
+    else:
+        raise ValueError(f"unknown ffn {block.ffn!r}")
     return h + y, new_cache
 
 
@@ -161,7 +184,8 @@ def _decoder(params, cfg: ModelConfig, h: torch.Tensor, *, mode: str,
              positions: torch.Tensor, caches: Optional[List],
              cache_len: Optional[torch.Tensor], paged_kernel: bool = False,
              length: Optional[torch.Tensor] = None,
-             ctx_list: Optional[List] = None
+             ctx_list: Optional[List] = None,
+             enc_kv_list: Optional[List] = None
              ) -> Tuple[torch.Tensor, List]:
     h0 = h
     shared = params["shared"] if "shared" in params else None
@@ -172,19 +196,79 @@ def _decoder(params, cfg: ModelConfig, h: torch.Tensor, *, mode: str,
             positions=positions,
             cache=caches[i] if caches is not None else None,
             cache_len=cache_len, paged_kernel=paged_kernel, length=length,
-            ctx=ctx_list[i] if ctx_list is not None else None)
+            ctx=ctx_list[i] if ctx_list is not None else None,
+            enc_kv=enc_kv_list[i] if enc_kv_list is not None else None)
         new_caches.append(nc)
     return layers.rmsnorm(params["final_ln"], h, cfg.norm_eps), new_caches
 
 
-def prefill_hidden(params, cfg: ModelConfig, batch: Dict, *,
-                   length: Optional[torch.Tensor] = None,
-                   ctx: Optional[Dict] = None
-                   ) -> Tuple[torch.Tensor, List]:
-    """:func:`forward_prefill` up to the final norm: the hidden states of
-    every position [B,S,d] and the per-layer caches, so a caller that
-    needs logits at other positions than the last (a teacher-forced
-    check of generated tokens) pays the LM head for those rows only."""
+def _encoder(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """whisper's encoder over stub frame embeddings [B,F,d]: learned
+    positions added, then pre-norm non-causal self-attention (roped by
+    frame index, as the reference ropes it) and a SwiGLU MLP per layer,
+    and a final norm."""
+    enc = params["encoder"]
+    f = frames.shape[1]
+    h = frames + enc["pos"][None, :f].to(frames.dtype)
+    positions = torch.arange(f, device=frames.device)[None, :]
+    for lp in enc["layers"]:
+        y, _ = attention.apply(
+            lp["attn"], layers.rmsnorm(lp["ln1"], h, cfg.norm_eps), cfg=cfg,
+            window=None, positions=positions, mode="dense", causal=False)
+        h = h + y
+        h = h + layers.mlp(lp["ffn"],
+                           layers.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+    return layers.rmsnorm(enc["final_ln"], h, cfg.norm_eps)
+
+
+def _embed_with_frontend(params, cfg: ModelConfig, tokens: torch.Tensor,
+                         frontend: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token embeddings; a patch frontend's ``F`` embeddings take the
+    place of the first ``F`` positions (the sequence keeps its length,
+    which must be at least ``F``)."""
+    h = layers.embed(params["embed"], cfg, tokens)
+    if frontend is not None and cfg.frontend and cfg.family != "audio":
+        f = frontend.shape[1]
+        if tokens.shape[1] < f:
+            raise ValueError(
+                f"{cfg.name}: a {tokens.shape[1]}-token sequence is shorter "
+                f"than the {f}-position frontend it starts with")
+        h = torch.cat([frontend.to(h.dtype), h[:, f:]], dim=1)
+    return h
+
+
+def _cross_kv_list(params, cfg: ModelConfig,
+                   enc_out: torch.Tensor) -> List[Dict]:
+    return [attention.encode_kv(lp["cross"], enc_out, cfg=cfg)
+            for lp in params["layers"]]
+
+
+def _enc_kv_of(params, cfg: ModelConfig, batch: Dict) -> Optional[List]:
+    """Each decoder layer's cross-attention KV over ``batch["frames"]``
+    (whisper), else None."""
+    if cfg.family != "audio":
+        return None
+    return _cross_kv_list(params, cfg, _encoder(params, cfg,
+                                                batch["frames"]))
+
+
+def forward_dense_logits(params, cfg: ModelConfig,
+                         batch: Dict) -> torch.Tensor:
+    """Full-sequence logits [B,S,V] (teacher-forced), for tests and
+    evaluation: every layer in the dense mode, no cache."""
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    enc_kv_list = _enc_kv_of(params, cfg, batch)
+    h = _embed_with_frontend(params, cfg, tokens, batch.get("frontend"))
+    h, _ = _decoder(params, cfg, h, mode="dense", positions=positions,
+                    caches=None, cache_len=None, enc_kv_list=enc_kv_list)
+    return layers.logits(params["embed"], cfg, h)
+
+
+def _prefill(params, cfg: ModelConfig, batch: Dict, *,
+             length: Optional[torch.Tensor], ctx: Optional[Dict]
+             ) -> Tuple[torch.Tensor, List, Optional[List]]:
+    """(hidden states [B,S,d], per-layer caches, cross-attention KV)."""
     tokens = batch["tokens"]
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None, :]
@@ -196,10 +280,24 @@ def prefill_hidden(params, cfg: ModelConfig, batch: Dict, *,
                      "vs": lc.get("vs"), "row": ctx["row"],
                      "off": ctx["off"]}
                     for lc in ctx["layers"]]
-    h = layers.embed(params["embed"], cfg, tokens)
-    return _decoder(params, cfg, h, mode="prefill", positions=positions,
-                    caches=None, cache_len=None, length=length,
-                    ctx_list=ctx_list)
+    enc_kv_list = _enc_kv_of(params, cfg, batch)
+    h = _embed_with_frontend(params, cfg, tokens, batch.get("frontend"))
+    h, caches = _decoder(params, cfg, h, mode="prefill", positions=positions,
+                         caches=None, cache_len=None, length=length,
+                         ctx_list=ctx_list, enc_kv_list=enc_kv_list)
+    return h, caches, enc_kv_list
+
+
+def prefill_hidden(params, cfg: ModelConfig, batch: Dict, *,
+                   length: Optional[torch.Tensor] = None,
+                   ctx: Optional[Dict] = None
+                   ) -> Tuple[torch.Tensor, List]:
+    """:func:`forward_prefill` up to the final norm: the hidden states of
+    every position [B,S,d] and the per-layer caches, so a caller that
+    needs logits at other positions than the last (a teacher-forced
+    check of generated tokens) pays the LM head for those rows only."""
+    h, caches, _ = _prefill(params, cfg, batch, length=length, ctx=ctx)
+    return h, caches
 
 
 def forward_prefill(params, cfg: ModelConfig, batch: Dict, *,
@@ -208,15 +306,17 @@ def forward_prefill(params, cfg: ModelConfig, batch: Dict, *,
                     ) -> Tuple[torch.Tensor, Dict]:
     """Returns (last-token logits [B,V], cache).
 
-    ``batch["tokens"]`` [B,S], right-padded to a shape bucket; ``length``
-    [B] int32, their true lengths: logits are taken at ``length - 1`` and
+    ``batch["tokens"]`` [B,S], right-padded to a shape bucket (and
+    ``frames`` or ``frontend`` for a frontend arch); ``length`` [B]
+    int32, their true lengths: logits are taken at ``length - 1`` and
     the cache records ``length`` (causality already hides the padding
     from every real token; Mamba2 layers take dt = 0 past it, rwkv6
     layers k = 0 and a log decay of 0).  The cache holds per-layer
     ``{"k","v"}`` [B,Hkv,S,dh] for attention layers (padding included;
     the splice drops it), ``{"conv","ssm"}`` for Mamba2 layers and
     ``{"tshift","wkv","cshift"}`` for rwkv6 layers (the state at
-    ``length - 1``), and ``len``.
+    ``length - 1``), ``enc_kv`` (whisper: per decoder layer ``{"k","v"}``
+    [B,Hkv,F,dh] over the frames; else None) and ``len``.
 
     ``ctx`` makes this a suffix prefill for prefix sharing: ``{"off":
     prefix length (host int), "row": [Cb] int32 page ids, "layers":
@@ -226,7 +326,8 @@ def forward_prefill(params, cfg: ModelConfig, batch: Dict, *,
     returned cache carries suffix KV only, for a splice at ``off``."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    h, caches = prefill_hidden(params, cfg, batch, length=length, ctx=ctx)
+    h, caches, enc_kv_list = _prefill(params, cfg, batch, length=length,
+                                      ctx=ctx)
     if length is None:
         h_last = h[:, -1:]
         clen = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
@@ -235,7 +336,7 @@ def forward_prefill(params, cfg: ModelConfig, batch: Dict, *,
         h_last = torch.gather(h, 1, idx.expand(b, 1, h.shape[2]))
         clen = length.to(torch.int32)
     lg = layers.logits(params["embed"], cfg, h_last)
-    return lg[:, 0], {"layers": caches, "len": clen}
+    return lg[:, 0], {"layers": caches, "enc_kv": enc_kv_list, "len": clen}
 
 
 def _thread_page_tables(cfg: ModelConfig, cache: Dict,
@@ -270,14 +371,17 @@ def forward_decode(params, cfg: ModelConfig, tokens: torch.Tensor,
     and no ``page_tables``: the model drafter's draft cache), and returns
     next-token logits [B,V] and the cache with ``len`` advanced by one
     and each recurrent (Mamba2, rwkv6) layer's new state (every row's:
-    the write mask does not cover state, as in the reference)."""
+    the write mask does not cover state, as in the reference).  A
+    cache's ``enc_kv`` (whisper) is cross-attended by every decoder
+    layer and passed on unchanged."""
     cache_len = cache["len"] + 1
     positions = cache["len"][:, None]
     layer_caches = _thread_page_tables(cfg, cache, write_mask)
     h = layers.embed(params["embed"], cfg, tokens)
     h, new_caches = _decoder(params, cfg, h, mode="decode",
                              positions=positions, caches=layer_caches,
-                             cache_len=cache_len, paged_kernel=paged_kernel)
+                             cache_len=cache_len, paged_kernel=paged_kernel,
+                             enc_kv_list=cache.get("enc_kv"))
     lg = layers.logits(params["embed"], cfg, h)
     return lg[:, 0], dict(cache, layers=new_caches, len=cache_len)
 
@@ -304,7 +408,8 @@ def verify_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     h = layers.embed(params["embed"], cfg, tokens)
     h, new_caches = _decoder(params, cfg, h, mode="decode",
                              positions=positions, caches=layer_caches,
-                             cache_len=cache_len, paged_kernel=paged_kernel)
+                             cache_len=cache_len, paged_kernel=paged_kernel,
+                             enc_kv_list=cache.get("enc_kv"))
     return h, dict(cache, layers=new_caches)
 
 
@@ -332,5 +437,34 @@ def forward_verify(params, cfg: ModelConfig, tokens: torch.Tensor,
     return layers.logits(params["embed"], cfg, h), new_cache
 
 
-__all__ = ["model_defs", "forward_prefill", "forward_decode",
-           "forward_verify", "prefill_hidden", "verify_hidden"]
+def prepare_decode_cache(cfg: ModelConfig, cache: Dict,
+                         max_len: int) -> Dict:
+    """Grow a prefill cache (KV seq dims sized to the prompt) into a dense
+    decode cache for ``max_len`` tokens.  Windowed layers keep a ring of
+    ``min(max_len, window)`` entries; when the prompt is longer than the
+    ring, its last ``ring`` tokens are kept, rolled so token ``t`` sits
+    at entry ``t % ring`` (the decode write rule).  Recurrent states and
+    ``enc_kv`` pass through.  Reads ``len`` on the host (row 0: every
+    row shares one prompt length, as in the reference)."""
+    plen = int(cache["len"].reshape(-1)[0])
+    new_layers = []
+    for block, entry in zip(cfg.blocks, cache["layers"]):
+        if entry is None or "k" not in entry:
+            new_layers.append(entry)
+            continue
+        ring = min(max_len, block.window or max_len)
+        e = dict(entry)
+        for key in ("k", "v"):
+            x = e[key]
+            if x.shape[2] > ring:
+                x = torch.roll(x[:, :, -ring:], plen % ring, dims=2)
+            if x.shape[2] < ring:
+                x = F.pad(x, (0, 0, 0, ring - x.shape[2]))
+            e[key] = x.contiguous()
+        new_layers.append(e)
+    return dict(cache, layers=new_layers)
+
+
+__all__ = ["model_defs", "forward_dense_logits", "forward_prefill",
+           "forward_decode", "forward_verify", "prefill_hidden",
+           "verify_hidden", "prepare_decode_cache"]

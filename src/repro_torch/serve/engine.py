@@ -55,7 +55,13 @@ prefill-budget throttle, seeded fault injection (``serve/chaos``), the
 lifecycle tracer (``serve/trace``) and the metric registry
 (``serve/metrics``).  All of it runs on the host at chunk boundaries:
 the chunk stays free of host synchronization.  Sharded serving
-(``rules=``, ROADMAP A14) raises ``NotImplementedError``.
+(``rules=``, ROADMAP A14) raises ``NotImplementedError``, and so does a
+cross-attention arch (whisper), as in the reference.  A patch-frontend
+arch (pixtral) serves on two executables, as in the reference: each
+prefill takes zero frontend embeddings in its first ``frontend_len``
+positions, and prefix sharing stays off.  A prompt whose bucket is
+shorter than the frontend is refused at ``submit`` (the reference fails
+inside its prefill).
 
 One deliberate departure from the reference: a fused slot completes its
 prefill when this micro-step's ``n`` rows reach the end of its prompt
@@ -221,6 +227,12 @@ class Executor:
         self.k1 = drafter.k + 1 if drafter is not None else 1
         # fused: prefill slices and verify rows share one [slots, S] matrix
         self.chunk_rows = max(int(prefill_budget), self.k1)
+        # a patch-frontend arch's prefill takes the reference's stub: zero
+        # embeddings in the first frontend_len positions
+        self.frontend = None
+        if cfg.frontend:
+            self.frontend = torch.zeros((1, cfg.frontend_len, cfg.d_model),
+                                        dtype=torch.float32, device=device)
 
     # ------------------------------------------------------ fused chunk
     def micro_inputs(self, cache: Dict, state: Dict,
@@ -374,9 +386,12 @@ class Executor:
         state of a Mamba2 or rwkv6 layer).  Its attention is one
         ``flash_attention`` launch per attention layer, its Mamba2 scan
         one ``mamba2_scan`` launch per Mamba2 layer, its wkv one
-        ``rwkv6_wkv`` launch per rwkv6 layer."""
-        logits, one = forward_prefill(params, self.cfg, {"tokens": tokens},
-                                      length=length)
+        ``rwkv6_wkv`` launch per rwkv6 layer.  A patch-frontend arch's
+        first ``frontend_len`` positions take the zero stub."""
+        batch = {"tokens": tokens}
+        if self.frontend is not None:
+            batch["frontend"] = self.frontend
+        logits, one = forward_prefill(params, self.cfg, batch, length=length)
         tok = sampling.sample(logits, gen, temperature=temp,
                               top_k=self.top_k)
         return tok, one
@@ -587,6 +602,10 @@ class Engine:
                  stall_patience: int = 0,
                  chaos: Optional[ChaosMonkey] = None,
                  trace: Any = None):
+        if cfg.cross_attention:
+            raise NotImplementedError(
+                "Engine serves decoder-only archs; whisper runs through "
+                "forward_prefill, prepare_decode_cache and forward_decode")
         if rules is not None:
             raise _unsupported("sharded serving (rules=)", "A14")
         if shed_policy not in ("reject", "block", "evict-lru-prefix",
@@ -634,9 +653,6 @@ class Engine:
                 f"{cfg.name}: chunked_prefill needs paged KV for every "
                 "mixer (attention-only stack) and no model drafter; "
                 f"reason: {reason or 'model drafter'}")
-        if cfg.cross_attention or cfg.frontend:
-            # every mixer is served; encoders and frontends are not
-            raise _unsupported(f"{cfg.name} ({reason})", "A13")
         if prefill_budget < 1:
             raise ValueError(
                 f"prefill_budget must be >= 1, got {prefill_budget}")
@@ -964,6 +980,15 @@ class Engine:
         contract still raises ``ValueError``: a caller bug, not load."""
         if not req.prompt:
             raise ValueError("the port serves non-empty prompts only")
+        if self.cfg.frontend and self._bucket_of(len(req.prompt)) \
+                < self.cfg.frontend_len:
+            # the frontend's embeddings fill the first frontend_len
+            # positions of the prefill; a shorter bucket cannot hold them
+            raise ValueError(
+                f"{self.cfg.name}: a {len(req.prompt)}-token prompt "
+                f"prefills in the {self._bucket_of(len(req.prompt))} "
+                f"bucket, shorter than the {self.cfg.frontend_len}-position "
+                "frontend")
         if len(req.prompt) + req.max_new_tokens > self.max_len and (
                 self.chunked_prefill or not self.cfg.supports_long_context):
             # fused: prompts are staged in a max_len-sized buffer; either
@@ -1066,6 +1091,8 @@ class Engine:
         if not self.chunked_prefill:
             zero = torch.zeros((1,), dtype=torch.int32, device=self.device)
             for b in self.buckets:
+                if b < self.cfg.frontend_len:
+                    continue        # no prompt of a frontend arch takes it
                 self._shapes["prefill"].add((b, self.buckets[-1]))
                 tokens = torch.zeros((1, b), dtype=torch.int32,
                                      device=self.device)
@@ -1086,13 +1113,18 @@ class Engine:
         return self.default_temp
 
     # ------------------------------------------ two-executable prefill
-    def bucket_for(self, plen: int) -> int:
+    def _bucket_of(self, plen: int) -> int:
+        """The bucket a ``plen``-token prefill takes (no side effect)."""
         for b in self.buckets:
             if b >= plen:
                 return b
-        b = _next_pow2(max(plen, 1))
-        self.buckets.append(b)
-        self.buckets.sort()
+        return _next_pow2(max(plen, 1))
+
+    def bucket_for(self, plen: int) -> int:
+        b = self._bucket_of(plen)
+        if b not in self.buckets:
+            self.buckets.append(b)
+            self.buckets.sort()
         return b
 
     def _ctx_row(self, adm, s: int) -> np.ndarray:

@@ -13,6 +13,9 @@ places (the spliced length, the first token, each decode step).
 Eager torch has no trace cache, so ``prefill_compiles`` and
 ``decode_compiles`` count the distinct input shapes each callable has
 run: what the reference's ``jit`` caches hold, one executable each.
+A patch-frontend arch (pixtral) prefills with zero stub embeddings in
+its first ``frontend_len`` positions, as the reference does; a
+cross-attention arch (whisper) is refused, as there.
 """
 
 from __future__ import annotations
@@ -40,10 +43,10 @@ class ReferenceEngine:
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  max_len: int = 256, greedy: bool = True,
                  device: DeviceLike = None):
-        if cfg.cross_attention or cfg.frontend:
+        if cfg.cross_attention:
             raise NotImplementedError(
-                "ReferenceEngine serves decoder-only archs without a "
-                "frontend")
+                "Engine serves decoder-only archs; whisper runs through "
+                "forward_prefill, prepare_decode_cache and forward_decode")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -54,6 +57,12 @@ class ReferenceEngine:
         self._decode_shapes = set()
         self._slot_req: List[Optional[Request]] = [None] * slots
         self.cache = empty_batch_cache(cfg, slots, max_len, self.device)
+        # a patch-frontend arch's prefill: zero stub embeddings first
+        self._frontend = None
+        if cfg.frontend:
+            self._frontend = torch.zeros(
+                (1, cfg.frontend_len, cfg.d_model), dtype=torch.float32,
+                device=self.device)
         self.queue: List[Request] = []
         self.finished: List[Request] = []
         self.steps = 0
@@ -61,6 +70,11 @@ class ReferenceEngine:
 
     # ------------------------------------------------------------ serving
     def submit(self, req: Request) -> None:
+        if self.cfg.frontend and len(req.prompt) < self.cfg.frontend_len:
+            raise ValueError(
+                f"{self.cfg.name}: a {len(req.prompt)}-token prompt is "
+                f"shorter than the {self.cfg.frontend_len}-position "
+                "frontend")
         self.queue.append(req)
 
     @property
@@ -73,7 +87,10 @@ class ReferenceEngine:
 
     def _prefill(self, tokens: torch.Tensor):
         self._prefill_shapes.add(tuple(tokens.shape))
-        return forward_prefill(self.params, self.cfg, {"tokens": tokens})
+        batch = {"tokens": tokens}
+        if self._frontend is not None:
+            batch["frontend"] = self._frontend
+        return forward_prefill(self.params, self.cfg, batch)
 
     def _decode(self, tokens: torch.Tensor, cache):
         self._decode_shapes.add(tuple(tokens.shape))

@@ -225,11 +225,26 @@ def test_apply_prefill_with_ctx_vs_jax(layer, kv_dtype):
 
 
 def test_apply_unported_modes_raise(layer):
-    cfg, tw, _jcfg, _jw = layer
+    """The dense mode (teacher-forced logits, whisper's encoder) against
+    JAX's ``apply(mode="dense")``, causal with and without a window and
+    non-causal: atol 1e-5 and no cache.  The dense decode cache still
+    takes one row per slot."""
+    cfg, tw, jcfg, jw = layer
+    xs = np.random.RandomState(2).randn(2, 21, cfg.d_model).astype(
+        np.float32)
+    pos = np.arange(21)
+    for causal, window in ((True, None), (True, 8), (False, None)):
+        jy, jc = jatt.apply(jw, jnp.asarray(xs), cfg=jcfg, window=window,
+                            positions=jnp.asarray(pos), mode="dense",
+                            causal=causal)
+        ty, tc = tatt.apply(tw, torch.as_tensor(xs), cfg=cfg, window=window,
+                            positions=torch.as_tensor(pos)[None],
+                            mode="dense", causal=causal)
+        assert tc is None and jc is None
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=0,
+                                   atol=1e-5, err_msg=f"{causal} {window}")
     x = torch.zeros(1, 4, cfg.d_model)
     pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="A15"):
-        tatt.apply(tw, x, cfg=cfg, window=None, positions=pos, mode="dense")
     # the dense decode cache (the model drafter's) takes one row per slot
     with pytest.raises(NotImplementedError, match="needs a paged cache"):
         tatt.apply(tw, x, cfg=cfg, window=None, positions=pos,

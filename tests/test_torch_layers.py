@@ -58,8 +58,12 @@ def test_config_fields_match_reference(make):
 
 
 def test_unregistered_arch_raises():
-    with pytest.raises(KeyError, match="A13"):
-        get_config("gemma3-12b")
+    """Every arch of the reference is registered; a name neither package
+    knows raises ``KeyError``."""
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llama-7b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        jax_get_config("llama-7b")
 
 
 def test_rmsnorm(tiny):
