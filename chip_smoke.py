@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths — the fused chunked-prefill engine serving
+Drives the port's main paths — the trainer (``Trainer`` and the train
+launcher on full-width, full-depth internlm2-1.8b, with the backwards of
+``flash_attention`` and ``moe_gmm``), the fused chunked-prefill engine serving
 full-width internlm2-1.8b (random weights from a seed) from fp32, int8
 and fp8_e4m3 KV page pools, the two-executable engine (bucketed,
 suffix and segmented prefill, S = 1 decode) serving it from fp32 and
@@ -258,7 +260,8 @@ printing JSON lines:
    x full prefills, no paged, flash or mamba2_scan launch, the first
    admission round and its chunk free of host syncs, finite logits of a
    decode step on the final state; one decode chunk of a second wave
-   profiled.  Then rwkv6 is freed.
+   profiled; an empty prompt beside a 3-token one (both 8 tokens, the
+   neighbour's equal to its solo run's).  Then rwkv6 is freed.
 6. dbrx: dbrx-132b is built at full width with its depth cut 40 -> 4
    (~57 GB of fp32 weights) and serves the same 12 requests from fp32 pools: 0 leaked
    pages, a chunk free of host syncs, ``moe_gmm`` launches == 3 x 4 x
@@ -296,13 +299,45 @@ printing JSON lines:
    ``ReferenceEngine`` (flash == 40 x 8 prefills, no paged launch):
    tokens equal, or else both runs teacher-forced; the engine's tokens
    teacher-forced with the zero frontend.
+3c. (after fused_matmul's gradients) training's backwards: dq, dk, dv of
+   ``flash_attention`` (the kernel's forward, the explicit-product
+   backward) against ``torch.autograd.grad`` through
+   ``flash_attention_ref`` at internlm2's training shape (B 4, 16:8
+   heads, dh 128, S 1024, causal), gemma2's 4096 window with softcap 50
+   at S 4608, dh 256, and whisper's non-causal encoder (B 4, 1500
+   frames, dh 64); dx, dw of ``moe_gmm`` against autograd through
+   ``moe_gmm_ref`` at dbrx's gate/up shape with partial row counts
+   (dead rows' dx exactly 0); all within 1e-5 x max|want| (fp32, TF32
+   off).  Each backward timed (median of 30, CUDA events, L2 flushed)
+   beside autograd through the plain version, the library's backward
+   (SDPA's; ``torch.bmm`` for the two expert products) and its bound
+   (fp32 CUDA cores).  ``mamba2_scan`` and ``rwkv6_wkv`` under autograd
+   must raise and launch nothing.
+8. training, last: one ``Trainer`` step (B 4, S 1024, fp32, TF32 off) on
+   the card and on the CPU from the same seed-0 weights and batch, for
+   internlm2-1.8b at full width cut to 2 layers and for reduced
+   dbrx-132b (the MoE backward, the aux loss): loss within 1e-5,
+   grad_norm and params, m and v within 1e-4 (x max|CPU| per leaf),
+   each kernel's forward and backward launched once per layer (moe_gmm
+   three times).  A resume at 2 layers: 6 steps checkpointed every 3,
+   a fresh ``Trainer`` restored at step 3 replays 3..5 to the same final
+   loss (1e-5).  The slice's main path: internlm2-1.8b at full width and
+   depth, 12 ``Trainer`` steps at B 4, S 1024, fp32: every loss finite,
+   the last below the first, grad norms finite and > 0, flash forward
+   and backward launches 24 a step each and no other kernel; ms per
+   step, tokens/s and peak memory printed, and one more step profiled
+   (forward, backward, update: device ms by family, idle share).  Then
+   ``python -m repro_torch.launch.train --arch internlm2-1.8b --smoke
+   --steps 4`` as a subprocess: exit 0 and its final line.
 
 The last three lines are the card's name and power limit (again), the
 kernel table (paged attention per pool dtype, with its S = 1 rows under
 ``by_case``, ``moe_gmm``,
 ``flash_attention`` at dh 128, at zamba2's dh 112, at whisper's
 encoder and at gemma3's dh 256 window, ``mamba2_scan``, ``rwkv6_wkv``,
-``fused_matmul`` at fig11's n = 1024 with its launches in fig11) and
+``fused_matmul`` at fig11's n = 1024 with its launches in fig11; each
+with ``has_backward``, and ``flash_attention`` and ``moe_gmm`` with
+their backward's times, bound and launches on the training path) and
 ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before them.  Without a CUDA device, or
 without the repository's ``src/`` beside it, it exits non-zero at once.
@@ -314,6 +349,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -3385,7 +3421,7 @@ def rwkv6_layer_check(torch, cfg, params, prompt) -> dict:
         def run(x, mode, cache, lp=params["layers"][i], block=block):
             return transformer._apply_block(
                 lp, None, x, x, cfg, block, mode=mode, positions=pos,
-                cache=cache, cache_len=None, paged_kernel=False)
+                cache=cache, cache_len=None, paged_kernel=False)[:2]
         out, want = run(h, "prefill", None)
         rows, state = run(h[:, :1], "prefill", None)
         rows = [rows]
@@ -3599,10 +3635,35 @@ def phase_rwkv6(torch, ops, fa, mops, wops, rt):
     eng.run(max_steps=10 ** 6)
     check(all(r.done and len(r.out_tokens) == 32 for r in wave),
           "rwkv6: the second wave did not finish")
+    empty = rwkv6_empty_prompt(rt, eng)
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
-    return {"wkvs": wkvs, "prefills": n_prefill}
+    return {"wkvs": wkvs, "prefills": n_prefill, "empty_prompt": empty}
+
+
+def rwkv6_empty_prompt(rt, eng) -> dict:
+    """An empty prompt beside a 3-token one on the two-executable engine
+    (admitted with a fresh state and len 0, as the reference admits it):
+    both generate 8 tokens, and the neighbour's equal its solo run's."""
+    R = rt["Request"]
+    pair = [R(rid=300, prompt=[], max_new_tokens=8),
+            R(rid=301, prompt=[4, 5, 6], max_new_tokens=8)]
+    for r in pair:
+        check(eng.submit(r) is None, f"rwkv6: rid {r.rid} rejected")
+    eng.run(max_steps=10 ** 6)
+    solo = R(rid=302, prompt=[4, 5, 6], max_new_tokens=8)
+    check(eng.submit(solo) is None, "rwkv6: the solo request rejected")
+    eng.run(max_steps=10 ** 6)
+    rec = {"empty": list(pair[0].out_tokens),
+           "neighbour": list(pair[1].out_tokens),
+           "solo": list(solo.out_tokens)}
+    emit("rwkv6_empty_prompt", **rec)
+    check(all(r.done and len(r.out_tokens) == 8 for r in pair + [solo]),
+          f"rwkv6 empty prompt: {rec}")
+    check(rec["neighbour"] == rec["solo"],
+          f"rwkv6 empty prompt: the neighbour's tokens moved: {rec}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -4105,6 +4166,485 @@ def phase_pixtral(torch, ops, fa, rt) -> dict:
     return {"engine": run, "reference": rec}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: training — the backwards of flash_attention and moe_gmm, the
+# forward-only kernels' refusal, one Trainer step on the card against the
+# CPU, internlm2-1.8b at full width and depth, a checkpoint resume and the
+# train launcher
+# ---------------------------------------------------------------------------
+
+TRAIN_GRAD_TOL = 1e-5   # x max|want|: kernel-forward grads vs autograd
+                        # through the plain version, fp32, TF32 off
+TRAIN_LOSS_RTOL = 1e-5  # card vs CPU, and a resumed run vs an unbroken one
+TRAIN_STATE_TOL = 1e-4  # card vs CPU: grad_norm (rtol); m, v and params
+                        # per leaf, max|diff| <= this x max|CPU|
+TRAIN_B, TRAIN_S = 4, 1024
+TRAIN_STEPS = 12
+TRAIN_PARITY_LAYERS = 2
+TRAIN_LAUNCHER_TIMEOUT_S = 300
+# flash_attention's backward: name, shape, options (the training calls of
+# internlm2, gemma2's windowed, softcapped dh 256 layers past the window,
+# whisper's non-causal encoder)
+FLASH_BWD_CASES = [
+    ("internlm2_train", dict(B=4, H=16, Hkv=8, Sq=1024, Skv=1024, dh=128),
+     {}),
+    ("gemma2_w4096_cap50", dict(B=1, H=8, Hkv=4, Sq=4608, Skv=4608,
+                                dh=256),
+     dict(window=4096, softcap=50.0)),
+    ("whisper_enc", dict(B=4, H=16, Hkv=16, Sq=1500, Skv=1500, dh=64),
+     dict(causal=False)),
+]
+GMM_BWD_SHAPE = dict(E=16, C=80, D=6144, F=10752)   # dbrx's gate/up
+
+
+def rel_err(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def grad_ms(torch, out, inputs, grad, flush) -> float:
+    """Median ms of one backward of ``out`` (its graph kept)."""
+    return cuda_ms(torch, lambda: torch.autograd.grad(
+        out, inputs, grad, retain_graph=True), flush=flush)
+
+
+def phase_flash_grads(torch, fa) -> dict:
+    """dq, dk, dv of ``flash_attention`` (the kernel's forward, the
+    explicit-product backward) against ``torch.autograd.grad`` through
+    ``flash_attention_ref`` on the same inputs, at ``FLASH_BWD_CASES``;
+    each backward timed beside autograd through the plain version, SDPA's
+    backward at the same shape (a yardstick: kv heads repeated outside the
+    timed call, a window's band as a mask, no softcap) and its bound
+    (10 dh flops per live (head, score): the scores recomputed, dP, dV,
+    dQ, dK, on the fp32 CUDA cores, as the backward runs them)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(97531)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    out = {}
+    for name, shape, opts in FLASH_BWD_CASES:
+        B, H, Hkv, Sq, Skv, dh = (shape[k] for k in
+                                  ("B", "H", "Hkv", "Sq", "Skv", "dh"))
+        q = torch.randn(B, H, Sq, dh, generator=gen, device=DEV)
+        k = torch.randn(B, Hkv, Skv, dh, generator=gen, device=DEV)
+        v = torch.randn(B, Hkv, Skv, dh, generator=gen, device=DEV)
+        do = torch.randn(B, H, Sq, dh, generator=gen, device=DEV)
+        qk = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fa.flash_attention(*qk, **opts)
+        got = torch.autograd.grad(o, qk, do)
+        qr = [t.clone().requires_grad_() for t in (q, k, v)]
+        o_ref = fa.flash_attention_ref(*qr, **opts)
+        want = torch.autograd.grad(o_ref, qr, do, retain_graph=True)
+        torch.cuda.synchronize()
+        errs = {nm: rel_err(torch, g, w)
+                for nm, g, w in zip(("dq", "dk", "dv"), got, want)}
+        for nm, g in zip(("dq", "dk", "dv"), got):
+            check(bool(torch.isfinite(g).all()),
+                  f"flash backward {name}: non-finite {nm}")
+        check(max(errs.values()) <= TRAIN_GRAD_TOL,
+              f"flash backward {name}: {errs} x max|want| > "
+              f"{TRAIN_GRAD_TOL}")
+        del got, want
+        o = o.detach()
+        _, _, live = flash_need(**shape, **opts)
+        nbytes = 4 * (3 * B * H * Sq * dh + 2 * B * Hkv * Skv * dh
+                      + B * H * Sq * dh + 2 * B * Hkv * Skv * dh)
+        flops = 10 * B * H * live * dh
+        rec = {"case": name, "shape": shape, "options": opts,
+               "tol_relative": TRAIN_GRAD_TOL, "relative_err": errs,
+               "ms": cuda_ms(torch, lambda: fa.flash_attention_bwd(
+                   q, k, v, o, do, **opts), flush=flush),
+               "plain_ms": grad_ms(torch, o_ref, qr, do, flush),
+               "bytes": nbytes, "flops": flops, "live_scores": live,
+               **bounds(nbytes, flops, 0)}
+        del o_ref, qr
+        g = H // Hkv
+        qs = q.clone().requires_grad_()
+        ks = k.repeat_interleave(g, dim=1).contiguous().requires_grad_()
+        vs = v.repeat_interleave(g, dim=1).contiguous().requires_grad_()
+        if opts.get("window") is not None:
+            rows = torch.arange(Sq, device=DEV)[:, None]
+            cols = torch.arange(Skv, device=DEV)[None, :]
+            band = (cols > rows - opts["window"]) & (cols <= rows)
+            o_lib = F.scaled_dot_product_attention(qs, ks, vs,
+                                                   attn_mask=band)
+        else:
+            o_lib = F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=opts.get("causal", True))
+        rec["library_ms"] = grad_ms(torch, o_lib, (qs, ks, vs), do, flush)
+        rec["library"] = ("scaled_dot_product_attention backward"
+                          + (" (no softcap)" if opts.get("softcap")
+                             else ""))
+        roofline(rec, f"flash backward {name}")
+        emit("kernel_grad_check", kernel="flash_attention", **rec)
+        out[name] = rec
+        del q, k, v, do, o, o_lib, qs, ks, vs, qk
+        free(torch)
+    return out
+
+
+def phase_gmm_grads(torch, gmm) -> dict:
+    """dx, dw of ``moe_gmm`` (the kernel's forward, the explicit-product
+    backward) against autograd through ``moe_gmm_ref`` at dbrx's gate/up
+    shape with the pattern's partial row counts; dead rows' dx exactly 0.
+    Timed beside autograd through the plain version, the two ``torch.bmm``
+    products (a yardstick, every row) and the bound (4 D F flops per live
+    row: dx and dw; fp32 CUDA cores)."""
+    gen = torch.Generator(device=DEV).manual_seed(8642)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    E, C, D, Fd = (GMM_BWD_SHAPE[k] for k in ("E", "C", "D", "F"))
+    x = torch.randn(E, C, D, generator=gen, device=DEV)
+    w = torch.randn(E, D, Fd, generator=gen, device=DEV).mul_(D ** -0.5)
+    dy = torch.randn(E, C, Fd, generator=gen, device=DEV)
+    counts = gmm_pattern_counts(torch, 1, E, C)[0]
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    got = torch.autograd.grad(gmm.moe_gmm(xg, wg, counts), (xg, wg), dy)
+    del xg, wg
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    o_ref = gmm.moe_gmm_ref(xr, wr, counts)
+    want = torch.autograd.grad(o_ref, (xr, wr), dy, retain_graph=True)
+    torch.cuda.synchronize()
+    errs = {"dx": rel_err(torch, got[0], want[0]),
+            "dw": rel_err(torch, got[1], want[1])}
+    dead = (torch.arange(C, device=DEV)[None, :] >= counts[:, None])
+    dead_zero = not bool(got[0][dead].any())
+    check(dead_zero, "moe_gmm backward: dead rows got a nonzero dx")
+    check(max(errs.values()) <= TRAIN_GRAD_TOL,
+          f"moe_gmm backward: {errs} x max|want| > {TRAIN_GRAD_TOL}")
+    del got, want
+    live = int(counts.sum())
+    nbytes = 4 * (2 * E * C * D + 2 * E * D * Fd + E * C * Fd) + 4 * E
+    flops = 4 * live * D * Fd
+    wt = w.transpose(1, 2)
+    xt = x.transpose(1, 2)
+    rec = {"case": "dbrx_gate_up", "shape": [E, C, D, Fd],
+           "live_rows": live, "tol_relative": TRAIN_GRAD_TOL,
+           "relative_err": errs, "dead_rows_dx_exactly_zero": dead_zero,
+           "ms": cuda_ms(torch, lambda: gmm.moe_gmm_bwd(x, w, counts, dy),
+                         flush=flush),
+           "plain_ms": grad_ms(torch, o_ref, (xr, wr), dy, flush),
+           "library_ms": cuda_ms(torch, lambda: (torch.bmm(dy, wt),
+                                                 torch.bmm(xt, dy)),
+                                 flush=flush),
+           "library": "torch.bmm x 2 (dy w^T, x^T dy), every row",
+           "bytes": nbytes, "flops": flops, **bounds(nbytes, flops, 0)}
+    roofline(rec, "moe_gmm backward")
+    emit("kernel_grad_check", kernel="moe_gmm", **rec)
+    del x, w, dy, xr, wr, o_ref, wt, xt
+    free(torch)
+    return rec
+
+
+def phase_train_refusal(torch, mops, wops) -> None:
+    """The forward-only kernels under autograd on the card: each wrapper
+    raises (naming ROADMAP A15) and launches nothing."""
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    before = (mops.launches, wops.launches)
+    x = torch.randn(2, 64, 16, generator=gen, device=DEV)
+    b = torch.randn(2, 64, 8, generator=gen, device=DEV)
+    dt = torch.rand(2, 64, generator=gen, device=DEV)
+    a = -torch.rand(2, generator=gen, device=DEV)
+    r = torch.randn(2, 64, 16, generator=gen, device=DEV)
+    lw = -torch.rand(2, 64, 16, generator=gen, device=DEV)
+    u = torch.randn(2, 16, generator=gen, device=DEV)
+    refused = {}
+    for name, fn in (
+            ("mamba2_scan", lambda: mops.mamba2_scan(
+                x.clone().requires_grad_(), dt, b, b.clone(), a)),
+            ("rwkv6_wkv", lambda: wops.rwkv6_wkv(
+                r.clone().requires_grad_(), r, r, lw, u))):
+        try:
+            fn()
+            refused[name] = False
+        except RuntimeError as e:
+            refused[name] = "A15" in str(e)
+    with torch.no_grad():      # serving: no grad, the kernel launches
+        mops.mamba2_scan(x.clone().requires_grad_(), dt, b, b.clone(), a)
+    torch.cuda.synchronize()
+    launched = (mops.launches - before[0], wops.launches - before[1])
+    emit("train_refusal", refused=refused,
+         launches_under_autograd=[launched[0] - 1, launched[1]])
+    check(all(refused.values()), f"forward-only kernels under autograd: "
+                                 f"{refused}")
+    check(launched == (1, 0), f"launches around the refusals: {launched}")
+    mops.launches, wops.launches = before
+
+
+def state_rel_errs(torch, rt, got_state, want_state) -> dict:
+    """Per part (params, m, v): the worst over leaves of max|diff| /
+    max|want|, ``got`` on the card and ``want`` on the CPU."""
+    out = {}
+    for part, g, w in (
+            ("params", got_state["params"], want_state["params"]),
+            ("m", got_state["opt"]["m"], want_state["opt"]["m"]),
+            ("v", got_state["opt"]["v"], want_state["opt"]["v"])):
+        worst = 0.0
+        for a, b in zip(rt["tree_leaves"](g), rt["tree_leaves"](w)):
+            worst = max(worst, rel_err(torch, a.detach(),
+                                       b.detach().to(DEV)))
+        out[part] = worst
+    return out
+
+
+def train_parity(torch, fa, gmm, rt, cfg, what: str,
+                 fwd_per_step: dict) -> dict:
+    """One ``Trainer`` step (B 4, S 1024, fp32, TF32 off) on the card
+    (the kernels) and on the CPU (the plain versions) from the same
+    seed-0 weights and batch.  Gates: loss at ``TRAIN_LOSS_RTOL``,
+    grad_norm, and params, m and v after the update within
+    ``TRAIN_STATE_TOL``; each kernel's forward and backward launched
+    ``fwd_per_step`` times on the card."""
+    import copy
+    tc = rt["TrainerConfig"](steps=1, batch=TRAIN_B, seq_len=TRAIN_S,
+                             log_every=1)
+    cpu_params = rt["init_params"](rt["model_defs"](cfg), 0, device="cpu",
+                                   trainable=True)
+    card_params = copy.deepcopy(cpu_params).to(DEV)
+    for op in (fa, gmm):
+        op.launches = op.bwd_launches = 0
+    t0 = time.time()
+    card = rt["Trainer"](cfg, tc, device=DEV, params=card_params)
+    card.run()
+    card_s = time.time() - t0
+    launched = {"flash_attention": [fa.launches, fa.bwd_launches],
+                "moe_gmm": [gmm.launches, gmm.bwd_launches]}
+    t0 = time.time()
+    host = rt["Trainer"](cfg, tc, device="cpu", params=cpu_params)
+    host.run()
+    cpu_s = time.time() - t0
+    gr, hr = card.metrics_history[0], host.metrics_history[0]
+    errs = state_rel_errs(torch, rt, card.state, host.state)
+    rec = {"arch": cfg.name, "layers": cfg.num_layers,
+           "batch": [TRAIN_B, TRAIN_S], "loss_card": gr["loss"],
+           "loss_cpu": hr["loss"], "grad_norm_card": gr["grad_norm"],
+           "grad_norm_cpu": hr["grad_norm"],
+           "loss_rel_err": abs(gr["loss"] - hr["loss"]) / abs(hr["loss"]),
+           "grad_norm_rel_err": abs(gr["grad_norm"] - hr["grad_norm"])
+           / abs(hr["grad_norm"]), "state_rel_err": errs,
+           "launches": launched, "card_seconds": card_s,
+           "cpu_seconds": cpu_s,
+           "tol": {"loss_rtol": TRAIN_LOSS_RTOL,
+                   "state_rtol": TRAIN_STATE_TOL}}
+    emit("train_parity", what=what, **rec)
+    check(rec["loss_rel_err"] <= TRAIN_LOSS_RTOL,
+          f"train parity {what}: loss {gr['loss']} vs {hr['loss']}")
+    check(rec["grad_norm_rel_err"] <= TRAIN_STATE_TOL,
+          f"train parity {what}: grad_norm {gr['grad_norm']} vs "
+          f"{hr['grad_norm']}")
+    check(max(errs.values()) <= TRAIN_STATE_TOL,
+          f"train parity {what}: state {errs}")
+    for name, n in fwd_per_step.items():
+        check(launched[name] == [n, n],
+              f"train parity {what}: {name} launches {launched[name]} != "
+              f"[{n}, {n}]")
+    del card, host, cpu_params, card_params
+    free(torch)
+    return rec
+
+
+TRAIN_PARTS = ("train_forward", "train_backward", "train_update")
+
+
+def profile_train_step(torch, rt, tr) -> dict:
+    """One more step of ``tr`` under ``torch.profiler``, its three parts
+    (``forward_train``, ``backward``, the AdamW update) each ended by a
+    synchronize inside its own ``record_function`` range: per part the
+    host wall ms, the device ms by kernel family (the flash kernel,
+    library matrix products, everything else) and the idle share."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    params = tr.state["params"]
+    batch = rt["to_device"](tr.data.batch_at(0), torch.device(DEV))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(TRAIN_PARTS[0]):
+            loss, _ = rt["forward_train"](params, tr.cfg, batch)
+            torch.cuda.synchronize()
+        with record_function(TRAIN_PARTS[1]):
+            loss.backward()
+            torch.cuda.synchronize()
+        with record_function(TRAIN_PARTS[2]):
+            rt["adamw"].update(None, tr.state["opt"], params, tr.ocfg,
+                               tr.ocfg.lr)
+            torch.cuda.synchronize()
+    for p in params.parameters():
+        p.grad = None
+    events = list(prof.events())
+    cuda = torch.autograd.DeviceType.CUDA
+    # each range's host-side event; its device-side annotation (a CUDA
+    # event of the same name spanning the range) is not a kernel
+    ranges = {e.name: (e.time_range.start, e.time_range.end)
+              for e in events
+              if e.name in TRAIN_PARTS and e.device_type != cuda}
+    out = {}
+    for part in TRAIN_PARTS:
+        lo, hi = ranges[part]
+        fam = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+        n = 0
+        for e in events:
+            if e.device_type != cuda or e.name in TRAIN_PARTS \
+                    or not lo <= e.time_range.start < hi:
+                continue
+            n += 1
+            name = e.name.lower()
+            key = ("flash_attention" if "flash_attention" in name else
+                   "matmul" if ("gemm" in name or "gemv" in name
+                                or "cutlass" in name) else "other")
+            fam[key] += e.time_range.elapsed_us() / 1e3
+        wall = (hi - lo) / 1e3
+        busy = sum(fam.values())
+        out[part] = {"wall_ms": wall, "device_busy_ms": busy,
+                     "device_ms_by_family": fam, "device_kernels": n,
+                     "idle_share": max(0.0, 1.0 - busy / wall)
+                     if wall else None}
+    return out
+
+
+def phase_train_full(torch, ops, fa, gmm, mops, wops, rt, card) -> dict:
+    """The slice's main path at full size: ``Trainer`` on internlm2-1.8b at
+    full width and all 24 layers, ``TRAIN_STEPS`` steps at B 4, S 1024,
+    fp32 (params, grads, m and v ~30 GB; activations ~20 GB; the logits
+    [4096, 92544] ~1.5 GB a copy).  Counts zeroed just before ``run`` and
+    read just after.  Gates: every loss finite, the last below the first,
+    grad_norm finite and > 0, flash forward and backward 24 a step each,
+    no other kernel."""
+    cfg = rt["get_config"]("internlm2-1.8b")
+    t0 = time.time()
+    params = rt["init_params"](rt["model_defs"](cfg), 0, device=DEV,
+                               trainable=True)
+    tc = rt["TrainerConfig"](steps=TRAIN_STEPS, batch=TRAIN_B,
+                             seq_len=TRAIN_S, log_every=1)
+    tr = rt["Trainer"](cfg, tc, device=DEV, params=params)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    emit("params", arch=cfg.name, layers=cfg.num_layers, trainable=True,
+         params=n_params, param_bytes=4 * n_params,
+         seconds=time.time() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches([ops, gmm, fa, mops, wops])
+    fa.bwd_launches = gmm.bwd_launches = 0
+    t0 = time.time()
+    res = tr.run()
+    wall = time.time() - t0
+    launched = {"flash_attention": [fa.launches, fa.bwd_launches],
+                "moe_gmm": [gmm.launches, gmm.bwd_launches],
+                "paged_attention": ops.launches,
+                "mamba2_scan": mops.launches, "rwkv6_wkv": wops.launches}
+    hist = res["history"]
+    losses = [r["loss"] for r in hist]
+    norms = [r["grad_norm"] for r in hist]
+    step_ms = sorted(r["step_time_s"] * 1e3 for r in hist[1:])
+    med = step_ms[len(step_ms) // 2]
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "steps": len(hist),
+           "batch": [TRAIN_B, TRAIN_S], "losses": losses,
+           "grad_norms": norms, "lrs": [r["lr"] for r in hist],
+           "step_ms": [r["step_time_s"] * 1e3 for r in hist],
+           "ms_per_step_median_after_first": med,
+           "tokens_per_s": TRAIN_B * TRAIN_S / (med / 1e3),
+           "wall_s": wall,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launched, "stragglers": len(res["stragglers"]),
+           "card": card}
+    emit("train_full", **rec)
+    L = cfg.num_layers
+    check(len(hist) == TRAIN_STEPS, f"train: {len(hist)} logged steps")
+    check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
+    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    check(all(math.isfinite(x) and x > 0 for x in norms),
+          f"train: grad norms {norms}")
+    check(launched["flash_attention"] == [L * TRAIN_STEPS] * 2,
+          f"train: flash launches {launched['flash_attention']} != "
+          f"{L} x {TRAIN_STEPS} each")
+    check(launched["moe_gmm"] == [0, 0] and ops.launches == 0
+          and mops.launches == 0 and wops.launches == 0,
+          f"train: other kernels launched: {launched}")
+    try:
+        rec["profile"] = profile_train_step(torch, rt, tr)
+    except (RuntimeError, KeyError) as e:    # an optional reading
+        rec["profile"] = {"measured": False, "reason": repr(e)}
+    emit("profile", arch=cfg.name, path="train_step", **rec["profile"])
+    del tr, params, res
+    free(torch)
+    return rec
+
+
+def phase_train_resume(torch, rt, cfg) -> dict:
+    """``TRAIN_PARITY_LAYERS`` layers at full width: 6 steps with
+    ``ckpt_every=3`` into a temporary directory, then a fresh ``Trainer``
+    restores step 3 and replays 3..5; the final loss must be the unbroken
+    run's at ``TRAIN_LOSS_RTOL`` (the embedding's backward sums with
+    atomics on the card, so not bitwise)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        tc = rt["TrainerConfig"](steps=6, batch=TRAIN_B, seq_len=TRAIN_S,
+                                 ckpt_dir=d, ckpt_every=3, log_every=1)
+        t0 = time.time()
+        t1 = rt["Trainer"](cfg, tc, device=DEV)
+        t1.run()
+        full_s = time.time() - t0
+        loss_full = t1.metrics_history[-1]["loss"]
+        latest = rt["ckpt"].latest_step(d)
+        del t1
+        free(torch)
+        t0 = time.time()
+        t3 = rt["Trainer"](cfg, dataclasses.replace(tc, ckpt_dir=None),
+                           device=DEV)
+        _, step = rt["ckpt"].restore(d, t3.state, step=3)
+        restored_step = int(t3.state["step"])
+        t3.run()
+        resumed_s = time.time() - t0
+    replay = t3.metrics_history
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "latest_step": latest,
+           "restored_step": restored_step,
+           "replayed_steps": [r["step"] for r in replay],
+           "loss_full": loss_full, "loss_resumed": replay[-1]["loss"],
+           "rel_err": abs(replay[-1]["loss"] - loss_full) / abs(loss_full),
+           "tol_rtol": TRAIN_LOSS_RTOL, "full_run_s": full_s,
+           "resumed_run_s": resumed_s}
+    emit("train_resume", **rec)
+    check(latest == 6 and step == 3 and restored_step == 3,
+          f"resume: latest {latest}, restored {step}/{restored_step}")
+    check(rec["replayed_steps"] == [3, 4, 5],
+          f"resume: replayed {rec['replayed_steps']}")
+    check(rec["rel_err"] <= TRAIN_LOSS_RTOL,
+          f"resume: loss {replay[-1]['loss']} vs {loss_full}")
+    del t3
+    free(torch)
+    return rec
+
+
+def phase_train_launcher(torch) -> dict:
+    """``python -m repro_torch.launch.train --arch internlm2-1.8b --smoke
+    --steps 4`` as a subprocess on the card: exit 0, its step lines and
+    its final line."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    argv = ["--arch", "internlm2-1.8b", "--smoke", "--steps", "4"]
+    t0 = time.time()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *argv],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=TRAIN_LAUNCHER_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"train launcher: no exit within "
+                           f"{TRAIN_LAUNCHER_TIMEOUT_S} s")
+    lines = proc.stdout.strip().splitlines()
+    rec = {"argv": argv, "rc": proc.returncode, "lines": lines,
+           "seconds": time.time() - t0,
+           "stderr_tail": proc.stderr.splitlines()[-20:]}
+    emit("train_launcher", **rec)
+    check(proc.returncode == 0, f"train launcher: exit {proc.returncode}")
+    check(bool(lines) and re.match(
+        r"^final loss: \d+\.\d{4}  stragglers flagged: \d+$", lines[-1]),
+        f"train launcher: last line {lines[-1:]!r}")
+    check(sum(bool(re.match(r"^step +\d+ loss ", ln)) for ln in lines) == 2,
+          f"train launcher: step lines {lines}")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4140,6 +4680,12 @@ def main() -> int:
         from repro_torch.serve.engine import Engine, Request
         from repro_torch.serve.reference import ReferenceEngine
         from repro_torch.serve.spec import SpecConfig
+        from repro_torch.models.module import tree_leaves
+        from repro_torch.data.pipeline import to_device
+        from repro_torch.models import forward_train
+        from repro_torch.optim import adamw
+        from repro_torch.train import checkpoint as ckpt
+        from repro_torch.train.trainer import Trainer, TrainerConfig
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e}); run from the "
               "repository root", file=sys.stderr)
@@ -4155,7 +4701,10 @@ def main() -> int:
               ReferenceEngine=ReferenceEngine, ChaosMonkey=ChaosMonkey,
               traffic=traffic, validate_trace=validate,
               forward_dense_logits=forward_dense_logits,
-              prepare_decode_cache=prepare_decode_cache)
+              prepare_decode_cache=prepare_decode_cache,
+              Trainer=Trainer, TrainerConfig=TrainerConfig,
+              tree_leaves=tree_leaves, ckpt=ckpt, to_device=to_device,
+              forward_train=forward_train, adamw=adamw)
     try:
         resolve_device("cuda")        # TF32 off
         smi = subprocess.run(
@@ -4191,6 +4740,12 @@ def main() -> int:
         rwkv_worst, rwkv_timed = phase_rwkv6_kernels(torch, wops)
         fmm_worst, fmm_timed = phase_fused_matmul_kernels(torch, fops, fig11)
         fmm_grad_worst = phase_fused_matmul_grads(torch, fops)
+        # the backwards of the training path, and the refusal of the
+        # forward-only kernels under autograd
+        flash_grads = timed_phase("flash_grads", phase_flash_grads, torch,
+                                  fa)
+        gmm_grads = timed_phase("gmm_grads", phase_gmm_grads, torch, gmm)
+        phase_train_refusal(torch, mops, wops)
         _, fig11_launches, fig11_res = phase_figs(
             torch, fops, (ops, gmm, fa, mops, wops, fops), fig09, fig11)
         cfg, params = init_model(torch, rt)
@@ -4269,6 +4824,29 @@ def main() -> int:
         mistral = timed_phase("mistral", phase_mistral, torch, ops, fa, rt,
                               MISTRAL_DEPTH)
         pixtral = timed_phase("pixtral", phase_pixtral, torch, ops, fa, rt)
+        # training: card against CPU at 2 layers (and reduced dbrx: the
+        # MoE backward and the aux loss), a resume, the full model, the
+        # launcher
+        t_train = time.time()
+        il2 = cut_depth(get_config("internlm2-1.8b"), TRAIN_PARITY_LAYERS)
+        parity = {
+            "internlm2": timed_phase(
+                "train_parity_internlm2", train_parity, torch, fa, gmm, rt,
+                il2, "internlm2", {"flash_attention": TRAIN_PARITY_LAYERS,
+                                   "moe_gmm": 0}),
+            "dbrx_reduced": timed_phase(
+                "train_parity_dbrx", train_parity, torch, fa, gmm, rt,
+                reduced(get_config("dbrx-132b")), "dbrx_reduced",
+                {"flash_attention": 2, "moe_gmm": 6})}
+        resume = timed_phase("train_resume", phase_train_resume, torch, rt,
+                             il2)
+        train = timed_phase("train_full", phase_train_full, torch, ops, fa,
+                            gmm, mops, wops, rt, card)
+        train_launcher = timed_phase("train_launcher", phase_train_launcher,
+                                     torch)
+        emit("train_phases_done", seconds=time.time() - t_train,
+             resumed_loss_rel_err=resume["rel_err"],
+             launcher_final=train_launcher["lines"][-1])
     except SmokeFailure as e:
         emit("failed", reason=str(e))
         return 1
@@ -4473,6 +5051,42 @@ def main() -> int:
         "fig11_speedup": fig11_res["speedup"],
         "shape": "fig11: int8 x [1024,1024] scaled, f32 w [1024,1024], "
                  "f32 out"})
+    # which kernels' ops have a backward, and the two that the training
+    # path differentiates: their backwards' times, bounds and launches
+    bwd_keys = ("ms", "plain_ms", "library_ms", "library", "bound_ms",
+                "bound_by", "roofline_share", "relative_err")
+    for e in entries:
+        e["has_backward"] = e["name"].startswith(
+            ("flash_attention", "moe_gmm", "fused_matmul"))
+    by_name = {e["name"]: e for e in entries}
+    fl_train = train["launches"]["flash_attention"]
+    by_name["flash_attention"].update(
+        launches_train=fl_train[0],
+        launches_train_per_step=fl_train[0] // TRAIN_STEPS,
+        backward={
+            "function": "flash_attention_bwd",
+            "source": "src/repro_torch/kernels/flash_attention/ops.py",
+            "route": "explicit products (fp32 einsum, TF32 off); not a "
+                     "kernel of its own",
+            "launches_train": fl_train[1],
+            "launches_train_per_step": fl_train[1] // TRAIN_STEPS,
+            **{k: flash_grads["internlm2_train"][k] for k in bwd_keys},
+            "shape": "internlm2-1.8b training: B=4 H=16 Hkv=8 dh=128 "
+                     "causal fp32 S=1024",
+            "by_case": {n: {k: r[k] for k in bwd_keys}
+                        for n, r in flash_grads.items()}})
+    gmm_par = parity["dbrx_reduced"]["launches"]["moe_gmm"]
+    by_name["moe_gmm"].update(
+        launches_train_dbrx_reduced=gmm_par[0],
+        backward={
+            "function": "moe_gmm_bwd",
+            "source": "src/repro_torch/kernels/moe_gmm/ops.py",
+            "route": "explicit products (fp32 einsum, TF32 off); not a "
+                     "kernel of its own",
+            "launches_train_dbrx_reduced": gmm_par[1],
+            **{k: gmm_grads[k] for k in bwd_keys},
+            "shape": "dbrx gate/up: E=16 C=80 D=6144 F=10752 fp32, "
+                     f"live rows {gmm_grads['live_rows']}"})
     print(card, flush=True)      # again, beside the results it qualifies
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,16 @@ row sees a key).  ``launches`` counts kernel launches (one per call on a
 CUDA tensor), so a run can show that its main path went through the
 kernel.  ``supported()`` runs the smallest real launch; tests use it to
 skip.
+
+The op is differentiable (``forward_train`` runs it in every attention
+layer): its backward, ``flash_attention_bwd``, is the flash backward in
+explicit products on the saved q, k, v and output, on either device —
+the scores recomputed, the softcap's chain rule, the masks, P, D =
+rowsum(dO ⊙ O), dV = Pᵀ dO, dS = P ⊙ (dO Vᵀ − D), dQ = dS K · scale,
+dK = dSᵀ Q · scale, dK and dV summed over each GQA group — in fp32 with
+TF32 off, a slab of (batch, kv head) pairs at a time so that one score
+tensor stays under ``BWD_SCORE_ELEMS``.  ``bwd_launches`` counts backward
+calls on CUDA tensors.  It is not a kernel of its own yet.
 """
 
 from __future__ import annotations
@@ -28,7 +38,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import NEG_INF, \
+    flash_attention_ref
+from repro_torch.kernels.fused_matmul.ref import tf32_off
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
@@ -38,6 +50,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 
 launches = 0    # kernel launches since import (callers may reset it)
+bwd_launches = 0   # backward calls on CUDA tensors (callers may reset it)
+# one slab's score tensor [n, G, Sq, Skv] holds at most this many fp32s
+BWD_SCORE_ELEMS = 1 << 26
 
 # the C signature of csrc's flash_attention_fwd: 4 tensor pointers, B, H,
 # Hkv, Sq, Skv, dh, the dtype code, causal and window, softcap and
@@ -87,7 +102,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
-    """q [B,H,Sq,dh]; k,v [B,Hkv,Skv,dh] -> [B,H,Sq,dh] in q's dtype."""
+    """q [B,H,Sq,dh]; k,v [B,Hkv,Skv,dh] -> [B,H,Sq,dh] in q's dtype,
+    differentiable in q, k and v."""
+    return _FlashAttention.apply(q, k, v, causal, window, softcap)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, window: Optional[int],
+             softcap: Optional[float]) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
@@ -112,6 +134,81 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches
     launches += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out = _forward(q, k, v, causal, window, softcap)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, **ctx.opts)
+        if do.device.type == "cuda":
+            global bwd_launches
+            bwd_launches += 1
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """The flash backward in explicit products: (dq, dk, dv) in the
+    dtypes of q, k and v, for q [B,H,Sq,dh], k,v [B,Hkv,Skv,dh], the
+    forward's output ``out`` and its cotangent ``do`` [B,H,Sq,dh].
+    Query ``i`` sits at key position ``i`` for the masks, as in the
+    forward."""
+    b, h, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = dh ** -0.5
+    n_all = b * hkv
+    qf = q.reshape(n_all, g, sq, dh)
+    of = out.reshape(n_all, g, sq, dh)
+    dof = do.reshape(n_all, g, sq, dh)
+    kf = k.reshape(n_all, skv, dh)
+    vf = v.reshape(n_all, skv, dh)
+    rows = torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (cols <= rows)
+    if window is not None:
+        mask = mask & (cols > rows - window)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    dq3 = dq.view(n_all, g, sq, dh)
+    dk3, dv3 = dk.view(n_all, skv, dh), dv.view(n_all, skv, dh)
+    step = max(1, BWD_SCORE_ELEMS // (g * sq * skv))
+    with tf32_off():
+        for lo in range(0, n_all, step):
+            sl = slice(lo, min(n_all, lo + step))
+            qs, ks, vs = qf[sl].float(), kf[sl].float(), vf[sl].float()
+            dos = dof[sl].float()
+            s = torch.einsum("ngqd,nkd->ngqk", qs, ks) * scale
+            if softcap is not None:
+                t = torch.tanh(s / softcap)
+                s = t * softcap
+            s = torch.where(mask, s, NEG_INF)
+            p = torch.softmax(s, dim=-1)
+            del s
+            d = (dos * of[sl].float()).sum(-1, keepdim=True)
+            dv3[sl] = torch.einsum("ngqk,ngqd->nkd", p, dos)
+            ds = p * (torch.einsum("ngqd,nkd->ngqk", dos, vs) - d)
+            del p
+            if softcap is not None:
+                ds = ds * (1.0 - t * t)
+                del t
+            dq3[sl] = torch.einsum("ngqk,nkd->ngqd", ds, ks) * scale
+            dk3[sl] = torch.einsum("ngqk,ngqd->nkd", ds, qs) * scale
+            del ds
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 @functools.lru_cache(maxsize=None)

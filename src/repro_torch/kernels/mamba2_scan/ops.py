@@ -21,6 +21,11 @@ and no transpose of x.  ``launches`` counts calls that launch the kernel
 (one per call on a CUDA tensor), so a run can show that its main path
 went through the kernel.  ``supported()`` runs the smallest real launch;
 tests use it to skip.
+
+The kernel has no backward (ROADMAP A15's remainder): on a CUDA tensor
+the wrapper raises under autograd (grad mode on and an input that
+requires grad) instead of returning an output cut from the graph.  The
+plain version on the CPU differentiates.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba2_scan.cu"
@@ -90,6 +95,7 @@ def _launch(x, dt, b, c, a, h0, *, B: int, H: int, S: int, P: int, N: int,
             bc_st: Tuple[int, int, int], a_st: Tuple[int, int]):
     """One kernel launch over B*H streams; strides are (batch, head,
     time) in elements.  Returns (y with x's strides, h_final [B*H,N,P])."""
+    refuse_autograd("mamba2_scan", x, dt, b, c, a, h0)
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the grid's 65535")
     y = torch.empty_like(x)

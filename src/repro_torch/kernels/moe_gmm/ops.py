@@ -16,6 +16,14 @@ x and w alike; the kernel accumulates in fp32.  ``launches`` counts
 kernel launches (one per call on a CUDA tensor), so a run can show that
 its main path went through the kernel.  ``supported()`` runs the
 smallest real launch; tests use it to skip.
+
+The op is differentiable in x and w (``forward_train`` runs it in every
+MoE layer): its backward, ``moe_gmm_bwd``, is explicit products per
+expert on either device, dx = dy · wᵀ and dw = Σ_g xᵀ · dy, with dy
+zeroed at rows at or past ``row_counts`` (those rows of the output are
+constants), so they get a zero dx and add nothing to dw.  fp32
+products with TF32 off.  ``bwd_launches`` counts backward calls on
+CUDA tensors; it is not a kernel of its own yet.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.fused_matmul.ref import tf32_off
 from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
@@ -36,6 +45,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0    # kernel launches since import (callers may reset it)
+bwd_launches = 0   # backward calls on CUDA tensors (callers may reset it)
 
 # the C signature of csrc's moe_gmm_fwd: 4 tensor pointers, G, E, C, D,
 # F and the dtype code, the stream
@@ -80,7 +90,13 @@ def _check(x: torch.Tensor, w: torch.Tensor,
 def moe_gmm(x: torch.Tensor, w: torch.Tensor,
             row_counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [E,C,D] or [G,E,C,D] @ w [E,D,F] -> [E,C,F] or [G,E,C,F], in
-    x's dtype; rows ``>= row_counts`` ([E] or [G,E] int32) are 0."""
+    x's dtype; rows ``>= row_counts`` ([E] or [G,E] int32) are 0.
+    Differentiable in x and w."""
+    return _MoeGmm.apply(x, w, row_counts)
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor,
+             row_counts: Optional[torch.Tensor]) -> torch.Tensor:
     if x.device.type == "cpu":
         return moe_gmm_ref(x, w, row_counts)
     if x.device.type != "cuda":
@@ -108,6 +124,42 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
     global launches
     launches += 1
     return out.squeeze(0) if squeeze else out
+
+
+class _MoeGmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, row_counts):
+        ctx.save_for_backward(x, w, row_counts)
+        return _forward(x, w, row_counts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, row_counts = ctx.saved_tensors
+        dx, dw = moe_gmm_bwd(x, w, row_counts, dy)
+        if dy.device.type == "cuda":
+            global bwd_launches
+            bwd_launches += 1
+        return dx, dw, None
+
+
+def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor,
+                row_counts: Optional[torch.Tensor], dy: torch.Tensor):
+    """(dx, dw) of ``moe_gmm(x, w, row_counts)`` for the output cotangent
+    ``dy``, in the dtypes of x and w."""
+    squeeze = x.dim() == 3
+    x4 = x.unsqueeze(0) if squeeze else x
+    dy4 = (dy.unsqueeze(0) if squeeze else dy).float()
+    if row_counts is not None:
+        counts = row_counts.unsqueeze(0) if squeeze else row_counts
+        live = (torch.arange(x4.shape[2], device=x.device)[None, None, :]
+                < counts[..., None])
+        dy4 = dy4 * live[..., None]
+    with tf32_off():
+        wf = w.float()
+        dx = torch.einsum("gecf,edf->gecd", dy4, wf)
+        dw = torch.einsum("gecd,gecf->edf", x4.float(), dy4)
+    dx = dx.squeeze(0) if squeeze else dx
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,6 +22,8 @@ calls that launched (one per call on a CUDA tensor) and
 its main path went through the kernel.
 ``supported(kv_dtype)`` runs the smallest real launch in that pool
 dtype; tests use it to skip.
+Serving only: on a CUDA tensor the wrapper raises under autograd (the
+kernel has no backward).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
@@ -137,6 +139,7 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu tensors, "
                          f"got {q.device}")
+    refuse_autograd("paged_attention", q, pool_k, pool_v)
     squeeze = q.dim() == 3
     q4 = q.unsqueeze(1) if squeeze else q
     _check(q4, pool_k, pool_v, page_table, cache_len, k_scale, v_scale)

@@ -21,6 +21,11 @@ broadcast copy.  ``launches`` counts calls that launch the kernels (one
 per call on a CUDA tensor, however many CUDA kernels it issues), so a
 run can show that its main path went through the kernel.
 ``supported()`` runs a small real call; tests use it to skip.
+
+The kernel has no backward (ROADMAP A15's remainder): on a CUDA tensor
+the wrapper raises under autograd (grad mode on and an input that
+requires grad) instead of returning an output cut from the graph.  The
+plain version on the CPU differentiates.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_wkv.cu"
@@ -101,6 +106,7 @@ def _launch(r, k, v, lw, u, h0, *, B: int, H: int, S: int, K: int,
             layout: str, u_st: Tuple[int, int]):
     """One call of the kernels over B*H streams.  Returns (y contiguous in
     r's shape, h_final [B*H,K,K])."""
+    refuse_autograd("rwkv6_wkv", r, k, v, lw, u, h0)
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the grid's 65535")
     y = torch.empty(r.shape, dtype=torch.float32, device=r.device)

@@ -7,10 +7,12 @@ from repro_torch.models import (attention, layers, mamba2, module, moe,
                                 rwkv6, transformer)
 from repro_torch.models.transformer import (forward_decode,
                                             forward_dense_logits,
-                                            forward_prefill, forward_verify,
-                                            model_defs, prepare_decode_cache)
+                                            forward_prefill, forward_train,
+                                            forward_verify, model_defs,
+                                            prepare_decode_cache)
 
 __all__ = ["attention", "layers", "mamba2", "module", "moe", "rwkv6",
            "transformer",
-           "model_defs", "forward_dense_logits", "forward_prefill",
-           "forward_decode", "forward_verify", "prepare_decode_cache"]
+           "model_defs", "forward_train", "forward_dense_logits",
+           "forward_prefill", "forward_decode", "forward_verify",
+           "prepare_decode_cache"]

@@ -1,8 +1,10 @@
 """Basic layers: RMS norm, group norm, rotary embeddings, token
-embeddings, LM head, SwiGLU MLP (counterparts of
-``repro/models/layers.py``)."""
+embeddings, LM head (behind ``grad_fence``), SwiGLU MLP and the token
+cross-entropy (counterparts of ``repro/models/layers.py``)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -70,8 +72,27 @@ def embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return h
 
 
+class _GradFence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def grad_fence(x: torch.Tensor) -> torch.Tensor:
+    """Identity whose cotangent is cast back to x's dtype: the fp32 LM
+    head would otherwise push fp32 cotangents into a bf16 residual
+    stream."""
+    return _GradFence.apply(x)
+
+
 def logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """LM head; fp32 out whatever the activation dtype."""
+    h = grad_fence(h)
     w = params["table"].t() if cfg.tie_embeddings else params["head"]
     out = torch.matmul(h.float(), w.float())
     if cfg.logit_softcap:
@@ -92,3 +113,17 @@ def mlp(params, x: torch.Tensor) -> torch.Tensor:
     g = torch.matmul(x, params["w_gate"].to(x.dtype))
     u = torch.matmul(x, params["w_up"].to(x.dtype))
     return torch.matmul(F.silu(g) * u, params["w_down"].to(x.dtype))
+
+
+def cross_entropy(logits_: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in fp32; with ``mask`` the mean over the
+    positions it marks (at least one)."""
+    lf = logits_.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        maskf = mask.float()
+        return (nll * maskf).sum() / torch.clamp(maskf.sum(), min=1.0)
+    return nll.mean()

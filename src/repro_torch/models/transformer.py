@@ -6,6 +6,7 @@ cross-attention, over block-paged KV, dense KV and dense recurrent
 state (counterpart of ``repro/models/transformer.py``).
 
 Entry points:
+    forward_train(params, cfg, batch)         -> (loss, metrics)
     forward_dense_logits(params, cfg, batch)  -> logits [B,S,V]
     forward_prefill(params, cfg, batch, length=, ctx=)
                                    -> (last-token logits [B,V], cache)
@@ -18,9 +19,13 @@ Entry points:
 ``frames`` [B,F,d] (whisper: the encoder's input) or ``frontend``
 [B,F,d] (pixtral: it replaces the first F token embeddings).
 
-``forward_dense_logits`` is the teacher-forced pass (every attention
-layer through ``kernels/flash_attention`` on the card, causal; whisper's
-encoder non-causal).  ``forward_prefill`` is the two-executable engine's
+``forward_train`` is the training pass: the dense mode of every layer
+(attention through ``kernels/flash_attention``, MoE through
+``kernels/moe_gmm``, both differentiable), the mean token cross-entropy
+plus 0.01 x the MoE load-balance loss.  ``forward_dense_logits`` is
+the teacher-forced pass (every attention layer through
+``kernels/flash_attention`` on the card, causal; whisper's encoder
+non-causal).  ``forward_prefill`` is the two-executable engine's
 bucketed prefill (its attention runs ``kernels/flash_attention`` on the
 card, or a suffix prefill against paged context; its Mamba2 layers run
 ``kernels/mamba2_scan``, its rwkv6 layers ``kernels/rwkv6_wkv``); it
@@ -29,8 +34,9 @@ for whisper, each decoder layer's cross-attention KV (``enc_kv``).
 ``forward_decode`` writes KV into the pools (or a dense per-slot cache)
 in place and returns new state tensors for the Mamba2 and rwkv6 layers.
 ``forward_verify`` runs attention-only stacks (the fused chunk and the
-speculative verify).  The train pass is not ported yet (A15).  Serving
-drops the MoE router's aux values, as the reference's entry points do.
+speculative verify).  Every layer returns its MoE router's aux values;
+``_decoder`` averages them over the layers in the dense mode, and only
+``forward_train`` reads them.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, FFN_DENSE, FFN_MOE, FFN_NONE,
                                       FFN_RWKV, MAMBA2, RWKV6, SHARED_ATTN,
@@ -116,15 +123,15 @@ def _apply_block(lp, shared, h: torch.Tensor, h0: torch.Tensor,
                  length: Optional[torch.Tensor] = None,
                  ctx: Optional[Dict] = None,
                  enc_kv: Optional[Dict] = None
-                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """One decoder layer: a pre-norm mixer (attention, Mamba2 or the
-    rwkv6 time-mix), for a cross-attention arch a pre-norm
-    cross-attention over ``enc_kv``, then a pre-norm FFN (SwiGLU, MoE
-    with its aux values dropped, or the rwkv6 channel-mix), each added
-    to the residual.  ``length``: the true lengths of a right-padded
-    prefill (the recurrent mixers' state is taken there).  An rwkv6
-    block's states ``{tshift, wkv}`` and ``{cshift}`` merge into one
-    dict.  Shared attention: the block of ``shared[block.shared_group]``
+                 ) -> Tuple[torch.Tensor, Optional[Dict], Dict]:
+    """One decoder layer -> (h, new cache, aux): a pre-norm mixer
+    (attention, Mamba2 or the rwkv6 time-mix), for a cross-attention
+    arch a pre-norm cross-attention over ``enc_kv``, then a pre-norm FFN
+    (SwiGLU, MoE, whose router's aux values are returned, or the rwkv6
+    channel-mix), each added to the residual.  ``length``: the true
+    lengths of a right-padded prefill (the recurrent mixers' state is
+    taken there).  An rwkv6 block's states ``{tshift, wkv}`` and
+    ``{cshift}`` merge into one dict.  Shared attention: the block of ``shared[block.shared_group]``
     on ``concat(h, h0)``, where ``h0`` is the embedding output."""
     if block.mixer == SHARED_ATTN:
         sp = shared[block.shared_group]
@@ -139,7 +146,7 @@ def _apply_block(lp, shared, h: torch.Tensor, h0: torch.Tensor,
         x = x + y
         x = x + layers.mlp(sp["mlp"],
                            layers.rmsnorm(sp["ln_mlp"], x, cfg.norm_eps))
-        return h + x, new_cache
+        return h + x, new_cache, {}
     if ctx is not None and block.mixer != ATTN:
         raise ValueError(
             f"a suffix prefill reached a {block.mixer} layer; only pure "
@@ -163,13 +170,14 @@ def _apply_block(lp, shared, h: torch.Tensor, h0: torch.Tensor,
         h = h + attention.cross_apply(
             lp["cross"], layers.rmsnorm(lp["ln_cross"], h, cfg.norm_eps),
             enc_kv, cfg=cfg)
+    aux: Dict = {}
     if block.ffn == FFN_NONE:
-        return h, new_cache
+        return h, new_cache, aux
     xn = layers.rmsnorm(lp["ln2"], h, cfg.norm_eps)
     if block.ffn == FFN_DENSE:
         y = layers.mlp(lp["ffn"], xn)
     elif block.ffn == FFN_MOE:
-        y, _aux = moe.apply(lp["ffn"], xn, cfg)
+        y, aux = moe.apply(lp["ffn"], xn, cfg)
     elif block.ffn == FFN_RWKV:
         y, cm_state = rwkv6.channel_mix(lp["ffn"], xn, cfg, mode=mode,
                                         state=cache, length=length)
@@ -177,7 +185,7 @@ def _apply_block(lp, shared, h: torch.Tensor, h0: torch.Tensor,
             new_cache = {**(new_cache or {}), **cm_state}
     else:
         raise ValueError(f"unknown ffn {block.ffn!r}")
-    return h + y, new_cache
+    return h + y, new_cache, aux
 
 
 def _decoder(params, cfg: ModelConfig, h: torch.Tensor, *, mode: str,
@@ -185,21 +193,39 @@ def _decoder(params, cfg: ModelConfig, h: torch.Tensor, *, mode: str,
              cache_len: Optional[torch.Tensor], paged_kernel: bool = False,
              length: Optional[torch.Tensor] = None,
              ctx_list: Optional[List] = None,
-             enc_kv_list: Optional[List] = None
-             ) -> Tuple[torch.Tensor, List]:
+             enc_kv_list: Optional[List] = None, remat: bool = False
+             ) -> Tuple[torch.Tensor, List, Dict]:
+    """The layer stack and the final norm -> (h, per-layer caches, aux).
+    In the dense mode (``forward_train``'s) each aux value is summed over
+    the layers and divided by their number, as the reference does; the
+    serving modes skip that sum, which only ``forward_train`` reads.
+    ``remat`` (dense mode only) recomputes each block's activations in
+    the backward (``torch.utils.checkpoint``, non-reentrant)."""
     h0 = h
     shared = params["shared"] if "shared" in params else None
     new_caches: List = []
+    aux_all: Dict = {}
     for i, block in enumerate(cfg.blocks):
-        h, nc = _apply_block(
-            params["layers"][i], shared, h, h0, cfg, block, mode=mode,
-            positions=positions,
-            cache=caches[i] if caches is not None else None,
-            cache_len=cache_len, paged_kernel=paged_kernel, length=length,
-            ctx=ctx_list[i] if ctx_list is not None else None,
-            enc_kv=enc_kv_list[i] if enc_kv_list is not None else None)
+        kw = dict(mode=mode, positions=positions,
+                  cache=caches[i] if caches is not None else None,
+                  cache_len=cache_len, paged_kernel=paged_kernel,
+                  length=length,
+                  ctx=ctx_list[i] if ctx_list is not None else None,
+                  enc_kv=enc_kv_list[i] if enc_kv_list is not None
+                  else None)
+        if remat and mode == "dense":
+            h, nc, aux = checkpoint(_apply_block, params["layers"][i],
+                                    shared, h, h0, cfg, block,
+                                    use_reentrant=False, **kw)
+        else:
+            h, nc, aux = _apply_block(params["layers"][i], shared, h, h0,
+                                      cfg, block, **kw)
         new_caches.append(nc)
-    return layers.rmsnorm(params["final_ln"], h, cfg.norm_eps), new_caches
+        if mode == "dense":
+            for k, v in aux.items():
+                aux_all[k] = aux_all.get(k, 0.0) + v / cfg.num_layers
+    return (layers.rmsnorm(params["final_ln"], h, cfg.norm_eps), new_caches,
+            aux_all)
 
 
 def _encoder(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
@@ -260,9 +286,42 @@ def forward_dense_logits(params, cfg: ModelConfig,
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     enc_kv_list = _enc_kv_of(params, cfg, batch)
     h = _embed_with_frontend(params, cfg, tokens, batch.get("frontend"))
-    h, _ = _decoder(params, cfg, h, mode="dense", positions=positions,
-                    caches=None, cache_len=None, enc_kv_list=enc_kv_list)
+    h, _, _ = _decoder(params, cfg, h, mode="dense", positions=positions,
+                       caches=None, cache_len=None, enc_kv_list=enc_kv_list)
     return layers.logits(params["embed"], cfg, h)
+
+
+def forward_train(params, cfg: ModelConfig, batch: Dict, *,
+                  q_chunk: Optional[int] = None, remat: bool = False
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """-> (loss, metrics): the mean next-token cross-entropy of
+    ``batch["labels"]`` [B,S] over the dense pass of ``batch["tokens"]``
+    (whisper: its encoder over ``batch["frames"]`` and each decoder
+    layer's cross-attention KV; pixtral: ``batch["frontend"]`` in the
+    first ``frontend_len`` positions, which the loss masks unless
+    ``batch["loss_mask"]`` is given), plus 0.01 x the MoE load-balance
+    loss averaged over the layers.  ``metrics`` holds ``loss`` and the
+    averaged aux values.  ``remat``: recompute each block in the
+    backward.  ``q_chunk`` is accepted for the reference's signature:
+    the flash kernel picks its own tiles."""
+    del q_chunk
+    tokens, labels = batch["tokens"], batch["labels"]
+    s = tokens.shape[1]
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    enc_kv_list = _enc_kv_of(params, cfg, batch)
+    h = _embed_with_frontend(params, cfg, tokens, batch.get("frontend"))
+    h, _, aux = _decoder(params, cfg, h, mode="dense", positions=positions,
+                         caches=None, cache_len=None,
+                         enc_kv_list=enc_kv_list, remat=remat)
+    lg = layers.logits(params["embed"], cfg, h)
+    mask = batch.get("loss_mask")
+    if mask is None and cfg.frontend and cfg.family != "audio":
+        mask = (torch.arange(s, device=tokens.device)
+                >= cfg.frontend_len)[None, :].expand(labels.shape)
+    loss = layers.cross_entropy(lg, labels, mask)
+    if "load_balance_loss" in aux:
+        loss = loss + 0.01 * aux["load_balance_loss"]
+    return loss, {"loss": loss, **aux}
 
 
 def _prefill(params, cfg: ModelConfig, batch: Dict, *,
@@ -282,9 +341,10 @@ def _prefill(params, cfg: ModelConfig, batch: Dict, *,
                     for lc in ctx["layers"]]
     enc_kv_list = _enc_kv_of(params, cfg, batch)
     h = _embed_with_frontend(params, cfg, tokens, batch.get("frontend"))
-    h, caches = _decoder(params, cfg, h, mode="prefill", positions=positions,
-                         caches=None, cache_len=None, length=length,
-                         ctx_list=ctx_list, enc_kv_list=enc_kv_list)
+    h, caches, _ = _decoder(params, cfg, h, mode="prefill",
+                            positions=positions, caches=None,
+                            cache_len=None, length=length,
+                            ctx_list=ctx_list, enc_kv_list=enc_kv_list)
     return h, caches, enc_kv_list
 
 
@@ -378,10 +438,11 @@ def forward_decode(params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = cache["len"][:, None]
     layer_caches = _thread_page_tables(cfg, cache, write_mask)
     h = layers.embed(params["embed"], cfg, tokens)
-    h, new_caches = _decoder(params, cfg, h, mode="decode",
-                             positions=positions, caches=layer_caches,
-                             cache_len=cache_len, paged_kernel=paged_kernel,
-                             enc_kv_list=cache.get("enc_kv"))
+    h, new_caches, _ = _decoder(params, cfg, h, mode="decode",
+                                positions=positions, caches=layer_caches,
+                                cache_len=cache_len,
+                                paged_kernel=paged_kernel,
+                                enc_kv_list=cache.get("enc_kv"))
     lg = layers.logits(params["embed"], cfg, h)
     return lg[:, 0], dict(cache, layers=new_caches, len=cache_len)
 
@@ -406,10 +467,11 @@ def verify_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
             cache["len"][:, None] + cols - (s - n_rows)[:, None], min=0)
     layer_caches = _thread_page_tables(cfg, cache, write_mask, spec_slack)
     h = layers.embed(params["embed"], cfg, tokens)
-    h, new_caches = _decoder(params, cfg, h, mode="decode",
-                             positions=positions, caches=layer_caches,
-                             cache_len=cache_len, paged_kernel=paged_kernel,
-                             enc_kv_list=cache.get("enc_kv"))
+    h, new_caches, _ = _decoder(params, cfg, h, mode="decode",
+                                positions=positions, caches=layer_caches,
+                                cache_len=cache_len,
+                                paged_kernel=paged_kernel,
+                                enc_kv_list=cache.get("enc_kv"))
     return h, dict(cache, layers=new_caches)
 
 
@@ -465,6 +527,6 @@ def prepare_decode_cache(cfg: ModelConfig, cache: Dict,
     return dict(cache, layers=new_layers)
 
 
-__all__ = ["model_defs", "forward_dense_logits", "forward_prefill",
-           "forward_decode", "forward_verify", "prefill_hidden",
-           "verify_hidden", "prepare_decode_cache"]
+__all__ = ["model_defs", "forward_train", "forward_dense_logits",
+           "forward_prefill", "forward_decode", "forward_verify",
+           "prefill_hidden", "verify_hidden", "prepare_decode_cache"]

@@ -978,8 +978,10 @@ class Engine:
         to ``deadline = clock() + ttl`` here.  Returns ``None`` when the
         request was accepted.  A request breaking the ``max_len``
         contract still raises ``ValueError``: a caller bug, not load."""
-        if not req.prompt:
-            raise ValueError("the port serves non-empty prompts only")
+        if not req.prompt and self.chunked_prefill:
+            # two executables admit an empty prompt as the reference
+            # does: a fresh slot state, len 0
+            raise ValueError("chunked_prefill requires a non-empty prompt")
         if self.cfg.frontend and self._bucket_of(len(req.prompt)) \
                 < self.cfg.frontend_len:
             # the frontend's embeddings fill the first frontend_len

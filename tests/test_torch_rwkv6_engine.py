@@ -19,6 +19,12 @@ TF32 off).
   read, greedy tokens and ``memory_stats`` after every round identical
   to the JAX ``Engine``'s, with more requests than slots and one prompt
   longer than the largest bucket (64); ``chunked_prefill=True`` raises.
+* An empty prompt (the reference's ``test_empty_prompt_no_stale_slot``):
+  admitted on two executables with a fresh state and ``len`` 0, its
+  tokens and its neighbour's = the JAX engine's, the neighbour's = its
+  solo run's; the same on an attention arch (internlm2,
+  ``chunked_prefill=False``), whose fused mode refuses it with the
+  reference's message.
 """
 
 import numpy as np
@@ -390,3 +396,47 @@ def test_cuda_prefill_launches_kernel_per_layer(models):
         for k in w:
             torch.testing.assert_close(g[k].cpu(), w[k], rtol=1e-4,
                                        atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# an empty prompt on two executables
+# ---------------------------------------------------------------------------
+
+def _empty_prompt_run(eng, req_cls, with_empty=True):
+    if with_empty:
+        assert eng.submit(req_cls(rid=0, prompt=[], max_new_tokens=4)) \
+            is None
+    assert eng.submit(req_cls(rid=1, prompt=[4, 5, 6],
+                              max_new_tokens=4)) is None
+    done = eng.run()
+    return {r.rid: list(r.out_tokens) for r in done}
+
+
+def _internlm2():
+    jcfg = jax_reduced(jax_get_config("internlm2-1.8b"))
+    cfg = reduced(get_config("internlm2-1.8b"))
+    jp = jm.init_params(jax_model_defs(jcfg), jax.random.PRNGKey(0),
+                        jnp.float32)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    return cfg, tp, jcfg, jp
+
+
+@pytest.mark.parametrize("arch", [ARCH, "internlm2-1.8b"])
+def test_empty_prompt_no_stale_slot(models, arch):
+    cfg, tp, jcfg, jp = models if arch == ARCH else _internlm2()
+    kw = dict(slots=2, max_len=64, page_size=8, sync_interval=4, seed=0,
+              chunked_prefill=False)
+    jtok = _empty_prompt_run(JEngine(jcfg, jp, **kw), JRequest)
+    tok = _empty_prompt_run(Engine(cfg, tp, device="cpu", **kw), Request)
+    assert tok == jtok
+    assert sorted(tok) == [0, 1] and all(len(t) == 4 for t in tok.values())
+    solo = _empty_prompt_run(Engine(cfg, tp, device="cpu", **kw), Request,
+                             with_empty=False)
+    assert solo[1] == tok[1]
+    if arch != ARCH:        # the fused mode refuses it, as the reference
+        kw["chunked_prefill"] = True
+        for eng, req in ((JEngine(jcfg, jp, **kw), JRequest),
+                         (Engine(cfg, tp, device="cpu", **kw), Request)):
+            with pytest.raises(ValueError, match="chunked_prefill requires "
+                                                 "a non-empty prompt"):
+                eng.submit(req(rid=0, prompt=[], max_new_tokens=4))
