@@ -22,9 +22,10 @@ attention) and rwkv6-7b (attention-free) through the two-executable
 engine, then full-width dbrx-132b (MoE, depth cut to 4 layers) from
 fp32 pools, then the last four archs one at a time (whisper-medium's
 encoder and cross-attention, gemma3-12b, mistral-large-123b cut to 8
-layers, pixtral-12b's patch frontend) — and the paper's §5 operator
-study (fig09 and fig11, the fused-prep matmul), and holds every CUDA
-kernel on them against its plain PyTorch version.  Phases, each
+layers, pixtral-12b's patch frontend) — the paper's §5 operator
+study (fig09 and fig11, the fused-prep matmul) and its tuning machinery
+with figs 01, 04, 06, 13 and 18, and holds every CUDA kernel on them
+against its plain PyTorch version.  Phases, each
 printing JSON lines:
 
 1. device: the card's name and power limit (as nvidia-smi reports them),
@@ -66,9 +67,10 @@ printing JSON lines:
    non-causal encoder, B 8 x 1500 frames at dh 64, and its
    cross-attention of 16 rows and of one row against them; gemma3's dh
    256 window 1024 at S = 1500 and 2048; mistral-large's 96:8 heads at S
-   = 1024; pixtral's at 2048), same gates (bf16 per query row, against
-   the row's own max|want|); the main shapes, zamba2's and the last four
-   archs' timed beside the plain version,
+   = 1024; pixtral's at 2048) and at fig01's (B 8, S 64), same gates
+   (bf16 per query row, against the row's own max|want|); the main
+   shapes, zamba2's and the last four archs' timed beside the plain
+   version,
    ``scaled_dot_product_attention`` (a yardstick: causal, non-causal or
    with the window's band as a mask) and the bound (3 TF32 products per
    fp32 product on the tensor cores).  The
@@ -330,6 +332,27 @@ printing JSON lines:
    ``python -m repro_torch.launch.train --arch internlm2-1.8b --smoke
    --steps 4`` as a subprocess: exit 0 and its final line.
 
+9. paper, last: the paper's tuning machinery (``repro_torch.core``) and
+   its figures.  The port's ``Hardware()`` (the H100 SXM5 80GB's
+   data-sheet figures) beside nvidia-smi's name and power limit and the
+   card's total memory.  fig04's MoE half at dbrx-132b's full width (one
+   MoE layer, d 6144, d_ff 10752, 16 experts, top 4, x [4, 512, 6144]
+   fp32, 12.7 GB of expert weights): ``moe.apply`` against
+   ``apply_sync_schedule``, both timed, ``moe_gmm`` launched exactly 3
+   times per ``apply``, and the output within 1e-4 x max|y| of the sync
+   schedule's and of ``apply`` with the plain ``moe_gmm_ref``.  fig01 on
+   internlm2-1.8b at full width and depth, tokens [8, 64]: first and
+   steady ``forward_train`` calls, 24 ``flash_attention`` launches a
+   forward, a finite loss; the same step with the plain
+   ``flash_attention_ref`` in the kernel's place, the loss within 1e-5
+   (relative) and ``forward_dense_logits``' logits within 1e-3; then
+   the figure as a subprocess, whose first step is a true first call
+   (this process's is a warm one).  fig13: ``torch.matmul`` (cuBLAS, TF32 off),
+   ``numpy.dot`` and the naive product at n = 256, 512, 1024, finite
+   GFLOP/s, no kernel of the port.  fig04's cost half, fig06 and fig18
+   on ``Hardware()``: a row per cell, the guideline's plan fitting
+   wherever the optimum fits, fig18's summary line.
+
 The last three lines are the card's name and power limit (again), the
 kernel table (paged attention per pool dtype, with its S = 1 rows under
 ``by_case``, ``moe_gmm``,
@@ -337,7 +360,8 @@ kernel table (paged attention per pool dtype, with its S = 1 rows under
 encoder and at gemma3's dh 256 window, ``mamba2_scan``, ``rwkv6_wkv``,
 ``fused_matmul`` at fig11's n = 1024 with its launches in fig11; each
 with ``has_backward``, and ``flash_attention`` and ``moe_gmm`` with
-their backward's times, bound and launches on the training path) and
+their backward's times, bound and launches on the training path, and
+their launches in fig01 and fig04) and
 ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before them.  Without a CUDA device, or
 without the repository's ``src/`` beside it, it exits non-zero at once.
@@ -420,6 +444,8 @@ FLASH_CASES = [
      {"window": 70}),
     # the reduced internlm2 fig14 serves (4:2 heads of dh 16), ragged S
     ("dh16_reduced", dict(B=1, H=4, Hkv=2, dh=16, Sq=77, Skv=77), {}),
+    # fig01's forward_train on internlm2-1.8b: tokens [8, 64]
+    ("fig01_b8_s64", dict(FLASH_MAIN, B=8, Sq=64, Skv=64), {}),
 ]
 # zamba2-7b's shared attention at full width: H = Hkv = 32, dh = 112,
 # window 4096 (wider than any prompt here); timed like the main cases
@@ -600,6 +626,17 @@ def emit(phase: str, **kw) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def port_env() -> dict:
+    """This process's environment with the checkout's ``src/`` first on
+    ``PYTHONPATH``: for the port's launchers run as subprocesses."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    return env
 
 
 def cuda_ms(torch, fn, iters: int = 30, flush=None) -> float:
@@ -2427,12 +2464,8 @@ def phase_launcher(torch, rt, cfg, params) -> dict:
     served is teacher-forced on ``params`` (the launcher's weights: both
     draw them from seed 0 on the card) over the prompts its workload
     sent."""
-    import os
     from repro_torch.launch.serve import parse_args, prompts
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
-                               if env.get("PYTHONPATH") else []))
+    env = port_env()
     torch.cuda.empty_cache()
     res = {}
     for what, extra in LAUNCHER_RUNS.items():
@@ -2907,7 +2940,6 @@ def phase_launcher_a11(torch, cfg) -> dict:
     ``faults:``, ``chaos`` and ``trace:`` lines present, the chaos drain
     clean, paged launches == layers x engine steps, and the trace file
     valid under ``benchmarks/check_trace``."""
-    import os
     import re
     from repro_torch.benchmarks.check_trace import validate
     out = ROOT / "build" / "launcher_a11_trace.json"
@@ -2915,10 +2947,7 @@ def phase_launcher_a11(torch, cfg) -> dict:
     if out.exists():
         out.unlink()
     argv = LAUNCHER_A11_FLAGS + ["--trace", str(out)]
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
-                               if env.get("PYTHONPATH") else []))
+    env = port_env()
     torch.cuda.empty_cache()
     t0 = time.time()
     try:
@@ -4616,11 +4645,7 @@ def phase_train_launcher(torch) -> dict:
     """``python -m repro_torch.launch.train --arch internlm2-1.8b --smoke
     --steps 4`` as a subprocess on the card: exit 0, its step lines and
     its final line."""
-    import os
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
-                               if env.get("PYTHONPATH") else []))
+    env = port_env()
     argv = ["--arch", "internlm2-1.8b", "--smoke", "--steps", "4"]
     t0 = time.time()
     try:
@@ -4643,6 +4668,204 @@ def phase_train_launcher(torch) -> dict:
     check(sum(bool(re.match(r"^step +\d+ loss ", ln)) for ln in lines) == 2,
           f"train launcher: step lines {lines}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the paper's tuning machinery and its figures
+# ---------------------------------------------------------------------------
+
+PAPER_MOE_TOL = 1e-4   # x max|y|: fig04's kernel path vs sync and plain
+PAPER_LOSS_TOL = 1e-5  # relative: fig01's loss, kernel vs plain attention
+FIG01_TIMEOUT_S = 120
+
+
+def paper_moe_paths(torch, gmm, cfg, params, x) -> dict:
+    """fig04's MoE layer on its own tensors three ways: ``moe.apply``
+    through the kernel, ``apply_sync_schedule`` (a plain product per
+    expert) and ``moe.apply`` with the plain ``moe_gmm_ref`` in the
+    kernel's place.  Comparison launches: made after the counts are
+    read."""
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+    from repro_torch.models import moe
+    kernel = gmm.moe_gmm
+    with torch.no_grad():
+        y, aux = moe.apply(params, x, cfg)
+        y_sync, _ = moe.apply_sync_schedule(params, x, cfg)
+        gmm.moe_gmm = moe_gmm_ref
+        try:
+            y_plain, _ = moe.apply(params, x, cfg)
+        finally:
+            gmm.moe_gmm = kernel
+    scale = float(y_plain.abs().max())
+    return {"max_abs_y": scale,
+            "vs_sync": float((y - y_sync).abs().max()) / scale,
+            "vs_plain": float((y - y_plain).abs().max()) / scale,
+            "dropped_fraction": float(aux["dropped_fraction"]),
+            "finite": bool(torch.isfinite(y).all())}
+
+
+def paper_flash_paths(torch, fa, cfg, params, batch) -> dict:
+    """fig01's step on its own weights and tokens with ``flash_attention``
+    and with the plain ``flash_attention_ref`` in its place: the
+    ``forward_train`` loss and ``forward_dense_logits``' logits, each
+    from the same dense pass.  Comparison launches: made after the counts
+    are read."""
+    from repro_torch.models import forward_dense_logits, forward_train
+    kernel = fa.flash_attention
+    with torch.no_grad():
+        loss = float(forward_train(params, cfg, batch)[0])
+        logits = forward_dense_logits(params, cfg, batch)
+        fa.flash_attention = fa.flash_attention_ref
+        try:
+            plain_loss = float(forward_train(params, cfg, batch)[0])
+            plain_logits = forward_dense_logits(params, cfg, batch)
+        finally:
+            fa.flash_attention = kernel
+    return {"loss": loss, "plain_loss": plain_loss,
+            "loss_rel_err": abs(loss - plain_loss) / abs(plain_loss),
+            "max_logit_diff": float((logits - plain_logits).abs().max()),
+            "max_abs_logit": float(plain_logits.abs().max()),
+            "finite": bool(torch.isfinite(logits).all())}
+
+
+def fig01_fresh() -> dict:
+    """``python -m repro_torch.benchmarks.fig01_breakdown`` in a process
+    of its own, so that its first step is a true first call (the kernel
+    library's load, cuBLAS's set-up, the allocator's growth): exit 0 and
+    its two rows, in seconds."""
+    t0 = time.time()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.benchmarks.fig01_breakdown",
+             "--device", "cuda"], cwd=ROOT, env=port_env(),
+            capture_output=True, text=True, timeout=FIG01_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"fig01: no exit within {FIG01_TIMEOUT_S} s")
+    rows = {}
+    for ln in proc.stdout.splitlines():
+        name, _, rest = ln.partition(",")
+        if name in ("fig01.first_step", "fig01.steady_step"):
+            us, _, derived = rest.partition(",")
+            rows[name] = {"s": float(us) * 1e-6, "derived": derived}
+    rec = {"rc": proc.returncode, "rows": rows,
+           "seconds": time.time() - t0,
+           "stderr_tail": proc.stderr.splitlines()[-20:]}
+    emit("paper_fig01_fresh_process", **rec)
+    check(proc.returncode == 0, f"fig01 in its own process: exit "
+                                f"{proc.returncode}")
+    check(len(rows) == 2 and all(r["s"] > 0 for r in rows.values()),
+          f"fig01 in its own process: rows {rows}")
+    return rec
+
+
+def phase_paper(torch, kernel_ops, gmm, fa, card) -> dict:
+    """The paper's tuning machinery on the card: the port's ``Hardware()``
+    beside what the card reports; fig04's MoE half at dbrx-132b's full
+    width (``moe_gmm`` launched 3 times per ``apply``, the output against
+    the sync schedule and the plain ``moe_gmm`` within 1e-4 x max|y|);
+    fig01 on internlm2-1.8b at full width and depth (24 ``flash_attention``
+    launches a forward, a finite loss, the loss and logits against the
+    plain ``flash_attention_ref``'s; the figure again in a process of its
+    own for a true first step); fig13's three GEMMs (no kernel of
+    the port); fig04's cost half, fig06 and fig18 on ``Hardware()`` (a
+    row per cell; the guideline's plan fits wherever the optimum's
+    does).  Every kernel count is zeroed just before each figure and read
+    just after."""
+    from repro_torch.benchmarks import fig01_breakdown as fig01
+    from repro_torch.benchmarks import fig04_scheduling as fig04
+    from repro_torch.benchmarks import fig06_heatmap as fig06
+    from repro_torch.benchmarks import fig13_library as fig13
+    from repro_torch.benchmarks import fig18_guideline_eval as fig18
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.core import cost_model
+    t0 = time.time()
+    hw = cost_model.Hardware()
+    emit("paper_hardware", port_hardware=dataclasses.asdict(hw),
+         nvidia_smi=card,
+         total_memory=torch.cuda.get_device_properties(0).total_memory,
+         source="data-sheet figures of the H100 SXM5 80GB, not measured")
+
+    cfg, params, x = fig04.moe_layer_inputs(DEV)
+    torch.cuda.synchronize()
+    zero_launches(kernel_ops)
+    moe_rec = fig04.moe_layer_comparison(cfg, params, x)
+    gmm_launches = gmm.launches
+    others = other_launches(kernel_ops, gmm)
+    paths = paper_moe_paths(torch, gmm, cfg, params, x)
+    del params, x
+    free(torch)
+    emit("paper_fig04_moe", gmm_launches=gmm_launches, **moe_rec, **paths)
+    check(cfg.d_model == 6144 and cfg.d_ff == 10752
+          and cfg.moe.num_experts == 16 and cfg.moe.top_k == 4,
+          "fig04: not dbrx-132b's MoE layer at full width")
+    check(gmm_launches == 3 * moe_rec["calls"],
+          f"fig04: {gmm_launches} moe_gmm launches for {moe_rec['calls']} "
+          "calls of moe.apply (3 each)")
+    check(others == 0, "fig04 launched another kernel")
+    check(paths["finite"], "fig04: a non-finite output")
+    check(paths["vs_sync"] <= PAPER_MOE_TOL
+          and paths["vs_plain"] <= PAPER_MOE_TOL,
+          f"fig04: kernel path off by {paths['vs_sync']:.3g} (sync) and "
+          f"{paths['vs_plain']:.3g} (plain) x max|y|")
+
+    dev = torch.device(DEV)
+    cfg01, params01, batch01 = fig01.step_inputs(dev)
+    torch.cuda.synchronize()
+    zero_launches(kernel_ops)
+    rec01 = fig01.breakdown(cfg01, params01, batch01, dev)
+    flash01 = fa.launches
+    others = other_launches(kernel_ops, fa)
+    paths01 = paper_flash_paths(torch, fa, cfg01, params01, batch01)
+    del params01, batch01
+    free(torch)
+    # this process has loaded the kernels and grown the allocator: its
+    # first step is a warm one
+    emit("paper_fig01", flash_attention_launches=flash01, process="warm",
+         **rec01, paths=paths01)
+    check(rec01["arch"] == "internlm2-1.8b" and rec01["layers"] == 24,
+          f"fig01: {rec01['arch']} at {rec01['layers']} layers")
+    check(flash01 == rec01["layers"] * rec01["forwards"],
+          f"fig01: {flash01} flash launches for {rec01['forwards']} "
+          f"forwards of {rec01['layers']} attention layers")
+    check(others == 0, "fig01 launched another kernel")
+    check(rec01["loss_finite"], f"fig01: loss {rec01['loss']}")
+    check(rec01["first_step_s"] > 0 and rec01["steady_step_s"] > 0,
+          "fig01: a non-positive time")
+    check(paths01["finite"], "fig01: non-finite logits")
+    check(paths01["loss_rel_err"] <= PAPER_LOSS_TOL
+          and paths01["max_logit_diff"] <= PATH_TOL,
+          f"fig01: kernel vs plain attention: loss off by "
+          f"{paths01['loss_rel_err']:.3g} (relative), logits by "
+          f"{paths01['max_logit_diff']:.3g}")
+    fresh01 = fig01_fresh()
+
+    zero_launches(kernel_ops)
+    rows13 = fig13.main(["--device", "cuda"])
+    check(other_launches(kernel_ops, None) == 0,
+          "fig13 launched a kernel of the port")
+    check(len(rows13) == 8 and all(
+        math.isfinite(r["gflops"]) and r["gflops"] > 0 for r in rows13),
+        f"fig13: rows {rows13}")
+    emit("paper_fig13", rows=rows13)
+
+    prod = fig04.prod_estimates()
+    rows06 = fig06.main([])
+    res18 = fig18.main([])
+    check(len(prod) == len(ARCH_IDS), f"fig04 cost half: {len(prod)} rows")
+    check(len(rows06) == 12, f"fig06: {len(rows06)} rows")
+    check(len(res18["rows"]) == len(fig18.FIG18_SHAPES) * len(ARCH_IDS),
+          f"fig18: {len(res18['rows'])} rows")
+    unfit = [r["name"] for r in res18["rows"]
+             if r["global_optimum"]["fits"] and not r["guideline"]["fits"]]
+    check(not unfit, f"fig18: the guideline's plan does not fit in {unfit}")
+    emit("paper_analytic", fig04_prod=prod, fig06=rows06,
+         fig18_summary=res18["summary"],
+         fig18_guideline_pools={r["name"]: r["guideline"]["pools"]
+                                for r in res18["rows"]})
+    return {"fig04": moe_rec, "fig04_paths": paths,
+            "gmm_launches": gmm_launches, "fig01": rec01,
+            "fig01_paths": paths01, "fig01_fresh": fresh01,
+            "flash_launches": flash01, "seconds": time.time() - t0}
 
 
 def main() -> int:
@@ -4847,6 +5070,10 @@ def main() -> int:
         emit("train_phases_done", seconds=time.time() - t_train,
              resumed_loss_rel_err=resume["rel_err"],
              launcher_final=train_launcher["lines"][-1])
+        # the paper's tuning machinery and its figures
+        free(torch)
+        paper = timed_phase("paper", phase_paper, torch,
+                            (ops, gmm, fa, mops, wops, fops), gmm, fa, card)
     except SmokeFailure as e:
         emit("failed", reason=str(e))
         return 1
@@ -4932,6 +5159,8 @@ def main() -> int:
         "live_rows": main_gmm["live_rows"],
         "rows_computed": main_gmm["rows_computed"],
         "down": {key: gmm_rows["down"][key] for key in timing_keys},
+        "launches_fig04": paper["gmm_launches"],
+        "fig04_calls": paper["fig04"]["calls"],
         "shape": "dbrx gate/up: E=16 C=80 D=6144 F=10752 fp32, "
                  f"sum(counts)={main_gmm['live_rows']}"})
     main_fa = flash_timed["main_s1024"]
@@ -4960,6 +5189,8 @@ def main() -> int:
         "launches_pixtral": pixtral["engine"]["flash_attention_launches"],
         "launches_pixtral_reference":
             pixtral["reference"]["flash_attention_launches"],
+        "launches_fig01": paper["flash_launches"],
+        "fig01_forwards": paper["fig01"]["forwards"],
         "ms_by_seq": {name: rec["ms"] for name, rec in flash_timed.items()},
         "library_ms_by_seq": {name: rec["library_ms"]
                               for name, rec in flash_timed.items()},

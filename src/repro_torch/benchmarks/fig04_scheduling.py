@@ -1,34 +1,114 @@
-"""Paper Fig. 4, its serving half: the SLO least-slack policy against
-FIFO on one seeded mixed-class trace, on the card (counterpart of
-``benchmarks/fig04_scheduling.py --slo-mix`` and ``--trace-report``).
+"""Paper Fig. 4: asynchronous against synchronous scheduling, on the
+card (counterpart of ``benchmarks/fig04_scheduling.py``).
 
+    python -m repro_torch.benchmarks.fig04_scheduling [--device cpu]
     python -m repro_torch.benchmarks.fig04_scheduling --slo-mix \\
         [--trace-report] [--out BENCH_serve_torch.json]
 
-``--slo-mix`` (``slo_scheduling_comparison``): reduced internlm2-1.8b
-on an oversubscribed pool (4 slots against 24 requests, 12 pages below
-the full-occupancy worst case) replays one ``serve/traffic`` Poisson
-trace under both policies on the same ``VirtualClock``: TTFT/TPOT
-p50/p99 per class, goodput, throttles and preemptions, token parity
-across the policies, a byte-identical regenerated trace, zero leaked
-pages, one sync-free chunk (``slo_*`` keys).  ``--trace-report``
-(``trace_report``): the same trace on a traced SLO engine, rendered
-into per-class phase times (queued / running / requeued), preemptions
-by class, the export's schema validity (``benchmarks/check_trace``)
-and the fingerprint's determinism across two replays (``trep_*``
-keys).  Each record is merged into the last run of ``--out``, the file
-fig14 writes.  The MoE-layer and cost-model halves of the reference's
-fig04 are not ported (ROADMAP A16).
+A plain run does the two halves of the figure:
+
+* the MoE layer (``moe_layer_comparison``): ``models/moe.apply`` (the
+  experts' three products as three grouped ``moe_gmm`` launches, every
+  expert at once) against ``moe.apply_sync_schedule`` (one expert at a
+  time, a plain product each), the same dispatch and the same weights.
+  On the card one dbrx-132b MoE layer at full width (d 6144, d_ff 10752,
+  16 experts, top 4; x [4, 512, 6144] fp32, 12.7 GB of expert weights);
+  on the CPU the reference's reduced layer (8 experts, top 2, d 128,
+  d_ff 256; x [4, 512, 128]);
+* the cost model (``prod_estimates``): the guideline's plan against
+  pools = 1 for every arch at ``train_4k`` on the production mesh, with
+  the port's ``Hardware()`` (analytic: no device runs).
+
+The serving half: ``--slo-mix`` (``slo_scheduling_comparison``): reduced
+internlm2-1.8b on an oversubscribed pool (4 slots against 24 requests,
+12 pages below the full-occupancy worst case) replays one
+``serve/traffic`` Poisson trace under both policies on the same
+``VirtualClock``: TTFT/TPOT p50/p99 per class, goodput, throttles and
+preemptions, token parity across the policies, a byte-identical
+regenerated trace, zero leaked pages, one sync-free chunk (``slo_*``
+keys).  ``--trace-report`` (``trace_report``): the same trace on a
+traced SLO engine, rendered into per-class phase times (queued /
+running / requeued), preemptions by class, the export's schema validity
+(``benchmarks/check_trace``) and the fingerprint's determinism across
+two replays (``trep_*`` keys).  Each record is merged into the last run
+of ``--out``, the file fig14 writes.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Optional, Sequence
+import dataclasses
+from typing import List, Optional, Sequence
+
+import torch
 
 from repro_torch.benchmarks.common import (assert_clean_teardown, emit,
-                                           merge_into_last_run)
+                                           merge_into_last_run, time_fn)
+from repro_torch.configs import ARCH_IDS, SHAPES, get_config, reduced
+from repro_torch.core import autotune, tuner
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import moe
+from repro_torch.models.module import init_params
+
+MOE_BATCH = (4, 512)     # x [4, 512, d], as the reference's
+MOE_WARMUP, MOE_ITERS = 2, 10
+
+
+def moe_layer_inputs(device: DeviceLike = None, seed: int = 0):
+    """(cfg, params, x) of the MoE-layer comparison: dbrx-132b's layer
+    at full width on a CUDA device, the reference's reduced one
+    elsewhere; weights from ``seed``, x from ``seed + 1``."""
+    dev = resolve_device(device)
+    cfg = get_config("dbrx-132b")
+    if dev.type != "cuda":
+        cfg = reduced(cfg, experts=8, d_model=128, d_ff=256)
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, top_k=2))
+    params = init_params(moe.moe_defs(cfg), seed, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    x = torch.randn(*MOE_BATCH, cfg.d_model, generator=gen, device=dev)
+    return cfg, params, x
+
+
+def moe_layer_comparison(cfg, params, x) -> dict:
+    """``moe.apply`` against ``moe.apply_sync_schedule`` on the same
+    tensors: median seconds a call (CUDA events on the card),
+    ``MOE_WARMUP + MOE_ITERS`` calls each (``calls``)."""
+    dev = x.device
+    with torch.no_grad():
+        t_async = time_fn(lambda: moe.apply(params, x, cfg)[0], device=dev,
+                          warmup=MOE_WARMUP, iters=MOE_ITERS)
+        t_sync = time_fn(lambda: moe.apply_sync_schedule(params, x, cfg)[0],
+                         device=dev, warmup=MOE_WARMUP, iters=MOE_ITERS)
+    emit("fig04.moe_layer.async", t_async * 1e6,
+         f"speedup_vs_sync={t_sync / t_async:.2f}x")
+    emit("fig04.moe_layer.sync", t_sync * 1e6, "baseline")
+    return dict(async_s=t_async, sync_s=t_sync, speedup=t_sync / t_async,
+                calls=MOE_WARMUP + MOE_ITERS, d_model=cfg.d_model,
+                d_ff=cfg.d_ff, experts=cfg.moe.num_experts,
+                top_k=cfg.moe.top_k, x_shape=list(x.shape),
+                device=str(dev))
+
+
+def prod_estimates() -> List[dict]:
+    """Per arch at ``train_4k``: the guideline's plan against the same
+    plan at pools = 1 (synchronous: one expert group at a time)."""
+    shape = SHAPES["train_4k"]
+    rows = []
+    for arch in ARCH_IDS:
+        acfg = get_config(arch)
+        gl = tuner.guideline_plan(acfg, shape)
+        sync = dataclasses.replace(gl, pools=1, intra=16, name="sync")
+        t_gl = autotune.evaluate(acfg, shape, gl).step_s
+        t_sync = autotune.evaluate(acfg, shape, sync).step_s
+        name = f"fig04.prod.{arch}"
+        emit(name, t_gl * 1e6,
+             f"async_speedup={t_sync / t_gl:.2f}x,pools={gl.pools}")
+        rows.append(dict(name=name, step_s=t_gl, sync_step_s=t_sync,
+                         pools=gl.pools))
+    return rows
+
 
 GEN_KW = dict(rate=100.0, process="poisson",
               class_mix={"interactive": 0.4, "batch": 0.4,
@@ -223,24 +303,29 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--slo-mix", action="store_true",
                     help="run the SLO-vs-FIFO serving workload and merge "
-                         "its slo_* record into the last run of --out")
+                         "its slo_* record into the last run of --out "
+                         "instead of the MoE/cost-model halves")
     ap.add_argument("--trace-report", action="store_true",
                     help="replay the SLO mix on a traced engine and merge "
                          "its trep_* record into the last run of --out")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
-    ap.add_argument("--out", default="BENCH_serve_torch.json",
-                    help="trajectory file whose last run takes the record")
+    ap.add_argument("--out", default=None,
+                    help="trajectory file whose last run takes the serving "
+                         "record (default BENCH_serve_torch.json)")
     args = ap.parse_args(argv)
     if not (args.slo_mix or args.trace_report):
-        ap.error("nothing to run: pass --slo-mix and/or --trace-report "
-                 "(the MoE half of fig04 is not ported)")
+        if args.out is not None:
+            ap.error("--out takes the serving half's record: pass "
+                     "--slo-mix and/or --trace-report")
+        return dict(moe_layer=moe_layer_comparison(
+            *moe_layer_inputs(args.device)), prod=prod_estimates())
     rec = {}
     if args.slo_mix:
         rec.update(slo_scheduling_comparison(device=args.device))
     if args.trace_report:
         rec.update(trace_report(device=args.device))
-    path = merge_into_last_run(args.out, rec)
+    path = merge_into_last_run(args.out or "BENCH_serve_torch.json", rec)
     print(f"# fig04 record merged into the last run of {path}", flush=True)
     return rec
 

@@ -14,8 +14,9 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import (ModelConfig, alternating_windows,
-                                      reduced)
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      alternating_windows, reduced,
+                                      shape_applicable)
 
 _ARCH_MODULES = {
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
@@ -43,5 +44,22 @@ def get_config(arch: str) -> ModelConfig:
     return _cache[arch]
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "alternating_windows", "get_config",
-           "reduced"]
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def live_cells():
+    """Every (arch, shape name) cell that applies (``shape_applicable``)."""
+    cells = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            ok, _why = shape_applicable(cfg, shape)
+            if ok:
+                cells.append((arch, shape.name))
+    return cells
+
+
+__all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ShapeConfig",
+           "alternating_windows", "get_config", "get_shape", "live_cells",
+           "reduced", "shape_applicable"]

@@ -103,6 +103,42 @@ class ModelConfig:
         return True
 
 
+# ---------------------------------------------------------------------------
+# Shapes: the cells the paper's tuner and cost model are read at
+# ---------------------------------------------------------------------------
+
+TRAIN = "train"
+PREFILL = "prefill"
+DECODE = "decode"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", TRAIN, 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", PREFILL, 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", DECODE, 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", DECODE, 524_288, 1),
+}
+
+
+def shape_applicable(cfg: ModelConfig,
+                     shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch, shape) is a live cell: a 512k-token decode needs
+    every attention layer window-bounded (or none at all)."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, (
+            "full-attention layers make 512k-token decode quadratic/"
+            "unbounded-KV; skipped")
+    return True, ""
+
+
 def uniform_blocks(n: int, mixer: str = ATTN, ffn: str = FFN_DENSE,
                    window: Optional[int] = None) -> Tuple[BlockSpec, ...]:
     return tuple(BlockSpec(mixer=mixer, ffn=ffn, window=window)

@@ -51,17 +51,20 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_attention.ref import take_pages
 from repro_torch.models.layers import rope
-from repro_torch.models.module import ParamDef
+from repro_torch.models.module import (EMBED, HEAD_DIM, HEADS, KV_HEADS,
+                                        ParamDef)
 
 NEG_INF = -1e30
 
 
 def attn_defs(cfg: ModelConfig) -> Dict:
     d, dh = cfg.d_model, cfg.resolved_head_dim
-    return {"wq": ParamDef((d, cfg.num_heads, dh)),
-            "wk": ParamDef((d, cfg.num_kv_heads, dh)),
-            "wv": ParamDef((d, cfg.num_kv_heads, dh)),
-            "wo": ParamDef((cfg.num_heads, dh, d))}
+    return {"wq": ParamDef((d, cfg.num_heads, dh), (EMBED, HEADS, HEAD_DIM)),
+            "wk": ParamDef((d, cfg.num_kv_heads, dh),
+                           (EMBED, KV_HEADS, HEAD_DIM)),
+            "wv": ParamDef((d, cfg.num_kv_heads, dh),
+                           (EMBED, KV_HEADS, HEAD_DIM)),
+            "wo": ParamDef((cfg.num_heads, dh, d), (HEADS, HEAD_DIM, EMBED))}
 
 
 def _softcap(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

@@ -10,11 +10,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.module import ParamDef
+from repro_torch.models.module import (EMBED, MLP, SSM_INNER, VOCAB,
+                                        ParamDef)
 
 
 def rmsnorm_defs(dim: int):
-    return {"scale": ParamDef((dim,), init="ones")}
+    return {"scale": ParamDef((dim,), (EMBED,), init="ones")}
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -25,8 +26,8 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def groupnorm_defs(dim: int):
-    return {"scale": ParamDef((dim,), init="ones"),
-            "bias": ParamDef((dim,), init="zeros")}
+    return {"scale": ParamDef((dim,), (SSM_INNER,), init="ones"),
+            "bias": ParamDef((dim,), (SSM_INNER,), init="zeros")}
 
 
 def groupnorm(params, x: torch.Tensor, num_groups: int,
@@ -58,10 +59,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 def embedding_defs(cfg: ModelConfig):
-    defs = {"table": ParamDef((cfg.vocab_size, cfg.d_model), init="embed",
-                              scale=cfg.d_model ** -0.5)}
+    defs = {"table": ParamDef((cfg.vocab_size, cfg.d_model), (VOCAB, EMBED),
+                              init="embed", scale=cfg.d_model ** -0.5)}
     if not cfg.tie_embeddings:
-        defs["head"] = ParamDef((cfg.d_model, cfg.vocab_size))
+        defs["head"] = ParamDef((cfg.d_model, cfg.vocab_size),
+                                (EMBED, VOCAB))
     return defs
 
 
@@ -103,9 +105,9 @@ def logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 def mlp_defs(cfg: ModelConfig):
     d = cfg.d_model
-    return {"w_gate": ParamDef((d, cfg.d_ff)),
-            "w_up": ParamDef((d, cfg.d_ff)),
-            "w_down": ParamDef((cfg.d_ff, d))}
+    return {"w_gate": ParamDef((d, cfg.d_ff), (EMBED, MLP)),
+            "w_up": ParamDef((d, cfg.d_ff), (EMBED, MLP)),
+            "w_down": ParamDef((cfg.d_ff, d), (MLP, EMBED))}
 
 
 def mlp(params, x: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba2_scan import ops as scan_ops
 from repro_torch.models.layers import rmsnorm, rmsnorm_defs
-from repro_torch.models.module import ParamDef
+from repro_torch.models.module import EMBED, HEADS, SSM_INNER, ParamDef
 
 
 def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -50,21 +50,22 @@ def mamba2_defs(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
     d_inner, nheads, n, _p = dims(cfg)
     return {
-        "wz": ParamDef((d, d_inner)),
-        "wx": ParamDef((d, d_inner)),
-        "wbc": ParamDef((d, 2 * n)),
-        "wdt": ParamDef((d, nheads)),
-        "conv_w": ParamDef((ssm.conv_width, d_inner), init="normal",
-                           scale=0.5),
-        "conv_b": ParamDef((d_inner,), init="zeros"),
-        "conv_w_bc": ParamDef((ssm.conv_width, 2 * n), init="normal",
-                              scale=0.5),
-        "conv_b_bc": ParamDef((2 * n,), init="zeros"),
-        "a_log": ParamDef((nheads,), init="custom", custom=_a_log_init),
-        "dt_bias": ParamDef((nheads,), init="zeros"),
-        "d_skip": ParamDef((nheads,), init="ones"),
+        "wz": ParamDef((d, d_inner), (EMBED, SSM_INNER)),
+        "wx": ParamDef((d, d_inner), (EMBED, SSM_INNER)),
+        "wbc": ParamDef((d, 2 * n), (EMBED, None)),
+        "wdt": ParamDef((d, nheads), (EMBED, HEADS)),
+        "conv_w": ParamDef((ssm.conv_width, d_inner), (None, SSM_INNER),
+                           init="normal", scale=0.5),
+        "conv_b": ParamDef((d_inner,), (SSM_INNER,), init="zeros"),
+        "conv_w_bc": ParamDef((ssm.conv_width, 2 * n), (None, None),
+                              init="normal", scale=0.5),
+        "conv_b_bc": ParamDef((2 * n,), (None,), init="zeros"),
+        "a_log": ParamDef((nheads,), (HEADS,), init="custom",
+                          custom=_a_log_init),
+        "dt_bias": ParamDef((nheads,), (HEADS,), init="zeros"),
+        "d_skip": ParamDef((nheads,), (HEADS,), init="ones"),
         "norm": rmsnorm_defs(d_inner),
-        "out_proj": ParamDef((d_inner, d)),
+        "out_proj": ParamDef((d_inner, d), (SSM_INNER, EMBED)),
     }
 
 

@@ -21,6 +21,7 @@ weights.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -30,14 +31,35 @@ from torch import nn
 from repro_torch.device import DeviceLike, resolve_device
 
 
+# Logical axis names of the parameters (the reference's): the sharding
+# rules (``parallel/sharding``) map them to mesh axes.
+EMBED = "embed"        # d_model
+VOCAB = "vocab"        # vocabulary
+HEADS = "heads"        # query heads
+KV_HEADS = "kv_heads"  # kv heads (may be replicated when not divisible)
+HEAD_DIM = "head_dim"  # per-head feature dim
+MLP = "mlp"            # d_ff
+EXPERT = "expert"      # MoE expert dim -> "pool" under the paper's tuner
+SSM_INNER = "ssm_inner"  # mamba d_inner / rwkv channel dim
+STATE = "state"        # ssm state dim
+LAYERS = "layers"      # stacked-layer leading dim (never sharded)
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]   # one logical axis name (or None) a dim
     init: str = "fan_in"     # fan_in | zeros | ones | normal | embed | custom
     scale: float = 1.0       # extra multiplier on the init
     dtype: Optional[torch.dtype] = None   # None -> the model's param dtype
     # init="custom": (generator, shape, device) -> fp32 tensor
     custom: Optional[Callable] = None
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"ParamDef: shape {self.shape} has "
+                             f"{len(self.shape)} dims, axes {self.axes} "
+                             f"{len(self.axes)}")
 
 
 class ParamTree(nn.Module):
@@ -123,6 +145,25 @@ def _map_tree(tree, fn):
     if isinstance(tree, (list, tuple)):
         return [_map_tree(v, fn) for v in tree]
     return fn(tree)
+
+
+def axes_tree(defs):
+    """The defs tree with each ``ParamDef`` replaced by its logical axes:
+    the reference's ``axes_tree``, which ``parallel/sharding`` reads."""
+    return _map_tree(defs, lambda d: d.axes)
+
+
+def shapes_tree(defs):
+    """The defs tree with each ``ParamDef`` replaced by its shape."""
+    return _map_tree(defs, lambda d: d.shape)
+
+
+def param_count(defs) -> int:
+    """The number of parameters a defs tree describes."""
+    if isinstance(defs, ParamDef):
+        return math.prod(defs.shape)
+    nodes = defs.values() if isinstance(defs, dict) else defs
+    return sum(param_count(v) for v in nodes)
 
 
 def _init_one(d: ParamDef, gen: torch.Generator, dtype,

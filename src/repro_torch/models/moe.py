@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
-from repro_torch.models.module import ParamDef
+from repro_torch.models.module import EMBED, EXPERT, MLP, ParamDef
 
 GROUP_TOKENS = 4096  # target tokens per dispatch group
 
@@ -35,10 +35,10 @@ def moe_defs(cfg: ModelConfig) -> Dict:
     e = cfg.moe.num_experts
     d, ff = cfg.d_model, cfg.d_ff
     return {
-        "router": ParamDef((d, e), dtype=torch.float32),
-        "w_gate": ParamDef((e, d, ff)),
-        "w_up": ParamDef((e, d, ff)),
-        "w_down": ParamDef((e, ff, d)),
+        "router": ParamDef((d, e), (EMBED, EXPERT), dtype=torch.float32),
+        "w_gate": ParamDef((e, d, ff), (EXPERT, EMBED, MLP)),
+        "w_up": ParamDef((e, d, ff), (EXPERT, EMBED, MLP)),
+        "w_down": ParamDef((e, ff, d), (EXPERT, MLP, EMBED)),
     }
 
 

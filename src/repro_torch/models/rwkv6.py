@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.models.layers import groupnorm, groupnorm_defs
-from repro_torch.models.module import ParamDef
+from repro_torch.models.module import EMBED, MLP, SSM_INNER, ParamDef
 
 LOG_W_MIN = -5.0   # fla-style clamp on per-step log decay
 CHUNK_Q = 16       # every factored exponent <= |LOG_W_MIN| * CHUNK_Q < 88
@@ -56,19 +56,21 @@ def time_mix_defs(cfg: ModelConfig) -> Dict:
     r = cfg.rwkv
     nm = len(MIX_NAMES)
     return {
-        "mu_inner": ParamDef((d,), init="zeros"),
-        "mu": ParamDef((nm, d), init="zeros"),
-        "mix_a": ParamDef((nm, d, r.mix_lora)),
-        "mix_b": ParamDef((nm, r.mix_lora, d), init="zeros"),
-        "wr": ParamDef((d, d)),
-        "wk": ParamDef((d, d)),
-        "wv": ParamDef((d, d)),
-        "wg": ParamDef((d, d)),
-        "wo": ParamDef((d, d)),
-        "w0": ParamDef((d,), init="custom", custom=_w0_init),
-        "decay_a": ParamDef((d, r.decay_lora)),
-        "decay_b": ParamDef((r.decay_lora, d), init="zeros"),
-        "bonus_u": ParamDef((d,), init="normal", scale=0.3),
+        "mu_inner": ParamDef((d,), (EMBED,), init="zeros"),
+        "mu": ParamDef((nm, d), (None, EMBED), init="zeros"),
+        "mix_a": ParamDef((nm, d, r.mix_lora), (None, EMBED, None)),
+        "mix_b": ParamDef((nm, r.mix_lora, d), (None, None, EMBED),
+                          init="zeros"),
+        "wr": ParamDef((d, d), (EMBED, SSM_INNER)),
+        "wk": ParamDef((d, d), (EMBED, SSM_INNER)),
+        "wv": ParamDef((d, d), (EMBED, SSM_INNER)),
+        "wg": ParamDef((d, d), (EMBED, SSM_INNER)),
+        "wo": ParamDef((d, d), (SSM_INNER, EMBED)),
+        "w0": ParamDef((d,), (SSM_INNER,), init="custom", custom=_w0_init),
+        "decay_a": ParamDef((d, r.decay_lora), (EMBED, None)),
+        "decay_b": ParamDef((r.decay_lora, d), (None, SSM_INNER),
+                            init="zeros"),
+        "bonus_u": ParamDef((d,), (SSM_INNER,), init="normal", scale=0.3),
         "ln_x": groupnorm_defs(d),
     }
 
@@ -76,11 +78,11 @@ def time_mix_defs(cfg: ModelConfig) -> Dict:
 def channel_mix_defs(cfg: ModelConfig) -> Dict:
     d, ff = cfg.d_model, cfg.d_ff
     return {
-        "mu_k": ParamDef((d,), init="zeros"),
-        "mu_r": ParamDef((d,), init="zeros"),
-        "wk": ParamDef((d, ff)),
-        "wv": ParamDef((ff, d)),
-        "wr": ParamDef((d, d)),
+        "mu_k": ParamDef((d,), (EMBED,), init="zeros"),
+        "mu_r": ParamDef((d,), (EMBED,), init="zeros"),
+        "wk": ParamDef((d, ff), (EMBED, MLP)),
+        "wv": ParamDef((ff, d), (MLP, EMBED)),
+        "wr": ParamDef((d, d), (EMBED, EMBED)),
     }
 
 

@@ -51,7 +51,7 @@ from repro_torch.configs.base import (ATTN, FFN_DENSE, FFN_MOE, FFN_NONE,
                                       FFN_RWKV, MAMBA2, RWKV6, SHARED_ATTN,
                                       BlockSpec, ModelConfig)
 from repro_torch.models import attention, layers, mamba2, moe, rwkv6
-from repro_torch.models.module import ParamDef
+from repro_torch.models.module import EMBED, ParamDef
 
 def _block_defs(cfg: ModelConfig, block: BlockSpec) -> Dict:
     """The reference's per-layer keys: a shared attention layer keeps
@@ -78,7 +78,7 @@ def _shared_group_defs(cfg: ModelConfig) -> Dict:
     """zamba2's shared transformer block: attention + MLP on
     ``concat(h, h0) @ proj_in``."""
     d = cfg.d_model
-    return {"proj_in": ParamDef((2 * d, d)),
+    return {"proj_in": ParamDef((2 * d, d), (EMBED, None)),
             "ln_attn": layers.rmsnorm_defs(d),
             "attn": attention.attn_defs(cfg),
             "ln_mlp": layers.rmsnorm_defs(d),
@@ -108,8 +108,8 @@ def model_defs(cfg: ModelConfig) -> Dict:
                       cross=attention.cross_attn_defs(cfg))
     if cfg.enc_layers:
         defs["encoder"] = {
-            "pos": ParamDef((cfg.frontend_len, cfg.d_model), init="normal",
-                            scale=0.02),
+            "pos": ParamDef((cfg.frontend_len, cfg.d_model), (None, EMBED),
+                            init="normal", scale=0.02),
             "layers": [_encoder_block_defs(cfg)
                        for _ in range(cfg.enc_layers)],
             "final_ln": layers.rmsnorm_defs(cfg.d_model)}
