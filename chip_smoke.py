@@ -5,9 +5,11 @@
 
 Drives the port's main paths — the trainer (``Trainer`` and the train
 launcher on full-width, full-depth internlm2-1.8b, with the backwards of
-``flash_attention`` and ``moe_gmm``), the fused chunked-prefill engine serving
-full-width internlm2-1.8b (random weights from a seed) from fp32, int8
-and fp8_e4m3 KV page pools, the two-executable engine (bucketed,
+``flash_attention`` and ``moe_gmm``, and on full-width zamba2-7b and
+rwkv6-7b cut in depth, with the scans' backward kernels), the fused
+chunked-prefill engine serving full-width internlm2-1.8b (random
+weights from a seed) from fp32, int8 and fp8_e4m3 KV page pools, the
+two-executable engine (bucketed,
 suffix and segmented prefill, S = 1 decode) serving it from fp32 and
 int8 pools, both engines serving it speculatively (n-gram and model
 drafters), the serving launcher serving it as a user would start it,
@@ -21,7 +23,7 @@ window ring that wraps, full-width, full-depth zamba2-7b (Mamba2 + shared
 attention) and rwkv6-7b (attention-free) through the two-executable
 engine, then full-width dbrx-132b (MoE, depth cut to 4 layers) from
 fp32 pools, then the last four archs one at a time (whisper-medium's
-encoder and cross-attention, gemma3-12b, mistral-large-123b cut to 8
+encoder and cross-attention, gemma3-12b, mistral-large-123b cut to 4
 layers, pixtral-12b's patch frontend) — the paper's §5 operator
 study (fig09 and fig11, the fused-prep matmul) and its tuning machinery
 with figs 01, 04, 06, 13 and 18, and holds every CUDA kernel on them
@@ -187,6 +189,15 @@ printing JSON lines:
    workloads, the record in ``build/BENCH_serve_torch.json``; its own
    asserts, every workload's chunk sync-free, and paged and flash
    launches > 0.  Its emit lines and a summary are printed.
+5p. fig14_qp: the record's ``qp_*`` part (``quantized_pool_comparison``,
+   run inside 5j: reduced internlm2 trained 80 AdamW steps on a token
+   chain, then served on int8 against fp32 pools), gated as the JAX
+   package's ``check_serve_regression.py`` gates it: int8 pools, greedy
+   agreement >= 0.99, teacher-forced logit error <= 0.25, int8 pool
+   bytes <= fp32's at >= 1.8x the slots all live, >= 1 preemption with
+   equal outputs and no leaked page, copy-on-write outputs equal with a
+   prefix hit, one decode shape, a sync-free chunk, the int8 paged
+   kernel launched.
 5k. fault_tolerance: the 12 requests, one request cancelled after the
    first drain and one whose deadline has passed, on 160 pages of 16 (a
    700 + 32-token request reserves up to 46, so 8 slots cannot all hold
@@ -289,7 +300,8 @@ printing JSON lines:
    launches).  gemma3-12b with nothing cut (48 layers, ~47 GB) at
    ``max_len`` 4096: a 1500-token prompt (its 1024-window rings wrap)
    beside 7 of the main traffic's; mistral-large-123b, every width kept,
-   depth 88 -> 8 (~47.5 GB): the main traffic.  Each fused and on two
+   depth 88 -> 4 (~23.8 GB; 4 layers keep the whole run near 900 s
+   beside the training phases): the main traffic.  Each fused and on two
    executables, each through the paged kernel and the gather path:
    greedy tokens equal between the two, every kernel-path token
    teacher-forced, 0 leaked pages, paged launches == layers x
@@ -313,24 +325,46 @@ printing JSON lines:
    off).  Each backward timed (median of 30, CUDA events, L2 flushed)
    beside autograd through the plain version, the library's backward
    (SDPA's; ``torch.bmm`` for the two expert products) and its bound
-   (fp32 CUDA cores).  ``mamba2_scan`` and ``rwkv6_wkv`` under autograd
-   must raise and launch nothing.
+   (fp32 CUDA cores).  Then scan_grads: the backward kernels of
+   ``mamba2_scan`` (zamba2-7b's training shape, B 4, H 112, S 1024, P = N
+   = 64, and S 1000 with h0 and dh_final) and ``rwkv6_wkv`` (B 4, H 64,
+   S 1024, K 64, and S 1000 with h0 and dh_final) in the model's layout
+   under autograd: every gradient within 1e-4 x max|want| of autograd
+   through the plain per-step version, two calls the same bits, one
+   forward and one backward launch a call; the training shapes'
+   backwards timed (median of 30) beside autograd through the plain
+   version (median of 5) and their bound (12 flops per state element and step, fp32 CUDA cores); each
+   forward again at S 1024 with no gradient wanted, its device time
+   within 15% of phase 3's; ``paged_attention`` under autograd must
+   raise and launch nothing.
 8. training, last: one ``Trainer`` step (B 4, S 1024, fp32, TF32 off) on
    the card and on the CPU from the same seed-0 weights and batch, for
    internlm2-1.8b at full width cut to 2 layers and for reduced
    dbrx-132b (the MoE backward, the aux loss): loss within 1e-5,
    grad_norm and params, m and v within 1e-4 (x max|CPU| per leaf),
    each kernel's forward and backward launched once per layer (moe_gmm
-   three times).  A resume at 2 layers: 6 steps checkpointed every 3,
-   a fresh ``Trainer`` restored at step 3 replays 3..5 to the same final
+   three times); the same for zamba2-7b at 6 layers (five Mamba2 and
+   one shared-attention block) and rwkv6-7b at 2, at B 2, S 256 so that
+   the CPU's step stays under ~20 s, their params, m and v within 2e-3
+   (the CPU runs the JAX package's chunked forms, and the models' fp32
+   gradients sit up to ~2-4e-4 off float64 on either side), and the same
+   step on the card with the scans' plain versions in place of the
+   kernels within 1e-5 (loss, grad_norm) and 2e-3 (params, m, v; each
+   part's worst leaf recorded).  A
+   resume at 2 layers: 6 steps checkpointed every 3, a fresh ``Trainer`` restored at step 3 replays 3..5 to the same final
    loss (1e-5).  The slice's main path: internlm2-1.8b at full width and
    depth, 12 ``Trainer`` steps at B 4, S 1024, fp32: every loss finite,
    the last below the first, grad norms finite and > 0, flash forward
    and backward launches 24 a step each and no other kernel; ms per
    step, tokens/s and peak memory printed, and one more step profiled
-   (forward, backward, update: device ms by family, idle share).  Then
-   ``python -m repro_torch.launch.train --arch internlm2-1.8b --smoke
-   --steps 4`` as a subprocess: exit 0 and its final line.
+   (forward, backward, update: device ms by family, idle share).  The
+   same gates for zamba2-7b at full width cut to 12 of 81 layers (1.47 B
+   params, both shared-attention groups) and rwkv6-7b cut to 6 of 32
+   (1.86 B params), 6 steps each at B 4, S 1024: 10 ``mamba2_scan`` and
+   2 ``flash_attention`` forwards and backwards a step, and 6
+   ``rwkv6_wkv``.  Then ``python -m repro_torch.launch.train --arch ARCH
+   --smoke --steps 4`` as a subprocess for internlm2-1.8b, zamba2-7b and
+   rwkv6-7b: exit 0 and its final line.
 
 9. paper, last: the paper's tuning machinery (``repro_torch.core``) and
    its figures.  The port's ``Hardware()`` (the H100 SXM5 80GB's
@@ -359,9 +393,10 @@ kernel table (paged attention per pool dtype, with its S = 1 rows under
 ``flash_attention`` at dh 128, at zamba2's dh 112, at whisper's
 encoder and at gemma3's dh 256 window, ``mamba2_scan``, ``rwkv6_wkv``,
 ``fused_matmul`` at fig11's n = 1024 with its launches in fig11; each
-with ``has_backward``, and ``flash_attention`` and ``moe_gmm`` with
-their backward's times, bound and launches on the training path, and
-their launches in fig01 and fig04) and
+with ``has_backward``, and ``flash_attention``, ``moe_gmm``,
+``mamba2_scan`` and ``rwkv6_wkv`` with their backward's times, bound
+and launches on the training path, and their launches in fig01 and
+fig04) and
 ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before them.  Without a CUDA device, or
 without the repository's ``src/`` beside it, it exits non-zero at once.
@@ -369,6 +404,7 @@ without the repository's ``src/`` beside it, it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -379,6 +415,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor rate
@@ -612,7 +649,8 @@ GEMMA2_MAX_LEN = 8192   # gemma2's 4096 windows wrap within it
 GEMMA2_LONG = 4600      # the long prompt: wider than the window
 GEMMA3_MAX_LEN = 4096
 GEMMA3_LONG = 1500      # wider than gemma3's 1024 windows
-MISTRAL_DEPTH = 8       # of 88 layers: ~47.5 GB of fp32 weights
+MISTRAL_DEPTH = 4       # of 88 layers: ~23.8 GB of fp32 weights; the run
+                        # stays near 900 s beside the training phases
 
 
 class SmokeFailure(Exception):
@@ -1559,6 +1597,8 @@ def zero_launches(kernel_ops) -> None:
     by pool dtype)."""
     for mod in kernel_ops:
         mod.launches = 0
+        if hasattr(mod, "bwd_launches"):
+            mod.bwd_launches = 0
         for k in getattr(mod, "launches_by_dtype", {}):
             mod.launches_by_dtype[k] = 0
 
@@ -2612,8 +2652,27 @@ def phase_fig14(torch, ops, fa, fig14) -> dict:
     every workload, and both attention kernels must have launched."""
     out = ROOT / "build" / "BENCH_serve_torch.json"
     zero_launches([ops, fa])
+    # the quantized-pool workload's own seconds and launches, for
+    # phase_fig14_qp: main calls it through the module
+    qp_run = fig14.quantized_pool_comparison
+    qp = {}
+
+    def timed_qp(**kw):
+        before = (ops.launches, ops.launches_by_dtype["int8"], fa.launches)
+        t_qp = time.time()
+        got = qp_run(**kw)
+        qp.update(seconds=time.time() - t_qp,
+                  paged_attention_launches=ops.launches - before[0],
+                  paged_attention_int8_launches=(
+                      ops.launches_by_dtype["int8"] - before[1]),
+                  flash_attention_launches=fa.launches - before[2])
+        return got
+    fig14.quantized_pool_comparison = timed_qp
     t0 = time.time()
-    rec = fig14.main(["--out", str(out)])
+    try:
+        rec = fig14.main(["--out", str(out)])
+    finally:
+        fig14.quantized_pool_comparison = qp_run
     seconds = time.time() - t0
     sync_free = {k: rec[k] for k in rec if k.endswith("sync_free")}
     match = {k: rec[k] for k in rec if "outputs_match" in k}
@@ -2638,7 +2697,59 @@ def phase_fig14(torch, ops, fa, fig14) -> dict:
     check(all(match.values()), f"fig14: engines' tokens differ: {match}")
     check(ops.launches > 0 and fa.launches > 0,
           f"fig14: paged {ops.launches}, flash {fa.launches} launches")
-    return {"paged": ops.launches, "flash": fa.launches}
+    return {"paged": ops.launches, "flash": fa.launches, "record": rec,
+            "qp": qp}
+
+
+QP_GREEDY_MIN = 0.99       # benchmarks/check_serve_regression.py's gates
+QP_LOGIT_ERR_MAX = 0.25
+QP_SLOT_RATIO_MIN = 1.8
+
+
+def phase_fig14_qp(fig14_run: dict) -> dict:
+    """fig14's ``quantized_pool_comparison`` on the card (run inside
+    phase 5j's ``main``: the reduced internlm2 trained on the token chain
+    with the port's ``forward_train`` and AdamW, then served on int8
+    against fp32 pools), gated as the JAX package's
+    ``benchmarks/check_serve_regression.py`` gates it: int8 pools, greedy
+    agreement >= 0.99 and the teacher-forced logit error <= 0.25, the
+    int8 pool's bytes <= the fp32 pool's with >= 1.8x the slots all live
+    at once, >= 1 preemption with equal outputs and no leaked page,
+    copy-on-write outputs equal with a prefix hit, one decode shape and
+    a sync-free decode chunk; the int8 paged kernel launched."""
+    rec = {k: v for k, v in fig14_run["record"].items()
+           if k.startswith("qp_")}
+    qp = fig14_run["qp"]
+    emit("fig14_qp", **qp, **rec)
+    check(rec["qp_kv_dtype"] == "int8",
+          f"fig14 qp: pools {rec['qp_kv_dtype']}")
+    check(rec["qp_greedy_match"] >= QP_GREEDY_MIN,
+          f"fig14 qp: greedy match {rec['qp_greedy_match']}")
+    check(rec["qp_max_logit_err"] <= QP_LOGIT_ERR_MAX,
+          f"fig14 qp: logit error {rec['qp_max_logit_err']}")
+    check(rec["qp_quant_pool_bytes"] <= rec["qp_fp32_pool_bytes"],
+          f"fig14 qp: int8 pool {rec['qp_quant_pool_bytes']} B > fp32 "
+          f"{rec['qp_fp32_pool_bytes']} B")
+    check(rec["qp_equal_bytes_slot_ratio"] >= QP_SLOT_RATIO_MIN
+          and rec["qp_equal_bytes_peak_live_slots"]
+          == rec["qp_equal_bytes_slots"],
+          f"fig14 qp: slot ratio {rec['qp_equal_bytes_slot_ratio']}, peak "
+          f"{rec['qp_equal_bytes_peak_live_slots']} of "
+          f"{rec['qp_equal_bytes_slots']}")
+    check(rec["qp_preemptions"] >= 1 and rec["qp_preempt_outputs_match"]
+          and rec["qp_preempt_leaked_pages"] == 0,
+          f"fig14 qp: preemptions {rec['qp_preemptions']}, match "
+          f"{rec['qp_preempt_outputs_match']}, leaked "
+          f"{rec['qp_preempt_leaked_pages']}")
+    check(rec["qp_cow_outputs_match"] and rec["qp_prefix_hits"] >= 1,
+          f"fig14 qp: CoW match {rec['qp_cow_outputs_match']}, hits "
+          f"{rec['qp_prefix_hits']}")
+    check(rec["qp_decode_sync_free"] and rec["qp_decode_compiles"] == 1,
+          f"fig14 qp: sync-free {rec['qp_decode_sync_free']}, decode "
+          f"shapes {rec['qp_decode_compiles']}")
+    check(qp.get("paged_attention_int8_launches", 0) > 0,
+          f"fig14 qp: the int8 paged kernel never launched: {qp}")
+    return {**qp, **rec}
 
 
 # ---------------------------------------------------------------------------
@@ -2655,11 +2766,11 @@ LAUNCHER_A11_FLAGS = ["--no-smoke", "--traffic", "poisson:0", "--policy",
                       "slo", "--chaos", "0"]
 
 
-def timed_phase(name: str, fn, *args):
-    """``fn(*args)``, then one line with the phase's seconds (warmups and
-    checks included)."""
+def timed_phase(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, then one line with the phase's seconds (warmups
+    and checks included)."""
     t0 = time.time()
-    out = fn(*args)
+    out = fn(*args, **kw)
     emit("phase_seconds", name=name, seconds=time.time() - t0)
     return out
 
@@ -4197,9 +4308,10 @@ def phase_pixtral(torch, ops, fa, rt) -> dict:
 
 # ---------------------------------------------------------------------------
 # Phase 8: training — the backwards of flash_attention and moe_gmm, the
-# forward-only kernels' refusal, one Trainer step on the card against the
-# CPU, internlm2-1.8b at full width and depth, a checkpoint resume and the
-# train launcher
+# scans' backward kernels and paged attention's refusal, one Trainer step
+# on the card against the CPU (internlm2, reduced dbrx, zamba2, rwkv6),
+# internlm2-1.8b at full width and depth, zamba2-7b and rwkv6-7b at full
+# width, a checkpoint resume and the train launcher
 # ---------------------------------------------------------------------------
 
 TRAIN_GRAD_TOL = 1e-5   # x max|want|: kernel-forward grads vs autograd
@@ -4211,6 +4323,26 @@ TRAIN_B, TRAIN_S = 4, 1024
 TRAIN_STEPS = 12
 TRAIN_PARITY_LAYERS = 2
 TRAIN_LAUNCHER_TIMEOUT_S = 300
+TRAIN_LAUNCHER_ARCHS = ("internlm2-1.8b", "zamba2-7b", "rwkv6-7b")
+# the scans' archs: full width, cut in depth to fit 16 bytes a parameter
+# of training state beside the activations (zamba2 1.47 B params at 12 of
+# 81 layers, both shared-attention groups in; rwkv6 1.86 B at 6 of 32)
+ZAMBA2_TRAIN_DEPTH = 12
+RWKV6_TRAIN_DEPTH = 6
+TRAIN_SCAN_STEPS = 6
+# card against CPU, one step: zamba2 at 6 layers (one shared block in)
+# and rwkv6 at 2, B 2 x S 256 so that the CPU's step stays under ~20 s
+SCAN_PARITY = (("zamba2-7b", 6), ("rwkv6-7b", 2))
+SCAN_PARITY_B, SCAN_PARITY_S = 2, 256
+# the scans' archs hold m, v and params at 2e-3 against the CPU: the
+# CPU runs the JAX package's chunked forms (zamba2's a_log gradient ~2e-4
+# x max|g| off float64 under its strong decays, where the kernels'
+# per-step backward is within 1e-5: tests/test_torch_scan_grads.py), and
+# rwkv6's fp32 gradients sit 2-4e-4 off float64 in both packages
+# (tests/test_torch_train.py), on each side of the comparison.  The same
+# step on the card with the scans' plain versions (plain_scans) gives
+# the kernels' own share, held to the same bound
+SCAN_STATE_TOL = 2e-3
 # flash_attention's backward: name, shape, options (the training calls of
 # internlm2, gemma2's windowed, softcapped dh 256 layers past the window,
 # whisper's non-causal encoder)
@@ -4231,10 +4363,10 @@ def rel_err(torch, got, want) -> float:
         float(want.float().abs().max()), 1e-30)
 
 
-def grad_ms(torch, out, inputs, grad, flush) -> float:
+def grad_ms(torch, out, inputs, grad, flush, iters: int = 30) -> float:
     """Median ms of one backward of ``out`` (its graph kept)."""
     return cuda_ms(torch, lambda: torch.autograd.grad(
-        out, inputs, grad, retain_graph=True), flush=flush)
+        out, inputs, grad, retain_graph=True), iters=iters, flush=flush)
 
 
 def phase_flash_grads(torch, fa) -> dict:
@@ -4363,111 +4495,386 @@ def phase_gmm_grads(torch, gmm) -> dict:
     return rec
 
 
-def phase_train_refusal(torch, mops, wops) -> None:
-    """The forward-only kernels under autograd on the card: each wrapper
-    raises (naming ROADMAP A15) and launches nothing."""
-    gen = torch.Generator(device=DEV).manual_seed(1)
-    before = (mops.launches, wops.launches)
-    x = torch.randn(2, 64, 16, generator=gen, device=DEV)
-    b = torch.randn(2, 64, 8, generator=gen, device=DEV)
-    dt = torch.rand(2, 64, generator=gen, device=DEV)
-    a = -torch.rand(2, generator=gen, device=DEV)
-    r = torch.randn(2, 64, 16, generator=gen, device=DEV)
-    lw = -torch.rand(2, 64, 16, generator=gen, device=DEV)
-    u = torch.randn(2, 16, generator=gen, device=DEV)
-    refused = {}
-    for name, fn in (
-            ("mamba2_scan", lambda: mops.mamba2_scan(
-                x.clone().requires_grad_(), dt, b, b.clone(), a)),
-            ("rwkv6_wkv", lambda: wops.rwkv6_wkv(
-                r.clone().requires_grad_(), r, r, lw, u))):
-        try:
-            fn()
-            refused[name] = False
-        except RuntimeError as e:
-            refused[name] = "A15" in str(e)
+# the scans' backwards: kernel, name, shape (the model's layout), h0 and
+# dh_final given.  The training shapes (zamba2-7b and rwkv6-7b at B 4, S
+# 1024) are timed; S = 1000 is not a multiple of the chunks.
+SCAN_BWD_CASES = [
+    ("mamba2_scan", "zamba2_train", dict(B=4, H=112, S=1024, P=64, N=64),
+     False),
+    ("mamba2_scan", "zamba2_s1000_h0", dict(B=4, H=112, S=1000, P=64,
+                                            N=64), True),
+    ("rwkv6_wkv", "rwkv6_train", dict(B=4, H=64, S=1024, K=64), False),
+    ("rwkv6_wkv", "rwkv6_s1000_h0", dict(B=4, H=64, S=1000, K=64), True),
+]
+SCAN_BWD_TIMED = ("zamba2_train", "rwkv6_train")
+SCAN_FWD_NOISE = 0.15   # the no-grad forward's device time against phase 3's
+SCAN_PLAIN_ITERS = 5    # autograd through the plain versions: ~0.6-0.8 s a
+                        # call, so the median of 5
+SCAN_GRAD_NAMES = {"mamba2_scan": ("dx", "ddt", "db", "dc", "da_log", "dh0"),
+                   "rwkv6_wkv": ("dr", "dk", "dv", "dlw", "du", "dh0")}
+
+
+def mamba_plain_model(mops, x, dt, b, c, a_log, h0):
+    """The model layout through the plain per-step version, as the CPU
+    branch of ``scan_model_layout`` runs it (b/c broadcast to every head,
+    a to every batch row), so autograd sums db, dc over the heads and da
+    over the batch."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    y, hf = mops.mamba2_scan_ref(
+        x.transpose(1, 2).reshape(B * H, S, P),
+        dt.transpose(1, 2).reshape(B * H, S),
+        b[:, None].expand(B, H, S, N).reshape(B * H, S, N),
+        c[:, None].expand(B, H, S, N).reshape(B * H, S, N),
+        (-a_log.exp())[None].expand(B, H).reshape(B * H),
+        None if h0 is None else h0.reshape(B * H, N, P))
+    return y.reshape(B, H, S, P).transpose(1, 2), hf.reshape(B, H, N, P)
+
+
+def wkv_plain_model(wops, r, k, v, lw, u, h0):
+    """The model layout through the plain per-step version (u broadcast to
+    every batch row, so autograd sums du over the batch)."""
+    B, S, H, K = r.shape
+
+    def flat(z):
+        return z.transpose(1, 2).reshape(B * H, S, K)
+    y, hf = wops.rwkv6_wkv_ref(
+        flat(r), flat(k), flat(v), flat(lw),
+        u[None].expand(B, H, K).reshape(B * H, K),
+        None if h0 is None else h0.reshape(B * H, K, K))
+    return y.reshape(B, H, S, K).transpose(1, 2), hf.reshape(B, H, K, K)
+
+
+def scan_bwd_need(kernel: str, B, H, S, h0, P=None, N=None, K=None):
+    """Bytes and flops of one backward call.  Bytes: its inputs read once
+    (the forward's operands, dy, and dh_final and h0 when given) and its
+    gradients written once, fp32.  Flops: 12 per state element and step
+    on the fp32 CUDA cores (the state recomputed, g_t's update and the
+    four sums over it: one multiply-add each)."""
+    bh = B * H
+    if kernel == "mamba2_scan":
+        state = N * P
+        per_call = 2 * bh * S * P + bh * S + 2 * B * S * N + H
+        nbytes = 4 * (2 * per_call - bh * S * P
+                      + (3 if h0 else 0) * bh * state)
+    else:
+        state = K * K
+        nbytes = 4 * (9 * bh * S * K + 2 * H * K
+                      + (3 if h0 else 0) * bh * state)
+    return nbytes, 12 * bh * S * state
+
+
+def phase_scan_grads(torch, mops, wops, ops, mamba_timed, rwkv_timed
+                     ) -> dict:
+    """The two scans' backward kernels under autograd at ``SCAN_BWD_CASES``
+    in the model's layout: every gradient against ``torch.autograd.grad``
+    through the plain per-step version on the same inputs, within
+    ``KERNEL_TOL`` x its max|want|; two calls the same bits; one forward
+    and one backward launch a call.  The training shapes' backwards
+    timed (``ms``, ``device_ms``) beside autograd through the plain
+    version and the bound (``scan_bwd_need``); no library call computes
+    a scan.  Then each forward kernel again at S 1024 with no gradient
+    wanted: its device time within ``SCAN_FWD_NOISE`` of phase 3's.  And
+    ``paged_attention``, which never trains, still refuses under autograd
+    and launches nothing there."""
+    gen = torch.Generator(device=DEV).manual_seed(4321)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    out = {}
+    for kernel, name, shape, h0 in SCAN_BWD_CASES:
+        mod = mops if kernel == "mamba2_scan" else wops
+        if kernel == "mamba2_scan":
+            call, _ = mamba_inputs(torch, gen, **shape, layout="model",
+                                   h0=h0)
+            call = tuple(None if t is None else t.contiguous() for t in call)
+            op = mops.scan_model_layout
+            plain = lambda *t: mamba_plain_model(mops, *t)  # noqa: E731
+        else:
+            call, _ = rwkv_inputs(torch, gen, **shape, layout="model",
+                                  h0=h0)
+            op = wops.wkv_model_layout
+            plain = lambda *t: wkv_plain_model(wops, *t)  # noqa: E731
+        names = [nm for nm, t in zip(SCAN_GRAD_NAMES[kernel], call)
+                 if t is not None]
+        with torch.no_grad():
+            y0, hf0 = op(*call)
+        dy = torch.randn(y0.shape, generator=gen, device=DEV)
+        dhf = torch.randn(hf0.shape, generator=gen, device=DEV) \
+            if h0 else None
+        del y0, hf0
+
+        def graph(fn):
+            ins = [t.clone().requires_grad_() for t in call if t is not None]
+            it = iter(ins)
+            y, hf = fn(*[next(it) if t is not None else None for t in call])
+            outs, cots = ([y, hf], [dy, dhf]) if h0 else ([y], [dy])
+            return ins, outs, cots
+        before = (mod.launches, mod.bwd_launches)
+        ins, outs, cots = graph(op)
+        got = torch.autograd.grad(outs, ins, cots, retain_graph=True)
+        launched = [mod.launches - before[0], mod.bwd_launches - before[1]]
+        again = torch.autograd.grad(outs, ins, cots, retain_graph=True)
+        p_ins, p_outs, _ = graph(plain)
+        want = torch.autograd.grad(p_outs, p_ins, cots, retain_graph=True)
+        torch.cuda.synchronize()
+        errs = {nm: rel_err(torch, g, w) for nm, g, w in
+                zip(names, got, want)}
+        same = all(bool(torch.equal(g, g2)) for g, g2 in zip(got, again))
+        for nm, g in zip(names, got):
+            check(bool(torch.isfinite(g).all()),
+                  f"{kernel} backward {name}: non-finite {nm}")
+        rec = {"kernel": kernel, "case": name, "shape": shape, "h0": h0,
+               "dh_final": h0, "layout": "model",
+               "tol_relative": KERNEL_TOL, "relative_err": errs,
+               "two_calls_bitwise_equal": same,
+               "launches_one_call": launched}
+        check(max(errs.values()) <= KERNEL_TOL,
+              f"{kernel} backward {name}: {errs} x max|want| > "
+              f"{KERNEL_TOL}")
+        check(same, f"{kernel} backward {name}: two calls differ")
+        check(launched == [1, 1], f"{kernel} backward {name}: launches "
+                                  f"{launched} != [1, 1]")
+        del got, again, want
+        if name in SCAN_BWD_TIMED:
+            nbytes, flops = scan_bwd_need(kernel, **shape, h0=h0)
+            rec.update(bytes=nbytes, flops=flops, **bounds(nbytes, flops, 0))
+            rec["ms"] = grad_ms(torch, outs, ins, cots, flush)
+            rec["device_ms"], rec["calls_traced"] = device_ms(
+                torch, lambda: torch.autograd.grad(outs, ins, cots,
+                                                   retain_graph=True),
+                flush)
+            rec["plain_ms"] = grad_ms(torch, p_outs, p_ins, cots, flush,
+                                      iters=SCAN_PLAIN_ITERS)
+            rec["plain_iters"] = SCAN_PLAIN_ITERS
+            rec["library_ms"] = None
+            rec["library"] = "none: no PyTorch call computes a scan"
+            roofline(rec, f"{kernel} backward {name}")
+        emit("kernel_grad_check", **rec)
+        out[name] = rec
+        del ins, outs, p_ins, p_outs, cots, call, dy, dhf
+        free(torch)
+    # the forward kernels with no gradient wanted, at phase 3's timed shape
+    fwd = {}
+    for kernel, mod, case, timed in (
+            ("mamba2_scan", mops, "zamba2_full", mamba_timed),
+            ("rwkv6_wkv", wops, "rwkv6_full", rwkv_timed)):
+        if kernel == "mamba2_scan":
+            call, _ = mamba_inputs(torch, gen, B=1, H=112, S=1024, P=64,
+                                   N=64, layout="model", h0=False)
+            op = mops.scan_model_layout
+        else:
+            call, _ = rwkv_inputs(torch, gen, B=1, H=64, S=1024, K=64,
+                                  layout="model", h0=False)
+            op = wops.wkv_model_layout
+        with torch.no_grad():
+            ms = cuda_ms(torch, lambda: op(*call), flush=flush)
+            dms, traced = device_ms(torch, lambda: op(*call), flush)
+        ref = timed[case]["device_ms"]
+        rec = {"kernel": kernel, "case": case, "ms": ms, "device_ms": dms,
+               "calls_traced": traced, "phase3_ms": timed[case]["ms"],
+               "phase3_device_ms": ref, "noise_bound": SCAN_FWD_NOISE}
+        emit("scan_forward_no_grad", **rec)
+        if dms is not None and ref is not None:
+            check(abs(dms / ref - 1.0) <= SCAN_FWD_NOISE,
+                  f"{kernel} forward without grad: {dms} ms device vs "
+                  f"{ref} ms in phase 3")
+        fwd[kernel] = rec
+        del call
+    # paged_attention never trains: it refuses under autograd
+    q = torch.randn(2, 1, 4, 16, generator=gen, device=DEV)
+    pool = torch.randn(9, 4, 2, 16, generator=gen, device=DEV)
+    table = torch.arange(1, 9, dtype=torch.int32, device=DEV).view(2, 4)
+    lens = torch.tensor([5, 9], dtype=torch.int32, device=DEV)
+    before = ops.launches
+    by_dtype = dict(ops.launches_by_dtype)
+    try:
+        ops.paged_attention(q.clone().requires_grad_(), pool, pool, table,
+                            lens)
+        refused = False
+    except RuntimeError as e:
+        refused = "has no backward" in str(e)
     with torch.no_grad():      # serving: no grad, the kernel launches
-        mops.mamba2_scan(x.clone().requires_grad_(), dt, b, b.clone(), a)
+        ops.paged_attention(q.clone().requires_grad_(), pool, pool, table,
+                            lens)
     torch.cuda.synchronize()
-    launched = (mops.launches - before[0], wops.launches - before[1])
-    emit("train_refusal", refused=refused,
-         launches_under_autograd=[launched[0] - 1, launched[1]])
-    check(all(refused.values()), f"forward-only kernels under autograd: "
-                                 f"{refused}")
-    check(launched == (1, 0), f"launches around the refusals: {launched}")
-    mops.launches, wops.launches = before
+    launched = ops.launches - before
+    emit("train_refusal", kernel="paged_attention", refused=refused,
+         launches_under_autograd=launched - 1)
+    check(refused, "paged_attention under autograd did not refuse")
+    check(launched == 1, f"paged_attention launches around the refusal: "
+                         f"{launched}")
+    ops.launches = before
+    ops.launches_by_dtype.update(by_dtype)
+    free(torch)
+    return {"grads": out, "forward_no_grad": fwd}
 
 
-def state_rel_errs(torch, rt, got_state, want_state) -> dict:
+def state_rel_errs(torch, rt, got_state, want_state,
+                   worst_leaf: Optional[dict] = None) -> dict:
     """Per part (params, m, v): the worst over leaves of max|diff| /
-    max|want|, ``got`` on the card and ``want`` on the CPU."""
+    max|want|, ``got`` on the card and ``want`` on the CPU (or the card).
+    ``worst_leaf``, when given, takes each part's worst leaf's name."""
+    names = {id(p): n for n, p in got_state["params"].named_parameters()}
+    order = [names.get(id(p), "?")
+             for p in rt["tree_leaves"](got_state["params"])]
     out = {}
     for part, g, w in (
             ("params", got_state["params"], want_state["params"]),
             ("m", got_state["opt"]["m"], want_state["opt"]["m"]),
             ("v", got_state["opt"]["v"], want_state["opt"]["v"])):
-        worst = 0.0
-        for a, b in zip(rt["tree_leaves"](g), rt["tree_leaves"](w)):
-            worst = max(worst, rel_err(torch, a.detach(),
-                                       b.detach().to(DEV)))
+        worst, at = 0.0, None
+        for i, (a, b) in enumerate(zip(rt["tree_leaves"](g),
+                                       rt["tree_leaves"](w))):
+            err = rel_err(torch, a.detach(), b.detach().to(DEV))
+            if err > worst or at is None:
+                worst, at = err, order[i]
         out[part] = worst
+        if worst_leaf is not None:
+            worst_leaf[part] = at
     return out
 
 
-def train_parity(torch, fa, gmm, rt, cfg, what: str,
-                 fwd_per_step: dict) -> dict:
-    """One ``Trainer`` step (B 4, S 1024, fp32, TF32 off) on the card
-    (the kernels) and on the CPU (the plain versions) from the same
+@contextlib.contextmanager
+def plain_scans(mops, wops):
+    """The scans' model-layout entry points on CUDA tensors swapped for
+    their plain per-step versions under autograd (the CPU adapters'
+    broadcast, on the card), so one training step can run with and
+    without the scan kernels on the same device."""
+    saved = (mops.scan_model_layout, wops.wkv_model_layout)
+
+    def mamba(xh, dt, b_in, c_in, a_log, h0=None):
+        return mamba_plain_model(mops, xh, dt, b_in, c_in, a_log, h0)
+
+    def wkv(rh, kh, vh, lwh, uh, h0=None):
+        return wkv_plain_model(wops, rh, kh, vh, lwh, uh, h0)
+    mops.scan_model_layout, wops.wkv_model_layout = mamba, wkv
+    try:
+        yield
+    finally:
+        mops.scan_model_layout, wops.wkv_model_layout = saved
+
+
+def train_parity(torch, kernel_ops: dict, rt, cfg, what: str,
+                 fwd_per_step: dict, *, batch: int = TRAIN_B,
+                 seq: int = TRAIN_S, state_tol: float = TRAIN_STATE_TOL,
+                 plain_swap=None) -> dict:
+    """One ``Trainer`` step (``batch`` x ``seq``, fp32, TF32 off) on the
+    card (the kernels) and on the CPU (the plain versions) from the same
     seed-0 weights and batch.  Gates: loss at ``TRAIN_LOSS_RTOL``,
-    grad_norm, and params, m and v after the update within
-    ``TRAIN_STATE_TOL``; each kernel's forward and backward launched
-    ``fwd_per_step`` times on the card."""
+    grad_norm at ``TRAIN_STATE_TOL``, and params, m and v after the update
+    within ``state_tol``; each kernel of ``kernel_ops`` (name -> ops
+    module) launched forward and backward ``fwd_per_step[name]`` times
+    (0 when absent) on the card.  With ``plain_swap`` (a context manager
+    that swaps kernels for their plain versions on the card) the same
+    step runs once more on the card inside it: the kernels' own share of
+    the difference from the CPU, recorded per part with its worst leaf;
+    the two card steps' loss and grad_norm must agree at
+    ``TRAIN_LOSS_RTOL`` and their params, m and v within ``state_tol``
+    (a leaf whose gradient is a long sum that cancels, rwkv6's
+    ``bonus_u``, differs by ~1.5e-4 x its max between two fp32 orders)."""
     import copy
-    tc = rt["TrainerConfig"](steps=1, batch=TRAIN_B, seq_len=TRAIN_S,
+    tc = rt["TrainerConfig"](steps=1, batch=batch, seq_len=seq,
                              log_every=1)
     cpu_params = rt["init_params"](rt["model_defs"](cfg), 0, device="cpu",
                                    trainable=True)
     card_params = copy.deepcopy(cpu_params).to(DEV)
-    for op in (fa, gmm):
-        op.launches = op.bwd_launches = 0
+    zero_launches(kernel_ops.values())
     t0 = time.time()
     card = rt["Trainer"](cfg, tc, device=DEV, params=card_params)
     card.run()
     card_s = time.time() - t0
-    launched = {"flash_attention": [fa.launches, fa.bwd_launches],
-                "moe_gmm": [gmm.launches, gmm.bwd_launches]}
+    launched = {name: [op.launches, op.bwd_launches]
+                for name, op in kernel_ops.items()}
+    gr = card.metrics_history[0]
+    plain = None
+    if plain_swap is not None:
+        # the same step on the card with the scans' plain versions: the
+        # kernels' own share of any difference from the CPU
+        with plain_swap():
+            other = rt["Trainer"](cfg, tc, device=DEV,
+                                  params=copy.deepcopy(cpu_params).to(DEV))
+            other.run()
+        pr = other.metrics_history[0]
+        plain = {"loss": pr["loss"], "grad_norm": pr["grad_norm"],
+                 "loss_rel_err": abs(gr["loss"] - pr["loss"])
+                 / abs(pr["loss"]),
+                 "grad_norm_rel_err": abs(gr["grad_norm"] - pr["grad_norm"])
+                 / abs(pr["grad_norm"]), "worst_leaf": {}}
+        plain["state_rel_err"] = state_rel_errs(
+            torch, rt, card.state, other.state, plain["worst_leaf"])
+        del other
+        free(torch)
     t0 = time.time()
     host = rt["Trainer"](cfg, tc, device="cpu", params=cpu_params)
     host.run()
     cpu_s = time.time() - t0
-    gr, hr = card.metrics_history[0], host.metrics_history[0]
-    errs = state_rel_errs(torch, rt, card.state, host.state)
+    hr = host.metrics_history[0]
+    worst = {}
+    errs = state_rel_errs(torch, rt, card.state, host.state, worst)
     rec = {"arch": cfg.name, "layers": cfg.num_layers,
-           "batch": [TRAIN_B, TRAIN_S], "loss_card": gr["loss"],
+           "batch": [batch, seq], "loss_card": gr["loss"],
            "loss_cpu": hr["loss"], "grad_norm_card": gr["grad_norm"],
            "grad_norm_cpu": hr["grad_norm"],
            "loss_rel_err": abs(gr["loss"] - hr["loss"]) / abs(hr["loss"]),
            "grad_norm_rel_err": abs(gr["grad_norm"] - hr["grad_norm"])
            / abs(hr["grad_norm"]), "state_rel_err": errs,
+           "worst_leaf": worst, "card_vs_card_plain_scans": plain,
            "launches": launched, "card_seconds": card_s,
            "cpu_seconds": cpu_s,
            "tol": {"loss_rtol": TRAIN_LOSS_RTOL,
-                   "state_rtol": TRAIN_STATE_TOL}}
+                   "grad_norm_rtol": TRAIN_STATE_TOL,
+                   "state_rtol": state_tol,
+                   "card_plain_rtol": [TRAIN_LOSS_RTOL, TRAIN_LOSS_RTOL,
+                                       state_tol]}}
     emit("train_parity", what=what, **rec)
+    if plain is not None:
+        check(plain["loss_rel_err"] <= TRAIN_LOSS_RTOL
+              and plain["grad_norm_rel_err"] <= TRAIN_LOSS_RTOL
+              and max(plain["state_rel_err"].values()) <= state_tol,
+              f"train parity {what}: the scan kernels against their plain "
+              f"versions on the card: {plain}")
     check(rec["loss_rel_err"] <= TRAIN_LOSS_RTOL,
           f"train parity {what}: loss {gr['loss']} vs {hr['loss']}")
     check(rec["grad_norm_rel_err"] <= TRAIN_STATE_TOL,
           f"train parity {what}: grad_norm {gr['grad_norm']} vs "
           f"{hr['grad_norm']}")
-    check(max(errs.values()) <= TRAIN_STATE_TOL,
+    check(max(errs.values()) <= state_tol,
           f"train parity {what}: state {errs}")
-    for name, n in fwd_per_step.items():
+    for name in kernel_ops:
+        n = fwd_per_step.get(name, 0)
         check(launched[name] == [n, n],
               f"train parity {what}: {name} launches {launched[name]} != "
               f"[{n}, {n}]")
     del card, host, cpu_params, card_params
     free(torch)
     return rec
+
+
+def scan_launches_per_step(cfg) -> dict:
+    """Each scan kernel's forward (and backward) launches a training step
+    of ``cfg`` (zamba2: one ``mamba2_scan`` a Mamba2 block and one
+    ``flash_attention`` a shared-attention block; rwkv6: one
+    ``rwkv6_wkv`` a layer)."""
+    kinds = [b.mixer for b in cfg.blocks]
+    return {"mamba2_scan": kinds.count("mamba2"),
+            "flash_attention": kinds.count("shared_attn"),
+            "rwkv6_wkv": kinds.count("rwkv6")}
+
+
+def phase_scan_parity(torch, train_ops: dict, rt) -> dict:
+    """``train_parity`` for the scans' archs at ``SCAN_PARITY``'s depths
+    (B ``SCAN_PARITY_B``, S ``SCAN_PARITY_S``), with the card step also
+    run with the scans' plain versions (``plain_scans``)."""
+    out = {}
+    for arch, depth in SCAN_PARITY:
+        cfg = cut_depth(rt["get_config"](arch), depth)
+        what = arch.split("-")[0]
+        out[what] = timed_phase(
+            f"train_parity_{what}", train_parity, torch, train_ops, rt,
+            cfg, what, scan_launches_per_step(cfg), batch=SCAN_PARITY_B,
+            seq=SCAN_PARITY_S, state_tol=SCAN_STATE_TOL,
+            plain_swap=lambda: plain_scans(train_ops["mamba2_scan"],
+                                           train_ops["rwkv6_wkv"]))
+    return out
 
 
 TRAIN_PARTS = ("train_forward", "train_backward", "train_update")
@@ -4477,8 +4884,9 @@ def profile_train_step(torch, rt, tr) -> dict:
     """One more step of ``tr`` under ``torch.profiler``, its three parts
     (``forward_train``, ``backward``, the AdamW update) each ended by a
     synchronize inside its own ``record_function`` range: per part the
-    host wall ms, the device ms by kernel family (the flash kernel,
-    library matrix products, everything else) and the idle share."""
+    host wall ms, the device ms by kernel family (the flash kernel, the
+    scan kernels, library matrix products, everything else) and the idle
+    share."""
     from torch.profiler import ProfilerActivity, profile, record_function
     params = tr.state["params"]
     batch = rt["to_device"](tr.data.batch_at(0), torch.device(DEV))
@@ -4507,7 +4915,8 @@ def profile_train_step(torch, rt, tr) -> dict:
     out = {}
     for part in TRAIN_PARTS:
         lo, hi = ranges[part]
-        fam = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+        fam = {"flash_attention": 0.0, "scan": 0.0, "matmul": 0.0,
+               "other": 0.0}
         n = 0
         for e in events:
             if e.device_type != cuda or e.name in TRAIN_PARTS \
@@ -4516,7 +4925,8 @@ def profile_train_step(torch, rt, tr) -> dict:
             n += 1
             name = e.name.lower()
             key = ("flash_attention" if "flash_attention" in name else
-                   "matmul" if ("gemm" in name or "gemv" in name
+                   "scan" if ("mamba2_scan" in name or "rwkv6_wkv" in name)
+                   else "matmul" if ("gemm" in name or "gemv" in name
                                 or "cutlass" in name) else "other")
             fam[key] += e.time_range.elapsed_us() / 1e3
         wall = (hi - lo) / 1e3
@@ -4528,64 +4938,66 @@ def profile_train_step(torch, rt, tr) -> dict:
     return out
 
 
-def phase_train_full(torch, ops, fa, gmm, mops, wops, rt, card) -> dict:
-    """The slice's main path at full size: ``Trainer`` on internlm2-1.8b at
-    full width and all 24 layers, ``TRAIN_STEPS`` steps at B 4, S 1024,
-    fp32 (params, grads, m and v ~30 GB; activations ~20 GB; the logits
-    [4096, 92544] ~1.5 GB a copy).  Counts zeroed just before ``run`` and
-    read just after.  Gates: every loss finite, the last below the first,
-    grad_norm finite and > 0, flash forward and backward 24 a step each,
-    no other kernel."""
-    cfg = rt["get_config"]("internlm2-1.8b")
+def train_full(torch, ops, kernel_ops: dict, rt, card, cfg, steps: int,
+               per_step: dict) -> dict:
+    """``Trainer`` on ``cfg`` for ``steps`` steps at B ``TRAIN_B``, S
+    ``TRAIN_S``, fp32, from seed-0 weights.  Counts zeroed just before
+    ``run`` and read just after.  Gates: every loss finite, the last below
+    the first, grad_norm finite and > 0, each kernel of ``kernel_ops``
+    launched forward and backward ``per_step[name]`` times a step (0 when
+    absent), and no paged attention.  Records ms a step (the median after
+    the first), tokens/s, peak memory and the per-part profile of one
+    more step."""
     t0 = time.time()
     params = rt["init_params"](rt["model_defs"](cfg), 0, device=DEV,
                                trainable=True)
-    tc = rt["TrainerConfig"](steps=TRAIN_STEPS, batch=TRAIN_B,
-                             seq_len=TRAIN_S, log_every=1)
+    tc = rt["TrainerConfig"](steps=steps, batch=TRAIN_B, seq_len=TRAIN_S,
+                             log_every=1)
     tr = rt["Trainer"](cfg, tc, device=DEV, params=params)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     emit("params", arch=cfg.name, layers=cfg.num_layers, trainable=True,
          params=n_params, param_bytes=4 * n_params,
-         seconds=time.time() - t0)
+         state_bytes=16 * n_params, seconds=time.time() - t0)
     torch.cuda.reset_peak_memory_stats()
-    zero_launches([ops, gmm, fa, mops, wops])
-    fa.bwd_launches = gmm.bwd_launches = 0
+    zero_launches([ops, *kernel_ops.values()])
     t0 = time.time()
     res = tr.run()
     wall = time.time() - t0
-    launched = {"flash_attention": [fa.launches, fa.bwd_launches],
-                "moe_gmm": [gmm.launches, gmm.bwd_launches],
-                "paged_attention": ops.launches,
-                "mamba2_scan": mops.launches, "rwkv6_wkv": wops.launches}
+    launched = {name: [op.launches, op.bwd_launches]
+                for name, op in kernel_ops.items()}
+    launched["paged_attention"] = ops.launches
     hist = res["history"]
     losses = [r["loss"] for r in hist]
     norms = [r["grad_norm"] for r in hist]
     step_ms = sorted(r["step_time_s"] * 1e3 for r in hist[1:])
     med = step_ms[len(step_ms) // 2]
     rec = {"arch": cfg.name, "layers": cfg.num_layers, "steps": len(hist),
-           "batch": [TRAIN_B, TRAIN_S], "losses": losses,
-           "grad_norms": norms, "lrs": [r["lr"] for r in hist],
+           "params": n_params, "batch": [TRAIN_B, TRAIN_S],
+           "losses": losses, "grad_norms": norms,
+           "lrs": [r["lr"] for r in hist],
            "step_ms": [r["step_time_s"] * 1e3 for r in hist],
            "ms_per_step_median_after_first": med,
            "tokens_per_s": TRAIN_B * TRAIN_S / (med / 1e3),
            "wall_s": wall,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-           "launches": launched, "stragglers": len(res["stragglers"]),
-           "card": card}
+           "launches": launched, "launches_per_step_want": per_step,
+           "stragglers": len(res["stragglers"]), "card": card}
     emit("train_full", **rec)
-    L = cfg.num_layers
-    check(len(hist) == TRAIN_STEPS, f"train: {len(hist)} logged steps")
-    check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
-    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    check(len(hist) == steps, f"train {cfg.name}: {len(hist)} logged steps")
+    check(all(math.isfinite(x) for x in losses),
+          f"train {cfg.name}: losses {losses}")
+    check(losses[-1] < losses[0],
+          f"train {cfg.name}: the loss did not fall: {losses}")
     check(all(math.isfinite(x) and x > 0 for x in norms),
-          f"train: grad norms {norms}")
-    check(launched["flash_attention"] == [L * TRAIN_STEPS] * 2,
-          f"train: flash launches {launched['flash_attention']} != "
-          f"{L} x {TRAIN_STEPS} each")
-    check(launched["moe_gmm"] == [0, 0] and ops.launches == 0
-          and mops.launches == 0 and wops.launches == 0,
-          f"train: other kernels launched: {launched}")
+          f"train {cfg.name}: grad norms {norms}")
+    for name in kernel_ops:
+        n = per_step.get(name, 0) * steps
+        check(launched[name] == [n, n],
+              f"train {cfg.name}: {name} launches {launched[name]} != "
+              f"[{n}, {n}]")
+    check(ops.launches == 0,
+          f"train {cfg.name}: paged attention launched {ops.launches}")
     try:
         rec["profile"] = profile_train_step(torch, rt, tr)
     except (RuntimeError, KeyError) as e:    # an optional reading
@@ -4594,6 +5006,42 @@ def phase_train_full(torch, ops, fa, gmm, mops, wops, rt, card) -> dict:
     del tr, params, res
     free(torch)
     return rec
+
+
+def phase_train_full(torch, ops, kernel_ops: dict, rt, card) -> dict:
+    """The slice's first main path at full size: internlm2-1.8b at full
+    width and all 24 layers, ``TRAIN_STEPS`` steps (params, grads, m and
+    v ~30 GB; activations ~20 GB; the logits [4096, 92544] ~1.5 GB a
+    copy): flash forward and backward 24 a step each, no other kernel."""
+    cfg = rt["get_config"]("internlm2-1.8b")
+    return train_full(torch, ops, kernel_ops, rt, card, cfg, TRAIN_STEPS,
+                      {"flash_attention": cfg.num_layers})
+
+
+def phase_train_scans(torch, ops, kernel_ops: dict, rt, card) -> dict:
+    """zamba2-7b and rwkv6-7b at full width, cut in depth to fit fp32
+    params, grads, m and v (16 bytes a parameter) beside their
+    activations on the card: ``TRAIN_SCAN_STEPS`` steps each.  zamba2 at
+    ``ZAMBA2_TRAIN_DEPTH`` layers keeps both shared-attention groups (its
+    layers 5 and 11): 10 ``mamba2_scan`` and 2 ``flash_attention`` each
+    way a step; rwkv6 at ``RWKV6_TRAIN_DEPTH``: 6 ``rwkv6_wkv`` each way
+    a step; no other kernel."""
+    out = {}
+    for arch, depth in (("zamba2-7b", ZAMBA2_TRAIN_DEPTH),
+                        ("rwkv6-7b", RWKV6_TRAIN_DEPTH)):
+        full = rt["get_config"](arch)
+        cfg = cut_depth(full, depth)
+        kinds = [b.mixer for b in cfg.blocks]
+        emit("depth_cut", arch=full.name, layers_full=full.num_layers,
+             layers=cfg.num_layers,
+             kept=f"the first {cfg.num_layers} of {full.num_layers} "
+                  f"blocks ({dict((k, kinds.count(k)) for k in kinds)}); "
+                  "every width kept; training state 16 bytes a parameter")
+        out[arch] = timed_phase(f"train_full_{arch}", train_full, torch,
+                                ops, kernel_ops, rt, card, cfg,
+                                TRAIN_SCAN_STEPS,
+                                scan_launches_per_step(cfg))
+    return out
 
 
 def phase_train_resume(torch, rt, cfg) -> dict:
@@ -4642,32 +5090,37 @@ def phase_train_resume(torch, rt, cfg) -> dict:
 
 
 def phase_train_launcher(torch) -> dict:
-    """``python -m repro_torch.launch.train --arch internlm2-1.8b --smoke
-    --steps 4`` as a subprocess on the card: exit 0, its step lines and
-    its final line."""
+    """``python -m repro_torch.launch.train --arch ARCH --smoke --steps 4``
+    as a subprocess on the card for internlm2-1.8b, zamba2-7b and
+    rwkv6-7b (the scans' backward kernels under the launcher): exit 0,
+    its step lines and its final line, each."""
     env = port_env()
-    argv = ["--arch", "internlm2-1.8b", "--smoke", "--steps", "4"]
-    t0 = time.time()
-    try:
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", *argv],
-            cwd=ROOT, env=env, capture_output=True, text=True,
-            timeout=TRAIN_LAUNCHER_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        raise SmokeFailure(f"train launcher: no exit within "
-                           f"{TRAIN_LAUNCHER_TIMEOUT_S} s")
-    lines = proc.stdout.strip().splitlines()
-    rec = {"argv": argv, "rc": proc.returncode, "lines": lines,
-           "seconds": time.time() - t0,
-           "stderr_tail": proc.stderr.splitlines()[-20:]}
-    emit("train_launcher", **rec)
-    check(proc.returncode == 0, f"train launcher: exit {proc.returncode}")
-    check(bool(lines) and re.match(
-        r"^final loss: \d+\.\d{4}  stragglers flagged: \d+$", lines[-1]),
-        f"train launcher: last line {lines[-1:]!r}")
-    check(sum(bool(re.match(r"^step +\d+ loss ", ln)) for ln in lines) == 2,
-          f"train launcher: step lines {lines}")
-    return rec
+    out = {}
+    for arch in TRAIN_LAUNCHER_ARCHS:
+        argv = ["--arch", arch, "--smoke", "--steps", "4"]
+        t0 = time.time()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", *argv],
+                cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=TRAIN_LAUNCHER_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"train launcher {arch}: no exit within "
+                               f"{TRAIN_LAUNCHER_TIMEOUT_S} s")
+        lines = proc.stdout.strip().splitlines()
+        rec = {"argv": argv, "rc": proc.returncode, "lines": lines,
+               "seconds": time.time() - t0,
+               "stderr_tail": proc.stderr.splitlines()[-20:]}
+        emit("train_launcher", **rec)
+        check(proc.returncode == 0,
+              f"train launcher {arch}: exit {proc.returncode}")
+        check(bool(lines) and re.match(
+            r"^final loss: \d+\.\d{4}  stragglers flagged: \d+$",
+            lines[-1]), f"train launcher {arch}: last line {lines[-1:]!r}")
+        check(sum(bool(re.match(r"^step +\d+ loss ", ln)) for ln in lines)
+              == 2, f"train launcher {arch}: step lines {lines}")
+        out[arch] = rec
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4963,12 +5416,13 @@ def main() -> int:
         rwkv_worst, rwkv_timed = phase_rwkv6_kernels(torch, wops)
         fmm_worst, fmm_timed = phase_fused_matmul_kernels(torch, fops, fig11)
         fmm_grad_worst = phase_fused_matmul_grads(torch, fops)
-        # the backwards of the training path, and the refusal of the
-        # forward-only kernels under autograd
+        # the backwards of the training path (the scans' backward kernels
+        # among them), and paged attention's refusal under autograd
         flash_grads = timed_phase("flash_grads", phase_flash_grads, torch,
                                   fa)
         gmm_grads = timed_phase("gmm_grads", phase_gmm_grads, torch, gmm)
-        phase_train_refusal(torch, mops, wops)
+        scan_grads = timed_phase("scan_grads", phase_scan_grads, torch, mops,
+                                 wops, ops, mamba_timed, rwkv_timed)
         _, fig11_launches, fig11_res = phase_figs(
             torch, fops, (ops, gmm, fa, mops, wops, fops), fig09, fig11)
         cfg, params = init_model(torch, rt)
@@ -5010,6 +5464,7 @@ def main() -> int:
         launcher = phase_launcher(torch, rt, cfg, params)
         ref_flash = phase_reference_engine(torch, ops, fa, rt, cfg, params)
         fig14_launches = phase_fig14(torch, ops, fa, fig14)
+        fig14_qp = phase_fig14_qp(fig14_launches)
         # robustness, SLO policy and tracing on the same model
         t_a11 = time.time()
         ft = timed_phase("fault_tolerance", phase_fault_tolerance, torch,
@@ -5048,28 +5503,32 @@ def main() -> int:
                               MISTRAL_DEPTH)
         pixtral = timed_phase("pixtral", phase_pixtral, torch, ops, fa, rt)
         # training: card against CPU at 2 layers (and reduced dbrx: the
-        # MoE backward and the aux loss), a resume, the full model, the
-        # launcher
+        # MoE backward and the aux loss; zamba2 and rwkv6: the scans'
+        # backward kernels), a resume, the full models, the launcher
         t_train = time.time()
+        train_ops = {"flash_attention": fa, "moe_gmm": gmm,
+                     "mamba2_scan": mops, "rwkv6_wkv": wops}
         il2 = cut_depth(get_config("internlm2-1.8b"), TRAIN_PARITY_LAYERS)
         parity = {
             "internlm2": timed_phase(
-                "train_parity_internlm2", train_parity, torch, fa, gmm, rt,
-                il2, "internlm2", {"flash_attention": TRAIN_PARITY_LAYERS,
-                                   "moe_gmm": 0}),
+                "train_parity_internlm2", train_parity, torch, train_ops, rt,
+                il2, "internlm2", {"flash_attention": TRAIN_PARITY_LAYERS}),
             "dbrx_reduced": timed_phase(
-                "train_parity_dbrx", train_parity, torch, fa, gmm, rt,
+                "train_parity_dbrx", train_parity, torch, train_ops, rt,
                 reduced(get_config("dbrx-132b")), "dbrx_reduced",
                 {"flash_attention": 2, "moe_gmm": 6})}
+        parity.update(phase_scan_parity(torch, train_ops, rt))
         resume = timed_phase("train_resume", phase_train_resume, torch, rt,
                              il2)
-        train = timed_phase("train_full", phase_train_full, torch, ops, fa,
-                            gmm, mops, wops, rt, card)
+        train = timed_phase("train_full", phase_train_full, torch, ops,
+                            train_ops, rt, card)
+        train_scans = phase_train_scans(torch, ops, train_ops, rt, card)
         train_launcher = timed_phase("train_launcher", phase_train_launcher,
                                      torch)
         emit("train_phases_done", seconds=time.time() - t_train,
              resumed_loss_rel_err=resume["rel_err"],
-             launcher_final=train_launcher["lines"][-1])
+             launcher_final={arch: run["lines"][-1]
+                             for arch, run in train_launcher.items()})
         # the paper's tuning machinery and its figures
         free(torch)
         paper = timed_phase("paper", phase_paper, torch,
@@ -5115,6 +5574,7 @@ def main() -> int:
         "gemma2_fused_spec"]
     entries[0]["launches_dbrx"] = dbrx_launches
     entries[0]["launches_fig14"] = fig14_launches["paged"]
+    entries[1]["launches_fig14_qp"] = fig14_qp["paged_attention_int8_launches"]
     entries[0]["launches_launcher"] = {
         what: run["kernel_launches"]["paged_attention"]
         for what, run in launcher.items()}
@@ -5287,9 +5747,38 @@ def main() -> int:
     bwd_keys = ("ms", "plain_ms", "library_ms", "library", "bound_ms",
                 "bound_by", "roofline_share", "relative_err")
     for e in entries:
-        e["has_backward"] = e["name"].startswith(
-            ("flash_attention", "moe_gmm", "fused_matmul"))
+        e["has_backward"] = not e["name"].startswith(
+            "paged_decode_attention")
     by_name = {e["name"]: e for e in entries}
+    # the scans' backward kernels: their times at the training shapes,
+    # and their launches in the full-width training runs
+    for name, case, arch, fn, shape in (
+            ("mamba2_scan", "zamba2_train", "zamba2-7b", "mamba2_scan_bwd",
+             "zamba2-7b training, model layout: B=4 H=112 S=1024 P=64 "
+             "N=64 fp32, b/c shared by the heads"),
+            ("rwkv6_wkv", "rwkv6_train", "rwkv6-7b", "rwkv6_wkv_bwd",
+             "rwkv6-7b training, model layout: B=4 H=64 S=1024 K=64 fp32, "
+             "u shared by the batch")):
+        run = train_scans[arch]
+        fl, bl = run["launches"][name]
+        grads = scan_grads["grads"]
+        by_name[name].update(
+            launches_train=fl,
+            launches_train_per_step=fl // run["steps"],
+            forward_no_grad={k: scan_grads["forward_no_grad"][name][k]
+                             for k in ("ms", "device_ms")},
+            backward={
+                "function": fn, "route": "cuda",
+                "source": by_name[name]["source"],
+                "launches_train": bl,
+                "launches_train_per_step": bl // run["steps"],
+                **{k: grads[case][k] for k in bwd_keys + ("device_ms",)},
+                "shape": shape,
+                "by_case": {n: {"relative_err": r["relative_err"],
+                                "two_calls_bitwise_equal":
+                                    r["two_calls_bitwise_equal"]}
+                            for n, r in grads.items()
+                            if r["kernel"] == name}})
     fl_train = train["launches"]["flash_attention"]
     by_name["flash_attention"].update(
         launches_train=fl_train[0],

@@ -31,7 +31,9 @@ traced SLO engine, rendered into per-class phase times (queued /
 running / requeued), preemptions by class, the export's schema validity
 (``benchmarks/check_trace``) and the fingerprint's determinism across
 two replays (``trep_*`` keys).  Each record is merged into the last run
-of ``--out``, the file fig14 writes.
+of ``--out`` (default ``BENCH_serve_torch.json``, the file fig14
+writes); a plain run writes nothing and ignores ``--out``, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -310,14 +312,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          "its trep_* record into the last run of --out")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
-    ap.add_argument("--out", default=None,
+    ap.add_argument("--out", default="BENCH_serve_torch.json",
                     help="trajectory file whose last run takes the serving "
-                         "record (default BENCH_serve_torch.json)")
+                         "record; a plain run (the MoE and cost halves) "
+                         "writes nothing")
     args = ap.parse_args(argv)
     if not (args.slo_mix or args.trace_report):
-        if args.out is not None:
-            ap.error("--out takes the serving half's record: pass "
-                     "--slo-mix and/or --trace-report")
         return dict(moe_layer=moe_layer_comparison(
             *moe_layer_inputs(args.device)), prod=prod_estimates())
     rec = {}
@@ -325,7 +325,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         rec.update(slo_scheduling_comparison(device=args.device))
     if args.trace_report:
         rec.update(trace_report(device=args.device))
-    path = merge_into_last_run(args.out or "BENCH_serve_torch.json", rec)
+    path = merge_into_last_run(args.out, rec)
     print(f"# fig04 record merged into the last run of {path}", flush=True)
     return rec
 

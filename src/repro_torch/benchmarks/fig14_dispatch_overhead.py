@@ -47,14 +47,18 @@ internlm2-1.8b at the reference's sizes (4 slots, ``max_len`` 64 or
   deadline has passed (reaped ``TIMED_OUT``, never admitted), and token
   parity of the preempted-then-resumed run against an uncontended
   engine (``ft_*`` keys).
+* ``quantized_pool_comparison``: the reduced model trained (the port's
+  ``forward_train`` and ``optim/adamw``) until it follows a token chain,
+  then served on int8 pools against fp32 pools: greedy agreement, the
+  teacher-forced logit error, slots at equal pool bytes, preemption and
+  copy-on-write parity on int8 pools (``qp_*`` keys).
 
 Left out, and absent from the record (not zero): the HLO checks of
 ``paged_kernel_comparison`` and ``chunked_prefill_comparison``
 (``_decode_executable``, ``_ring_gather_shapes``: keys
 ``paged_kernel_gather_free``, ``gather_path_materializes_ring``,
 ``paged_kernel_peak_temp_bytes``, ``paged_gather_peak_temp_bytes``,
-``cp_fused_gather_free``), which have no torch counterpart; and
-``quantized_pool_comparison`` (``qp_*``), which trains a model (A15).
+``cp_fused_gather_free``), which have no torch counterpart.
 fig04's ``slo_*`` and ``trep_*`` keys come from the port's
 ``benchmarks/fig04_scheduling.py``, merged into the same run.
 ``main`` writes the record to ``BENCH_serve_torch.json``, never to the
@@ -829,6 +833,246 @@ def chunked_prefill_comparison(n_arrivals: int = 3, prompt_len: int = 120,
     return rec
 
 
+def _chain(start: int, n: int, vocab: int):
+    """``n`` tokens of the chain ``next = (cur * 31 + 17) % vocab``."""
+    toks = [start % vocab]
+    for _ in range(n - 1):
+        toks.append((toks[-1] * 31 + 17) % vocab)
+    return toks
+
+
+def chain_batch(it: int, vocab: int, device: torch.device) -> torch.Tensor:
+    """Training step ``it``'s batch: 8 chains of 33 tokens."""
+    return torch.tensor([_chain(1 + 8 * it + bi, 33, vocab)
+                         for bi in range(8)], dtype=torch.int32,
+                        device=device)
+
+
+def train_chain_model(cfg, params, steps: int = 80, lr: float = 3e-3):
+    """Overfit ``params`` (trainable, in place) on the token chain, as the
+    reference does: ``steps`` AdamW steps at ``lr`` on ``chain_batch``'s
+    batches, each ``forward_train`` on tokens[:, :-1] against
+    tokens[:, 1:].  Returns the losses, one per step, on the host."""
+    from repro_torch.models import forward_train
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.optim import adamw
+
+    ocfg = adamw.AdamWConfig(lr=lr)
+    opt = adamw.init(params, ocfg)
+    leaves = tree_leaves(params)
+    dev = leaves[0].device
+    losses = []
+    for it in range(steps):
+        toks = chain_batch(it, cfg.vocab_size, dev)
+        loss, _ = forward_train(params, cfg, {"tokens": toks[:, :-1],
+                                              "labels": toks[:, 1:]})
+        loss.backward()
+        adamw.update(None, opt, params, ocfg)
+        for p in leaves:
+            p.grad = None
+        losses.append(loss.detach())
+    return [float(x) for x in torch.stack(losses).cpu()]
+
+
+def quantized_pool_comparison(n_req: int = 8, max_new: int = 48, *,
+                              device: DeviceLike = None) -> dict:
+    """Quantized (int8) KV page pools against fp32 pools: quality and
+    capacity, as the reference's.
+
+    Greedy parity needs a model whose argmax is confident (at random init
+    the top-2 logit gap sits below the int8 noise), so the reduced model
+    is first trained from seed-0 weights on the chain ``next = (cur * 31
+    + 17) % vocab`` (``train_chain_model``: 80 AdamW steps at lr 3e-3,
+    batches of 8 chains of 33 tokens) until it follows the chain; then:
+
+    * greedy agreement int8 vs fp32 over ``n_req * max_new`` positions,
+      and the max absolute logit error of teacher-forced decode on int8
+      pools against fp32 pools (the prompt admitted through the
+      quantizing splice, new KV through the re-quantizing write);
+    * an int8 pool sized to at most the fp32 engine's pool bytes serving
+      twice the slots, the slot high-water proving them concurrent;
+    * preemption on an oversubscribed int8 pool (12 pages): outputs equal
+      to the calm int8 run, nothing leaked;
+    * prefix sharing with copy-on-write on int8 pools against an
+      exclusive engine: equal outputs;
+    * one decode shape and a sync-free decode chunk.
+
+    ``qp_decode_compiles`` is the port's decode shape counter."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import (forward_decode, forward_prefill,
+                                    model_defs)
+    from repro_torch.models.module import init_params
+    from repro_torch.serve import cache as cm
+    from repro_torch.serve.cache import CacheSpec
+    from repro_torch.serve.engine import Engine, Request
+
+    dev = resolve_device(device)
+    cfg = reduced(get_config(ARCH))
+    vocab = cfg.vocab_size
+    kv_dtype = "int8"
+    params = init_params(model_defs(cfg), 0, device=dev, trainable=True)
+    train_loss = train_chain_model(cfg, params)[-1]
+    for p in params.parameters():
+        p.requires_grad_(False)
+
+    prompts = [_chain(11 + 7 * i, 16, vocab) for i in range(n_req)]
+    kw = dict(slots=4, max_len=256, page_size=8, sync_interval=8,
+              prefix_sharing=False, device=dev)
+    seen = {}
+
+    def load(eng, reqs, ttl=None):
+        for rid, prompt, mn in reqs:
+            eng.submit(Request(rid=rid, prompt=list(prompt),
+                               max_new_tokens=mn, ttl=ttl))
+        done = eng.run(max_steps=200_000)
+        out = {r.rid: list(r.out_tokens) for r in done}
+        seen.setdefault(id(eng), []).extend(done)
+        eng.finished = []
+        return out
+
+    reqs = [(i, prompt, max_new) for i, prompt in enumerate(prompts)]
+    base = Engine(cfg, params, kv_dtype="fp32", **kw)
+    base.warmup()
+    out32 = load(base, reqs)
+
+    quant = Engine(cfg, params, kv_dtype=kv_dtype, **kw)
+    assert quant.kv_dtype == kv_dtype, quant.kv_dtype
+    quant.warmup()
+    out8 = load(quant, reqs)
+
+    total = n_req * max_new
+    agree = sum(sum(a == b for a, b in zip(out32[i], out8[i]))
+                for i in range(n_req))
+    greedy_match = agree / total
+    exact = sum(out32[i] == out8[i] for i in range(n_req))
+    follows = sum(out32[i] == _chain(prompts[i][-1], max_new + 1, vocab)[1:]
+                  for i in range(n_req))
+
+    # the teacher-forced logit probe: the same tokens decoded against fp32
+    # and int8 pools
+    def admitted(sp, prompt):
+        _, dense = forward_prefill(params, cfg, {"tokens": torch.tensor(
+            [prompt], dtype=torch.int32, device=dev)})
+        rows = {g.key: np.arange(1, g.ring_blocks + 1, dtype=np.int32)
+                for g in sp.groups}
+        return cm.admit_cache(sp, sp.init_paged_cache(dev), dense, 0, 0,
+                              len(prompt), rows)
+
+    probe = prompts[0]
+    with torch.no_grad():
+        c32 = admitted(CacheSpec.from_config(cfg, 1, 64, page_size=8),
+                       probe)
+        c8 = admitted(CacheSpec.from_config(cfg, 1, 64, page_size=8,
+                                            kv_dtype=kv_dtype), probe)
+        errs = []
+        for t in _chain(probe[-1], 9, vocab)[1:]:
+            tk = torch.tensor([[t]], dtype=torch.int32, device=dev)
+            lg32, c32 = forward_decode(params, cfg, tk, c32)
+            lg8, c8 = forward_decode(params, cfg, tk, c8)
+            errs.append((lg32 - lg8).abs().max())
+        max_logit_err = float(torch.stack(errs).max())
+
+    # capacity at equal bytes: an int8 pool of at most the fp32 engine's
+    # page-pool bytes (scale rows included) serving twice the slots
+    budget = base.spec.paged_kv_bytes()
+    probe_a = CacheSpec.from_config(cfg, 8, 256, page_size=8, num_pages=64,
+                                    kv_dtype=kv_dtype)
+    probe_b = CacheSpec.from_config(cfg, 8, 256, page_size=8, num_pages=65,
+                                    kv_dtype=kv_dtype)
+    per_page = probe_b.paged_kv_bytes() - probe_a.paged_kv_bytes()
+    fixed = probe_a.paged_kv_bytes() - 64 * per_page
+    npages = int((budget - fixed) // per_page)
+    cap = Engine(cfg, params, slots=8, max_len=256, page_size=8,
+                 sync_interval=8, prefix_sharing=False, num_pages=npages,
+                 kv_dtype=kv_dtype, device=dev)
+    quant_bytes = cap.spec.paged_kv_bytes()
+    assert quant_bytes <= budget, (quant_bytes, budget)
+    cap.warmup()
+    load(cap, [(i, prompt, 16) for i, prompt in enumerate(prompts)])
+    cap_peak = cap.memory_stats()["peak_live_slots"]
+    slot_ratio = cap.spec.slots / base.spec.slots
+    page_ratio = (base.spec.paged_kv_bytes()
+                  / CacheSpec.from_config(cfg, 4, 256, page_size=8,
+                                          kv_dtype=kv_dtype)
+                  .paged_kv_bytes())
+
+    # preemption on an oversubscribed int8 pool: 12 pages against 8
+    # worst-case pages a request
+    pre = Engine(cfg, params, num_pages=12, kv_dtype=kv_dtype, **kw)
+    pre.warmup()
+    out_pre = load(pre, reqs, ttl=600.0)
+    pre_fs = pre.fault_stats()
+    pre_match = out_pre == out8
+    pre_leaked = pre.leaked_pages()
+
+    # copy-on-write: a shared chain head, an off-chain branch token each
+    head = _chain(701, 16, vocab)
+    cow_reqs = [(i, head + [(40 + 13 * i) % vocab], 24)
+                for i in range(n_req)]
+    share = Engine(cfg, params, slots=4, max_len=256, page_size=8,
+                   sync_interval=8, prefix_sharing=True, kv_dtype=kv_dtype,
+                   device=dev)
+    share.warmup()
+    out_share = load(share, cow_reqs)
+    excl = Engine(cfg, params, kv_dtype=kv_dtype, **kw)
+    excl.warmup()
+    out_excl = load(excl, cow_reqs)
+    ps = share.prefix_stats()
+    cow_match = out_share == out_excl
+
+    quant.submit(Request(rid=99, prompt=[1, 2, 3], max_new_tokens=32))
+    quant._admit()
+    toks, sync_free = _sync_free_chunk(quant)
+    if sync_free:
+        quant._drain(toks)
+    quant.run(max_steps=200_000)
+    quant.finished = []
+
+    rec = {
+        "qp_requests": n_req,
+        "qp_max_new": max_new,
+        "qp_train_loss": train_loss,
+        "qp_fp32_follows_chain": follows / n_req,
+        "qp_greedy_match": greedy_match,
+        "qp_exact_matches": exact,
+        "qp_total_positions": total,
+        "qp_max_logit_err": max_logit_err,
+        "qp_fp32_pool_bytes": int(budget),
+        "qp_quant_pool_bytes": int(quant_bytes),
+        "qp_equal_bytes_slots": cap.spec.slots,
+        "qp_baseline_slots": base.spec.slots,
+        "qp_equal_bytes_slot_ratio": slot_ratio,
+        "qp_equal_bytes_peak_live_slots": int(cap_peak),
+        "qp_equal_bytes_num_pages": npages,
+        "qp_bytes_per_page_ratio": page_ratio,
+        "qp_preemptions": pre_fs["preemptions"],
+        "qp_preempt_outputs_match": pre_match,
+        "qp_preempt_leaked_pages": int(pre_leaked),
+        "qp_cow_outputs_match": cow_match,
+        "qp_prefix_hits": ps["prefix_hits"],
+        "qp_cow_copies": ps["cow_copies"],
+        "qp_shared_attaches": ps["shared_page_attaches"],
+        "qp_decode_compiles": quant.decode_compiles,
+        "qp_decode_sync_free": sync_free,
+    }
+    rec.update(_pool_telemetry(quant, "qp_"))
+    for e, lbl in ((base, "qp_fp32"), (quant, "qp_int8"),
+                   (cap, "qp_capacity"), (pre, "qp_preempt"),
+                   (share, "qp_cow"), (excl, "qp_exclusive")):
+        assert_clean_teardown(e, seen[id(e)], label=lbl)
+    emit("fig14.qp_greedy_match", greedy_match,
+         f"exact={exact}/{n_req},logit_err={max_logit_err:.4f},"
+         f"loss={train_loss:.3f}")
+    emit("fig14.qp_equal_bytes_slot_ratio", slot_ratio,
+         f"bytes={int(quant_bytes)}<={int(budget)},"
+         f"peak_live={int(cap_peak)}/{cap.spec.slots},"
+         f"page_ratio={page_ratio:.2f}")
+    emit("fig14.qp_fault_parity", float(pre_match and cow_match),
+         f"preemptions={pre_fs['preemptions']},leaked={int(pre_leaked)},"
+         f"cow={ps['cow_copies']},hits={ps['prefix_hits']}")
+    return rec
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
@@ -848,6 +1092,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     rec.update(speculative_comparison(device=dev))
     rec.update(fault_tolerance_comparison(device=dev))
     rec.update(chunked_prefill_comparison(device=dev))
+    rec.update(quantized_pool_comparison(device=dev))
     path = write_bench_json(args.out, rec)
     print(f"# serve trajectory appended to {path}", flush=True)
     return rec

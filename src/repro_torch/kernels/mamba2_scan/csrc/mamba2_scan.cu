@@ -570,6 +570,339 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The backward: mamba2_scan_bwd
+// ---------------------------------------------------------------------------
+//
+// Given the cotangents dy (x's layout) and dh_final ([B*H, N, P], may be
+// null: zero), it computes dx, ddt, db, dc, da and (when h0 was given)
+// dh0 of the recurrence above, with g_t = dL/dh_t walked backwards:
+//   g_t   = alpha_{t+1} g_{t+1} + c_t dy_t^T      (g_{S-1} from dh_final)
+//   dx_t  = dt_t g_t^T b_t          db_t = dt_t g_t x_t     dc_t = h_t dy_t
+//   ddt_t = x_t . (g_t^T b_t) + a alpha_t <g_t, h_{t-1}>
+//   da    = sum_t dt_t alpha_t <g_t, h_{t-1}>      dh0 = alpha_0 g_0
+// with alpha_t = exp(dt_t a) <= 1 (ref.py's mamba2_scan_bwd_ref is the
+// same algorithm in plain PyTorch).
+//
+// The states are recomputed, never stepped backwards through a decay
+// (which would divide by alpha and let an exponent grow): one block owns
+// one stream and kBwdCols = 32 state columns (a lane each; warp w holds
+// rows w, w + 8, ...), sweeps forward once keeping the state at the start
+// of every chunk of Q steps in a scratch of its own, then walks the chunks
+// backwards: it recomputes a chunk's Q states from its start into shared
+// memory, walks the chunk's steps backwards with g in registers (g and
+// the states need no sum across threads), and only then takes the chunk's
+// sums from shared memory, each in a fixed order: sx = g^T b and <g,
+// h_{t-1}> per step and column (a warp per step), db and dc per step and
+// row over the block's columns.  Sums across the blocks of a stream (its
+// column tiles) and across the streams that share an operand (b/c across
+// the heads, a across the batch rows) are per-block partials that
+// mamba2_scan_bwd_reduce_kernel adds in a fixed order, so two calls give the
+// same bits: there are no float atomics.
+//
+// fp32 on the CUDA cores.  What bounds it: at zamba2-7b's training shape
+// (B = 4, H = 112, S = 1024, P = N = 64) the state recurrence and its
+// sums are ~12 flops per state element and step, 22.5 GFLOP, 0.34 ms at
+// 67 TFLOP/s; the bytes, ~1 GB through the scratch of chunk states, 0.3
+// ms.  The design spends neither well: one block of 8 warps per SM with
+// a barrier per chunk of 8 steps, so latency bounds it.
+
+namespace {
+
+constexpr int kBwdQ = 8;        // steps per chunk (4 for a state of 128 rows)
+constexpr int kBwdCols = 32;    // state columns per block: one per lane
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+
+struct BwdArgs {
+  const float *x, *dt, *b, *c, *a, *h0, *dy, *dhf;
+  float *dx, *ddt, *db, *dc, *da, *dh0;
+  float *starts, *ddt_part, *db_part, *dc_part, *da_part;  // scratch
+  int B, H, S, P, N, NC, NT, na;
+  int x_sb, x_sh, x_st, dt_sb, dt_sh, dt_st, bc_sb, bc_sh, bc_st, a_sb,
+      a_sh, ddt_sb, ddt_sh, ddt_st;
+};
+
+// The chunk length of the backward for a padded state of NP rows: the Q
+// states and Q g's of a chunk live in shared memory.
+template <int NP>
+struct BwdLayout {
+  static constexpr int Q = NP <= 64 ? kBwdQ : kBwdQ / 2;
+  static constexpr int LC = kBwdCols + 1;           // row stride: no conflicts
+  static constexpr int G = 0;                       // [Q][NP][LC] g_t
+  static constexpr int HS = G + Q * NP * LC;        // [Q+1][NP][LC] h_{t-1}
+  static constexpr int X = HS + (Q + 1) * NP * LC;  // [Q][32]
+  static constexpr int DY = X + Q * kBwdCols;       // [Q][32]
+  static constexpr int BB = DY + Q * kBwdCols;      // [Q][NP]
+  static constexpr int CC = BB + Q * NP;            // [Q][NP]
+  static constexpr int DT = CC + Q * NP;            // [Q]
+  static constexpr int AL = DT + Q;                 // [Q] alpha
+  static constexpr int DA = AL + Q;                 // [kBwdWarps]
+  static constexpr size_t bytes = (DA + kBwdWarps) * sizeof(float);
+};
+
+template <int NP>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    mamba2_scan_bwd_chunk_kernel(BwdArgs g) {
+  using L = BwdLayout<NP>;
+  constexpr int Q = L::Q, LC = L::LC, R = NP / kBwdWarps;
+  extern __shared__ __align__(16) float smem[];
+  float* const gs = smem + L::G;
+  float* const hs = smem + L::HS;
+  float* const xs = smem + L::X;
+  float* const dys = smem + L::DY;
+  float* const bs = smem + L::BB;
+  float* const cs = smem + L::CC;
+  float* const dts = smem + L::DT;
+  float* const als = smem + L::AL;
+  float* const das = smem + L::DA;
+
+  const int stream = blockIdx.y, tile = blockIdx.x;
+  const int bi = stream / g.H, hi = stream % g.H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int p = tile * kBwdCols + lane;
+  const bool pin = p < g.P;
+  const int S = g.S, N = g.N;
+  const int blk = stream * g.NT + tile;
+  const int64_t xoff = (int64_t)bi * g.x_sb + (int64_t)hi * g.x_sh + p;
+  const int64_t dtoff = (int64_t)bi * g.dt_sb + (int64_t)hi * g.dt_sh;
+  const int64_t bcoff = (int64_t)bi * g.bc_sb + (int64_t)hi * g.bc_sh;
+  const float av = g.a[(int64_t)bi * g.a_sb + (int64_t)hi * g.a_sh];
+  float* const starts = g.starts + (int64_t)blk * g.NC * NP * kBwdCols;
+
+  // chunk ck's x (and dy), b (and c), dt and alpha into shared memory;
+  // rows past S read as x = dy = b = c = dt = 0, alpha = 1
+  auto stage = [&](int ck, bool with_grads) {
+    const int t0 = ck * Q;
+    for (int i = tid; i < Q * kBwdCols; i += kBwdThreads) {
+      const int j = i / kBwdCols, col = tile * kBwdCols + i % kBwdCols;
+      const bool in = t0 + j < S && col < g.P;
+      const int64_t off = (int64_t)bi * g.x_sb + (int64_t)hi * g.x_sh +
+                          (int64_t)(t0 + j) * g.x_st + col;
+      xs[i] = in ? g.x[off] : 0.f;
+      if (with_grads) dys[i] = in ? g.dy[off] : 0.f;
+    }
+    for (int i = tid; i < Q * NP; i += kBwdThreads) {
+      const int j = i / NP, n = i % NP;
+      const bool in = t0 + j < S && n < N;
+      const int64_t off = bcoff + (int64_t)(t0 + j) * g.bc_st + n;
+      bs[i] = in ? g.b[off] : 0.f;
+      if (with_grads) cs[i] = in ? g.c[off] : 0.f;
+    }
+    if (tid < Q) {
+      const bool in = t0 + tid < S;
+      const float d = in ? g.dt[dtoff + (int64_t)(t0 + tid) * g.dt_st] : 0.f;
+      dts[tid] = d;
+      als[tid] = expf(d * av);
+    }
+  };
+
+  // 1. forward: the state at the start of every chunk, into the scratch
+  float h[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int n = warp + kBwdWarps * i;
+    h[i] = (g.h0 != nullptr && pin && n < N)
+               ? g.h0[((int64_t)stream * N + n) * g.P + p]
+               : 0.f;
+  }
+#pragma unroll 1
+  for (int ck = 0; ck < g.NC; ++ck) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      starts[((int64_t)ck * NP + warp + kBwdWarps * i) * kBwdCols + lane] =
+          h[i];
+    stage(ck, false);
+    __syncthreads();
+#pragma unroll 1
+    for (int j = 0; j < Q; ++j) {
+      const float dx = dts[j] * xs[j * kBwdCols + lane];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        h[i] = fmaf(als[j], h[i], bs[j * NP + warp + kBwdWarps * i] * dx);
+    }
+    __syncthreads();
+  }
+
+  // 2. backward, chunk by chunk from the last
+  float gr[R];   // dL/dh_t flowing back into step t from the steps after it
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int n = warp + kBwdWarps * i;
+    gr[i] = (g.dhf != nullptr && pin && n < N)
+                ? g.dhf[((int64_t)stream * N + n) * g.P + p]
+                : 0.f;
+  }
+  float da_acc = 0.f;
+#pragma unroll 1
+  for (int ck = g.NC - 1; ck >= 0; --ck) {
+    const int t0 = ck * Q;
+    stage(ck, true);
+    __syncthreads();
+    // the chunk's states h_{t0-1} .. h_{t0+Q-1}, recomputed from its start
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int n = warp + kBwdWarps * i;
+      h[i] = starts[((int64_t)ck * NP + n) * kBwdCols + lane];
+      hs[n * LC + lane] = h[i];
+    }
+#pragma unroll 1
+    for (int j = 0; j < Q; ++j) {
+      const float dx = dts[j] * xs[j * kBwdCols + lane];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int n = warp + kBwdWarps * i;
+        h[i] = fmaf(als[j], h[i], bs[j * NP + n] * dx);
+        hs[((j + 1) * NP + n) * LC + lane] = h[i];
+      }
+    }
+    // g_t for the chunk's steps, last first
+#pragma unroll 1
+    for (int j = Q - 1; j >= 0; --j) {
+      const float dyp = dys[j * kBwdCols + lane];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int n = warp + kBwdWarps * i;
+        const float gt = fmaf(cs[j * NP + n], dyp, gr[i]);
+        gs[(j * NP + n) * LC + lane] = gt;
+        gr[i] = als[j] * gt;
+      }
+    }
+    __syncthreads();
+    // per step (a warp each) and column (a lane each): sx = g_t^T b_t, dx,
+    // and the step's ddt partial x . sx + a alpha <g_t, h_{t-1}>
+    for (int j = warp; j < Q; j += kBwdWarps) {
+      float sx = 0.f, gh = 0.f;
+#pragma unroll 4
+      for (int n = 0; n < NP; ++n) {
+        const float gt = gs[(j * NP + n) * LC + lane];
+        sx = fmaf(bs[j * NP + n], gt, sx);
+        gh = fmaf(gt, hs[(j * NP + n) * LC + lane], gh);
+      }
+      const int t = t0 + j;
+      if (t < S && pin) g.dx[xoff + (int64_t)t * g.x_st] = dts[j] * sx;
+      float q = xs[j * kBwdCols + lane] * sx;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        q += __shfl_xor_sync(kFull, q, off);
+        gh += __shfl_xor_sync(kFull, gh, off);
+      }
+      if (t < S && lane == 0)
+        g.ddt_part[(int64_t)blk * S + t] = fmaf(av * als[j], gh, q);
+      da_acc = fmaf(dts[j] * als[j], gh, da_acc);
+    }
+    // per step and row: db = dt g_t x_t and dc = h_t dy_t over the block's
+    // columns
+    for (int i = tid; i < Q * NP; i += kBwdThreads) {
+      const int j = i / NP, n = i % NP, t = t0 + j;
+      if (t >= S || n >= N) continue;
+      const float* gp = gs + (j * NP + n) * LC;
+      const float* hp = hs + ((j + 1) * NP + n) * LC;
+      float db = 0.f, dc = 0.f;
+#pragma unroll 8
+      for (int col = 0; col < kBwdCols; ++col) {
+        db = fmaf(gp[col], xs[j * kBwdCols + col], db);
+        dc = fmaf(hp[col], dys[j * kBwdCols + col], dc);
+      }
+      const int64_t o = ((int64_t)blk * S + t) * N + n;
+      g.db_part[o] = dts[j] * db;
+      g.dc_part[o] = dc;
+    }
+    __syncthreads();
+  }
+  if (g.dh0 != nullptr) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int n = warp + kBwdWarps * i;
+      if (pin && n < N) g.dh0[((int64_t)stream * N + n) * g.P + p] = gr[i];
+    }
+  }
+  if (lane == 0) das[warp] = da_acc;
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.f;
+    for (int w = 0; w < kBwdWarps; ++w) s += das[w];
+    g.da_part[blk] = s;
+  }
+}
+
+// The fixed-order sums: db and dc over the heads that share b/c and the
+// column tiles ([B, S, N] contiguous; B counts the b/c streams), ddt over
+// the tiles (in dt's layout), da over the streams that share each element
+// of a (a contiguous, na elements).
+__global__ void mamba2_scan_bwd_reduce_kernel(BwdArgs g) {
+  const int64_t nbc = (int64_t)g.B * g.S * g.N;
+  const int64_t ndt = (int64_t)g.B * g.H * g.S;
+  const int64_t total = nbc + ndt + g.na;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    if (i < nbc) {
+      const int n = (int)(i % g.N);
+      const int64_t bt = i / g.N;
+      const int t = (int)(bt % g.S), bi = (int)(bt / g.S);
+      float db = 0.f, dc = 0.f;
+      for (int hi = 0; hi < g.H; ++hi)
+        for (int tile = 0; tile < g.NT; ++tile) {
+          const int64_t o =
+              (((int64_t)(bi * g.H + hi) * g.NT + tile) * g.S + t) * g.N + n;
+          db += g.db_part[o];
+          dc += g.dc_part[o];
+        }
+      g.db[i] = db;
+      g.dc[i] = dc;
+    } else if (i < nbc + ndt) {
+      const int64_t j = i - nbc;
+      const int t = (int)(j % g.S);
+      const int stream = (int)(j / g.S);
+      float s = 0.f;
+      for (int tile = 0; tile < g.NT; ++tile)
+        s += g.ddt_part[((int64_t)stream * g.NT + tile) * g.S + t];
+      const int bi = stream / g.H, hi = stream % g.H;
+      g.ddt[(int64_t)bi * g.ddt_sb + (int64_t)hi * g.ddt_sh +
+            (int64_t)t * g.ddt_st] = s;
+    } else {
+      const int e = (int)(i - nbc - ndt);
+      float s = 0.f;
+      for (int stream = 0; stream < g.B * g.H; ++stream) {
+        const int bi = stream / g.H, hi = stream % g.H;
+        if (bi * g.a_sb + hi * g.a_sh != e) continue;
+        for (int tile = 0; tile < g.NT; ++tile)
+          s += g.da_part[stream * g.NT + tile];
+      }
+      g.da[e] = s;
+    }
+  }
+}
+
+template <int NP>
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  constexpr size_t bytes = BwdLayout<NP>::bytes;
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mamba2_scan_bwd_chunk_kernel<NP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const dim3 grid(a.NT, a.B * a.H);
+  mamba2_scan_bwd_chunk_kernel<NP><<<grid, kBwdThreads, bytes, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t total = (int64_t)a.B * a.S * a.N +
+                        (int64_t)a.B * a.H * a.S + a.na;
+  const int64_t want = (total + 255) / 256;
+  const int blocks = (int)(want < 132 * 16 ? (want > 0 ? want : 1) : 132 * 16);
+  mamba2_scan_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+int bwd_np(int N) { return N <= 16 ? 16 : N <= 32 ? 32 : N <= 64 ? 64 : 128; }
+
+int bwd_q(int N) { return bwd_np(N) <= 64 ? kBwdQ : kBwdQ / 2; }
+
+}  // namespace
+
 extern "C" {
 
 // fp32 throughout.  x and y share the strides x_sb/x_sh/x_st (batch,
@@ -621,6 +954,92 @@ int mamba2_scan_fwd(const void* x, const void* dt, const void* b,
     err = MAMBA2_LAUNCH(128, 16);
 #undef MAMBA2_LAUNCH
   return (int)err;
+}
+
+// The scratch one backward call needs, in floats: per (stream, column
+// tile of 32) the state at the start of every chunk of the backward,
+// partials of ddt per step, of db and dc per step and row, and of da.
+long long mamba2_scan_bwd_scratch_floats(int B, int H, int S, int P, int N) {
+  if (B < 1 || H < 1 || S < 0 || P < 1 || N < 1 || N > 128) return 0;
+  const long long nt = (P + kBwdCols - 1) / kBwdCols, q = bwd_q(N);
+  const long long nc = (S + q - 1) / q;
+  return (long long)B * H * nt *
+         (nc * bwd_np(N) * kBwdCols + S * (2LL * N + 1) + 1);
+}
+
+// The backward of mamba2_scan_fwd, fp32 throughout.  x, dt, b, c, a and
+// h0 as the forward took them (h0 may be null); dy and dx take x's
+// strides; ddt has its own (batch, head, time) strides; dh_final may be
+// null (zero); dh0 is written when it is not null.  db and dc are [B, S,
+// N] contiguous: a b/c head stride of 0 sums them over the H heads that
+// share a row.  da is a's shape, contiguous, na elements (a contiguous):
+// each element sums the streams that read it.  scratch holds
+// mamba2_scan_bwd_scratch_floats(...) floats.  Returns a cudaError_t as
+// mamba2_scan_fwd does.
+int mamba2_scan_bwd(const void* x, const void* dt, const void* b,
+                    const void* c, const void* a, const void* h0,
+                    const void* dy, const void* dh_final, void* dx,
+                    void* ddt, void* db, void* dc, void* da, void* dh0,
+                    void* scratch, int B, int H, int S, int P, int N,
+                    int x_sb, int x_sh, int x_st, int dt_sb, int dt_sh,
+                    int dt_st, int bc_sb, int bc_sh, int bc_st, int a_sb,
+                    int a_sh, int ddt_sb, int ddt_sh, int ddt_st, int na,
+                    void* stream) {
+  if (B < 0 || H < 1 || S < 0 || P < 1 || N < 1 || N > 128 || na < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * H > 65535) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  BwdArgs g;
+  g.x = static_cast<const float*>(x);
+  g.dt = static_cast<const float*>(dt);
+  g.b = static_cast<const float*>(b);
+  g.c = static_cast<const float*>(c);
+  g.a = static_cast<const float*>(a);
+  g.h0 = static_cast<const float*>(h0);
+  g.dy = static_cast<const float*>(dy);
+  g.dhf = static_cast<const float*>(dh_final);
+  g.dx = static_cast<float*>(dx);
+  g.ddt = static_cast<float*>(ddt);
+  g.db = static_cast<float*>(db);
+  g.dc = static_cast<float*>(dc);
+  g.da = static_cast<float*>(da);
+  g.dh0 = static_cast<float*>(dh0);
+  g.B = B;
+  g.H = H;
+  g.S = S;
+  g.P = P;
+  g.N = N;
+  g.NT = (P + kBwdCols - 1) / kBwdCols;
+  g.NC = (S + bwd_q(N) - 1) / bwd_q(N);
+  g.na = na;
+  g.x_sb = x_sb;
+  g.x_sh = x_sh;
+  g.x_st = x_st;
+  g.dt_sb = dt_sb;
+  g.dt_sh = dt_sh;
+  g.dt_st = dt_st;
+  g.bc_sb = bc_sb;
+  g.bc_sh = bc_sh;
+  g.bc_st = bc_st;
+  g.a_sb = a_sb;
+  g.a_sh = a_sh;
+  g.ddt_sb = ddt_sb;
+  g.ddt_sh = ddt_sh;
+  g.ddt_st = ddt_st;
+  const long long bh = (long long)B * H;
+  g.starts = static_cast<float*>(scratch);
+  g.ddt_part = g.starts + bh * g.NT * g.NC * bwd_np(N) * kBwdCols;
+  g.db_part = g.ddt_part + bh * g.NT * S;
+  g.dc_part = g.db_part + bh * g.NT * S * N;
+  g.da_part = g.dc_part + bh * g.NT * S * N;
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  switch (bwd_np(N)) {
+    case 16: return (int)launch_bwd<16>(g, cs);
+    case 32: return (int)launch_bwd<32>(g, cs);
+    case 64: return (int)launch_bwd<64>(g, cs);
+    default: return (int)launch_bwd<128>(g, cs);
+  }
 }
 
 const char* mamba2_scan_error_string(int err) {

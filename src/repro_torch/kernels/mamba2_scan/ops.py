@@ -22,10 +22,17 @@ and no transpose of x.  ``launches`` counts calls that launch the kernel
 went through the kernel.  ``supported()`` runs the smallest real launch;
 tests use it to skip.
 
-The kernel has no backward (ROADMAP A15's remainder): on a CUDA tensor
-the wrapper raises under autograd (grad mode on and an input that
-requires grad) instead of returning an output cut from the graph.  The
-plain version on the CPU differentiates.
+The op is differentiable on both devices.  On a CUDA tensor the forward
+launch and its backward, ``csrc/mamba2_scan.cu``'s ``mamba2_scan_bwd``
+(the states recomputed chunk by chunk from a forward sweep, the reverse
+recurrence of dL/dh_t in fp32 on the CUDA cores, every sum in a fixed
+order, so two calls give the same bits), are one
+``torch.autograd.Function`` for both layouts: in the model's layout the
+backward sums db and dc over the heads that share b/c and da over the
+batch rows that share a.  ``ref.mamba2_scan_bwd_ref`` is that backward
+in plain PyTorch.  ``bwd_launches`` counts backward calls on CUDA
+tensors.  There is no fallback: a backward that fails to build or launch
+raises.  The plain version on the CPU differentiates through autograd.
 """
 
 from __future__ import annotations
@@ -37,19 +44,27 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import build, refuse_autograd
+from repro_torch.kernels import build
 from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba2_scan.cu"
 MAX_STATE = 128
 
 launches = 0    # kernel launches since import (callers may reset it)
+bwd_launches = 0   # backward calls on CUDA tensors (callers may reset it)
 
 # the C signature of csrc's mamba2_scan_fwd: 8 tensor pointers, B, H, S,
 # P, N, the strides of x, dt, b/c (batch, head, time) and a (batch,
 # head), the stream
 FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 16 \
     + [ctypes.c_void_p]
+# mamba2_scan_bwd: 15 pointers (the forward's 6 operands, dy, dh_final,
+# the 6 gradients, the scratch), B, H, S, P, N, the strides of x, dt, b/c
+# (batch, head, time), a (batch, head) and ddt, a's element count, the
+# stream; mamba2_scan_bwd_scratch_floats: B, H, S, P, N
+BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 20 \
+    + [ctypes.c_void_p]
+BWD_SCRATCH_ARGTYPES = [ctypes.c_int] * 5
 
 
 @functools.lru_cache(maxsize=None)
@@ -57,6 +72,10 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     lib.mamba2_scan_fwd.argtypes = FWD_ARGTYPES
     lib.mamba2_scan_fwd.restype = ctypes.c_int
+    lib.mamba2_scan_bwd.argtypes = BWD_ARGTYPES
+    lib.mamba2_scan_bwd.restype = ctypes.c_int
+    lib.mamba2_scan_bwd_scratch_floats.argtypes = BWD_SCRATCH_ARGTYPES
+    lib.mamba2_scan_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.mamba2_scan_error_string.argtypes = [ctypes.c_int]
     lib.mamba2_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -90,12 +109,35 @@ def _check(named: Sequence[Tuple[str, Optional[torch.Tensor]]],
         raise ValueError(f"the kernel takes N <= {MAX_STATE}, got {n}")
 
 
+def _bht(t: torch.Tensor, layout: str) -> Tuple[int, int, int]:
+    """(batch, head, time) element strides of an x-like [BH,S,P] or dt-like
+    [BH,S] operand ("kernel"), or of [B,S,H,P] / [B,S,H] ("model")."""
+    if layout == "kernel":
+        return t.stride(0), 0, t.stride(1)
+    return t.stride(0), t.stride(2), t.stride(1)
+
+
+def _geometry(x, dt, b, a, layout: str) -> dict:
+    """B, H, S, P, N and the strides of one launch over B*H streams: b/c
+    rows have a head stride of 0 in both layouts (one head a stream in
+    the kernel's), and a is indexed by stream ("kernel") or by head."""
+    if layout == "kernel":
+        (bsz, s, p), h = x.shape, 1
+        a_st = (a.stride(0), 0)
+    else:
+        bsz, s, h, p = x.shape
+        a_st = (0, a.stride(0))
+    return dict(B=bsz, H=h, S=s, P=p, N=b.shape[-1], layout=layout,
+                x_st=_bht(x, layout), dt_st=_bht(dt, layout),
+                bc_st=(b.stride(0), 0, b.stride(1)), a_st=a_st)
+
+
 def _launch(x, dt, b, c, a, h0, *, B: int, H: int, S: int, P: int, N: int,
-            x_st: Tuple[int, int, int], dt_st: Tuple[int, int, int],
-            bc_st: Tuple[int, int, int], a_st: Tuple[int, int]):
+            layout: str, x_st: Tuple[int, int, int],
+            dt_st: Tuple[int, int, int], bc_st: Tuple[int, int, int],
+            a_st: Tuple[int, int]):
     """One kernel launch over B*H streams; strides are (batch, head,
     time) in elements.  Returns (y with x's strides, h_final [B*H,N,P])."""
-    refuse_autograd("mamba2_scan", x, dt, b, c, a, h0)
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the grid's 65535")
     y = torch.empty_like(x)
@@ -114,6 +156,66 @@ def _launch(x, dt, b, c, a, h0, *, B: int, H: int, S: int, P: int, N: int,
     global launches
     launches += 1
     return y, hout
+
+
+def _launch_bwd(x, dt, b, c, a, h0, dy, dh_final, *, B: int, H: int,
+                S: int, P: int, N: int, layout: str,
+                x_st: Tuple[int, int, int], dt_st: Tuple[int, int, int],
+                bc_st: Tuple[int, int, int], a_st: Tuple[int, int]):
+    """One call of ``mamba2_scan_bwd``: dy takes x's strides (x is
+    contiguous), dh_final [B*H,N,P] contiguous or None.  Returns (dx,
+    ddt, db, dc, da, dh0): each in its operand's shape (db and dc
+    contiguous, summed over the heads that share b/c; da over the streams
+    that share a), dh0 [B*H,N,P] or None."""
+    dev = x.device
+    dx = torch.empty_like(x)
+    ddt = torch.empty(dt.shape, dtype=torch.float32, device=dev)
+    db = torch.empty(b.shape, dtype=torch.float32, device=dev)
+    dc = torch.empty(b.shape, dtype=torch.float32, device=dev)
+    da = torch.empty(a.shape, dtype=torch.float32, device=dev)
+    dh0 = None if h0 is None else torch.empty(
+        (B * H, N, P), dtype=torch.float32, device=dev)
+    vp = ctypes.c_void_p
+    lib = _lib()
+    n = lib.mamba2_scan_bwd_scratch_floats(B, H, S, P, N)
+    scratch = torch.empty(max(n, 1), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return vp(t.data_ptr() if t is not None else 0)
+    rc = lib.mamba2_scan_bwd(
+        ptr(x), ptr(dt), ptr(b), ptr(c), ptr(a), ptr(h0), ptr(dy),
+        ptr(dh_final), ptr(dx), ptr(ddt), ptr(db), ptr(dc), ptr(da),
+        ptr(dh0), ptr(scratch), B, H, S, P, N, *x_st, *dt_st, *bc_st,
+        *a_st, *_bht(ddt, layout), a.numel(),
+        vp(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError("mamba2_scan backward launch failed: "
+                           + lib.mamba2_scan_error_string(rc).decode())
+    global bwd_launches
+    bwd_launches += 1
+    return dx, ddt, db, dc, da, dh0
+
+
+class _Scan(torch.autograd.Function):
+    """The kernel's launch and its backward, for either layout (the
+    geometry from ``_geometry``); h0 [B*H,N,P] or None."""
+
+    @staticmethod
+    def forward(ctx, x, dt, b, c, a, h0, geom):
+        y, hout = _launch(x, dt, b, c, a, h0, **geom)
+        ctx.save_for_backward(x, dt, b, c, a, h0)
+        ctx.geom = geom
+        ctx.set_materialize_grads(False)
+        return y, hout
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        x, dt, b, c, a, h0 = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dh_final is not None:
+            dh_final = dh_final.contiguous()
+        grads = _launch_bwd(x, dt, b, c, a, h0, dy, dh_final, **ctx.geom)
+        return (*grads, None)
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -142,11 +244,9 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
             ("h0", h0)],
            {"x": (bh, s, p), "dt": (bh, s), "b": (bh, s, n),
             "c": (bh, s, n), "a": (bh,), "h0": (bh, n, p)})
-    return _launch(x, dt, b, c, a, h0, B=bh, H=1, S=s, P=p, N=n,
-                   x_st=(x.stride(0), 0, x.stride(1)),
-                   dt_st=(dt.stride(0), 0, dt.stride(1)),
-                   bc_st=(b.stride(0), 0, b.stride(1)),
-                   a_st=(a.stride(0), 0))
+    a = a.contiguous()
+    return _Scan.apply(x, dt, b, c, a, h0,
+                       _geometry(x, dt, b, a, "kernel"))
 
 
 def scan_model_layout(xh: torch.Tensor, dt: torch.Tensor,
@@ -180,11 +280,8 @@ def scan_model_layout(xh: torch.Tensor, dt: torch.Tensor,
             ("h0", h0f)],
            {"x": (bsz, s, h, p), "dt": (bsz, s, h), "b": (bsz, s, n),
             "c": (bsz, s, n), "a": (h,), "h0": (bsz * h, n, p)})
-    y, hf = _launch(xh, dt, b_in, c_in, a, h0f, B=bsz, H=h, S=s, P=p, N=n,
-                    x_st=(xh.stride(0), xh.stride(2), xh.stride(1)),
-                    dt_st=(dt.stride(0), dt.stride(2), dt.stride(1)),
-                    bc_st=(b_in.stride(0), 0, b_in.stride(1)),
-                    a_st=(0, a.stride(0)))
+    y, hf = _Scan.apply(xh, dt, b_in, c_in, a, h0f,
+                        _geometry(xh, dt, b_in, a, "model"))
     return y, hf.view(bsz, h, n, p)
 
 

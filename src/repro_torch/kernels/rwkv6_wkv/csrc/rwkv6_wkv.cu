@@ -846,6 +846,344 @@ long long n_chunks(int S) { return ((long long)S + kQ - 1) / kQ; }
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The backward: rwkv6_wkv_bwd
+// ---------------------------------------------------------------------------
+//
+// Given the cotangents dy (r's shape) and dh_final ([B*H, K, K], may be
+// null: zero), it computes dr, dk, dv, dlw, du and (when h0 was given)
+// dh0 of the recurrence above, with w_t = exp(min(lw_t, 0)) and g_t =
+// dL/dS_t walked backwards:
+//   dr_t    = S_{t-1} dy_t + u k_t (v_t . dy_t)
+//   dk_t    = g_t v_t + r_t u (v_t . dy_t)
+//   dv_t    = g_t^T k_t + dy_t (r_t . u k_t)
+//   dlw_t   = w_t rowsum(g_t . S_{t-1})   (0 where lw_t > 0: the min)
+//   du      = sum_t r_t k_t (v_t . dy_t)
+//   g_{t-1} = diag(w_t) g_t + r_t dy_t^T   (g_{S-1} = dh_final), dh0 = g_{-1}
+// (ref.py's rwkv6_wkv_bwd_ref is the same algorithm in plain PyTorch).
+//
+// The states are recomputed, never stepped backwards through a decay
+// (which would divide by w and let an exponent grow): one block owns one
+// stream and kBwdCols = 32 state columns v (a lane each; warp w holds
+// rows k = w, w + 8, ...), sweeps forward once keeping the state at the
+// start of every chunk of Q steps in a scratch of its own, then walks the
+// chunks backwards: it recomputes a chunk's states from its start into
+// shared memory, walks the chunk's steps backwards with g in registers
+// (neither needs a sum across threads), and only then takes the chunk's
+// sums from shared memory, each in a fixed order: dv per step and column
+// (a warp per step), dr, dk and dlw per step and row over the block's
+// columns.  Sums across the blocks of a stream (its column tiles) and
+// across the streams that share u (the batch rows) are per-block partials
+// that rwkv6_wkv_bwd_reduce_kernel adds in a fixed order, so two calls
+// give the same bits: there are no float atomics.
+//
+// fp32 on the CUDA cores.  What bounds it: at rwkv6-7b's training shape
+// (B = 4, H = 64, S = 1024, K = 64) the recurrence and its sums are ~12
+// flops per state element and step, 12.9 GFLOP, 0.19 ms at 67 TFLOP/s;
+// the bytes, ~0.8 GB with the scratch of chunk states, 0.24 ms.  The
+// design spends neither well: one block of 8 warps per SM with a barrier
+// per chunk of 8 steps, so latency bounds it.
+
+namespace {
+
+constexpr int kBwdQ = 8;        // steps per chunk (4 for a state of 128 rows)
+constexpr int kBwdCols = 32;    // state columns per block: one per lane
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+
+struct BwdArgs {
+  const float *r, *k, *v, *lw, *u, *h0, *dy, *dhf;
+  float *dr, *dk, *dv, *dlw, *du, *dh0;
+  float *starts, *dr_part, *dk_part, *dlw_part, *du_part;  // scratch
+  int B, H, S, K, NC, NT, nu;
+  Strides rs, ks, vs, ws, os;   // os: dy and the [.., S, .., K] gradients
+  int u_sb, u_sh;
+};
+
+// The chunk length of the backward for KP padded rows: a chunk's Q states
+// and Q g's live in shared memory.
+template <int KP>
+struct BwdSmem {
+  static constexpr int Q = KP <= 64 ? kBwdQ : kBwdQ / 2;
+  static constexpr int LC = kBwdCols + 1;           // row stride: no conflicts
+  static constexpr int G = 0;                       // [Q][KP][LC] g_t
+  static constexpr int HS = G + Q * KP * LC;        // [Q][KP][LC] S_{t-1}
+  static constexpr int V = HS + Q * KP * LC;        // [Q][32] v
+  static constexpr int DY = V + Q * kBwdCols;       // [Q][32] dy
+  static constexpr int R = DY + Q * kBwdCols;       // [Q][KP] r
+  static constexpr int Kk = R + Q * KP;             // [Q][KP] k
+  static constexpr int W = Kk + Q * KP;             // [Q][KP] w
+  static constexpr int LIVE = W + Q * KP;           // [Q][KP] lw <= 0
+  static constexpr int U = LIVE + Q * KP;           // [KP] u
+  static constexpr int VDY = U + KP;                // [Q] v . dy (the tile)
+  static constexpr int RUK = VDY + Q;               // [Q] r . u k (all rows)
+  static constexpr size_t bytes = (RUK + Q) * sizeof(float);
+};
+
+__device__ __forceinline__ int64_t at(const Strides& s, int bi, int hi,
+                                      int t) {
+  return (int64_t)bi * s.sb + (int64_t)hi * s.sh + (int64_t)t * s.st;
+}
+
+template <int KP>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    rwkv6_wkv_bwd_chunk_kernel(BwdArgs g) {
+  using L = BwdSmem<KP>;
+  constexpr int Q = L::Q, LC = L::LC, R = KP / kBwdWarps;
+  extern __shared__ __align__(16) float smem[];
+  float* const gs = smem + L::G;
+  float* const hs = smem + L::HS;
+  float* const vs = smem + L::V;
+  float* const dys = smem + L::DY;
+  float* const rs = smem + L::R;
+  float* const ks = smem + L::Kk;
+  float* const wsm = smem + L::W;
+  float* const lives = smem + L::LIVE;
+  float* const us = smem + L::U;
+  float* const vdys = smem + L::VDY;
+  float* const ruks = smem + L::RUK;
+
+  const int stream = blockIdx.y, tile = blockIdx.x;
+  const int bi = stream / g.H, hi = stream % g.H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int col = tile * kBwdCols + lane;
+  const bool cin = col < g.K;
+  const int S = g.S, K = g.K;
+  const int blk = stream * g.NT + tile;
+  float* const starts = g.starts + (int64_t)blk * g.NC * KP * kBwdCols;
+
+  for (int i = tid; i < KP; i += kBwdThreads)
+    us[i] = i < K ? g.u[(int64_t)bi * g.u_sb + (int64_t)hi * g.u_sh + i]
+                  : 0.f;
+
+  // chunk ck's operands into shared memory; rows past S read as r = k =
+  // v = dy = 0 and lw = 0 (w = 1)
+  auto stage = [&](int ck, bool with_grads) {
+    const int t0 = ck * Q;
+    for (int i = tid; i < Q * kBwdCols; i += kBwdThreads) {
+      const int j = i / kBwdCols, c = tile * kBwdCols + i % kBwdCols;
+      const bool in = t0 + j < S && c < K;
+      vs[i] = in ? g.v[at(g.vs, bi, hi, t0 + j) + c] : 0.f;
+      if (with_grads) dys[i] = in ? g.dy[at(g.os, bi, hi, t0 + j) + c] : 0.f;
+    }
+    for (int i = tid; i < Q * KP; i += kBwdThreads) {
+      const int j = i / KP, n = i % KP;
+      const bool in = t0 + j < S && n < K;
+      const float lw = in ? g.lw[at(g.ws, bi, hi, t0 + j) + n] : 0.f;
+      ks[i] = in ? g.k[at(g.ks, bi, hi, t0 + j) + n] : 0.f;
+      wsm[i] = expf(fminf(lw, 0.f));
+      if (with_grads) {
+        rs[i] = in ? g.r[at(g.rs, bi, hi, t0 + j) + n] : 0.f;
+        lives[i] = lw <= 0.f ? 1.f : 0.f;
+      }
+    }
+  };
+
+  // 1. forward: the state at the start of every chunk, into the scratch
+  float h[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int n = warp + kBwdWarps * i;
+    h[i] = (g.h0 != nullptr && cin && n < K)
+               ? g.h0[((int64_t)stream * K + n) * K + col]
+               : 0.f;
+  }
+#pragma unroll 1
+  for (int ck = 0; ck < g.NC; ++ck) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      starts[((int64_t)ck * KP + warp + kBwdWarps * i) * kBwdCols + lane] =
+          h[i];
+    stage(ck, false);
+    __syncthreads();
+#pragma unroll 1
+    for (int j = 0; j < Q; ++j) {
+      const float vv = vs[j * kBwdCols + lane];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int n = warp + kBwdWarps * i;
+        h[i] = fmaf(wsm[j * KP + n], h[i], ks[j * KP + n] * vv);
+      }
+    }
+    __syncthreads();
+  }
+
+  // 2. backward, chunk by chunk from the last
+  float gr[R];   // g_t = dL/dS_t for the step about to be walked
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int n = warp + kBwdWarps * i;
+    gr[i] = (g.dhf != nullptr && cin && n < K)
+                ? g.dhf[((int64_t)stream * K + n) * K + col]
+                : 0.f;
+  }
+  float du_acc = 0.f;   // thread n < K: du's partial for row n
+#pragma unroll 1
+  for (int ck = g.NC - 1; ck >= 0; --ck) {
+    const int t0 = ck * Q;
+    stage(ck, true);
+    __syncthreads();
+    // the per-step sums the others need: v . dy over the block's columns
+    // (warp j) and r . u k over every row (warp j too)
+    for (int j = warp; j < Q; j += kBwdWarps) {
+      float vd = vs[j * kBwdCols + lane] * dys[j * kBwdCols + lane];
+      float ruk = 0.f;
+      for (int n = lane; n < KP; n += 32)
+        ruk = fmaf(rs[j * KP + n] * us[n], ks[j * KP + n], ruk);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        vd += __shfl_xor_sync(kFull, vd, off);
+        ruk += __shfl_xor_sync(kFull, ruk, off);
+      }
+      if (lane == 0) {
+        vdys[j] = vd;
+        ruks[j] = ruk;
+      }
+    }
+    // the chunk's states S_{t0-1} .. S_{t0+Q-2}, recomputed from its start
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int n = warp + kBwdWarps * i;
+      h[i] = starts[((int64_t)ck * KP + n) * kBwdCols + lane];
+      hs[n * LC + lane] = h[i];
+    }
+#pragma unroll 1
+    for (int j = 0; j + 1 < Q; ++j) {
+      const float vv = vs[j * kBwdCols + lane];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int n = warp + kBwdWarps * i;
+        h[i] = fmaf(wsm[j * KP + n], h[i], ks[j * KP + n] * vv);
+        hs[((j + 1) * KP + n) * LC + lane] = h[i];
+      }
+    }
+    // g_t for the chunk's steps, last first
+#pragma unroll 1
+    for (int j = Q - 1; j >= 0; --j) {
+      const float dyv = dys[j * kBwdCols + lane];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int n = warp + kBwdWarps * i;
+        gs[(j * KP + n) * LC + lane] = gr[i];
+        gr[i] = fmaf(wsm[j * KP + n], gr[i], rs[j * KP + n] * dyv);
+      }
+    }
+    __syncthreads();
+    // per step (a warp each) and column (a lane each): dv, complete
+    for (int j = warp; j < Q; j += kBwdWarps) {
+      float dv = 0.f;
+#pragma unroll 4
+      for (int n = 0; n < KP; ++n)
+        dv = fmaf(ks[j * KP + n], gs[(j * KP + n) * LC + lane], dv);
+      const int t = t0 + j;
+      if (t < S && cin)
+        g.dv[at(g.os, bi, hi, t) + col] =
+            fmaf(dys[j * kBwdCols + lane], ruks[j], dv);
+    }
+    // per step and row over the block's columns: dr, dk and dlw
+    for (int i = tid; i < Q * KP; i += kBwdThreads) {
+      const int j = i / KP, n = i % KP, t = t0 + j;
+      if (t >= S || n >= K) continue;
+      const float* gp = gs + (j * KP + n) * LC;
+      const float* hp = hs + (j * KP + n) * LC;
+      float dr = 0.f, dk = 0.f, dw = 0.f;
+#pragma unroll 8
+      for (int c = 0; c < kBwdCols; ++c) {
+        dr = fmaf(hp[c], dys[j * kBwdCols + c], dr);
+        dk = fmaf(gp[c], vs[j * kBwdCols + c], dk);
+        dw = fmaf(gp[c], hp[c], dw);
+      }
+      const float uvd = us[n] * vdys[j];
+      const int64_t o = ((int64_t)blk * S + t) * K + n;
+      g.dr_part[o] = fmaf(uvd, ks[i], dr);
+      g.dk_part[o] = fmaf(uvd, rs[i], dk);
+      g.dlw_part[o] = wsm[i] * dw * lives[i];
+    }
+    if (tid < K) {
+#pragma unroll 1
+      for (int j = Q - 1; j >= 0; --j)
+        du_acc = fmaf(rs[j * KP + tid] * ks[j * KP + tid], vdys[j], du_acc);
+    }
+    __syncthreads();
+  }
+  if (g.dh0 != nullptr) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int n = warp + kBwdWarps * i;
+      if (cin && n < K) g.dh0[((int64_t)stream * K + n) * K + col] = gr[i];
+    }
+  }
+  if (tid < K) g.du_part[(int64_t)blk * K + tid] = du_acc;
+}
+
+// The fixed-order sums: dr, dk and dlw over the column tiles (in the
+// gradients' layout), du over the tiles and the streams that share each
+// row of u (u contiguous, nu rows of K).
+__global__ void rwkv6_wkv_bwd_reduce_kernel(BwdArgs g) {
+  const int64_t nrk = (int64_t)g.B * g.H * g.S * g.K;
+  const int64_t total = nrk + (int64_t)g.nu * g.K;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    if (i < nrk) {
+      const int n = (int)(i % g.K);
+      const int64_t st = i / g.K;
+      const int t = (int)(st % g.S), stream = (int)(st / g.S);
+      float dr = 0.f, dk = 0.f, dw = 0.f;
+      for (int tile = 0; tile < g.NT; ++tile) {
+        const int64_t o =
+            (((int64_t)stream * g.NT + tile) * g.S + t) * g.K + n;
+        dr += g.dr_part[o];
+        dk += g.dk_part[o];
+        dw += g.dlw_part[o];
+      }
+      const int64_t o = at(g.os, stream / g.H, stream % g.H, t) + n;
+      g.dr[o] = dr;
+      g.dk[o] = dk;
+      g.dlw[o] = dw;
+    } else {
+      const int64_t e = i - nrk;
+      const int row = (int)(e / g.K), n = (int)(e % g.K);
+      float s = 0.f;
+      for (int stream = 0; stream < g.B * g.H; ++stream) {
+        const int bi = stream / g.H, hi = stream % g.H;
+        if ((int64_t)bi * g.u_sb + (int64_t)hi * g.u_sh != (int64_t)row * g.K)
+          continue;
+        for (int tile = 0; tile < g.NT; ++tile)
+          s += g.du_part[((int64_t)stream * g.NT + tile) * g.K + n];
+      }
+      g.du[e] = s;
+    }
+  }
+}
+
+template <int KP>
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  constexpr size_t bytes = BwdSmem<KP>::bytes;
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rwkv6_wkv_bwd_chunk_kernel<KP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const dim3 grid(a.NT, a.B * a.H);
+  rwkv6_wkv_bwd_chunk_kernel<KP><<<grid, kBwdThreads, bytes, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t total = (int64_t)a.B * a.H * a.S * a.K + (int64_t)a.nu * a.K;
+  const int64_t want = (total + 255) / 256;
+  const int blocks = (int)(want < 132 * 16 ? (want > 0 ? want : 1) : 132 * 16);
+  rwkv6_wkv_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+int bwd_kp(int K) { return K <= 16 ? 16 : K <= 32 ? 32 : K <= 64 ? 64 : 128; }
+
+int bwd_q(int K) { return bwd_kp(K) <= 64 ? kBwdQ : kBwdQ / 2; }
+
+}  // namespace
+
 extern "C" {
 
 // The scratch one call needs, in floats: a K x K update and K decays per
@@ -919,6 +1257,81 @@ int rwkv6_wkv_fwd(const void* r, const void* k, const void* v,
   else
     err = launch<128>(a, cs);
   return (int)err;
+}
+
+// The scratch one backward call needs, in floats: per (stream, column
+// tile of 32) the state at the start of every chunk of the backward,
+// partials of dr, dk and dlw per step and row, and of du per row.
+long long rwkv6_wkv_bwd_scratch_floats(int B, int H, int S, int K) {
+  if (B < 1 || H < 1 || S < 0 || K < 1 || K > 128) return 0;
+  const long long nt = (K + kBwdCols - 1) / kBwdCols, q = bwd_q(K);
+  const long long nc = (S + q - 1) / q;
+  return (long long)B * H * nt *
+         (nc * bwd_kp(K) * kBwdCols + 3LL * S * K + K);
+}
+
+// The backward of rwkv6_wkv_fwd, fp32 throughout.  r, k, v, lw, u and h0
+// as the forward took them (h0 may be null); dy and the gradients dr, dk,
+// dv and dlw share the (batch, head, time) strides o_sb/o_sh/o_st (the
+// channel stride is 1); dh_final may be null (zero); dh0 is written when
+// it is not null; du is u's shape, contiguous, nu rows of K (u contiguous
+// with row stride K).  scratch holds rwkv6_wkv_bwd_scratch_floats(...)
+// floats.  Returns a cudaError_t as rwkv6_wkv_fwd does.
+int rwkv6_wkv_bwd(const void* r, const void* k, const void* v,
+                  const void* lw, const void* u, const void* h0,
+                  const void* dy, const void* dh_final, void* dr, void* dk,
+                  void* dv, void* dlw, void* du, void* dh0, void* scratch,
+                  int B, int H, int S, int K, int r_sb, int r_sh, int r_st,
+                  int k_sb, int k_sh, int k_st, int v_sb, int v_sh, int v_st,
+                  int w_sb, int w_sh, int w_st, int o_sb, int o_sh, int o_st,
+                  int u_sb, int u_sh, int nu, void* stream) {
+  if (B < 0 || H < 1 || S < 0 || K < 1 || K > 128 || nu < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * H > 65535) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  BwdArgs a;
+  a.r = static_cast<const float*>(r);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.lw = static_cast<const float*>(lw);
+  a.u = static_cast<const float*>(u);
+  a.h0 = static_cast<const float*>(h0);
+  a.dy = static_cast<const float*>(dy);
+  a.dhf = static_cast<const float*>(dh_final);
+  a.dr = static_cast<float*>(dr);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.dlw = static_cast<float*>(dlw);
+  a.du = static_cast<float*>(du);
+  a.dh0 = static_cast<float*>(dh0);
+  a.B = B;
+  a.H = H;
+  a.S = S;
+  a.K = K;
+  a.NT = (K + kBwdCols - 1) / kBwdCols;
+  a.NC = (S + bwd_q(K) - 1) / bwd_q(K);
+  a.nu = nu;
+  a.rs = {r_sb, r_sh, r_st};
+  a.ks = {k_sb, k_sh, k_st};
+  a.vs = {v_sb, v_sh, v_st};
+  a.ws = {w_sb, w_sh, w_st};
+  a.os = {o_sb, o_sh, o_st};
+  a.u_sb = u_sb;
+  a.u_sh = u_sh;
+  const long long bh = (long long)B * H;
+  a.starts = static_cast<float*>(scratch);
+  a.dr_part = a.starts + bh * a.NT * a.NC * bwd_kp(K) * kBwdCols;
+  a.dk_part = a.dr_part + bh * a.NT * S * K;
+  a.dlw_part = a.dk_part + bh * a.NT * S * K;
+  a.du_part = a.dlw_part + bh * a.NT * S * K;
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  switch (bwd_kp(K)) {
+    case 16: return (int)launch_bwd<16>(a, cs);
+    case 32: return (int)launch_bwd<32>(a, cs);
+    case 64: return (int)launch_bwd<64>(a, cs);
+    default: return (int)launch_bwd<128>(a, cs);
+  }
 }
 
 const char* rwkv6_wkv_error_string(int err) {

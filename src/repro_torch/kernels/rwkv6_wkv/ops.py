@@ -22,10 +22,18 @@ per call on a CUDA tensor, however many CUDA kernels it issues), so a
 run can show that its main path went through the kernel.
 ``supported()`` runs a small real call; tests use it to skip.
 
-The kernel has no backward (ROADMAP A15's remainder): on a CUDA tensor
-the wrapper raises under autograd (grad mode on and an input that
-requires grad) instead of returning an output cut from the graph.  The
-plain version on the CPU differentiates.
+The op is differentiable on both devices.  On a CUDA tensor the forward
+call and its backward, ``csrc/rwkv6_wkv.cu``'s ``rwkv6_wkv_bwd`` (the
+states recomputed chunk by chunk from a forward sweep, the reverse
+recurrence of dL/dS_t in fp32 on the CUDA cores, every sum in a fixed
+order, so two calls give the same bits), are one
+``torch.autograd.Function`` for both layouts: in the model's layout the
+backward sums du over the batch rows that share u.  The kernel reads
+the decay as exp(min(lw, 0)), so dlw is 0 where lw > 0.
+``ref.rwkv6_wkv_bwd_ref`` is that backward in plain PyTorch.
+``bwd_launches`` counts backward calls on CUDA tensors.  There is no
+fallback: a backward that fails to build or launch raises.  The plain
+version on the CPU differentiates through autograd.
 """
 
 from __future__ import annotations
@@ -37,13 +45,14 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import build, refuse_autograd
+from repro_torch.kernels import build
 from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_wkv.cu"
 MAX_HEAD = 128
 
 launches = 0    # calls that launched the kernels (callers may reset it)
+bwd_launches = 0   # backward calls on CUDA tensors (callers may reset it)
 
 # the C signatures of csrc's rwkv6_wkv_fwd (8 tensor pointers, the
 # scratch, B, H, S, K, the strides of r, k, v, lw and y (batch, head,
@@ -52,6 +61,12 @@ launches = 0    # calls that launched the kernels (callers may reset it)
 FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 21 \
     + [ctypes.c_void_p]
 SCRATCH_ARGTYPES = [ctypes.c_int] * 4
+# rwkv6_wkv_bwd: 15 pointers (the forward's 6 operands, dy, dh_final,
+# the 6 gradients, the scratch), B, H, S, K, the strides of r, k, v, lw
+# and of dy and the gradients (batch, head, time), of u (batch, head),
+# u's row count, the stream; rwkv6_wkv_bwd_scratch_floats: B, H, S, K
+BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 22 \
+    + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,6 +76,10 @@ def _lib() -> ctypes.CDLL:
     lib.rwkv6_wkv_fwd.restype = ctypes.c_int
     lib.rwkv6_wkv_scratch_floats.argtypes = SCRATCH_ARGTYPES
     lib.rwkv6_wkv_scratch_floats.restype = ctypes.c_longlong
+    lib.rwkv6_wkv_bwd.argtypes = BWD_ARGTYPES
+    lib.rwkv6_wkv_bwd.restype = ctypes.c_int
+    lib.rwkv6_wkv_bwd_scratch_floats.argtypes = SCRATCH_ARGTYPES
+    lib.rwkv6_wkv_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.rwkv6_wkv_error_string.argtypes = [ctypes.c_int]
     lib.rwkv6_wkv_error_string.restype = ctypes.c_char_p
     return lib
@@ -106,7 +125,6 @@ def _launch(r, k, v, lw, u, h0, *, B: int, H: int, S: int, K: int,
             layout: str, u_st: Tuple[int, int]):
     """One call of the kernels over B*H streams.  Returns (y contiguous in
     r's shape, h_final [B*H,K,K])."""
-    refuse_autograd("rwkv6_wkv", r, k, v, lw, u, h0)
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the grid's 65535")
     y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
@@ -133,6 +151,62 @@ def _launch(r, k, v, lw, u, h0, *, B: int, H: int, S: int, K: int,
     return y, hout
 
 
+def _launch_bwd(r, k, v, lw, u, h0, dy, dh_final, *, B: int, H: int,
+                S: int, K: int, layout: str, u_st: Tuple[int, int]):
+    """One call of ``rwkv6_wkv_bwd``: dy contiguous in r's shape,
+    dh_final [B*H,K,K] contiguous or None.  Returns (dr, dk, dv, dlw, du,
+    dh0): the first four contiguous in r's shape, du in u's (summed over
+    the streams that share a row of u), dh0 [B*H,K,K] or None."""
+    dev = r.device
+    dr, dk, dv, dlw = (torch.empty(r.shape, dtype=torch.float32,
+                                   device=dev) for _ in range(4))
+    du = torch.empty(u.shape, dtype=torch.float32, device=dev)
+    dh0 = None if h0 is None else torch.empty(
+        (B * H, K, K), dtype=torch.float32, device=dev)
+    vp = ctypes.c_void_p
+    lib = _lib()
+    n = lib.rwkv6_wkv_bwd_scratch_floats(B, H, S, K)
+    scratch = torch.empty(max(n, 1), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return vp(t.data_ptr() if t is not None else 0)
+    strides = [s for t in (r, k, v, lw, dr) for s in _bht(t, layout)]
+    rc = lib.rwkv6_wkv_bwd(
+        ptr(r), ptr(k), ptr(v), ptr(lw), ptr(u), ptr(h0), ptr(dy),
+        ptr(dh_final), ptr(dr), ptr(dk), ptr(dv), ptr(dlw), ptr(du),
+        ptr(dh0), ptr(scratch), B, H, S, K, *strides, *u_st,
+        u.numel() // K, vp(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError("rwkv6_wkv backward launch failed: "
+                           + lib.rwkv6_wkv_error_string(rc).decode())
+    global bwd_launches
+    bwd_launches += 1
+    return dr, dk, dv, dlw, du, dh0
+
+
+class _Wkv(torch.autograd.Function):
+    """The kernels' call and its backward, for either layout (``geom``:
+    B, H, S, K, the layout and u's strides); h0 [B*H,K,K] or None."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, h0, geom):
+        y, hout = _launch(r, k, v, lw, u, h0, **geom)
+        ctx.save_for_backward(r, k, v, lw, u, h0)
+        ctx.geom = geom
+        ctx.set_materialize_grads(False)
+        return y, hout
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        r, k, v, lw, u, h0 = ctx.saved_tensors
+        dy = (torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+              if dy is None else dy.contiguous())
+        if dh_final is not None:
+            dh_final = dh_final.contiguous()
+        grads = _launch_bwd(r, k, v, lw, u, h0, dy, dh_final, **ctx.geom)
+        return (*grads, None)
+
+
 def _on_cuda(r: torch.Tensor) -> bool:
     if r.device.type == "cpu":
         return False
@@ -155,8 +229,10 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ("h0", h0)],
            {"r": (bh, s, kk), "k": (bh, s, kk), "v": (bh, s, kk),
             "lw": (bh, s, kk), "u": (bh, kk), "h0": (bh, kk, kk)})
-    return _launch(r, k, v, lw, u, h0, B=bh, H=1, S=s, K=kk,
-                   layout="kernel", u_st=(u.stride(0), 0))
+    u = u.contiguous()
+    return _Wkv.apply(r, k, v, lw, u, h0,
+                      dict(B=bh, H=1, S=s, K=kk, layout="kernel",
+                           u_st=(u.stride(0), 0)))
 
 
 def wkv_model_layout(rh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
@@ -184,8 +260,10 @@ def wkv_model_layout(rh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
             ("h0", h0f)],
            {"r": shape, "k": shape, "v": shape, "lw": shape, "u": (h, kk),
             "h0": (bsz * h, kk, kk)})
-    y, hf = _launch(rh, kh, vh, lwh, uh, h0f, B=bsz, H=h, S=s, K=kk,
-                    layout="model", u_st=(0, uh.stride(0)))
+    uh = uh.contiguous()
+    y, hf = _Wkv.apply(rh, kh, vh, lwh, uh, h0f,
+                       dict(B=bsz, H=h, S=s, K=kk, layout="model",
+                            u_st=(0, uh.stride(0))))
     return y, hf.view(bsz, h, kk, kk)
 
 

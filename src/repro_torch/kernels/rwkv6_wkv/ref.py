@@ -17,7 +17,12 @@ rows (through a pivot left of the diagonal and in the lower-left quadrant
 of a diagonal sub-block, per element in its two triangles; every
 exponent <= 0), the products in 3xTF32 as ``kernels/tf32.py`` models
 them, and the state passed between chunks in fp32.  Nothing on
-the main path calls it."""
+the main path calls it.
+
+``rwkv6_wkv_bwd_ref`` is the backward the CUDA kernel's
+``rwkv6_wkv_bwd`` runs (the states recomputed chunk by chunk, the
+reverse recurrence of dL/dS_t), for the CPU tests and as the card's
+yardstick."""
 
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from repro_torch.kernels.tf32 import mma_sum
 CHUNK_ROWS = 64   # time steps per chunk (csrc/rwkv6_wkv.cu kQ)
 SUB_ROWS = 16     # rows per sub-block of A (csrc/rwkv6_wkv.cu kSub)
 TRI_ROWS = 8      # rows per triangle summed per element (half a sub-block)
+BWD_CHUNK_ROWS = 8   # steps per chunk of the backward (csrc kBwdQ)
 
 
 def chunk_cumsum(lw: torch.Tensor) -> torch.Tensor:
@@ -148,3 +154,74 @@ def rwkv6_wkv_chunked_ref(r: torch.Tensor, k: torch.Tensor,
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :s] if ys else rf.new_zeros((bh, 0, kk))
     return y.to(r.dtype), h
+
+
+def rwkv6_wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lw: torch.Tensor, u: torch.Tensor,
+                      h0: Optional[torch.Tensor], dy: torch.Tensor,
+                      dh_final: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, ...]:
+    """The backward of the wkv as the CUDA kernel's ``rwkv6_wkv_bwd``
+    runs it, in fp32: the kernel's layout and arguments plus the
+    cotangents ``dy`` [BH,S,K] and ``dh_final`` [BH,K,K] (None: zero) ->
+    (dr, dk, dv, dlw, du, dh0), dh0 None when ``h0`` is None.
+
+    The decay is w_t = exp(min(lw_t, 0)), as the kernel takes it, so dlw
+    is 0 where lw > 0 (the chain rule through ``min``).  The states are
+    had by recomputation: a forward sweep keeps the state at the start of
+    every chunk of ``BWD_CHUNK_ROWS`` steps, and the reverse sweep
+    recomputes a chunk's states from its start before it walks the chunk
+    backwards with g_t = dL/dS_t:
+
+        dr_t    = S_{t-1} dy_t + u k_t (v_t . dy_t)
+        dk_t    = g_t v_t + r_t u (v_t . dy_t)
+        dv_t    = g_t^T k_t + dy_t (r_t . u k_t)
+        dlw_t   = w_t * rowsum(g_t * S_{t-1})
+        du      = sum_t r_t k_t (v_t . dy_t)
+        g_{t-1} = diag(w_t) g_t + r_t dy_t^T     (g_{S-1} = dh_final)
+        dh0     = g_{-1}
+
+    Every exponent is <= 0.  Nothing on the main path calls it: the CPU
+    tests hold it against autograd through the plain version and the
+    card's kernel is held to it."""
+    bh, s, kk = r.shape
+    f32 = torch.float32
+    rf, kf, vf, dyf = r.to(f32), k.to(f32), v.to(f32), dy.to(f32)
+    lwf, uf = lw.to(f32), u.to(f32)
+    w = torch.exp(lwf.clamp(max=0.0))
+    live = (lwf <= 0.0).to(f32)
+    q = BWD_CHUNK_ROWS
+
+    def step(h: torch.Tensor, t: int) -> torch.Tensor:
+        return w[:, t, :, None] * h + kf[:, t, :, None] * vf[:, t, None, :]
+
+    h = (torch.zeros((bh, kk, kk), dtype=f32, device=r.device)
+         if h0 is None else h0.to(f32))
+    starts = []
+    for t in range(s):
+        if t % q == 0:
+            starts.append(h)
+        h = step(h, t)
+    dr, dk, dv = (torch.zeros_like(rf) for _ in range(3))
+    dlw, du = torch.zeros_like(lwf), torch.zeros_like(uf)
+    g = (torch.zeros((bh, kk, kk), dtype=f32, device=r.device)
+         if dh_final is None else dh_final.to(f32))
+    for ck in reversed(range(len(starts))):
+        t0, t1 = ck * q, min(s, ck * q + q)
+        hs = [starts[ck]]                       # hs[j] = S_{t0 + j - 1}
+        for t in range(t0, t1 - 1):
+            hs.append(step(hs[-1], t))
+        for t in reversed(range(t0, t1)):
+            hp = hs[t - t0]
+            vdy = (vf[:, t] * dyf[:, t]).sum(-1, keepdim=True)   # [BH,1]
+            ruk = (rf[:, t] * uf * kf[:, t]).sum(-1, keepdim=True)
+            dr[:, t] = torch.einsum("bkv,bv->bk", hp, dyf[:, t]) \
+                + uf * kf[:, t] * vdy
+            dk[:, t] = torch.einsum("bkv,bv->bk", g, vf[:, t]) \
+                + rf[:, t] * uf * vdy
+            dv[:, t] = torch.einsum("bkv,bk->bv", g, kf[:, t]) \
+                + dyf[:, t] * ruk
+            dlw[:, t] = w[:, t] * (g * hp).sum(-1) * live[:, t]
+            du = du + rf[:, t] * kf[:, t] * vdy
+            g = w[:, t, :, None] * g + rf[:, t, :, None] * dyf[:, t, None, :]
+    return (dr, dk, dv, dlw, du, None if h0 is None else g)

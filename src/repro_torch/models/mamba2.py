@@ -105,7 +105,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     (y [B,S,H,P] in x's dtype, final state [B,H,N,P] fp32).
 
     CUDA tensors: one ``mamba2_scan`` launch (the kernel needs no chunk
-    size).  CPU tensors: the reference's chunked algorithm, chunk ``q`` =
+    size), differentiable through its backward kernel.  CPU tensors: the reference's chunked algorithm, chunk ``q`` =
     the largest power-of-two divisor of S not above ``chunk``."""
     if x.device.type != "cpu":
         y, h_final = scan_ops.scan_model_layout(x, dt, b_in, c_in, a_log,

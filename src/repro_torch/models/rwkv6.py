@@ -118,7 +118,7 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype, final state [B,H,K,V] fp32).
 
     CUDA tensors: one ``rwkv6_wkv`` launch (the kernel needs no chunk
-    size).  CPU tensors: the reference's chunked algorithm, chunk ``q``
+    size), differentiable through its backward kernel.  CPU tensors: the reference's chunked algorithm, chunk ``q``
     = the largest power-of-two divisor of S not above ``CHUNK_Q``."""
     if r.device.type != "cpu":
         y, h_final = wkv_ops.wkv_model_layout(r, k, v, lw, u, h0)

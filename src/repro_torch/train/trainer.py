@@ -20,9 +20,9 @@
   running median of the last 20 is logged in ``straggler_events``.
 
 Runs on the card unless ``device="cpu"``; there the attention and MoE
-products run their plain versions, and the Mamba2 and rwkv6 scans
-differentiate through theirs (on the card those kernels have no backward
-yet and refuse to run under autograd).
+products and the Mamba2 and rwkv6 scans run and differentiate through
+their plain versions.  On the card every arch trains through the
+kernels: the scans' gradients come from their backward kernels.
 """
 
 from __future__ import annotations

@@ -13,11 +13,14 @@ trial each at small request counts.
 * fig04's ``slo_scheduling_comparison`` and ``trace_report`` (the port's
   ``benchmarks/fig04_scheduling.py``): token parity across the policies,
   a deterministic trace and fingerprint, a valid export, zero leaks;
-  its ``main`` merges the record into the last run of the file.
-* The record's keys, fig14's and fig04's together, equal the JAX
-  record's (the last run of ``BENCH_serve.json``), less what the module
-  docstring names as left out: the A15 workload (``qp_*``) and the HLO
-  checks.
+  its ``main`` merges the record into the last run of the file, and a
+  plain run (the MoE and cost halves) ignores ``--out`` and writes
+  nothing, as the reference's does.
+* The record's keys, fig14's (``quantized_pool_comparison``'s ``qp_*``
+  among them; its gates are in ``tests/test_torch_fig14_qp.py``) and
+  fig04's together, equal the JAX record's (the last run of
+  ``BENCH_serve.json``), less what the module docstring names as left
+  out: the HLO checks.
 * The dispatch trio, and so ``main``, raise without CUDA, naming the
   device, and write no record.
 """
@@ -48,7 +51,6 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 HLO_KEYS = {"paged_kernel_gather_free", "gather_path_materializes_ring",
             "paged_kernel_peak_temp_bytes", "paged_gather_peak_temp_bytes",
             "cp_fused_gather_free"}
-LEFT_OUT_PREFIXES = ("qp_",)
 
 
 @pytest.fixture(scope="module")
@@ -64,6 +66,7 @@ def records():
         "ft": fig14.fault_tolerance_comparison(device="cpu"),
         "slo": fig04.slo_scheduling_comparison(device="cpu"),
         "trep": fig04.trace_report(device="cpu"),
+        "qp": fig14.quantized_pool_comparison(device="cpu"),
     }
 
 
@@ -142,14 +145,17 @@ def test_fig04_slo_mix_and_trace_report(records, tmp_path):
     runs = json.loads(out.read_text())["runs"]
     assert len(runs) == 1 and runs[0]["speedup"] == 2.0
     assert runs[0]["slo_outputs_match"] == rec["slo_outputs_match"]
-    with pytest.raises(SystemExit):
-        fig04.main(["--device", "cpu", "--out", str(out)])
+    # a plain run (the MoE and cost halves) ignores --out: it runs the
+    # figure and writes nothing, as the reference's plain run does
+    before = out.read_text()
+    plain = fig04.main(["--device", "cpu", "--out", str(out)])
+    assert sorted(plain) == ["moe_layer", "prod"]
+    assert out.read_text() == before
 
 
 def test_record_keys_match_reference_record(records):
     runs = json.loads((ROOT / "BENCH_serve.json").read_text())["runs"]
-    want = {k for k in runs[-1] if k != "ts"
-            and not k.startswith(LEFT_OUT_PREFIXES)} - HLO_KEYS
+    want = {k for k in runs[-1] if k != "ts"} - HLO_KEYS
     got = set()
     for rec in records.values():
         assert not got & set(rec), got & set(rec)

@@ -202,4 +202,4 @@ def test_kernel_source_constants_and_names():
     assert SUB_ROWS == 2 * TRI_ROWS
     names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
                        r"\s+)?(\w+)", src)
-    assert len(names) == 3 and all("rwkv6_wkv" in name for name in names)
+    assert len(names) == 5 and all("rwkv6_wkv" in name for name in names)

@@ -20,8 +20,8 @@ off, on the CPU).
 * ``launch.train``: ``--smoke --steps 2 --device cpu`` prints the
   reference's lines; ``--resume`` picks up the checkpoint; ``--production``
   is refused.
-* ``refuse_autograd``'s rule (the wrappers' use of it on the card is in
-  ``tests/test_torch_train_cuda.py``).
+* ``refuse_autograd``'s rule, which only ``paged_attention`` (it never
+  trains) still uses.
 """
 
 import re
@@ -287,14 +287,15 @@ def test_launch_train_smoke_resume_and_production(tmp_path, capsys):
 
 
 # ---------------------------------------------------------------------------
-# forward-only kernels under autograd
+# a kernel with no backward under autograd
 # ---------------------------------------------------------------------------
 
 def test_refuse_autograd_rule():
     x = torch.zeros(2, requires_grad=True)
-    with pytest.raises(RuntimeError, match="A15"):
-        refuse_autograd("mamba2_scan", None, x)
+    with pytest.raises(RuntimeError, match="paged_attention has no "
+                                           "backward"):
+        refuse_autograd("paged_attention", None, x)
     with torch.no_grad():
-        refuse_autograd("mamba2_scan", x)
-    refuse_autograd("rwkv6_wkv", x.detach(), None)
+        refuse_autograd("paged_attention", x)
+    refuse_autograd("paged_attention", x.detach(), None)
 
