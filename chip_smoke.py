@@ -4496,17 +4496,24 @@ def phase_gmm_grads(torch, gmm) -> dict:
 
 
 # the scans' backwards: kernel, name, shape (the model's layout), h0 and
-# dh_final given.  The training shapes (zamba2-7b and rwkv6-7b at B 4, S
-# 1024) are timed; S = 1000 is not a multiple of the chunks.
+# dh_final given, decay (``mamba_inputs``: "strong" is a = -16 with dt up
+# to 1.5).  The training shapes (zamba2-7b and rwkv6-7b at B 4, S 1024)
+# are timed; S = 1000 is not a multiple of the chunks.
+ZAMBA2_TRAIN = dict(B=4, H=112, S=1024, P=64, N=64)
 SCAN_BWD_CASES = [
-    ("mamba2_scan", "zamba2_train", dict(B=4, H=112, S=1024, P=64, N=64),
-     False),
+    ("mamba2_scan", "zamba2_train", ZAMBA2_TRAIN, False, "default"),
     ("mamba2_scan", "zamba2_s1000_h0", dict(B=4, H=112, S=1000, P=64,
-                                            N=64), True),
-    ("rwkv6_wkv", "rwkv6_train", dict(B=4, H=64, S=1024, K=64), False),
-    ("rwkv6_wkv", "rwkv6_s1000_h0", dict(B=4, H=64, S=1000, K=64), True),
+                                            N=64), True, "default"),
+    ("mamba2_scan", "zamba2_train_strong", ZAMBA2_TRAIN, False, "strong"),
+    ("rwkv6_wkv", "rwkv6_train", dict(B=4, H=64, S=1024, K=64), False,
+     "default"),
+    ("rwkv6_wkv", "rwkv6_s1000_h0", dict(B=4, H=64, S=1000, K=64), True,
+     "default"),
 ]
 SCAN_BWD_TIMED = ("zamba2_train", "rwkv6_train")
+# the Mamba2 kernel against its own algebra in plain PyTorch
+# (``mamba2_scan_chunked_bwd_ref``) at this case
+SCAN_BWD_VS_CHUNKED = "zamba2_s1000_h0"
 SCAN_FWD_NOISE = 0.15   # the no-grad forward's device time against phase 3's
 SCAN_PLAIN_ITERS = 5    # autograd through the plain versions: ~0.6-0.8 s a
                         # call, so the median of 5
@@ -4548,20 +4555,69 @@ def wkv_plain_model(wops, r, k, v, lw, u, h0):
 def scan_bwd_need(kernel: str, B, H, S, h0, P=None, N=None, K=None):
     """Bytes and flops of one backward call.  Bytes: its inputs read once
     (the forward's operands, dy, and dh_final and h0 when given) and its
-    gradients written once, fp32.  Flops: 12 per state element and step
-    on the fp32 CUDA cores (the state recomputed, g_t's update and the
-    four sums over it: one multiply-add each)."""
+    gradients written once, fp32.  Flops of the per-step recurrence: 12
+    per state element and step on the fp32 CUDA cores (the state
+    recomputed, g_t's update and the four sums over it: one multiply-add
+    each).  For mamba2_scan also the products of the chunked SSD backward
+    that its kernel runs (chunks of ``CHUNK_ROWS``, the last ragged; q(q +
+    1) / 2 causal pairs in a chunk of q rows), 2 flops a multiply-add:
+    C B^T on the causal pairs once per b/c stream (a batch row), and per
+    head dM = dY X^T, M^T dY, dSc B and dSc^T C on the causal pairs (x P,
+    P, N, N) and U, Z, B G, dY h^T and X G^T (q N P each); else None."""
     bh = B * H
     if kernel == "mamba2_scan":
+        from repro_torch.kernels.mamba2_scan.ref import CHUNK_ROWS
         state = N * P
         per_call = 2 * bh * S * P + bh * S + 2 * B * S * N + H
         nbytes = 4 * (2 * per_call - bh * S * P
                       + (3 if h0 else 0) * bh * state)
+        pairs = 0
+        for t0 in range(0, S, CHUNK_ROWS):
+            q = min(CHUNK_ROWS, S - t0)
+            pairs += q * (q + 1) // 2
+        chunk_flops = 2 * pairs * N * B \
+            + bh * (2 * pairs * (2 * P + 2 * N) + 10 * S * N * P)
     else:
         state = K * K
         nbytes = 4 * (9 * bh * S * K + 2 * H * K
                       + (3 if h0 else 0) * bh * state)
-    return nbytes, 12 * bh * S * state
+        chunk_flops = None
+    return nbytes, 12 * bh * S * state, chunk_flops
+
+
+def mamba_vs_chunked_ref(torch, mops, call, dy, dhf, got) -> dict:
+    """The kernel's gradients ``got`` (model layout) against
+    ``mamba2_scan_chunked_bwd_ref`` on the same inputs broadcast to the
+    kernel's layout, summed as the kernel sums them: relative errors by
+    gradient."""
+    from repro_torch.kernels.mamba2_scan.ref import (
+        mamba2_scan_chunked_bwd_ref)
+    x, dt, b, c, a_log, h0 = call
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    a = -torch.exp(a_log)
+    with torch.no_grad():
+        dx, ddt, db, dc, da, dh0 = mamba2_scan_chunked_bwd_ref(
+            x.transpose(1, 2).reshape(B * H, S, P),
+            dt.transpose(1, 2).reshape(B * H, S),
+            b[:, None].expand(B, H, S, N).reshape(B * H, S, N),
+            c[:, None].expand(B, H, S, N).reshape(B * H, S, N),
+            a[None].expand(B, H).reshape(B * H),
+            None if h0 is None else h0.reshape(B * H, N, P),
+            dy.transpose(1, 2).reshape(B * H, S, P),
+            None if dhf is None else dhf.reshape(B * H, N, P))
+        want = [dx.reshape(B, H, S, P).transpose(1, 2),
+                ddt.reshape(B, H, S).transpose(1, 2),
+                db.reshape(B, H, S, N).sum(1), dc.reshape(B, H, S, N).sum(1),
+                da.reshape(B, H).sum(0) * a]
+        if h0 is not None:
+            want.append(dh0.reshape(B, H, N, P))
+        torch.cuda.synchronize()
+        out = {nm: rel_err(torch, g, w) for nm, g, w in
+               zip(SCAN_GRAD_NAMES["mamba2_scan"], got, want)}
+    del dx, ddt, db, dc, da, dh0, want
+    free(torch)
+    return out
 
 
 def phase_scan_grads(torch, mops, wops, ops, mamba_timed, rwkv_timed
@@ -4570,21 +4626,24 @@ def phase_scan_grads(torch, mops, wops, ops, mamba_timed, rwkv_timed
     in the model's layout: every gradient against ``torch.autograd.grad``
     through the plain per-step version on the same inputs, within
     ``KERNEL_TOL`` x its max|want|; two calls the same bits; one forward
-    and one backward launch a call.  The training shapes' backwards
-    timed (``ms``, ``device_ms``) beside autograd through the plain
-    version and the bound (``scan_bwd_need``); no library call computes
-    a scan.  Then each forward kernel again at S 1024 with no gradient
+    and one backward launch a call; at ``SCAN_BWD_VS_CHUNKED`` the
+    Mamba2 kernel also against ``mamba2_scan_chunked_bwd_ref`` (its
+    algebra in plain PyTorch) within ``KERNEL_TOL``.  The training
+    shapes' backwards timed (``ms``, ``device_ms``) beside autograd
+    through the plain version and the bound (``scan_bwd_need``: for
+    mamba2_scan the chunked form's products in 3xTF32, with the per-step
+    CUDA-core bound beside it); no library call computes a scan.  Then each forward kernel again at S 1024 with no gradient
     wanted: its device time within ``SCAN_FWD_NOISE`` of phase 3's.  And
     ``paged_attention``, which never trains, still refuses under autograd
     and launches nothing there."""
     gen = torch.Generator(device=DEV).manual_seed(4321)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
     out = {}
-    for kernel, name, shape, h0 in SCAN_BWD_CASES:
+    for kernel, name, shape, h0, decay in SCAN_BWD_CASES:
         mod = mops if kernel == "mamba2_scan" else wops
         if kernel == "mamba2_scan":
             call, _ = mamba_inputs(torch, gen, **shape, layout="model",
-                                   h0=h0)
+                                   h0=h0, decay=decay)
             call = tuple(None if t is None else t.contiguous() for t in call)
             op = mops.scan_model_layout
             plain = lambda *t: mamba_plain_model(mops, *t)  # noqa: E731
@@ -4623,10 +4682,18 @@ def phase_scan_grads(torch, mops, wops, ops, mamba_timed, rwkv_timed
             check(bool(torch.isfinite(g).all()),
                   f"{kernel} backward {name}: non-finite {nm}")
         rec = {"kernel": kernel, "case": name, "shape": shape, "h0": h0,
-               "dh_final": h0, "layout": "model",
+               "dh_final": h0, "decay": decay, "layout": "model",
                "tol_relative": KERNEL_TOL, "relative_err": errs,
                "two_calls_bitwise_equal": same,
                "launches_one_call": launched}
+        if name == SCAN_BWD_VS_CHUNKED:
+            rec["relative_err_vs_chunked_ref"] = mamba_vs_chunked_ref(
+                torch, mops, call, dy, dhf, got)
+            check(max(rec["relative_err_vs_chunked_ref"].values())
+                  <= KERNEL_TOL,
+                  f"{kernel} backward {name} vs the chunked plain backward:"
+                  f" {rec['relative_err_vs_chunked_ref']} x max|want| > "
+                  f"{KERNEL_TOL}")
         check(max(errs.values()) <= KERNEL_TOL,
               f"{kernel} backward {name}: {errs} x max|want| > "
               f"{KERNEL_TOL}")
@@ -4635,8 +4702,17 @@ def phase_scan_grads(torch, mops, wops, ops, mamba_timed, rwkv_timed
                                   f"{launched} != [1, 1]")
         del got, again, want
         if name in SCAN_BWD_TIMED:
-            nbytes, flops = scan_bwd_need(kernel, **shape, h0=h0)
-            rec.update(bytes=nbytes, flops=flops, **bounds(nbytes, flops, 0))
+            nbytes, flops, chunk_flops = scan_bwd_need(kernel, **shape,
+                                                       h0=h0)
+            if chunk_flops is None:
+                rec.update(bytes=nbytes, flops=flops,
+                           **bounds(nbytes, flops, 0))
+            else:     # 3xTF32 products; the per-step CUDA-core bound beside
+                rec.update(bytes=nbytes, flops=chunk_flops,
+                           per_step_flops=flops,
+                           **bounds(nbytes, chunk_flops, 3))
+                rec["bound_per_step_ms"] = max(
+                    nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
             rec["ms"] = grad_ms(torch, outs, ins, cots, flush)
             rec["device_ms"], rec["calls_traced"] = device_ms(
                 torch, lambda: torch.autograd.grad(outs, ins, cots,
@@ -5773,6 +5849,9 @@ def main() -> int:
                 "launches_train": bl,
                 "launches_train_per_step": bl // run["steps"],
                 **{k: grads[case][k] for k in bwd_keys + ("device_ms",)},
+                **{k: grads[case][k] for k in ("bound_per_step_ms",
+                                                "per_step_flops", "flops")
+                   if k in grads[case]},
                 "shape": shape,
                 "by_case": {n: {"relative_err": r["relative_err"],
                                 "two_calls_bitwise_equal":

@@ -576,330 +576,1130 @@ bool aligned16(const void* p) {
 //
 // Given the cotangents dy (x's layout) and dh_final ([B*H, N, P], may be
 // null: zero), it computes dx, ddt, db, dc, da and (when h0 was given)
-// dh0 of the recurrence above, with g_t = dL/dh_t walked backwards:
-//   g_t   = alpha_{t+1} g_{t+1} + c_t dy_t^T      (g_{S-1} from dh_final)
-//   dx_t  = dt_t g_t^T b_t          db_t = dt_t g_t x_t     dc_t = h_t dy_t
-//   ddt_t = x_t . (g_t^T b_t) + a alpha_t <g_t, h_{t-1}>
-//   da    = sum_t dt_t alpha_t <g_t, h_{t-1}>      dh0 = alpha_0 g_0
-// with alpha_t = exp(dt_t a) <= 1 (ref.py's mamba2_scan_bwd_ref is the
-// same algorithm in plain PyTorch).
+// dh0 of the forward above, in the same chunked SSD form transposed
+// (ref.py's mamba2_scan_chunked_bwd_ref is this algebra in plain
+// PyTorch).  Per chunk of kQ = 64 rows, with e_i = exp(cum_i), E =
+// exp(cum_end), w_j = exp(cum_end - cum_j) dt_j, L, Sc = C B^T and M =
+// Sc . L . dt_j as in the forward, h the state at the chunk's start and G
+// = dL/dh at its end:
+//   dL/dh_start = E G + C^T diag(e) dY        (G of the chunk before)
+//   dX  = M^T dY + diag(w) B G
+//   dM  = dY X^T on and below the diagonal,  dSc = dM . L . dt_j
+//   dC  = dSc B + diag(e) dY h^T
+//   dB  = dSc^T C + diag(w) X G^T
+// and the decays, with R = dM . M, u_i = e_i <C_i, (dY h^T)_i> and V_j =
+// <B_j, (X G^T)_j>: D_l, the gradient of cum_l + ... + cum_end, is
+//   sum_{k >= l, j < l} R_kj + sum_{k >= l} u_k + sum_{j < l} w_j V_j
+//     + E <G, h>,
+// which takes R's row and column sums (they enter with opposite signs)
+// and the w terms as the rectangle and the prefix in which they do not
+// cancel; then ddt_l = a D_l + sum_i (dM . Sc . L)_il + V_l exp(cum_end -
+// cum_l), and da sums dt_l D_l over the rows, chunks and streams.
 //
-// The states are recomputed, never stepped backwards through a decay
-// (which would divide by alpha and let an exponent grow): one block owns
-// one stream and kBwdCols = 32 state columns (a lane each; warp w holds
-// rows w, w + 8, ...), sweeps forward once keeping the state at the start
-// of every chunk of Q steps in a scratch of its own, then walks the chunks
-// backwards: it recomputes a chunk's Q states from its start into shared
-// memory, walks the chunk's steps backwards with g in registers (g and
-// the states need no sum across threads), and only then takes the chunk's
-// sums from shared memory, each in a fixed order: sx = g^T b and <g,
-// h_{t-1}> per step and column (a warp per step), db and dc per step and
-// row over the block's columns.  Sums across the blocks of a stream (its
-// column tiles) and across the streams that share an operand (b/c across
-// the heads, a across the batch rows) are per-block partials that
-// mamba2_scan_bwd_reduce_kernel adds in a fixed order, so two calls give the
-// same bits: there are no float atomics.
+// The exponents.  Under the model's decays (dt a down to ~ -40 a step)
+// cum reaches the thousands over a chunk, and cum_i - cum_j taken as the
+// difference of two cumsums would keep few digits.  So every exponent is
+// a sum of terms of one sign (dt >= 0, a <= 0), all <= 0: cum over [0,
+// i], cum_end - cum_j over (j, 63], and L through pivots at every kSub =
+// 16 rows: for sub-blocks I > J, L_ij = exp(d summed within I up to i and
+// over the sub-blocks between) x exp(d summed within J after j), each
+// factor <= 1 (one that underflows belongs to a term at least as small);
+// in a diagonal sub-block d[j+1] + ... + d[i], down each column.  No
+// state is ever stepped backwards through a decay.
 //
-// fp32 on the CUDA cores.  What bounds it: at zamba2-7b's training shape
-// (B = 4, H = 112, S = 1024, P = N = 64) the state recurrence and its
-// sums are ~12 flops per state element and step, 22.5 GFLOP, 0.34 ms at
-// 67 TFLOP/s; the bytes, ~1 GB through the scratch of chunk states, 0.3
-// ms.  The design spends neither well: one block of 8 warps per SM with
-// a barrier per chunk of 8 steps, so latency bounds it.
+// Four kernels on the caller's stream, one call (names all hold
+// mamba2_scan_bwd):
+// 1. mamba2_scan_bwd_exponents_kernel, a block of 64 threads per (stream,
+//    chunk): the exponents above, as factors and tables (a warp's shuffle
+//    scans, then the diagonal sub-blocks a column a thread), to scratch.
+// 2. mamba2_scan_bwd_states_kernel, grid (P tiles of 64, B*H, 2): per
+//    stream, the chunks walked in order, h forwards from h0 (h_next = E h
+//    + (diag(w) B)^T X) and G = dL/dh backwards from dh_final (G_prev = E
+//    G + (diag(e) C)^T dY, and dh0), each chunk's update on the tensor
+//    cores and the state kept in registers (one fmaf an element, rounded
+//    to nearest), written to scratch at every chunk while the next
+//    chunk's operands land.
+// 3. mamba2_scan_bwd_chunk_kernel, grid (chunks, head groups, B), 8
+//    warps, one block an SM: one chunk of kHeadGroup = 8 heads of a batch
+//    row, which share b and c, so b, c and Sc = C B^T are loaded and
+//    computed once for the 8 and their db and dc summed in shared memory
+//    in a fixed order.  Per head: dM (two warps a 16-row tile, every
+//    other key tile, as the forward's scores), dY h^T (warps 0-3) and X
+//    G^T (warps 4-7); M, dSc, R and the column sums of dM . Sc . L from
+//    dM's fragments; dC (warps 0-3) and dB (warps 4-7, whose causal
+//    depths mirror theirs, so each scheduler gets the same work); dX (the
+//    forward's pairing of row tiles); R's rectangle sums (row prefixes,
+//    then column sums) and, in one warp, ddt and the stream's da for the
+//    chunk.  ddt is whole in its block: no reduction.  When P fits one
+//    tile, the next head's operands land under this head's products: dy,
+//    G and the exponents from its start (double-buffered), x and h once
+//    dM and dY h^T, X G^T are done; h, G and the exponents by one bulk
+//    copy each (the TMA unit, on an mbarrier; kernel 2 writes the states
+//    in this kernel's padded rows), x and dy by cp.async.
+// 4. mamba2_scan_bwd_reduce_kernel: db and dc over the head groups, da
+//    over the streams and chunks that share each element of a, in a fixed
+//    order, so two calls give the same bits: there are no float atomics.
+// Every product is 3xTF32 mma.sync (common/tf32_mma.cuh), each into a
+// fresh accumulator at most 64 deep, as in the forward, the keys of each
+// step of 8 renumbered in A and B alike (logical key t is physical 2t,
+// t + 4 is 2t + 1): an operand read along its rows takes one 8-byte load
+// per row, one read down its columns is conflict-free.
+//
+// What bounds it on this card.  At zamba2-7b's training shape (B = 4, H =
+// 112, S = 1024, P = N = 64, b/c shared by the heads) the compulsory bytes
+// are x, dy and dx (117.4 MB each) and dt, ddt, b, c, db, dc: 0.1075 ms at
+// 3.35 TB/s.  The chunked form's products are 26.5 GFLOP, 0.161 ms at 495
+// TFLOP/s over 3 TF32 products each (the per-step recurrence's 22.5
+// GFLOP would take 0.34 ms on the fp32 CUDA cores), so operations bound
+// it.  This design moves more than the compulsory bytes: kernel 2 reads x
+// and dy once more and writes the states h and G (117 MB each) that
+// kernel 3 reads.  Kernel 3 takes most of the time: with one block of 8
+// warps an SM, two warps a scheduler, its chain per head (the products,
+// the elementwise pass over dM, the sums and the six barriers between
+// them) is bound by latency, at about half the mma.sync rate in its
+// product phases.
 
 namespace {
 
-constexpr int kBwdQ = 8;        // steps per chunk (4 for a state of 128 rows)
-constexpr int kBwdCols = 32;    // state columns per block: one per lane
+constexpr int kSub = 16;             // rows per pivot of the exponents
+constexpr int kNSub = kQ / kSub;     // pivots per chunk
 constexpr int kBwdWarps = 8;
 constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kHeadGroup = 8;        // heads of a batch row per block of 3
+// The exponents of a chunk, per (stream, chunk) in scratch: dt, exp(cum),
+// exp(cum_end - cum), w, exp(suf) [kQ] each, erow [kQ][kNSub], E, and L
+// on the diagonal sub-blocks [kNSub][kSub][kSub] (0 above the diagonal).
+// suf_j is d summed after row j through its sub-block's end, and erow[i]
+// [J] = exp(d summed from row i's sub-block start through i + over the
+// sub-blocks strictly between J and i's), J below i's sub-block: L_ij =
+// erow[i][J] exp(suf_j) off the diagonal sub-blocks, both factors <= 1.
+constexpr int kDtAt = 0;
+constexpr int kEcumAt = kQ;
+constexpr int kErestAt = 2 * kQ;
+constexpr int kWAt = 3 * kQ;
+constexpr int kEsufAt = 4 * kQ;
+constexpr int kErowAt = 5 * kQ;
+constexpr int kEndAt = kErowAt + kQ * kNSub;
+constexpr int kDiagAt = kEndAt + 4;
+constexpr int kExpoFloats = kDiagAt + kNSub * kSub * kSub;
+// the exponents kernel's working space after them: d, pre, suf [kQ]
+constexpr int kWorkFloats = 3 * kQ;
+
+static_assert(kQ == 4 * kSub && kBwdWarps == 8,
+              "two warps per 16-row tile of a chunk");
 
 struct BwdArgs {
   const float *x, *dt, *b, *c, *a, *h0, *dy, *dhf;
   float *dx, *ddt, *db, *dc, *da, *dh0;
-  float *starts, *ddt_part, *db_part, *dc_part, *da_part;  // scratch
-  int B, H, S, P, N, NC, NT, na;
-  int x_sb, x_sh, x_st, dt_sb, dt_sh, dt_st, bc_sb, bc_sh, bc_st, a_sb,
-      a_sh, ddt_sb, ddt_sh, ddt_st;
+  float *hst, *gst, *expo, *da_part, *db_part, *dc_part;  // scratch
+  int B, H, S, P, N, NC, NG, na;
+  int ls, pz;   // the states' row stride in scratch, the columns written
+  int x_sb, x_sh, x_st, dt_sb, dt_sh, dt_st, bc_sb, bc_st, a_sb, a_sh,
+      ddt_sb, ddt_sh, ddt_st;
+  int vec_x, vec_bc, vec_s;   // 16-byte copies: x and dy, b and c, states
 };
 
-// The chunk length of the backward for a padded state of NP rows: the Q
-// states and Q g's of a chunk live in shared memory.
-template <int NP>
-struct BwdLayout {
-  static constexpr int Q = NP <= 64 ? kBwdQ : kBwdQ / 2;
-  static constexpr int LC = kBwdCols + 1;           // row stride: no conflicts
-  static constexpr int G = 0;                       // [Q][NP][LC] g_t
-  static constexpr int HS = G + Q * NP * LC;        // [Q+1][NP][LC] h_{t-1}
-  static constexpr int X = HS + (Q + 1) * NP * LC;  // [Q][32]
-  static constexpr int DY = X + Q * kBwdCols;       // [Q][32]
-  static constexpr int BB = DY + Q * kBwdCols;      // [Q][NP]
-  static constexpr int CC = BB + Q * NP;            // [Q][NP]
-  static constexpr int DT = CC + Q * NP;            // [Q]
-  static constexpr int AL = DT + Q;                 // [Q] alpha
-  static constexpr int DA = AL + Q;                 // [kBwdWarps]
-  static constexpr size_t bytes = (DA + kBwdWarps) * sizeof(float);
+struct Expo {
+  float *dt, *ecum, *erest, *w, *esuf, *erow, *eend, *diag;
+  float *d, *pre, *suf;   // the exponents kernel's only
 };
 
-template <int NP>
+__device__ __forceinline__ Expo expo_at(float* p) {
+  return {p + kDtAt,   p + kEcumAt, p + kErestAt, p + kWAt,
+          p + kEsufAt, p + kErowAt, p + kEndAt,   p + kDiagAt,
+          p + kExpoFloats, p + kExpoFloats + kQ, p + kExpoFloats + 2 * kQ};
+}
+
+// One warp: the exponents of the chunk at t0 (tn rows in S) of a stream,
+// lane l holding rows 2l and 2l + 1, each sub-block of 16 rows in 8 lanes.
+// Rows past S read dt = 0.  Every sum is of terms of one sign.
+__device__ void chunk_exponents(const Expo& ex, const float* dt,
+                                int64_t dtoff, int dt_st, int t0, int tn,
+                                float av, int lane) {
+  const int r0 = 2 * lane;
+  const float dt0 = r0 < tn ? dt[dtoff + (int64_t)(t0 + r0) * dt_st] : 0.f;
+  const float dt1 =
+      r0 + 1 < tn ? dt[dtoff + (int64_t)(t0 + r0 + 1) * dt_st] : 0.f;
+  const float d0 = dt0 * av, d1 = dt1 * av;
+  const int sl = lane & 7;
+  // d summed from the sub-block's start through each row, and after each
+  // row through the sub-block's end (segmented shuffle scans of the pairs)
+  float run = d0 + d1;
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1) {
+    const float v = __shfl_up_sync(kFull, run, off);
+    if (sl >= off) run += v;
+  }
+  float excl = __shfl_up_sync(kFull, run, 1);
+  if (sl == 0) excl = 0.f;
+  const float pre0 = excl + d0, pre1 = pre0 + d1;
+  float rrun = d0 + d1;
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1) {
+    const float v = __shfl_down_sync(kFull, rrun, off);
+    if (sl + off < 8) rrun += v;
+  }
+  float rexcl = __shfl_down_sync(kFull, rrun, 1);
+  if (sl == 7) rexcl = 0.f;
+  const float suf1 = rexcl, suf0 = d1 + rexcl;
+  float tot[kNSub];
+#pragma unroll
+  for (int k = 0; k < kNSub; ++k) tot[k] = __shfl_sync(kFull, pre1, 8 * k + 7);
+  const int sb = lane >> 3;
+  float before = 0.f, after = 0.f, total = 0.f;
+#pragma unroll
+  for (int k = 0; k < kNSub; ++k) {
+    if (k < sb) before += tot[k];
+    total += tot[k];
+  }
+#pragma unroll
+  for (int k = kNSub - 1; k >= 0; --k)
+    if (k > sb) after += tot[k];
+  ex.d[r0] = d0;
+  ex.d[r0 + 1] = d1;
+  ex.dt[r0] = dt0;
+  ex.dt[r0 + 1] = dt1;
+  ex.pre[r0] = pre0;
+  ex.pre[r0 + 1] = pre1;
+  ex.suf[r0] = suf0;
+  ex.suf[r0 + 1] = suf1;
+  // exp(cum) is 0 on rows past S: a bulk copy leaves the rows of a ragged
+  // chunk's stage as they were, and both of its scales then read 0
+  ex.ecum[r0] = r0 < tn ? expf(before + pre0) : 0.f;
+  ex.ecum[r0 + 1] = r0 + 1 < tn ? expf(before + pre1) : 0.f;
+  const float er0 = expf(suf0 + after), er1 = expf(suf1 + after);
+  ex.erest[r0] = er0;
+  ex.erest[r0 + 1] = er1;
+  ex.w[r0] = er0 * dt0;
+  ex.w[r0 + 1] = er1 * dt1;
+  ex.esuf[r0] = expf(suf0);
+  ex.esuf[r0 + 1] = expf(suf1);
+  // erow: the sub-blocks strictly between J and this one, summed from J up
+#pragma unroll
+  for (int bj = 0; bj < kNSub; ++bj) {
+    float mid = 0.f;
+#pragma unroll
+    for (int k = 0; k < kNSub; ++k)
+      if (k > bj && k < sb) mid += tot[k];
+    ex.erow[r0 * kNSub + bj] = bj < sb ? expf(pre0 + mid) : 0.f;
+    ex.erow[(r0 + 1) * kNSub + bj] = bj < sb ? expf(pre1 + mid) : 0.f;
+  }
+  if (lane == 0) ex.eend[0] = expf(total);
+}
+
+// The diagonal sub-blocks' L, a thread per column j (kNSub * kSub
+// threads): d[j+1] + ... + d[i] summed down the column, 0 above the
+// diagonal
+__device__ void diag_decays(const Expo& ex, int tid) {
+  const int sb = tid / kSub, c = tid % kSub;
+  float* col = ex.diag + sb * kSub * kSub + c;
+  float s = 0.f;
+#pragma unroll
+  for (int r = 0; r < kSub; ++r) {
+    if (r > c) s += ex.d[sb * kSub + r];
+    col[r * kSub] = r < c ? 0.f : __expf(s);
+  }
+}
+
+// acc[i] += A (the warp's 16 rows, K in [k0, k1)) x B (K x n8 tile i) for
+// i < nn <= NT, in 3xTF32, one fresh accumulator per stage of at most 64
+// along K added into acc in fp32.  fa(k, av) gives the A fragment of the
+// 8-step at k (a0..a3), fb(k, i, b0, b1) the B fragment of tile i.
+template <int NT, typename FA, typename FB>
+__device__ __forceinline__ void warp_gemm(float acc[][4], int k0, int k1,
+                                          int nn, FA fa, FB fb) {
+#pragma unroll 1
+  for (int s0 = k0; s0 < k1; s0 += kStageK) {
+    Tiles<NT> part;
+    part.zero();
+    const int s1 = min(s0 + kStageK, k1);
+#pragma unroll 2
+    for (int k = s0; k < s1; k += 8) {
+      float av[4];
+      fa(k, av);
+      uint32_t ab[4], as[4], bf[NT][4];
+      split4(av[0], av[1], av[2], av[3], ab, as);
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        if (i < nn) {
+          float b0, b1;
+          fb(k, i, b0, b1);
+          split(b0, bf[i][0], bf[i][1]);
+          split(b1, bf[i][2], bf[i][3]);
+        }
+      }
+      part.mma3(ab, as, bf, nn);
+    }
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] += part.c[i][e];
+  }
+}
+
+// An A fragment read along its rows, keys renumbered: p at (row g, key
+// k + 2t); logical key t is k + 2t, t + 4 is k + 2t + 1, one 8-byte load
+// per row
+__device__ __forceinline__ void frag_rows(const float* p, int ld, float* av,
+                                          float s0 = 1.f, float s1 = 1.f) {
+  const float2 u = *reinterpret_cast<const float2*>(p);
+  const float2 v = *reinterpret_cast<const float2*>(p + 8 * ld);
+  av[0] = u.x * s0;
+  av[1] = v.x * s1;
+  av[2] = u.y * s0;
+  av[3] = v.y * s1;
+}
+
+// rows r < rn (row stride rs) and columns c < cn of src into dst [R][CW]
+// (row stride ls), the rest zero-filled; safe: any valid address
+template <int R, int CW>
+__device__ __forceinline__ void copy_tile(float* dst, int ls,
+                                          const float* src, int64_t rs,
+                                          int rn, int cn, int vec, int tid,
+                                          const float* safe) {
+  if (vec) {
+#pragma unroll 1
+    for (int idx = tid; idx < R * (CW / 4); idx += kBwdThreads) {
+      const int r = idx / (CW / 4), col = 4 * (idx % (CW / 4));
+      const bool in = r < rn && col < cn;
+      cp_async16(dst + r * ls + col, in ? src + r * rs + col : safe, in);
+    }
+  } else {
+#pragma unroll 1
+    for (int idx = tid; idx < R * CW; idx += kBwdThreads) {
+      const int r = idx / CW, col = idx % CW;
+      const bool in = r < rn && col < cn;
+      cp_async4(dst + r * ls + col, in ? src + r * rs + col : safe, in);
+    }
+  }
+}
+
+// Bulk copies (the TMA unit, cp.async.bulk) completing on an mbarrier:
+// one instruction moves a contiguous run of bytes (a multiple of 16, both
+// ends on 16 bytes) while the issuing warp goes on.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// the arrival of this phase, expecting `bytes` of bulk copies; the
+// shared memory they overwrite was last read by the generic proxy
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "fence.proxy.async.shared::cta;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// A block of kExpoThreads per (stream, chunk): the chunk's exponents and
+// the diagonal sub-blocks' L, to scratch.
+constexpr int kExpoThreads = kNSub * kSub;
+__global__ void __launch_bounds__(kExpoThreads)
+    mamba2_scan_bwd_exponents_kernel(BwdArgs g) {
+  __shared__ __align__(16) float sm[kExpoFloats + kWorkFloats];
+  const int ck = blockIdx.x, stream = blockIdx.y, tid = threadIdx.x;
+  const int bi = stream / g.H, hi = stream % g.H;
+  const int t0 = ck * kQ, tn = min(kQ, g.S - t0);
+  const Expo ex = expo_at(sm);
+  if (tid < 32)
+    chunk_exponents(ex, g.dt,
+                    (int64_t)bi * g.dt_sb + (int64_t)hi * g.dt_sh, g.dt_st,
+                    t0, tn, g.a[(int64_t)bi * g.a_sb + (int64_t)hi * g.a_sh],
+                    tid);
+  __syncthreads();
+  diag_decays(ex, tid);
+  __syncthreads();
+  float4* eo = reinterpret_cast<float4*>(
+      g.expo + ((int64_t)stream * g.NC + ck) * kExpoFloats);
+  for (int i = tid; i < kExpoFloats / 4; i += kExpoThreads)
+    eo[i] = reinterpret_cast<const float4*>(sm)[i];
+}
+
+// NP: N padded (32, 64 or 128); PT: channels per block (16 or 64).  Row
+// strides = 4 mod 32: renumbered fragment reads down a column are
+// conflict-free.
+constexpr int kWalkStages = 2;
+template <int NP, int PT>
+struct WalkLayout {
+  static constexpr int LX = PT + 4, LB = NP + 4;
+  static constexpr int OP = 0;                        // [stage][kQ][LB]
+  static constexpr int RHS = OP + kWalkStages * kQ * LB;   // [stage][kQ][LX]
+  static constexpr int EX = RHS + kWalkStages * kQ * LX;   // [stage][kDiagAt]
+  static constexpr size_t bytes =
+      (EX + kWalkStages * kDiagAt) * sizeof(float);
+};
+
+// blockIdx.z 0: h forwards from h0 (or 0), h_next = E h + (diag(w) B)^T
+// X; 1: G backwards from dh_final (or 0), G_prev = E G + (diag(e) C)^T dY,
+// and dh0.  The state stays in the registers of the warps that own its
+// tiles (each update one fmaf, rounded to nearest) and is written to
+// scratch at every chunk, in kernel 3's row stride; the operands of the
+// next two chunks are in flight meanwhile.
+template <int NP, int PT>
+__global__ void __launch_bounds__(kBwdThreads)
+    mamba2_scan_bwd_states_kernel(BwdArgs g) {
+  using L = WalkLayout<NP, PT>;
+  constexpr int LX = L::LX, LB = L::LB;
+  constexpr int NT = PT / 16;                     // n8 tiles of an item
+  constexpr int ITEMS = 2 * (NP / 16);            // (row tile, half)
+  constexpr int IPW = (ITEMS + kBwdWarps - 1) / kBwdWarps;
+  extern __shared__ __align__(16) float smem[];
+  const int pt = blockIdx.x, stream = blockIdx.y, dir = blockIdx.z;
+  const int bi = stream / g.H, hi = stream % g.H, p0 = pt * PT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int nc = g.NC;
+  const float* op = dir ? g.c : g.b;
+  const float* rhs = dir ? g.dy : g.x;
+  const float* init = dir ? g.dhf : g.h0;
+  const int scale_at = dir ? kEcumAt : kWAt;
+  const int64_t np = (int64_t)g.N * g.P, nls = (int64_t)g.N * g.ls;
+  float* const out = (dir ? g.gst : g.hst) + (int64_t)stream * nc * nls;
+  const int pw = min(PT, g.P - p0);               // the block's channels
+
+  float st[IPW][NT][4];
+#pragma unroll
+  for (int k = 0; k < IPW; ++k)
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int it = warp + kBwdWarps * k;
+        const int n = 16 * (it >> 1) + gq + 8 * (e >> 1);
+        const int p = p0 + (it & 1) * (PT / 2) + 8 * i + 2 * tq + (e & 1);
+        st[k][i][e] = (init != nullptr && it < ITEMS && n < g.N && p < g.P)
+                          ? init[(int64_t)stream * np + (int64_t)n * g.P + p]
+                          : 0.f;
+      }
+
+  // chunk ck's operands into stage sg
+  auto issue = [&](int ck, int sg) {
+    const int t0 = ck * kQ, tn = min(kQ, g.S - t0);
+    float* od = smem + L::OP + sg * kQ * LB;
+    float* rd = smem + L::RHS + sg * kQ * LX;
+    float* ed = smem + L::EX + sg * kDiagAt;
+    const float* os = op + (int64_t)bi * g.bc_sb + (int64_t)t0 * g.bc_st;
+    const float* rsrc = rhs + (int64_t)bi * g.x_sb + (int64_t)hi * g.x_sh +
+                        (int64_t)t0 * g.x_st + p0;
+    const float* es = g.expo + ((int64_t)stream * nc + ck) * kExpoFloats;
+    copy_tile<kQ, NP>(od, LB, os, g.bc_st, tn, g.N, g.vec_bc, tid, op);
+    copy_tile<kQ, PT>(rd, LX, rsrc, g.x_st, tn, pw, g.vec_x, tid, rhs);
+    copy_tile<1, kDiagAt>(ed, 0, es, 0, 1, kDiagAt, 1, tid, g.expo);
+    cp_async_commit();
+  };
+  auto chunk_of = [&](int step) { return dir ? nc - 1 - step : step; };
+
+  for (int k = 0; k < kWalkStages - 1 && k < nc; ++k) issue(chunk_of(k), k);
+#pragma unroll 1
+  for (int step = 0; step < nc; ++step) {
+    const int ck = chunk_of(step), sg = step % kWalkStages;
+    if (step + 1 < nc)
+      cp_async_wait<kWalkStages - 2>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();   // also: every warp is done with stage (step - 1)
+    if (step + kWalkStages - 1 < nc)
+      issue(chunk_of(step + kWalkStages - 1),
+            (step + kWalkStages - 1) % kWalkStages);
+    const float* ops = smem + L::OP + sg * kQ * LB;
+    const float* rs = smem + L::RHS + sg * kQ * LX;
+    const float* scale = smem + L::EX + sg * kDiagAt + scale_at;
+    const float ee = smem[L::EX + sg * kDiagAt + kEndAt];
+    float* o = out + (int64_t)ck * nls;
+#pragma unroll
+    for (int k = 0; k < IPW; ++k) {
+      const int it = warp + kBwdWarps * k;
+      if (it >= ITEMS) continue;
+      const int n0 = 16 * (it >> 1), c0 = (it & 1) * (PT / 2);
+      // the state at the chunk's start (h) or end (G), to scratch (its
+      // columns from P to pz are 0 here: kernel 3 copies whole rows)
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int n = n0 + gq + 8 * half;
+          const int p = p0 + c0 + 8 * i + 2 * tq;
+          if (n >= g.N || p >= g.pz) continue;
+          float* q = o + (int64_t)n * g.ls + p;
+          if (g.ls % 2 == 0) {
+            *reinterpret_cast<float2*>(q) =
+                make_float2(st[k][i][2 * half], st[k][i][2 * half + 1]);
+          } else {
+            q[0] = st[k][i][2 * half];
+            if (p + 1 < g.pz) q[1] = st[k][i][2 * half + 1];
+          }
+        }
+      // the chunk's own update, keys renumbered in A and B alike
+      float acc[NT][4];
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+      warp_gemm<NT>(
+          acc, 0, kQ, NT,
+          [&](int kk, float* av) {
+            const int j = kk + 2 * tq;
+            const float s0 = scale[j], s1 = scale[j + 1];
+            const float* a = ops + j * LB + n0 + gq;
+            av[0] = a[0] * s0;
+            av[1] = a[8] * s0;
+            av[2] = a[LB] * s1;
+            av[3] = a[LB + 8] * s1;
+          },
+          [&](int kk, int i, float& b0, float& b1) {
+            const float* b = rs + (kk + 2 * tq) * LX + c0 + 8 * i + gq;
+            b0 = b[0];
+            b1 = b[LX];
+          });
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          st[k][i][e] = fmaf(ee, st[k][i][e], acc[i][e]);
+    }
+  }
+  if (dir == 1 && g.dh0 != nullptr) {
+#pragma unroll
+    for (int k = 0; k < IPW; ++k)
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int it = warp + kBwdWarps * k;
+          const int n = 16 * (it >> 1) + gq + 8 * (e >> 1);
+          const int p = p0 + (it & 1) * (PT / 2) + 8 * i + 2 * tq + (e & 1);
+          if (it < ITEMS && n < g.N && p < g.P)
+            g.dh0[(int64_t)stream * np + (int64_t)n * g.P + p] = st[k][i][e];
+        }
+  }
+}
+
+template <int NP, int PT>
+struct MainLayout {
+  // LH = 8 mod 32: a state row is 32-byte aligned in scratch, whence it
+  // comes by one bulk copy, and rows read along are conflict-free (N =
+  // 128 leaves no room: there the states come by cp.async)
+  static constexpr int LX = PT + 4, LB = NP + 4, LM = kQ + 4;
+  static constexpr int LH = NP == 128 ? PT + 4 : PT + 8;
+  static constexpr int BM = 0;                   // [kQ][LB] b
+  static constexpr int CM = BM + kQ * LB;        // [kQ][LB] c
+  static constexpr int DBS = CM + kQ * LB;       // [kQ][LB] db, the heads'
+  static constexpr int DCS = DBS + kQ * LB;      // [kQ][LB] dc  sums
+  static constexpr int X = DCS + kQ * LB;        // [kQ][LX]
+  static constexpr int DY = X + kQ * LX;         // [2][kQ][LX] by parity
+  static constexpr int HS = DY + 2 * kQ * LX;    // [NP][LH] h at the start
+  static constexpr int GS = HS + NP * LH;        // [2][NP][LH] G at the end
+  static constexpr int M = GS + 2 * NP * LH;     // [kQ][LM]
+  static constexpr int DSC = M + kQ * LM;        // [kQ][LM] dSc, then R
+  static constexpr int EX = DSC + kQ * LM;
+  static constexpr int UV = EX + 2 * kExpoFloats;   // [2][kQ] u, V
+  static constexpr int COLT = UV + 2 * kQ;       // [kNSub][kQ]
+  static constexpr int DR = COLT + kNSub * kQ;   // [kQ] R's rectangles
+  static constexpr int GH = DR + kQ;             // [kBwdWarps] <G, h>
+  static constexpr int MB = GH + kBwdWarps;      // 3 mbarriers: x and h,
+                                                 // dy, G, exponents x 2
+  static constexpr size_t bytes = (MB + 8) * sizeof(float);
+  static_assert(bytes <= 232448, "one block an SM");
+};
+
+template <int NP, int PT>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     mamba2_scan_bwd_chunk_kernel(BwdArgs g) {
-  using L = BwdLayout<NP>;
-  constexpr int Q = L::Q, LC = L::LC, R = NP / kBwdWarps;
+  using L = MainLayout<NP, PT>;
+  constexpr int LX = L::LX, LB = L::LB, LM = L::LM, LH = L::LH;
+  constexpr int NTN = NP / 8;     // n8 tiles across the state
+  constexpr int NTX = PT / 16;    // n8 tiles of half the channels
   extern __shared__ __align__(16) float smem[];
-  float* const gs = smem + L::G;
-  float* const hs = smem + L::HS;
+  float* const bs = smem + L::BM;
+  float* const cs = smem + L::CM;
+  float* const dbs = smem + L::DBS;
+  float* const dcs = smem + L::DCS;
   float* const xs = smem + L::X;
-  float* const dys = smem + L::DY;
-  float* const bs = smem + L::BB;
-  float* const cs = smem + L::CC;
-  float* const dts = smem + L::DT;
-  float* const als = smem + L::AL;
-  float* const das = smem + L::DA;
+  float* const hs = smem + L::HS;
+  float* const msm = smem + L::M;
+  float* const dscs = smem + L::DSC;
+  float* const uvs = smem + L::UV;
+  float* const colts = smem + L::COLT;
+  float* const drs = smem + L::DR;
+  float* const ghs = smem + L::GH;
 
-  const int stream = blockIdx.y, tile = blockIdx.x;
-  const int bi = stream / g.H, hi = stream % g.H;
+  const int ck = blockIdx.x, grp = blockIdx.y, bi = blockIdx.z;
+  const int h_lo = grp * kHeadGroup, h_hi = min(g.H, h_lo + kHeadGroup);
+  const int t0 = ck * kQ, tn = min(kQ, g.S - t0);
+  const int npt = (g.P + PT - 1) / PT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int p = tile * kBwdCols + lane;
-  const bool pin = p < g.P;
-  const int S = g.S, N = g.N;
-  const int blk = stream * g.NT + tile;
-  const int64_t xoff = (int64_t)bi * g.x_sb + (int64_t)hi * g.x_sh + p;
-  const int64_t dtoff = (int64_t)bi * g.dt_sb + (int64_t)hi * g.dt_sh;
-  const int64_t bcoff = (int64_t)bi * g.bc_sb + (int64_t)hi * g.bc_sh;
-  const float av = g.a[(int64_t)bi * g.a_sb + (int64_t)hi * g.a_sh];
-  float* const starts = g.starts + (int64_t)blk * g.NC * NP * kBwdCols;
+  const int gq = lane >> 2, tq = lane & 3;
+  // dM, Sc and dX: row tile rt, key (or channel) half ch, as the
+  // forward's scores; dY h^T and dC (warps 0-3) or X G^T and dB (4-7):
+  // row tile rs
+  const int rt = warp < 4 ? warp : 7 - warp;
+  const int ch = warp >> 2;
+  const int nq = rt + 1;
+  const int rs = warp & 3;
+  const bool cside = warp < 4;
+  // x and dy by cp.async from every thread; h, G (their scratch rows are
+  // this kernel's) and the exponents by one bulk copy each from warp 0
+  // when P fits one tile (mbarrier 0 for h, 1 + parity for G and the
+  // exponents), else by cp.async too
+  const bool bulk = npt == 1 && g.ls == LH;
+  uint64_t* const mbar = reinterpret_cast<uint64_t*>(smem + L::MB);
 
-  // chunk ck's x (and dy), b (and c), dt and alpha into shared memory;
-  // rows past S read as x = dy = b = c = dt = 0, alpha = 1
-  auto stage = [&](int ck, bool with_grads) {
-    const int t0 = ck * Q;
-    for (int i = tid; i < Q * kBwdCols; i += kBwdThreads) {
-      const int j = i / kBwdCols, col = tile * kBwdCols + i % kBwdCols;
-      const bool in = t0 + j < S && col < g.P;
-      const int64_t off = (int64_t)bi * g.x_sb + (int64_t)hi * g.x_sh +
-                          (int64_t)(t0 + j) * g.x_st + col;
-      xs[i] = in ? g.x[off] : 0.f;
-      if (with_grads) dys[i] = in ? g.dy[off] : 0.f;
+  auto load_head = [&](int h, int pt, int parts) {
+    const int64_t stream = (int64_t)bi * g.H + h;
+    const int p0 = pt * PT;
+    const int64_t xoff = (int64_t)bi * g.x_sb + (int64_t)h * g.x_sh +
+                         (int64_t)t0 * g.x_st + p0;
+    const int64_t soff = (stream * g.NC + ck) * g.N * g.ls + p0;
+    const int par = (h - h_lo) & 1;
+    float* const dyd = smem + L::DY + par * kQ * LX;
+    float* const gd = smem + L::GS + par * NP * LH;
+    float* const ed = smem + L::EX + par * kExpoFloats;
+    const float* const es = g.expo + (stream * g.NC + ck) * kExpoFloats;
+    if (parts & 1)
+      copy_tile<kQ, PT>(xs, LX, g.x + xoff, g.x_st, tn, g.P - p0, g.vec_x,
+                        tid, g.x);
+    if (parts & 2)   // dy, into the buffer of the head's parity
+      copy_tile<kQ, PT>(dyd, LX, g.dy + xoff, g.x_st, tn, g.P - p0,
+                        g.vec_x, tid, g.dy);
+    cp_async_commit();
+    if (bulk) {
+      if (warp == 0 && lane == 0) {
+        const uint32_t rows = 4 * g.N * LH;
+        if (parts & 1) {
+          mbar_expect(&mbar[0], rows);
+          bulk_copy(hs, g.hst + soff, rows, &mbar[0]);
+        }
+        if (parts & 2) {
+          mbar_expect(&mbar[1 + par], rows + 4 * kExpoFloats);
+          bulk_copy(gd, g.gst + soff, rows, &mbar[1 + par]);
+          bulk_copy(ed, es, 4 * kExpoFloats, &mbar[1 + par]);
+        }
+      }
+      return;
     }
-    for (int i = tid; i < Q * NP; i += kBwdThreads) {
-      const int j = i / NP, n = i % NP;
-      const bool in = t0 + j < S && n < N;
-      const int64_t off = bcoff + (int64_t)(t0 + j) * g.bc_st + n;
-      bs[i] = in ? g.b[off] : 0.f;
-      if (with_grads) cs[i] = in ? g.c[off] : 0.f;
-    }
-    if (tid < Q) {
-      const bool in = t0 + tid < S;
-      const float d = in ? g.dt[dtoff + (int64_t)(t0 + tid) * g.dt_st] : 0.f;
-      dts[tid] = d;
-      als[tid] = expf(d * av);
-    }
+    if (parts & 1)
+      copy_tile<NP, PT>(hs, LH, g.hst + soff, g.ls, g.N, g.P - p0, g.vec_s,
+                        tid, g.hst);
+    if (parts & 2)   // G, into the buffer of the head's parity
+      copy_tile<NP, PT>(gd, LH, g.gst + soff, g.ls, g.N, g.P - p0, g.vec_s,
+                        tid, g.gst);
+    if (parts & 4)   // the exponents, likewise
+      copy_tile<1, kExpoFloats>(ed, 0, es, 0, 1, kExpoFloats, 1, tid,
+                                g.expo);
+    cp_async_commit();
   };
 
-  // 1. forward: the state at the start of every chunk, into the scratch
-  float h[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int n = warp + kBwdWarps * i;
-    h[i] = (g.h0 != nullptr && pin && n < N)
-               ? g.h0[((int64_t)stream * N + n) * g.P + p]
-               : 0.f;
-  }
-#pragma unroll 1
-  for (int ck = 0; ck < g.NC; ++ck) {
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-      starts[((int64_t)ck * NP + warp + kBwdWarps * i) * kBwdCols + lane] =
-          h[i];
-    stage(ck, false);
-    __syncthreads();
-#pragma unroll 1
-    for (int j = 0; j < Q; ++j) {
-      const float dx = dts[j] * xs[j * kBwdCols + lane];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-        h[i] = fmaf(als[j], h[i], bs[j * NP + warp + kBwdWarps * i] * dx);
+  if (bulk) {   // the state rows past N, which no copy writes, read 0
+    for (int i = L::HS; i < L::M; i += kBwdThreads) {
+      if (i + tid < L::M) smem[i + tid] = 0.f;
+    }
+    if (tid == 0) {
+      for (int k = 0; k < 3; ++k) mbar_init(&mbar[k]);
+      mbar_init_fence();
     }
     __syncthreads();
   }
-
-  // 2. backward, chunk by chunk from the last
-  float gr[R];   // dL/dh_t flowing back into step t from the steps after it
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int n = warp + kBwdWarps * i;
-    gr[i] = (g.dhf != nullptr && pin && n < N)
-                ? g.dhf[((int64_t)stream * N + n) * g.P + p]
-                : 0.f;
+  {
+    const int64_t bcoff = (int64_t)bi * g.bc_sb + (int64_t)t0 * g.bc_st;
+    copy_tile<kQ, NP>(bs, LB, g.b + bcoff, g.bc_st, tn, g.N, g.vec_bc, tid,
+                      g.b);
+    copy_tile<kQ, NP>(cs, LB, g.c + bcoff, g.bc_st, tn, g.N, g.vec_bc, tid,
+                      g.c);
+    cp_async_commit();
   }
-  float da_acc = 0.f;
-#pragma unroll 1
-  for (int ck = g.NC - 1; ck >= 0; --ck) {
-    const int t0 = ck * Q;
-    stage(ck, true);
-    __syncthreads();
-    // the chunk's states h_{t0-1} .. h_{t0+Q-1}, recomputed from its start
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int n = warp + kBwdWarps * i;
-      h[i] = starts[((int64_t)ck * NP + n) * kBwdCols + lane];
-      hs[n * LC + lane] = h[i];
-    }
-#pragma unroll 1
-    for (int j = 0; j < Q; ++j) {
-      const float dx = dts[j] * xs[j * kBwdCols + lane];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int n = warp + kBwdWarps * i;
-        h[i] = fmaf(als[j], h[i], bs[j * NP + n] * dx);
-        hs[((j + 1) * NP + n) * LC + lane] = h[i];
-      }
-    }
-    // g_t for the chunk's steps, last first
-#pragma unroll 1
-    for (int j = Q - 1; j >= 0; --j) {
-      const float dyp = dys[j * kBwdCols + lane];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int n = warp + kBwdWarps * i;
-        const float gt = fmaf(cs[j * NP + n], dyp, gr[i]);
-        gs[(j * NP + n) * LC + lane] = gt;
-        gr[i] = als[j] * gt;
-      }
-    }
-    __syncthreads();
-    // per step (a warp each) and column (a lane each): sx = g_t^T b_t, dx,
-    // and the step's ddt partial x . sx + a alpha <g_t, h_{t-1}>
-    for (int j = warp; j < Q; j += kBwdWarps) {
-      float sx = 0.f, gh = 0.f;
-#pragma unroll 4
-      for (int n = 0; n < NP; ++n) {
-        const float gt = gs[(j * NP + n) * LC + lane];
-        sx = fmaf(bs[j * NP + n], gt, sx);
-        gh = fmaf(gt, hs[(j * NP + n) * LC + lane], gh);
-      }
-      const int t = t0 + j;
-      if (t < S && pin) g.dx[xoff + (int64_t)t * g.x_st] = dts[j] * sx;
-      float q = xs[j * kBwdCols + lane] * sx;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        q += __shfl_xor_sync(kFull, q, off);
-        gh += __shfl_xor_sync(kFull, gh, off);
-      }
-      if (t < S && lane == 0)
-        g.ddt_part[(int64_t)blk * S + t] = fmaf(av * als[j], gh, q);
-      da_acc = fmaf(dts[j] * als[j], gh, da_acc);
-    }
-    // per step and row: db = dt g_t x_t and dc = h_t dy_t over the block's
-    // columns
-    for (int i = tid; i < Q * NP; i += kBwdThreads) {
-      const int j = i / NP, n = i % NP, t = t0 + j;
-      if (t >= S || n >= N) continue;
-      const float* gp = gs + (j * NP + n) * LC;
-      const float* hp = hs + ((j + 1) * NP + n) * LC;
-      float db = 0.f, dc = 0.f;
-#pragma unroll 8
-      for (int col = 0; col < kBwdCols; ++col) {
-        db = fmaf(gp[col], xs[j * kBwdCols + col], db);
-        dc = fmaf(hp[col], dys[j * kBwdCols + col], dc);
-      }
-      const int64_t o = ((int64_t)blk * S + t) * N + n;
-      g.db_part[o] = dts[j] * db;
-      g.dc_part[o] = dc;
-    }
-    __syncthreads();
-  }
-  if (g.dh0 != nullptr) {
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int n = warp + kBwdWarps * i;
-      if (pin && n < N) g.dh0[((int64_t)stream * N + n) * g.P + p] = gr[i];
-    }
-  }
-  if (lane == 0) das[warp] = da_acc;
+  if (npt == 1) load_head(h_lo, 0, 7);
+  cp_async_wait<0>();
   __syncthreads();
-  if (tid == 0) {
-    float s = 0.f;
-    for (int w = 0; w < kBwdWarps; ++w) s += das[w];
-    g.da_part[blk] = s;
-  }
-}
 
-// The fixed-order sums: db and dc over the heads that share b/c and the
-// column tiles ([B, S, N] contiguous; B counts the b/c streams), ddt over
-// the tiles (in dt's layout), da over the streams that share each element
-// of a (a contiguous, na elements).
-__global__ void mamba2_scan_bwd_reduce_kernel(BwdArgs g) {
-  const int64_t nbc = (int64_t)g.B * g.S * g.N;
-  const int64_t ndt = (int64_t)g.B * g.H * g.S;
-  const int64_t total = nbc + ndt + g.na;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    if (i < nbc) {
-      const int n = (int)(i % g.N);
-      const int64_t bt = i / g.N;
-      const int t = (int)(bt % g.S), bi = (int)(bt / g.S);
-      float db = 0.f, dc = 0.f;
-      for (int hi = 0; hi < g.H; ++hi)
-        for (int tile = 0; tile < g.NT; ++tile) {
-          const int64_t o =
-              (((int64_t)(bi * g.H + hi) * g.NT + tile) * g.S + t) * g.N + n;
-          db += g.db_part[o];
-          dc += g.dc_part[o];
-        }
-      g.db[i] = db;
-      g.dc[i] = dc;
-    } else if (i < nbc + ndt) {
-      const int64_t j = i - nbc;
-      const int t = (int)(j % g.S);
-      const int stream = (int)(j / g.S);
-      float s = 0.f;
-      for (int tile = 0; tile < g.NT; ++tile)
-        s += g.ddt_part[((int64_t)stream * g.NT + tile) * g.S + t];
-      const int bi = stream / g.H, hi = stream % g.H;
-      g.ddt[(int64_t)bi * g.ddt_sb + (int64_t)hi * g.ddt_sh +
-            (int64_t)t * g.ddt_st] = s;
-    } else {
-      const int e = (int)(i - nbc - ndt);
-      float s = 0.f;
-      for (int stream = 0; stream < g.B * g.H; ++stream) {
-        const int bi = stream / g.H, hi = stream % g.H;
-        if (bi * g.a_sb + hi * g.a_sh != e) continue;
-        for (int tile = 0; tile < g.NT; ++tile)
-          s += g.da_part[stream * g.NT + tile];
+  // Sc = C B^T on the warp's key tiles, once for the group's heads
+  float sc[4][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[q][e] = 0.f;
+  warp_gemm<4>(
+      sc, 0, NP, nq,
+      [&](int k, float* av) {
+        frag_rows(cs + (16 * rt + gq) * LB + k + 2 * tq, LB, av);
+      },
+      [&](int k, int i, float& b0, float& b1) {
+        const float2 u = *reinterpret_cast<const float2*>(
+            bs + (8 * (ch + 2 * i) + gq) * LB + k + 2 * tq);
+        b0 = u.x;
+        b1 = u.y;
+      });
+
+#pragma unroll 1
+  for (int h = h_lo; h < h_hi; ++h) {
+    const int64_t stream = (int64_t)bi * g.H + h;
+    const float av = g.a[(int64_t)bi * g.a_sb + (int64_t)h * g.a_sh];
+    const bool first = h == h_lo;
+    const bool pref = npt == 1 && h + 1 < h_hi;
+    const int hh = h - h_lo, par = hh & 1;
+    const Expo ex = expo_at(smem + L::EX + par * kExpoFloats);
+    const float* const dys = smem + L::DY + par * kQ * LX;
+    const float* const gsm = smem + L::GS + par * NP * LH;
+
+    // 1. dM = dY X^T, A12 = dY h^T or X G^T, <G, h>, over the P tiles
+    float dm[4][4], a12[NTN][4], gh = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dm[q][e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NTN; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a12[i][e] = 0.f;
+#pragma unroll 1
+    for (int pt = 0; pt < npt; ++pt) {
+      if (npt > 1) {
+        __syncthreads();
+        load_head(h, pt, pt == 0 ? 7 : 3);
       }
-      g.da[e] = s;
+      cp_async_wait<0>();
+      if (bulk) {
+        mbar_wait(&mbar[0], hh & 1);
+        mbar_wait(&mbar[1 + par], (hh >> 1) & 1);
+      }
+      __syncthreads();
+      // the next head's dy, G and exponents land under this one
+      if (pref) load_head(h + 1, 0, 6);
+      warp_gemm<4>(
+          dm, 0, PT, nq,
+          [&](int k, float* a) {
+            frag_rows(dys + (16 * rt + gq) * LX + k + 2 * tq, LX, a);
+          },
+          [&](int k, int i, float& b0, float& b1) {
+            const float2 u = *reinterpret_cast<const float2*>(
+                xs + (8 * (ch + 2 * i) + gq) * LX + k + 2 * tq);
+            b0 = u.x;
+            b1 = u.y;
+          });
+      const float* lhs = cside ? dys : xs;
+      const float* rhs = cside ? hs : gsm;
+      warp_gemm<NTN>(
+          a12, 0, PT, NTN,
+          [&](int k, float* a) {
+            frag_rows(lhs + (16 * rs + gq) * LX + k + 2 * tq, LX, a);
+          },
+          [&](int k, int i, float& b0, float& b1) {
+            const float2 u = *reinterpret_cast<const float2*>(
+                rhs + (8 * i + gq) * LH + k + 2 * tq);
+            b0 = u.x;
+            b1 = u.y;
+          });
+#pragma unroll
+      for (int idx = tid; idx < NP * PT / 4; idx += kBwdThreads) {
+        const int o = (idx / (PT / 4)) * LH + 4 * (idx % (PT / 4));
+        const float4 hv = *reinterpret_cast<const float4*>(hs + o);
+        const float4 gv = *reinterpret_cast<const float4*>(gsm + o);
+        gh = fmaf(hv.x, gv.x, fmaf(hv.y, gv.y, fmaf(hv.z, gv.z,
+                                                    fmaf(hv.w, gv.w, gh))));
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      gh += __shfl_xor_sync(kFull, gh, off);
+    if (lane == 0) ghs[warp] = gh;
+
+    // 2. from dM's fragments: M and dSc (0 above the diagonal) into shared
+    //    memory, R = dM . M kept, and the column sums of dM . Sc . L.  The
+    //    warp's key tile q lies in sub-block q: L from the factors below
+    //    the diagonal sub-block, from the table on it (0 above the diagonal)
+    float rr[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float col[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 16 * rt + gq + 8 * (e >> 1);
+        const int j = 8 * (ch + 2 * q) + 2 * tq + (e & 1);
+        rr[q][e] = 0.f;
+        if (q < nq) {
+          const float l =
+              q < rt ? ex.erow[i * kNSub + q] * ex.esuf[j]
+                     : ex.diag[(q * kSub + i % kSub) * kSub + j % kSub];
+          const float dtj = ex.dt[j];
+          const float sl = sc[q][e] * l;
+          const float mv = sl * dtj;
+          msm[i * LM + j] = mv;
+          dscs[i * LM + j] = dm[q][e] * l * dtj;
+          rr[q][e] = dm[q][e] * mv;
+          col[e & 1] += dm[q][e] * sl;
+        }
+      }
+      if (q < nq) {
+#pragma unroll
+        for (int c2 = 0; c2 < 2; ++c2) {
+          float v = col[c2];
+          v += __shfl_xor_sync(kFull, v, 4);
+          v += __shfl_xor_sync(kFull, v, 8);
+          v += __shfl_xor_sync(kFull, v, 16);
+          if (gq == 0) colts[rt * kQ + 8 * (ch + 2 * q) + 2 * tq + c2] = v;
+        }
+      }
+    }
+    __syncthreads();
+    if (pref) load_head(h + 1, 0, 1);   // x and h are read
+
+    // 3. dC = dSc B + diag(e) dY h^T (warps 0-3) and dB = dSc^T C +
+    //    diag(w) X G^T (warps 4-7) over the group's heads, u and V
+    {
+      float tmp[NTN][4];
+#pragma unroll
+      for (int i = 0; i < NTN; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tmp[i][e] = 0.f;
+      if (cside) {
+        warp_gemm<NTN>(
+            tmp, 0, 16 * (rs + 1), NTN,
+            [&](int k, float* a) {
+              frag_rows(dscs + (16 * rs + gq) * LM + k + 2 * tq, LM, a);
+            },
+            [&](int k, int i, float& b0, float& b1) {
+              const float* p = bs + (k + 2 * tq) * LB + 8 * i + gq;
+              b0 = p[0];
+              b1 = p[LB];
+            });
+      } else {
+        warp_gemm<NTN>(
+            tmp, 16 * rs, kQ, NTN,
+            [&](int k, float* a) {
+              const float* p = dscs + (k + 2 * tq) * LM + 16 * rs + gq;
+              a[0] = p[0];
+              a[1] = p[8];
+              a[2] = p[LM];
+              a[3] = p[LM + 8];
+            },
+            [&](int k, int i, float& b0, float& b1) {
+              const float* p = cs + (k + 2 * tq) * LB + 8 * i + gq;
+              b0 = p[0];
+              b1 = p[LB];
+            });
+      }
+      const float* own = cside ? cs : bs;
+      const float* scale = cside ? ex.ecum : ex.w;
+      float* acc = cside ? dcs : dbs;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = 16 * rs + gq + 8 * half;
+        const float s = scale[row];
+        float part = 0.f;
+#pragma unroll
+        for (int i = 0; i < NTN; ++i)
+#pragma unroll
+          for (int c2 = 0; c2 < 2; ++c2) {
+            const int o = row * LB + 8 * i + 2 * tq + c2;
+            const float a = a12[i][2 * half + c2];
+            part = fmaf(own[o], a, part);
+            const float v = tmp[i][2 * half + c2] + s * a;
+            acc[o] = first ? v : acc[o] + v;
+          }
+        part += __shfl_xor_sync(kFull, part, 1);
+        part += __shfl_xor_sync(kFull, part, 2);
+        if (tq == 0) uvs[(cside ? 0 : kQ) + row] = cside ? s * part : part;
+      }
+    }
+
+    // 4. dX = M^T dY + diag(w) B G over the P tiles
+#pragma unroll 1
+    for (int pt = 0; pt < npt; ++pt) {
+      if (npt > 1) {
+        __syncthreads();
+        load_head(h, pt, 2);
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      const int c0 = ch * (PT / 2);
+      float t1[NTX][4], t2[NTX][4];
+#pragma unroll
+      for (int i = 0; i < NTX; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t1[i][e] = t2[i][e] = 0.f;
+      warp_gemm<NTX>(
+          t1, 16 * rt, kQ, NTX,
+          [&](int k, float* a) {
+            const float* p = msm + (k + 2 * tq) * LM + 16 * rt + gq;
+            a[0] = p[0];
+            a[1] = p[8];
+            a[2] = p[LM];
+            a[3] = p[LM + 8];
+          },
+          [&](int k, int i, float& b0, float& b1) {
+            const float* p = dys + (k + 2 * tq) * LX + c0 + 8 * i + gq;
+            b0 = p[0];
+            b1 = p[LX];
+          });
+      const float w0 = ex.w[16 * rt + gq], w1 = ex.w[16 * rt + gq + 8];
+      warp_gemm<NTX>(
+          t2, 0, NP, NTX,
+          [&](int k, float* a) {
+            frag_rows(bs + (16 * rt + gq) * LB + k + 2 * tq, LB, a, w0, w1);
+          },
+          [&](int k, int i, float& b0, float& b1) {
+            const float* p = gsm + (k + 2 * tq) * LH + c0 + 8 * i + gq;
+            b0 = p[0];
+            b1 = p[LH];
+          });
+      const int p0 = pt * PT;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = 16 * rt + gq + 8 * half;
+        if (row < tn) {
+          float* dr = g.dx + (int64_t)bi * g.x_sb + (int64_t)h * g.x_sh +
+                      (int64_t)(t0 + row) * g.x_st + p0;
+#pragma unroll
+          for (int i = 0; i < NTX; ++i) {
+            const int p = c0 + 8 * i + 2 * tq;
+            const float v0 = t1[i][2 * half] + t2[i][2 * half];
+            const float v1 = t1[i][2 * half + 1] + t2[i][2 * half + 1];
+            if (g.vec_x) {
+              if (p0 + p < g.P)
+                *reinterpret_cast<float2*>(dr + p) = make_float2(v0, v1);
+            } else {
+              if (p0 + p < g.P) dr[p] = v0;
+              if (p0 + p + 1 < g.P) dr[p + 1] = v1;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // 5. R over dSc, its exclusive row prefixes, then per column l the sum
+    //    over the rows k >= l: the rectangle k >= l, j < l
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q < nq)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dscs[(16 * rt + gq + 8 * (e >> 1)) * LM + 8 * (ch + 2 * q) +
+               2 * tq + (e & 1)] = rr[q][e];
+    __syncthreads();
+    {
+      const int k = tid >> 2, part = tid & 3;
+      const bool live = 16 * part <= k;
+      float* row = dscs + k * LM + 16 * part;
+      float v[16], run = 0.f;
+#pragma unroll
+      for (int m = 0; m < 16; ++m) {
+        v[m] = run;
+        if (live) run += row[m];
+      }
+      float incl = run;
+      float t = __shfl_up_sync(kFull, incl, 1);
+      if (part >= 1) incl += t;
+      t = __shfl_up_sync(kFull, incl, 2);
+      if (part >= 2) incl += t;
+      float off = __shfl_up_sync(kFull, incl, 1);
+      if (part == 0) off = 0.f;
+      if (live)
+#pragma unroll
+        for (int m = 0; m < 16; ++m) row[m] = off + v[m];
+    }
+    __syncthreads();
+    {
+      const int l = tid >> 2, part = tid & 3;
+      float s = 0.f;
+#pragma unroll
+      for (int m = 0; m < kQ / 4; ++m) {   // rows part, part + 4, ...
+        const int k = part + 4 * m;
+        const float v = dscs[k * LM + l];
+        s += k >= l ? v : 0.f;
+      }
+      s += __shfl_xor_sync(kFull, s, 1);
+      s += __shfl_xor_sync(kFull, s, 2);
+      if (part == 0) drs[l] = s;
+    }
+    __syncthreads();
+
+    // 6. one warp: D_l, ddt and the stream's da for the chunk
+    if (warp == 0) {
+      const int l0 = 2 * lane, l1 = l0 + 1;
+      const float u0 = uvs[l0], u1 = uvs[l1];
+      const float v0 = uvs[kQ + l0], v1 = uvs[kQ + l1];
+      float ru = u0 + u1;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float t = __shfl_down_sync(kFull, ru, off);
+        if (lane + off < 32) ru += t;
+      }
+      float rx = __shfl_down_sync(kFull, ru, 1);
+      if (lane == 31) rx = 0.f;
+      const float us1 = u1 + rx, us0 = u0 + us1;
+      const float wv0 = ex.w[l0] * v0, wv1 = ex.w[l1] * v1;
+      float pw = wv0 + wv1;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float t = __shfl_up_sync(kFull, pw, off);
+        if (lane >= off) pw += t;
+      }
+      float px = __shfl_up_sync(kFull, pw, 1);
+      if (lane == 0) px = 0.f;
+      float ghsum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kBwdWarps; ++w) ghsum += ghs[w];
+      const float eg = ex.eend[0] * ghsum;
+      const float dd0 = ((drs[l0] + us0) + px) + eg;
+      const float dd1 = ((drs[l1] + us1) + (px + wv0)) + eg;
+      float ct0 = 0.f, ct1 = 0.f;
+#pragma unroll
+      for (int r = 0; r < kNSub; ++r) {
+        if (r >= l0 / kSub) ct0 += colts[r * kQ + l0];
+        if (r >= l1 / kSub) ct1 += colts[r * kQ + l1];
+      }
+      const int64_t o = (int64_t)bi * g.ddt_sb + (int64_t)h * g.ddt_sh;
+      if (l0 < tn)
+        g.ddt[o + (int64_t)(t0 + l0) * g.ddt_st] =
+            av * dd0 + ct0 + v0 * ex.erest[l0];
+      if (l1 < tn)
+        g.ddt[o + (int64_t)(t0 + l1) * g.ddt_st] =
+            av * dd1 + ct1 + v1 * ex.erest[l1];
+      float da = ex.dt[l0] * dd0 + ex.dt[l1] * dd1;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        da += __shfl_xor_sync(kFull, da, off);
+      if (lane == 0) g.da_part[stream * g.NC + ck] = da;
+    }
+  }
+
+  // the group's db and dc: to db/dc (one group) or to its partials
+  __syncthreads();
+  const int64_t ooff = g.NG == 1
+                           ? (int64_t)bi * g.S * g.N
+                           : ((int64_t)bi * g.NG + grp) * g.S * g.N;
+  float* dbo = (g.NG == 1 ? g.db : g.db_part) + ooff;
+  float* dco = (g.NG == 1 ? g.dc : g.dc_part) + ooff;
+#pragma unroll 1
+  for (int idx = tid; idx < kQ * NP; idx += kBwdThreads) {
+    const int r = idx / NP, n = idx % NP;
+    if (r < tn && n < g.N) {
+      dbo[(int64_t)(t0 + r) * g.N + n] = dbs[r * LB + n];
+      dco[(int64_t)(t0 + r) * g.N + n] = dcs[r * LB + n];
     }
   }
 }
 
-template <int NP>
+// The fixed-order sums: db and dc over the head groups ([B, S, N]
+// contiguous; when there is more than one group), a thread an element;
+// then da over the streams and chunks that share each element of a (a
+// contiguous, na elements), a warp an element, its lanes over the streams
+// and the lanes' sums in lane order.
+__global__ void mamba2_scan_bwd_reduce_kernel(BwdArgs g) {
+  const int64_t nbc = g.NG > 1 ? (int64_t)g.B * g.S * g.N : 0;
+  const int64_t sn = (int64_t)g.S * g.N;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t gid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  for (int64_t i = gid; i < nbc; i += stride) {
+    const int64_t bi = i / sn, r = i - bi * sn;
+    float db = 0.f, dc = 0.f;
+    for (int grp = 0; grp < g.NG; ++grp) {
+      const int64_t o = (bi * g.NG + grp) * sn + r;
+      db += g.db_part[o];
+      dc += g.dc_part[o];
+    }
+    g.db[i] = db;
+    g.dc[i] = dc;
+  }
+  const int lane = threadIdx.x & 31;
+  for (int64_t e = gid >> 5; e < g.na; e += stride >> 5) {
+    float s = 0.f;
+    for (int stream = lane; stream < g.B * g.H; stream += 32) {
+      const int bi = stream / g.H, hi = stream % g.H;
+      if (bi * g.a_sb + hi * g.a_sh != e) continue;
+      for (int c = 0; c < g.NC; ++c)
+        s += g.da_part[(int64_t)stream * g.NC + c];
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1)
+      s += __shfl_down_sync(kFull, s, off);
+    if (lane == 0) g.da[e] = s;
+  }
+}
+
+template <int NP, int PT>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t bytes = BwdLayout<NP>::bytes;
+  constexpr int PW = NP == 128 ? 16 : 64;   // channels per walking block
+  constexpr size_t wbytes = WalkLayout<NP, PW>::bytes;
+  constexpr size_t mbytes = MainLayout<NP, PT>::bytes;
   static bool opted_in = false;
   if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mamba2_scan_bwd_chunk_kernel<NP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    cudaError_t err = cudaFuncSetAttribute(
+        mamba2_scan_bwd_states_kernel<NP, PW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wbytes);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(mamba2_scan_bwd_chunk_kernel<NP, PT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)mbytes);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
-  const dim3 grid(a.NT, a.B * a.H);
-  mamba2_scan_bwd_chunk_kernel<NP><<<grid, kBwdThreads, bytes, stream>>>(a);
+  const int bh = a.B * a.H;
+  mamba2_scan_bwd_exponents_kernel<<<dim3(a.NC, bh), kExpoThreads, 0,
+                                     stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int64_t total = (int64_t)a.B * a.S * a.N +
-                        (int64_t)a.B * a.H * a.S + a.na;
-  const int64_t want = (total + 255) / 256;
-  const int blocks = (int)(want < 132 * 16 ? (want > 0 ? want : 1) : 132 * 16);
-  mamba2_scan_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(a);
+  const dim3 g1((a.P + PW - 1) / PW, bh, 2);
+  mamba2_scan_bwd_states_kernel<NP, PW>
+      <<<g1, kBwdThreads, wbytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 g3(a.NC, a.NG, a.B);
+  mamba2_scan_bwd_chunk_kernel<NP, PT><<<g3, kBwdThreads, mbytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t total =
+      a.NG > 1 ? (int64_t)a.B * a.S * a.N : 32LL * a.na;
+  const int64_t w4 = (total + 255) / 256;
+  const int b4 = (int)(w4 < 132 * 16 ? w4 : 132 * 16);
+  mamba2_scan_bwd_reduce_kernel<<<b4, 256, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-int bwd_np(int N) { return N <= 16 ? 16 : N <= 32 ? 32 : N <= 64 ? 64 : 128; }
+int bwd_np(int N) { return N <= 32 ? 32 : N <= 64 ? 64 : 128; }
 
-int bwd_q(int N) { return bwd_np(N) <= 64 ? kBwdQ : kBwdQ / 2; }
+int bwd_pt(int N, int P) {
+  return bwd_np(N) == 128 ? 16 : P <= 32 ? 32 : 64;
+}
+
+int bwd_groups(int H) { return (H + kHeadGroup - 1) / kHeadGroup; }
+
+long long round4(long long n) { return (n + 3) & ~3LL; }
+
+// The states' row stride in scratch: kernel 3's shared-memory rows (LH,
+// so that a state is one bulk copy) when N <= 64, P fits one tile and
+// rows of P floats keep 16 bytes, else P
+int bwd_ls(int N, int P) {
+  return bwd_np(N) <= 64 && P <= bwd_pt(N, P) && P % 4 == 0
+             ? bwd_pt(N, P) + 8
+             : P;
+}
 
 }  // namespace
 
@@ -956,22 +1756,25 @@ int mamba2_scan_fwd(const void* x, const void* dt, const void* b,
   return (int)err;
 }
 
-// The scratch one backward call needs, in floats: per (stream, column
-// tile of 32) the state at the start of every chunk of the backward,
-// partials of ddt per step, of db and dc per step and row, and of da.
+// The scratch one backward call needs, in floats: per (stream, chunk)
+// the state at its start and the gradient at its end (N x P each), the
+// exponents and a partial of da; per (batch row, head group, step, state
+// row) partials of db and dc when the heads make more than one group of
+// kHeadGroup.  Every part starts on 16 bytes.
 long long mamba2_scan_bwd_scratch_floats(int B, int H, int S, int P, int N) {
   if (B < 1 || H < 1 || S < 0 || P < 1 || N < 1 || N > 128) return 0;
-  const long long nt = (P + kBwdCols - 1) / kBwdCols, q = bwd_q(N);
-  const long long nc = (S + q - 1) / q;
-  return (long long)B * H * nt *
-         (nc * bwd_np(N) * kBwdCols + S * (2LL * N + 1) + 1);
+  const long long nc = (S + kQ - 1) / kQ, bh = (long long)B * H;
+  const long long ng = bwd_groups(H);
+  return 2 * round4(bh * nc * N * bwd_ls(N, P)) + bh * nc * kExpoFloats +
+         round4(bh * nc) + (ng > 1 ? 2 * round4((long long)B * ng * S * N)
+                                   : 0);
 }
 
 // The backward of mamba2_scan_fwd, fp32 throughout.  x, dt, b, c, a and
-// h0 as the forward took them (h0 may be null); dy and dx take x's
-// strides; ddt has its own (batch, head, time) strides; dh_final may be
-// null (zero); dh0 is written when it is not null.  db and dc are [B, S,
-// N] contiguous: a b/c head stride of 0 sums them over the H heads that
+// h0 as the forward took them (h0 may be null; the b/c head stride must
+// be 0); dy and dx take x's strides; ddt has its own (batch, head, time)
+// strides; dh_final may be null (zero); dh0 is written when it is not
+// null.  db and dc are [B, S, N] contiguous, summed over the H heads that
 // share a row.  da is a's shape, contiguous, na elements (a contiguous):
 // each element sums the streams that read it.  scratch holds
 // mamba2_scan_bwd_scratch_floats(...) floats.  Returns a cudaError_t as
@@ -985,7 +1788,8 @@ int mamba2_scan_bwd(const void* x, const void* dt, const void* b,
                     int dt_st, int bc_sb, int bc_sh, int bc_st, int a_sb,
                     int a_sh, int ddt_sb, int ddt_sh, int ddt_st, int na,
                     void* stream) {
-  if (B < 0 || H < 1 || S < 0 || P < 1 || N < 1 || N > 128 || na < 1)
+  if (B < 0 || H < 1 || S < 0 || P < 1 || N < 1 || N > 128 || na < 1 ||
+      bc_sh != 0)
     return (int)cudaErrorInvalidValue;
   if ((long long)B * H > 65535) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
@@ -1010,8 +1814,8 @@ int mamba2_scan_bwd(const void* x, const void* dt, const void* b,
   g.S = S;
   g.P = P;
   g.N = N;
-  g.NT = (P + kBwdCols - 1) / kBwdCols;
-  g.NC = (S + bwd_q(N) - 1) / bwd_q(N);
+  g.NC = (S + kQ - 1) / kQ;
+  g.NG = bwd_groups(H);
   g.na = na;
   g.x_sb = x_sb;
   g.x_sh = x_sh;
@@ -1020,26 +1824,40 @@ int mamba2_scan_bwd(const void* x, const void* dt, const void* b,
   g.dt_sh = dt_sh;
   g.dt_st = dt_st;
   g.bc_sb = bc_sb;
-  g.bc_sh = bc_sh;
   g.bc_st = bc_st;
   g.a_sb = a_sb;
   g.a_sh = a_sh;
   g.ddt_sb = ddt_sb;
   g.ddt_sh = ddt_sh;
   g.ddt_st = ddt_st;
-  const long long bh = (long long)B * H;
-  g.starts = static_cast<float*>(scratch);
-  g.ddt_part = g.starts + bh * g.NT * g.NC * bwd_np(N) * kBwdCols;
-  g.db_part = g.ddt_part + bh * g.NT * S;
-  g.dc_part = g.db_part + bh * g.NT * S * N;
-  g.da_part = g.dc_part + bh * g.NT * S * N;
+  const long long bhc = (long long)B * H * g.NC;
+  g.ls = bwd_ls(N, P);
+  g.pz = g.ls == P ? P : bwd_pt(N, P);
+  const long long states = round4(bhc * N * g.ls);
+  g.hst = static_cast<float*>(scratch);
+  g.gst = g.hst + states;
+  g.expo = g.gst + states;
+  g.da_part = g.expo + bhc * kExpoFloats;
+  g.db_part = g.da_part + round4(bhc);
+  g.dc_part = g.db_part + (g.NG > 1 ? round4((long long)B * g.NG * S * N)
+                                    : 0);
+  g.vec_x = aligned16(x) && aligned16(dy) && aligned16(dx) && P % 4 == 0 &&
+            x_sb % 4 == 0 && x_sh % 4 == 0 && x_st % 4 == 0;
+  g.vec_bc = aligned16(b) && aligned16(c) && N % 4 == 0 && bc_sb % 4 == 0 &&
+             bc_st % 4 == 0;
+  g.vec_s = P % 4 == 0 && aligned16(h0) && aligned16(dh_final) &&
+            aligned16(dh0);
+  if (!aligned16(scratch)) return (int)cudaErrorInvalidValue;
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  switch (bwd_np(N)) {
-    case 16: return (int)launch_bwd<16>(g, cs);
-    case 32: return (int)launch_bwd<32>(g, cs);
-    case 64: return (int)launch_bwd<64>(g, cs);
-    default: return (int)launch_bwd<128>(g, cs);
-  }
+  const int np = bwd_np(N), pt = bwd_pt(N, P);
+  cudaError_t err;
+  if (np == 32)
+    err = pt == 32 ? launch_bwd<32, 32>(g, cs) : launch_bwd<32, 64>(g, cs);
+  else if (np == 64)
+    err = pt == 32 ? launch_bwd<64, 32>(g, cs) : launch_bwd<64, 64>(g, cs);
+  else
+    err = launch_bwd<128, 16>(g, cs);
+  return (int)err;
 }
 
 const char* mamba2_scan_error_string(int err) {

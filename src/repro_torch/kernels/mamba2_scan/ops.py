@@ -24,15 +24,18 @@ tests use it to skip.
 
 The op is differentiable on both devices.  On a CUDA tensor the forward
 launch and its backward, ``csrc/mamba2_scan.cu``'s ``mamba2_scan_bwd``
-(the states recomputed chunk by chunk from a forward sweep, the reverse
-recurrence of dL/dh_t in fp32 on the CUDA cores, every sum in a fixed
-order, so two calls give the same bits), are one
-``torch.autograd.Function`` for both layouts: in the model's layout the
-backward sums db and dc over the heads that share b/c and da over the
-batch rows that share a.  ``ref.mamba2_scan_bwd_ref`` is that backward
-in plain PyTorch.  ``bwd_launches`` counts backward calls on CUDA
-tensors.  There is no fallback: a backward that fails to build or launch
-raises.  The plain version on the CPU differentiates through autograd.
+(the chunked SSD form transposed, chunks of 64 on the tensor cores in
+3xTF32: the chunks' states h and gradients dL/dh walked once each way,
+then every chunk's products in parallel, eight heads that share b/c to a
+block; every sum in a fixed order, so two calls give the same bits), are
+one ``torch.autograd.Function`` for both layouts: in the model's layout
+the backward sums db and dc over the heads that share b/c and da over
+the batch rows that share a.  ``ref.mamba2_scan_chunked_bwd_ref`` is
+that backward's algebra in plain PyTorch; ``ref.mamba2_scan_bwd_ref``,
+the per-step reverse recurrence, is the card's yardstick.
+``bwd_launches`` counts backward calls on CUDA tensors.  There is no
+fallback: a backward that fails to build or launch raises.  The plain
+version on the CPU differentiates through autograd.
 """
 
 from __future__ import annotations

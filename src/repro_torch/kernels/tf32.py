@@ -85,7 +85,8 @@ def mma_sum(a: torch.Tensor, b: torch.Tensor, a_exact: bool,
              if x is not None and y is not None]
     k = a.shape[-1]
     stage_k = stage_k or max(k, 1)
-    total = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32)
+    total = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32,
+                        device=a.device)
     for s0 in range(0, k, stage_k):
         part = torch.zeros_like(total)
         for k0 in range(s0, min(s0 + stage_k, k), K_STEP):

@@ -1,10 +1,13 @@
 """PyTorch port: the backwards of the two scans on the CPU.
 
-``mamba2_scan_bwd_ref`` and ``rwkv6_wkv_bwd_ref`` are the algorithms of
-the CUDA kernels ``mamba2_scan_bwd`` and ``rwkv6_wkv_bwd`` (the states
-recomputed chunk by chunk from a forward sweep, the reverse recurrence of
-the gradient of the state) in plain PyTorch.  On the same numpy inputs
-they are held
+``mamba2_scan_chunked_bwd_ref`` is the algebra of the CUDA kernel
+``mamba2_scan_bwd`` (the chunked SSD form transposed: chunks of 64, every
+exponent a sum of one sign, the products in 3xTF32 as ``kernels/tf32.py``
+models them, the chunks' states passed in fp32); ``rwkv6_wkv_bwd_ref`` is
+that of ``rwkv6_wkv_bwd`` (the states recomputed chunk by chunk from a
+forward sweep, the reverse recurrence of the gradient of the state);
+``mamba2_scan_bwd_ref`` is the per-step reverse recurrence of Mamba2, the
+card's yardstick.  On the same numpy inputs they are held
 
 * against ``torch.autograd.grad`` through the plain per-step versions
   (``mamba2_scan_ref``, ``rwkv6_wkv_ref``, which compute in fp32 whatever
@@ -24,16 +27,18 @@ they are held
   plain versions, meet the same gates.
 
 Cases: with and without an initial state, S not a multiple of the chunks
-(77, 130, 37), dt near 0 and strong decays (a = -16 with dt up to 1.5;
-lw = -5), weak and mixed rwkv6 decays, lw > 0 on some channels (the
-kernel reads min(lw, 0): dlw is 0 there), ``dh_final`` given and None.
-Under the model's own decays (Mamba2's dt a down to ~ -40 a step,
-rwkv6's lw down to -5) the kernels' per-step algorithm is within 1e-5 of
-float64 on every gradient, and the chunked forms that training runs on
-the CPU within 1e-3: the tolerance of ``chip_smoke.py``'s card-vs-CPU
-training parity for these two archs.  The C entry points' signatures and
-the backward's chunk are checked against the CUDA sources (the compiler
-is on the card only).
+(77, 130, 37, 200; 128 fills the chunks of 64 exactly), dt near 0 and
+strong decays (a = -16 with dt up to 1.5; lw = -5), weak and mixed rwkv6
+decays, lw > 0 on some channels (the kernel reads min(lw, 0): dlw is 0
+there), ``dh_final`` given and None.  Under the model's own decays
+(Mamba2's dt a down to ~ -40 a step, rwkv6's lw down to -5) the per-step
+algorithms are within 1e-5 of float64 on every gradient, the Mamba2
+kernel's chunked algebra within 1e-4 (the card's ``KERNEL_TOL``), and the
+chunked forms that training runs on the CPU within 1e-3: the tolerance of
+``chip_smoke.py``'s card-vs-CPU training parity for these two archs.  The
+C entry points' signatures, the backwards' chunk constants and their
+kernels' names are checked against the CUDA sources (the compiler is on
+the card only).
 """
 
 import ctypes
@@ -55,7 +60,8 @@ from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked  # noqa: E402
 from repro.models.rwkv6 import wkv_chunked as jax_wkv_chunked  # noqa: E402
 from repro_torch.kernels.mamba2_scan import ops as mops  # noqa: E402
 from repro_torch.kernels.mamba2_scan.ref import (  # noqa: E402
-    BWD_CHUNK_ROWS as MAMBA_BWD_ROWS, mamba2_scan_bwd_ref, mamba2_scan_ref)
+    CHUNK_ROWS as MAMBA_CHUNK_ROWS, mamba2_scan_bwd_ref,
+    mamba2_scan_chunked_bwd_ref, mamba2_scan_ref)
 from repro_torch.kernels.rwkv6_wkv import ops as wops  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ref import (  # noqa: E402
     BWD_CHUNK_ROWS as WKV_BWD_ROWS, rwkv6_wkv_bwd_ref, rwkv6_wkv_ref)
@@ -65,6 +71,7 @@ from repro_torch.models.rwkv6 import wkv_chunked  # noqa: E402
 TOL_AUTOGRAD = 1e-5   # x max|want|: the plain version's autograd, fp32
 TOL_JAX = 1e-4        # x max|want|: jax.vjp of the JAX functions, fp32
 TOL_WKV_CHUNKED = 1e-3   # x max|want|: jax.vjp of wkv_chunked, fp32
+TOL_F64_CARD = 1e-4   # x max|want|: the card's KERNEL_TOL, vs float64
 
 
 @pytest.fixture(autouse=True)
@@ -235,6 +242,79 @@ def test_mamba2_model_layout_sums_vs_ssd_chunked(h0, with_dh):
         assert _rel(w, o) <= TOL_JAX
 
 
+# the reference's cases, plus chunks of 64 filled exactly (S = 128) and
+# three chunks, the last ragged, from an initial state (S = 200)
+MAMBA_CHUNKED_CASES = MAMBA_CASES + [
+    (2, 128, 16, 24, False, "default", True),
+    (2, 200, 16, 24, True, "default", True),
+]
+
+
+@pytest.mark.parametrize("case", MAMBA_CHUNKED_CASES)
+def test_mamba2_chunked_bwd_ref_vs_autograd_and_jax(case):
+    """The kernel's algebra (chunks of 64, the exponents summed from
+    pivots, the products in 3xTF32) against autograd through the per-step
+    plain version and ``jax.vjp`` of the JAX oracle."""
+    bh, s, p, n, h0, decay, with_dh = case
+    inputs = mamba_inputs(bh, s, p, n, seed=s + n, h0=h0, decay=decay)
+    cots = _cotangents((bh, s, p), (bh, n, p), seed=7 + s, with_dh=with_dh)
+    got = _present(mamba2_scan_chunked_bwd_ref(*_torch(inputs),
+                                               *_torch(cots)))
+    assert len(got) == (6 if h0 else 5)
+    want = _autograd(mamba2_scan_ref, inputs, cots)
+    oracle = _vjp(jax_scan_ref, inputs, cots)
+    for g, w, o in zip(got, want, oracle):
+        assert _rel(g.numpy(), w) <= TOL_AUTOGRAD
+        assert _rel(g.numpy(), o) <= TOL_JAX
+
+
+def _chunked_model_grads(x, dt, a_log, b, c, dy, h0=None, dhf=None):
+    """``mamba2_scan_chunked_bwd_ref`` on the model layout's inputs
+    broadcast to the kernel's, summed as the kernel sums them: dx, ddt
+    and (through a = -exp(a_log)) da_log, db, dc, and dh0 when h0 is
+    given, all in the model's layout."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    t = [torch.as_tensor(v) for v in (x, dt, a_log, b, c, dy)]
+    xt, dtt, alt, bt, ct, dyt = t
+    a = -torch.exp(alt)
+    dx, ddt, db, dc, da, dh0 = mamba2_scan_chunked_bwd_ref(
+        xt.transpose(1, 2).reshape(B * H, S, P),
+        dtt.transpose(1, 2).reshape(B * H, S),
+        bt[:, None].expand(B, H, S, N).reshape(B * H, S, N),
+        ct[:, None].expand(B, H, S, N).reshape(B * H, S, N),
+        a[None].expand(B, H).reshape(B * H),
+        None if h0 is None else torch.as_tensor(h0).reshape(B * H, N, P),
+        dyt.transpose(1, 2).reshape(B * H, S, P),
+        None if dhf is None else torch.as_tensor(dhf).reshape(B * H, N, P))
+    out = [dx.reshape(B, H, S, P).transpose(1, 2),
+           ddt.reshape(B, H, S).transpose(1, 2),
+           da.reshape(B, H).sum(0) * a,
+           db.reshape(B, H, S, N).sum(1), dc.reshape(B, H, S, N).sum(1)]
+    if h0 is not None:
+        out.append(dh0.reshape(B, H, N, P))
+    return out
+
+
+@pytest.mark.parametrize("h0,with_dh", [(False, False), (True, True)])
+def test_mamba2_chunked_bwd_model_layout_vs_ssd_chunked(h0, with_dh):
+    """``mamba2_scan_chunked_bwd_ref`` on the broadcast inputs, db and dc
+    summed over the heads and da over the batch, against ``jax.vjp`` of
+    the JAX ``ssd_chunked``: S = 96 is one chunk of 64 and a ragged one."""
+    B, H, S, P, N, chunk = 2, 3, 96, 16, 8, 16
+    x, dt, a_log, b, c, hh = _mamba_model_inputs(B, H, S, P, N, seed=13,
+                                                 h0=h0)
+    dy, dhf = _cotangents((B, S, H, P), (B, H, N, P), seed=14,
+                          with_dh=with_dh)
+    oracle = _vjp(lambda x_, dt_, al, b_, c_, h_: jax_ssd_chunked(
+        x_, dt_, al, b_, c_, chunk, h_), (x, dt, a_log, b, c, hh),
+        (dy, dhf))
+    got = _chunked_model_grads(x, dt, a_log, b, c, dy, hh, dhf)
+    assert len(got) == len(oracle)
+    for g, o in zip(got, oracle):
+        assert _rel(g.numpy(), o) <= TOL_JAX
+
+
 # ---------------------------------------------------------------------------
 # rwkv6_wkv
 # ---------------------------------------------------------------------------
@@ -395,12 +475,14 @@ def _grads(fn, inputs, dy, dtype):
 def test_mamba2_grads_vs_float64_under_model_decays():
     """dt = softplus of a unit normal and a = -exp(log U(1, 16)), as the
     model's init gives them (dt a down to ~ -40 a step), over one of
-    ``ssd_chunked``'s 256-step chunks: the kernels' per-step algorithm
-    (the CPU wrapper's plain version, which the card's kernel matches to
-    ~1e-6) within ``TOL_F64_KERNEL`` of float64 on every gradient; the
-    chunked form that training runs on the CPU, whose exponents are
-    differences of cumsums reaching thousands, within ``TOL_F64_CHUNKED``
-    (the gate of chip_smoke's card-vs-CPU training parity)."""
+    ``ssd_chunked``'s 256-step chunks: the per-step plain version (the
+    CPU wrapper's) within ``TOL_F64_KERNEL`` of float64 on every
+    gradient; the card kernel's chunked algebra
+    (``mamba2_scan_chunked_bwd_ref``: chunks of 64, every exponent a sum
+    of one sign) within ``TOL_F64_CARD``; the chunked form that training
+    runs on the CPU, whose exponents are differences of cumsums reaching
+    thousands, within ``TOL_F64_CHUNKED`` (the gate of chip_smoke's
+    card-vs-CPU training parity)."""
     B, S, H, P, N = 1, 256, 8, 16, 16
     rs = np.random.RandomState(31)
     x = rs.randn(B, S, H, P).astype(np.float32)
@@ -415,9 +497,11 @@ def test_mamba2_grads_vs_float64_under_model_decays():
         x_, dt_, b_, c_, al)[0], inputs, dy, torch.float32)
     chunked = _grads(lambda x_, dt_, al, b_, c_: ssd_chunked(
         x_, dt_, al, b_, c_, 256)[0], inputs, dy, torch.float32)
-    for g, c_, w in zip(kernel, chunked, want):
+    card = _chunked_model_grads(*inputs, dy)
+    for g, c_, k, w in zip(kernel, chunked, card, want):
         assert _rel(g, w) <= TOL_F64_KERNEL
         assert _rel(c_, w) <= TOL_F64_CHUNKED
+        assert _rel(k.double(), w) <= TOL_F64_CARD
 
 
 def test_rwkv6_grads_vs_float64_under_model_decays():
@@ -463,16 +547,28 @@ def _c_argtypes(source, fn: str):
     return want
 
 
+# per source: the backward's chunk constant, and its kernels besides the
+# reduce (mamba2_scan: the chunked SSD backward, whose chunk is the
+# forward's kQ; rwkv6_wkv: the per-step sweep's kBwdQ)
+BWD_CHUNK_CONSTANT = {"mamba2_scan": "kQ", "rwkv6_wkv": "kBwdQ"}
+BWD_KERNELS = {
+    "mamba2_scan": ("exponents", "states", "chunk"),
+    "rwkv6_wkv": ("chunk",),
+}
+
+
 @pytest.mark.parametrize("ops,prefix,rows", [
-    (mops, "mamba2_scan", MAMBA_BWD_ROWS), (wops, "rwkv6_wkv", WKV_BWD_ROWS)])
+    (mops, "mamba2_scan", MAMBA_CHUNK_ROWS),
+    (wops, "rwkv6_wkv", WKV_BWD_ROWS)])
 def test_backward_entry_points_match_the_source(ops, prefix, rows):
     assert ops.BWD_ARGTYPES == _c_argtypes(ops.SOURCE, f"int {prefix}_bwd")
     scratch = _c_argtypes(ops.SOURCE, f"long long {prefix}_bwd_scratch_floats")
     assert scratch == [ctypes.c_int] * len(scratch)
     src = ops.SOURCE.read_text()
-    assert int(re.search(r"constexpr int kBwdQ = (\d+);", src).group(1)) \
-        == rows
+    constant = BWD_CHUNK_CONSTANT[prefix]
+    assert int(re.search(rf"constexpr int {constant} = (\d+);",
+                         src).group(1)) == rows
     names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
                        r"\s+)?(\w+)", src)
-    assert {f"{prefix}_bwd_chunk_kernel", f"{prefix}_bwd_reduce_kernel"} \
-        <= set(names)
+    assert {f"{prefix}_bwd_{k}_kernel" for k in BWD_KERNELS[prefix]} \
+        | {f"{prefix}_bwd_reduce_kernel"} <= set(names)
