@@ -4497,23 +4497,26 @@ def phase_gmm_grads(torch, gmm) -> dict:
 
 # the scans' backwards: kernel, name, shape (the model's layout), h0 and
 # dh_final given, decay (``mamba_inputs``: "strong" is a = -16 with dt up
-# to 1.5).  The training shapes (zamba2-7b and rwkv6-7b at B 4, S 1024)
-# are timed; S = 1000 is not a multiple of the chunks.
+# to 1.5; ``rwkv_inputs``: "mixed" is half the channels at lw = -5, half
+# at |lw| ~ 3.4e-4).  The training shapes (zamba2-7b and rwkv6-7b at B 4,
+# S 1024) are timed; S = 1000 is not a multiple of the chunks.
 ZAMBA2_TRAIN = dict(B=4, H=112, S=1024, P=64, N=64)
+RWKV6_TRAIN = dict(B=4, H=64, S=1024, K=64)
 SCAN_BWD_CASES = [
     ("mamba2_scan", "zamba2_train", ZAMBA2_TRAIN, False, "default"),
     ("mamba2_scan", "zamba2_s1000_h0", dict(B=4, H=112, S=1000, P=64,
                                             N=64), True, "default"),
     ("mamba2_scan", "zamba2_train_strong", ZAMBA2_TRAIN, False, "strong"),
-    ("rwkv6_wkv", "rwkv6_train", dict(B=4, H=64, S=1024, K=64), False,
-     "default"),
+    ("rwkv6_wkv", "rwkv6_train", RWKV6_TRAIN, False, "default"),
     ("rwkv6_wkv", "rwkv6_s1000_h0", dict(B=4, H=64, S=1000, K=64), True,
      "default"),
+    ("rwkv6_wkv", "rwkv6_train_mixed", RWKV6_TRAIN, False, "mixed"),
 ]
 SCAN_BWD_TIMED = ("zamba2_train", "rwkv6_train")
-# the Mamba2 kernel against its own algebra in plain PyTorch
-# (``mamba2_scan_chunked_bwd_ref``) at this case
-SCAN_BWD_VS_CHUNKED = "zamba2_s1000_h0"
+# each backward kernel against its own algebra in plain PyTorch
+# (``mamba2_scan_chunked_bwd_ref``, ``rwkv6_wkv_chunked_bwd_ref``) at
+# these cases
+SCAN_BWD_VS_CHUNKED = ("zamba2_s1000_h0", "rwkv6_s1000_h0")
 SCAN_FWD_NOISE = 0.15   # the no-grad forward's device time against phase 3's
 SCAN_PLAIN_ITERS = 5    # autograd through the plain versions: ~0.6-0.8 s a
                         # call, so the median of 5
@@ -4558,30 +4561,40 @@ def scan_bwd_need(kernel: str, B, H, S, h0, P=None, N=None, K=None):
     gradients written once, fp32.  Flops of the per-step recurrence: 12
     per state element and step on the fp32 CUDA cores (the state
     recomputed, g_t's update and the four sums over it: one multiply-add
-    each).  For mamba2_scan also the products of the chunked SSD backward
-    that its kernel runs (chunks of ``CHUNK_ROWS``, the last ragged; q(q +
-    1) / 2 causal pairs in a chunk of q rows), 2 flops a multiply-add:
-    C B^T on the causal pairs once per b/c stream (a batch row), and per
-    head dM = dY X^T, M^T dY, dSc B and dSc^T C on the causal pairs (x P,
-    P, N, N) and U, Z, B G, dY h^T and X G^T (q N P each); else None."""
+    each).  And the products of the chunked backward that each kernel runs
+    (chunks of ``CHUNK_ROWS``, the last ragged; q(q + 1) / 2 causal pairs
+    in a chunk of q rows), 2 flops a multiply-add.  mamba2_scan: C B^T on
+    the causal pairs once per b/c stream (a batch row), and per head dM =
+    dY X^T, M^T dY, dSc B and dSc^T C on the causal pairs (x P, P, N, N)
+    and U, Z, B G, dY h^T and X G^T (q N P each).  rwkv6_wkv, per head: A,
+    dA = dY V^T and A^T dY on the causal pairs and dR's and dK's pivot
+    products on the pairs below the diagonal (x K each), and R~^T dY, K~ G,
+    dY h^T and V G^T (q K^2 each)."""
     bh = B * H
+
+    def pairs(rows: int, strict: bool) -> int:
+        total = 0
+        for t0 in range(0, S, rows):
+            q = min(rows, S - t0)
+            total += q * (q - 1) // 2 if strict else q * (q + 1) // 2
+        return total
     if kernel == "mamba2_scan":
         from repro_torch.kernels.mamba2_scan.ref import CHUNK_ROWS
         state = N * P
         per_call = 2 * bh * S * P + bh * S + 2 * B * S * N + H
         nbytes = 4 * (2 * per_call - bh * S * P
                       + (3 if h0 else 0) * bh * state)
-        pairs = 0
-        for t0 in range(0, S, CHUNK_ROWS):
-            q = min(CHUNK_ROWS, S - t0)
-            pairs += q * (q + 1) // 2
-        chunk_flops = 2 * pairs * N * B \
-            + bh * (2 * pairs * (2 * P + 2 * N) + 10 * S * N * P)
+        causal = pairs(CHUNK_ROWS, False)
+        chunk_flops = 2 * causal * N * B \
+            + bh * (2 * causal * (2 * P + 2 * N) + 10 * S * N * P)
     else:
+        from repro_torch.kernels.rwkv6_wkv.ref import CHUNK_ROWS
         state = K * K
         nbytes = 4 * (9 * bh * S * K + 2 * H * K
                       + (3 if h0 else 0) * bh * state)
-        chunk_flops = None
+        chunk_flops = 2 * bh * K * (3 * pairs(CHUNK_ROWS, False)
+                                    + 2 * pairs(CHUNK_ROWS, True)
+                                    + 4 * S * K)
     return nbytes, 12 * bh * S * state, chunk_flops
 
 
@@ -4620,19 +4633,52 @@ def mamba_vs_chunked_ref(torch, mops, call, dy, dhf, got) -> dict:
     return out
 
 
+def wkv_vs_chunked_ref(torch, call, dy, dhf, got) -> dict:
+    """The rwkv6 kernel's gradients ``got`` (model layout) against
+    ``rwkv6_wkv_chunked_bwd_ref`` on the same inputs in the kernel's
+    layout, du summed over the batch rows as the kernel sums it: relative
+    errors by gradient."""
+    from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_chunked_bwd_ref
+    r, k, v, lw, u, h0 = call
+    B, S, H, K = r.shape
+
+    def flat(z):
+        return z.transpose(1, 2).reshape(B * H, S, K)
+
+    def back(z):
+        return z.reshape(B, H, S, K).transpose(1, 2)
+    with torch.no_grad():
+        dr, dk, dv, dlw, du, dh0 = rwkv6_wkv_chunked_bwd_ref(
+            flat(r), flat(k), flat(v), flat(lw),
+            u[None].expand(B, H, K).reshape(B * H, K),
+            None if h0 is None else h0.reshape(B * H, K, K), flat(dy),
+            None if dhf is None else dhf.reshape(B * H, K, K))
+        want = [back(dr), back(dk), back(dv), back(dlw),
+                du.reshape(B, H, K).sum(0)]
+        if h0 is not None:
+            want.append(dh0.reshape(B, H, K, K))
+        torch.cuda.synchronize()
+        out = {nm: rel_err(torch, g, w) for nm, g, w in
+               zip(SCAN_GRAD_NAMES["rwkv6_wkv"], got, want)}
+    del dr, dk, dv, dlw, du, dh0, want
+    free(torch)
+    return out
+
+
 def phase_scan_grads(torch, mops, wops, ops, mamba_timed, rwkv_timed
                      ) -> dict:
     """The two scans' backward kernels under autograd at ``SCAN_BWD_CASES``
     in the model's layout: every gradient against ``torch.autograd.grad``
     through the plain per-step version on the same inputs, within
     ``KERNEL_TOL`` x its max|want|; two calls the same bits; one forward
-    and one backward launch a call; at ``SCAN_BWD_VS_CHUNKED`` the
-    Mamba2 kernel also against ``mamba2_scan_chunked_bwd_ref`` (its
-    algebra in plain PyTorch) within ``KERNEL_TOL``.  The training
-    shapes' backwards timed (``ms``, ``device_ms``) beside autograd
-    through the plain version and the bound (``scan_bwd_need``: for
-    mamba2_scan the chunked form's products in 3xTF32, with the per-step
-    CUDA-core bound beside it); no library call computes a scan.  Then each forward kernel again at S 1024 with no gradient
+    and one backward launch a call; at ``SCAN_BWD_VS_CHUNKED`` each
+    kernel also against its algebra in plain PyTorch
+    (``mamba2_scan_chunked_bwd_ref``, ``rwkv6_wkv_chunked_bwd_ref``)
+    within ``KERNEL_TOL``.  The training shapes' backwards timed (``ms``,
+    ``device_ms``) beside autograd through the plain version and the
+    bound (``scan_bwd_need``: the chunked form's products in 3xTF32, with
+    the per-step CUDA-core bound beside it); no library call computes a
+    scan.  Then each forward kernel again at S 1024 with no gradient
     wanted: its device time within ``SCAN_FWD_NOISE`` of phase 3's.  And
     ``paged_attention``, which never trains, still refuses under autograd
     and launches nothing there."""
@@ -4649,7 +4695,7 @@ def phase_scan_grads(torch, mops, wops, ops, mamba_timed, rwkv_timed
             plain = lambda *t: mamba_plain_model(mops, *t)  # noqa: E731
         else:
             call, _ = rwkv_inputs(torch, gen, **shape, layout="model",
-                                  h0=h0)
+                                  h0=h0, decay=decay)
             op = wops.wkv_model_layout
             plain = lambda *t: wkv_plain_model(wops, *t)  # noqa: E731
         names = [nm for nm, t in zip(SCAN_GRAD_NAMES[kernel], call)
@@ -4686,9 +4732,11 @@ def phase_scan_grads(torch, mops, wops, ops, mamba_timed, rwkv_timed
                "tol_relative": KERNEL_TOL, "relative_err": errs,
                "two_calls_bitwise_equal": same,
                "launches_one_call": launched}
-        if name == SCAN_BWD_VS_CHUNKED:
-            rec["relative_err_vs_chunked_ref"] = mamba_vs_chunked_ref(
-                torch, mops, call, dy, dhf, got)
+        if name in SCAN_BWD_VS_CHUNKED:
+            rec["relative_err_vs_chunked_ref"] = (
+                mamba_vs_chunked_ref(torch, mops, call, dy, dhf, got)
+                if kernel == "mamba2_scan"
+                else wkv_vs_chunked_ref(torch, call, dy, dhf, got))
             check(max(rec["relative_err_vs_chunked_ref"].values())
                   <= KERNEL_TOL,
                   f"{kernel} backward {name} vs the chunked plain backward:"
@@ -4704,15 +4752,11 @@ def phase_scan_grads(torch, mops, wops, ops, mamba_timed, rwkv_timed
         if name in SCAN_BWD_TIMED:
             nbytes, flops, chunk_flops = scan_bwd_need(kernel, **shape,
                                                        h0=h0)
-            if chunk_flops is None:
-                rec.update(bytes=nbytes, flops=flops,
-                           **bounds(nbytes, flops, 0))
-            else:     # 3xTF32 products; the per-step CUDA-core bound beside
-                rec.update(bytes=nbytes, flops=chunk_flops,
-                           per_step_flops=flops,
-                           **bounds(nbytes, chunk_flops, 3))
-                rec["bound_per_step_ms"] = max(
-                    nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+            # 3xTF32 products; the per-step CUDA-core bound beside
+            rec.update(bytes=nbytes, flops=chunk_flops, per_step_flops=flops,
+                       **bounds(nbytes, chunk_flops, 3))
+            rec["bound_per_step_ms"] = max(
+                nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
             rec["ms"] = grad_ms(torch, outs, ins, cots, flush)
             rec["device_ms"], rec["calls_traced"] = device_ms(
                 torch, lambda: torch.autograd.grad(outs, ins, cots,

@@ -24,16 +24,23 @@ run can show that its main path went through the kernel.
 
 The op is differentiable on both devices.  On a CUDA tensor the forward
 call and its backward, ``csrc/rwkv6_wkv.cu``'s ``rwkv6_wkv_bwd`` (the
-states recomputed chunk by chunk from a forward sweep, the reverse
-recurrence of dL/dS_t in fp32 on the CUDA cores, every sum in a fixed
+chunked form transposed: each chunk's R~^T dY and the gradient of the
+state walked back across the chunks, then per (stream, chunk) every
+product of the backward in 3xTF32 on the tensor cores, the decays
+through 16-row pivots with every exponent <= 0; every sum in a fixed
 order, so two calls give the same bits), are one
 ``torch.autograd.Function`` for both layouts: in the model's layout the
-backward sums du over the batch rows that share u.  The kernel reads
-the decay as exp(min(lw, 0)), so dlw is 0 where lw > 0.
-``ref.rwkv6_wkv_bwd_ref`` is that backward in plain PyTorch.
-``bwd_launches`` counts backward calls on CUDA tensors.  There is no
-fallback: a backward that fails to build or launch raises.  The plain
-version on the CPU differentiates through autograd.
+backward sums du over the batch rows that share u.  The backward reads
+the forward call's scratch (each chunk's starting state and exp(c_end),
+K^2 + K floats a stream and chunk), held on autograd's context: it lives
+as long as the graph, and a call under ``no_grad`` records no graph, so
+its scratch is freed at once.  The kernel reads the decay as
+exp(min(lw, 0)), so dlw is 0 where lw > 0.
+``ref.rwkv6_wkv_chunked_bwd_ref`` is that backward in plain PyTorch,
+``ref.rwkv6_wkv_bwd_ref`` the per-step one.  ``bwd_launches`` counts
+backward calls on CUDA tensors.  There is no fallback: a backward that
+fails to build or launch raises.  The plain version on the CPU
+differentiates through autograd.
 """
 
 from __future__ import annotations
@@ -61,10 +68,11 @@ bwd_launches = 0   # backward calls on CUDA tensors (callers may reset it)
 FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 21 \
     + [ctypes.c_void_p]
 SCRATCH_ARGTYPES = [ctypes.c_int] * 4
-# rwkv6_wkv_bwd: 15 pointers (the forward's 6 operands, dy, dh_final,
-# the 6 gradients, the scratch), B, H, S, K, the strides of r, k, v, lw
-# and of dy and the gradients (batch, head, time), of u (batch, head),
-# u's row count, the stream; rwkv6_wkv_bwd_scratch_floats: B, H, S, K
+# rwkv6_wkv_bwd: 15 pointers (r, k, v, lw, u, the forward call's
+# scratch, dy, dh_final, the 6 gradients, the scratch), B, H, S, K, the
+# strides of r, k, v, lw and of dy and the gradients (batch, head, time),
+# of u (batch, head), u's row count, the stream;
+# rwkv6_wkv_bwd_scratch_floats: B, H, S, K
 BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 22 \
     + [ctypes.c_void_p]
 
@@ -124,7 +132,8 @@ def _bht(t: torch.Tensor, layout: str) -> Tuple[int, int, int]:
 def _launch(r, k, v, lw, u, h0, *, B: int, H: int, S: int, K: int,
             layout: str, u_st: Tuple[int, int]):
     """One call of the kernels over B*H streams.  Returns (y contiguous in
-    r's shape, h_final [B*H,K,K])."""
+    r's shape, h_final [B*H,K,K], the scratch: each chunk's starting state
+    and exp(c_end), which the backward reads)."""
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the grid's 65535")
     y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
@@ -148,15 +157,17 @@ def _launch(r, k, v, lw, u, h0, *, B: int, H: int, S: int, K: int,
                            + lib.rwkv6_wkv_error_string(rc).decode())
     global launches
     launches += 1
-    return y, hout
+    return y, hout, scratch
 
 
-def _launch_bwd(r, k, v, lw, u, h0, dy, dh_final, *, B: int, H: int,
-                S: int, K: int, layout: str, u_st: Tuple[int, int]):
-    """One call of ``rwkv6_wkv_bwd``: dy contiguous in r's shape,
-    dh_final [B*H,K,K] contiguous or None.  Returns (dr, dk, dv, dlw, du,
-    dh0): the first four contiguous in r's shape, du in u's (summed over
-    the streams that share a row of u), dh0 [B*H,K,K] or None."""
+def _launch_bwd(r, k, v, lw, u, h0, fwd_scratch, dy, dh_final, *, B: int,
+                H: int, S: int, K: int, layout: str,
+                u_st: Tuple[int, int]):
+    """One call of ``rwkv6_wkv_bwd``: the forward's operands and its
+    call's scratch (None when S = 0), dy contiguous in r's shape, dh_final
+    [B*H,K,K] contiguous or None.  Returns (dr, dk, dv, dlw, du, dh0): the
+    first four contiguous in r's shape, du in u's (summed over the streams
+    that share a row of u), dh0 [B*H,K,K] or None (h0 None)."""
     dev = r.device
     dr, dk, dv, dlw = (torch.empty(r.shape, dtype=torch.float32,
                                    device=dev) for _ in range(4))
@@ -172,7 +183,7 @@ def _launch_bwd(r, k, v, lw, u, h0, dy, dh_final, *, B: int, H: int,
         return vp(t.data_ptr() if t is not None else 0)
     strides = [s for t in (r, k, v, lw, dr) for s in _bht(t, layout)]
     rc = lib.rwkv6_wkv_bwd(
-        ptr(r), ptr(k), ptr(v), ptr(lw), ptr(u), ptr(h0), ptr(dy),
+        ptr(r), ptr(k), ptr(v), ptr(lw), ptr(u), ptr(fwd_scratch), ptr(dy),
         ptr(dh_final), ptr(dr), ptr(dk), ptr(dv), ptr(dlw), ptr(du),
         ptr(dh0), ptr(scratch), B, H, S, K, *strides, *u_st,
         u.numel() // K, vp(torch.cuda.current_stream(dev).cuda_stream))
@@ -190,8 +201,9 @@ class _Wkv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, r, k, v, lw, u, h0, geom):
-        y, hout = _launch(r, k, v, lw, u, h0, **geom)
+        y, hout, scratch = _launch(r, k, v, lw, u, h0, **geom)
         ctx.save_for_backward(r, k, v, lw, u, h0)
+        ctx.fwd_scratch = scratch   # the states the backward reads
         ctx.geom = geom
         ctx.set_materialize_grads(False)
         return y, hout
@@ -203,7 +215,8 @@ class _Wkv(torch.autograd.Function):
               if dy is None else dy.contiguous())
         if dh_final is not None:
             dh_final = dh_final.contiguous()
-        grads = _launch_bwd(r, k, v, lw, u, h0, dy, dh_final, **ctx.geom)
+        grads = _launch_bwd(r, k, v, lw, u, h0, ctx.fwd_scratch, dy,
+                            dh_final, **ctx.geom)
         return (*grads, None)
 
 

@@ -190,9 +190,9 @@ def test_every_exponent_is_at_most_zero(monkeypatch):
 
 def test_kernel_source_constants_and_names():
     """The emulation's chunk, sub-block and triangle are the kernel's, and
-    every CUDA kernel in the source has ``rwkv6_wkv`` in its name
-    (chip_smoke.py's profiler families and device times select kernels by
-    that name)."""
+    every CUDA kernel in the source (the forward's three, the backward's
+    three) has ``rwkv6_wkv`` in its name (chip_smoke.py's profiler
+    families and device times select kernels by that name)."""
     src = ops.SOURCE.read_text()
 
     def const(name):
@@ -202,4 +202,4 @@ def test_kernel_source_constants_and_names():
     assert SUB_ROWS == 2 * TRI_ROWS
     names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
                        r"\s+)?(\w+)", src)
-    assert len(names) == 5 and all("rwkv6_wkv" in name for name in names)
+    assert len(names) == 6 and all("rwkv6_wkv" in name for name in names)

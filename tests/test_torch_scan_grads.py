@@ -1,13 +1,14 @@
 """PyTorch port: the backwards of the two scans on the CPU.
 
-``mamba2_scan_chunked_bwd_ref`` is the algebra of the CUDA kernel
-``mamba2_scan_bwd`` (the chunked SSD form transposed: chunks of 64, every
-exponent a sum of one sign, the products in 3xTF32 as ``kernels/tf32.py``
-models them, the chunks' states passed in fp32); ``rwkv6_wkv_bwd_ref`` is
-that of ``rwkv6_wkv_bwd`` (the states recomputed chunk by chunk from a
-forward sweep, the reverse recurrence of the gradient of the state);
-``mamba2_scan_bwd_ref`` is the per-step reverse recurrence of Mamba2, the
-card's yardstick.  On the same numpy inputs they are held
+``mamba2_scan_chunked_bwd_ref`` and ``rwkv6_wkv_chunked_bwd_ref`` are the
+algebra of the CUDA kernels ``mamba2_scan_bwd`` and ``rwkv6_wkv_bwd``: the
+chunked forms transposed, in chunks of 64, every exponent <= 0 (Mamba2's
+summed from terms of one sign; rwkv6's through 16-row pivots, its diagonal
+sub-blocks' triangles per element, and dlw's rectangle summed from parts
+in which no pair enters twice), the products in 3xTF32 as
+``kernels/tf32.py`` models them, the chunks' states passed in fp32.
+``mamba2_scan_bwd_ref`` and ``rwkv6_wkv_bwd_ref`` are the per-step
+reverse recurrences.  On the same numpy inputs they are held
 
 * against ``torch.autograd.grad`` through the plain per-step versions
   (``mamba2_scan_ref``, ``rwkv6_wkv_ref``, which compute in fp32 whatever
@@ -32,13 +33,13 @@ strong decays (a = -16 with dt up to 1.5; lw = -5), weak and mixed rwkv6
 decays, lw > 0 on some channels (the kernel reads min(lw, 0): dlw is 0
 there), ``dh_final`` given and None.  Under the model's own decays
 (Mamba2's dt a down to ~ -40 a step, rwkv6's lw down to -5) the per-step
-algorithms are within 1e-5 of float64 on every gradient, the Mamba2
-kernel's chunked algebra within 1e-4 (the card's ``KERNEL_TOL``), and the
-chunked forms that training runs on the CPU within 1e-3: the tolerance of
+algorithms are within 1e-5 of float64 on every gradient, the kernels'
+chunked algebra within 1e-4 (the card's ``KERNEL_TOL``), and the chunked
+forms that training runs on the CPU within 1e-3: the tolerance of
 ``chip_smoke.py``'s card-vs-CPU training parity for these two archs.  The
-C entry points' signatures, the backwards' chunk constants and their
-kernels' names are checked against the CUDA sources (the compiler is on
-the card only).
+C entry points' signatures, the backwards' chunk constant (the forwards'
+``kQ``) and their kernels' names are checked against the CUDA sources
+(the compiler is on the card only).
 """
 
 import ctypes
@@ -64,7 +65,8 @@ from repro_torch.kernels.mamba2_scan.ref import (  # noqa: E402
     mamba2_scan_chunked_bwd_ref, mamba2_scan_ref)
 from repro_torch.kernels.rwkv6_wkv import ops as wops  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ref import (  # noqa: E402
-    BWD_CHUNK_ROWS as WKV_BWD_ROWS, rwkv6_wkv_bwd_ref, rwkv6_wkv_ref)
+    CHUNK_ROWS as WKV_CHUNK_ROWS, rwkv6_wkv_bwd_ref,
+    rwkv6_wkv_chunked_bwd_ref, rwkv6_wkv_ref)
 from repro_torch.models.mamba2 import ssd_chunked  # noqa: E402
 from repro_torch.models.rwkv6 import wkv_chunked  # noqa: E402
 
@@ -433,6 +435,85 @@ def test_rwkv6_model_layout_sums_vs_wkv_chunked(h0, with_dh):
         assert _rel(g.numpy(), w) <= TOL_JAX
 
 
+# the reference's cases, plus chunks of 64 filled exactly (S = 128) and
+# four chunks, the last ragged, from an initial state (S = 200)
+RWKV_CHUNKED_CASES = RWKV_CASES + [
+    (2, 128, 16, False, "default", True),
+    (2, 200, 16, True, "default", True),
+]
+
+
+@pytest.mark.parametrize("case", RWKV_CHUNKED_CASES)
+def test_rwkv6_chunked_bwd_ref_vs_autograd_and_jax(case):
+    """The kernel's algebra (chunks of 64, the decays through 16-row
+    pivots, the diagonal sub-blocks per element, the rectangle of dlw
+    summed by sub-blocks, the products in 3xTF32) against autograd through
+    the per-step plain version and ``jax.vjp`` of the JAX oracle."""
+    bh, s, k, h0, decay, with_dh = case
+    inputs = wkv_inputs(bh, s, k, seed=s + k, h0=h0, decay=decay)
+    cots = _cotangents((bh, s, k), (bh, k, k), seed=9 + s, with_dh=with_dh)
+    got = _present(rwkv6_wkv_chunked_bwd_ref(*_torch(inputs),
+                                             *_torch(cots)))
+    assert len(got) == (6 if h0 else 5)
+    want = _autograd(_clamped(rwkv6_wkv_ref), inputs, cots)
+    oracle = _vjp(_clamped(jax_wkv_ref), inputs, cots)
+    for g, w, o in zip(got, want, oracle):
+        assert _rel(g.numpy(), w) <= TOL_AUTOGRAD
+        assert _rel(g.numpy(), o) <= TOL_JAX
+    if decay == "positive":
+        lw = torch.as_tensor(inputs[3])
+        assert not bool(got[3][lw > 0].any())
+
+
+def _chunked_wkv_model_grads(r, k, v, lw, u, dy, h0=None, dhf=None):
+    """``rwkv6_wkv_chunked_bwd_ref`` on the model layout's inputs (numpy,
+    [B,S,H,K], u [H,K]) broadcast to the kernel's, summed as the kernel
+    sums them: dr, dk, dv, dlw in the model's layout, du over the batch,
+    and dh0 [B,H,K,K] when h0 is given."""
+    B, S, H, K = r.shape
+
+    def flat(z):
+        return torch.as_tensor(z).transpose(1, 2).reshape(B * H, S, K)
+
+    def back(z):
+        return z.reshape(B, H, S, K).transpose(1, 2)
+    dr, dk, dv, dlw, du, dh0 = rwkv6_wkv_chunked_bwd_ref(
+        flat(r), flat(k), flat(v), flat(lw),
+        torch.as_tensor(u)[None].expand(B, H, K).reshape(B * H, K),
+        None if h0 is None else torch.as_tensor(h0).reshape(B * H, K, K),
+        flat(dy),
+        None if dhf is None else torch.as_tensor(dhf).reshape(B * H, K, K))
+    out = [back(dr), back(dk), back(dv), back(dlw),
+           du.reshape(B, H, K).sum(0)]
+    if h0 is not None:
+        out.append(dh0.reshape(B, H, K, K))
+    return out
+
+
+@pytest.mark.parametrize("h0,with_dh", [(False, False), (True, True)])
+def test_rwkv6_chunked_bwd_model_layout_vs_wkv_chunked(h0, with_dh):
+    """``rwkv6_wkv_chunked_bwd_ref`` on the broadcast inputs, du summed
+    over the batch, against ``jax.vjp`` of the JAX ``wkv_chunked``, at
+    ``test_rwkv6_model_layout_sums_vs_wkv_chunked``'s shape (one ragged
+    chunk; the cases above cross chunks)."""
+    B, H, S, K = 2, 3, 48, 16
+    flat_in = wkv_inputs(B * H, S, K, seed=23, h0=h0)
+
+    def model(z):       # [B*H, S, K] -> [B, S, H, K]
+        return np.ascontiguousarray(
+            z.reshape(B, H, S, K).transpose(0, 2, 1, 3))
+    r, k, v, lw = (model(z) for z in flat_in[:4])
+    u = flat_in[4][:H]
+    hh = None if flat_in[5] is None else flat_in[5].reshape(B, H, K, K)
+    dy, dhf = _cotangents((B, S, H, K), (B, H, K, K), seed=24,
+                          with_dh=with_dh)
+    oracle = _vjp(jax_wkv_chunked, (r, k, v, lw, u, hh), (dy, dhf))
+    got = _chunked_wkv_model_grads(r, k, v, lw, u, dy, hh, dhf)
+    assert len(got) == len(oracle)
+    for g, o in zip(got, oracle):
+        assert _rel(g.numpy(), o) <= TOL_WKV_CHUNKED
+
+
 # ---------------------------------------------------------------------------
 # against float64, under the model's decays
 # ---------------------------------------------------------------------------
@@ -505,10 +586,12 @@ def test_mamba2_grads_vs_float64_under_model_decays():
 
 
 def test_rwkv6_grads_vs_float64_under_model_decays():
-    """lw in [-5, 0] as the model clamps it: the kernels' per-step
-    algorithm within ``TOL_F64_KERNEL`` of float64 on every gradient, the
-    chunked form that training runs on the CPU within
-    ``TOL_F64_CHUNKED``."""
+    """lw in [-5, 0] as the model clamps it: the per-step plain version
+    (the CPU wrapper's) within ``TOL_F64_KERNEL`` of float64 on every
+    gradient; the card kernel's chunked algebra
+    (``rwkv6_wkv_chunked_bwd_ref``: chunks of 64, the decays through
+    16-row pivots) within ``TOL_F64_CARD``; the chunked form that training
+    runs on the CPU within ``TOL_F64_CHUNKED``."""
     B, S, H, K = 1, 64, 4, 16
     rs = np.random.RandomState(32)
     r, k = ((rs.randn(B, S, H, K) * 0.5).astype(np.float32)
@@ -524,9 +607,11 @@ def test_rwkv6_grads_vs_float64_under_model_decays():
                     torch.float32)
     chunked = _grads(lambda *t: wkv_chunked(*t)[0], inputs, dy,
                      torch.float32)
-    for g, c_, w in zip(kernel, chunked, want):
+    card = _chunked_wkv_model_grads(*inputs, dy)
+    for g, c_, k_, w in zip(kernel, chunked, card, want):
         assert _rel(g, w) <= TOL_F64_KERNEL
         assert _rel(c_, w) <= TOL_F64_CHUNKED
+        assert _rel(k_.double(), w) <= TOL_F64_CARD
 
 
 # ---------------------------------------------------------------------------
@@ -547,26 +632,23 @@ def _c_argtypes(source, fn: str):
     return want
 
 
-# per source: the backward's chunk constant, and its kernels besides the
-# reduce (mamba2_scan: the chunked SSD backward, whose chunk is the
-# forward's kQ; rwkv6_wkv: the per-step sweep's kBwdQ)
-BWD_CHUNK_CONSTANT = {"mamba2_scan": "kQ", "rwkv6_wkv": "kBwdQ"}
+# per source, the backward's kernels besides the reduce; both are the
+# chunked forms transposed, in the forward's chunks of kQ rows
 BWD_KERNELS = {
     "mamba2_scan": ("exponents", "states", "chunk"),
-    "rwkv6_wkv": ("chunk",),
+    "rwkv6_wkv": ("states", "chunk"),
 }
 
 
 @pytest.mark.parametrize("ops,prefix,rows", [
     (mops, "mamba2_scan", MAMBA_CHUNK_ROWS),
-    (wops, "rwkv6_wkv", WKV_BWD_ROWS)])
+    (wops, "rwkv6_wkv", WKV_CHUNK_ROWS)])
 def test_backward_entry_points_match_the_source(ops, prefix, rows):
     assert ops.BWD_ARGTYPES == _c_argtypes(ops.SOURCE, f"int {prefix}_bwd")
     scratch = _c_argtypes(ops.SOURCE, f"long long {prefix}_bwd_scratch_floats")
     assert scratch == [ctypes.c_int] * len(scratch)
     src = ops.SOURCE.read_text()
-    constant = BWD_CHUNK_CONSTANT[prefix]
-    assert int(re.search(rf"constexpr int {constant} = (\d+);",
+    assert int(re.search(r"constexpr int kQ = (\d+);",
                          src).group(1)) == rows
     names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
                        r"\s+)?(\w+)", src)
