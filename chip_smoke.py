@@ -386,6 +386,20 @@ printing JSON lines:
    GFLOP/s, no kernel of the port.  fig04's cost half, fig06 and fig18
    on ``Hardware()``: a row per cell, the guideline's plan fitting
    wherever the optimum fits, fig18's summary line.
+10. roofline, right after phase 8's full-size internlm2 run: its step
+   (B 4 x S 1024, fp32, one card) counted by ``analysis/count`` while
+   the card runs it and on ``meta`` tensors through ``launch/build``
+   with a one-device plan: FLOPs equal, bytes within 0.1% (the ops that
+   differ named), flash's recorded calls equal to its launches (24 and
+   24 backward calls), the FLOPs at least the cost model's
+   ``model_flops + attention_flops`` less the untied input embedding's
+   lookup; ``analysis/roofline`` at the data sheet's bf16 rate and at
+   the fp32 CUDA-core rate printed beside phase 8's ms a step and peak
+   memory.  Then ``python -m repro_torch.launch.dryrun --arch dbrx-132b
+   --shape train_4k --both-meshes`` and ``python -m
+   repro_torch.launch.train --arch internlm2-1.8b --production`` as
+   subprocesses: exit 0, their rows ``ok`` with ``useful_ratio`` in
+   (0, 1.05].
 
 The last three lines are the card's name and power limit (again), the
 kernel table (paged attention per pool dtype, with its S = 1 rows under
@@ -5441,6 +5455,192 @@ def phase_paper(torch, kernel_ops, gmm, fa, card) -> dict:
             "flash_launches": flash01, "seconds": time.time() - t0}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the dry-run's counter and roofline against a step the card runs
+# ---------------------------------------------------------------------------
+
+ROOFLINE_BYTES_RTOL = 1e-3     # card count vs meta count
+ROOFLINE_LAUNCHER_TIMEOUT_S = 300
+ROOFLINE_KERNELS = (("flash_attention", "launches"),
+                    ("flash_attention_bwd", "bwd_launches"))
+
+
+def roofline_lower_bound(cfg, shape, cost_model) -> dict:
+    """``cost_model.model_flops + attention_flops``, and the same less
+    the input embedding's 6 V d flops a token: an untied table is a
+    lookup (a gather, no products), yet 6 N D counts its parameters."""
+    tokens = shape.global_batch * shape.seq_len
+    full = cost_model.model_flops(cfg, shape) + \
+        cost_model.attention_flops(cfg, shape)
+    lookup = 0 if cfg.tie_embeddings else \
+        6.0 * cfg.vocab_size * cfg.d_model * tokens
+    return {"model_plus_attention_flops": full,
+            "input_embedding_lookup_flops": lookup,
+            "lower_bound_flops": full - lookup}
+
+
+def dryrun_subprocess(argv, what: str) -> dict:
+    """One launcher of the dry-run as a subprocess: exit 0, its lines."""
+    t0 = time.time()
+    try:
+        proc = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
+                              env=port_env(), capture_output=True,
+                              text=True,
+                              timeout=ROOFLINE_LAUNCHER_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"{what}: no exit within "
+                           f"{ROOFLINE_LAUNCHER_TIMEOUT_S} s")
+    rec = {"argv": argv, "rc": proc.returncode,
+           "lines": [ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("[")],
+           "seconds": time.time() - t0,
+           "stderr_tail": proc.stderr.splitlines()[-20:]}
+    emit("roofline_launcher", what=what, **rec)
+    check(proc.returncode == 0, f"{what}: exit {proc.returncode}")
+    return rec
+
+
+def phase_roofline(torch, fa, rt, card, train: dict) -> dict:
+    """The dry-run's counter held against a step the card runs: phase 8's
+    step (internlm2-1.8b uncut, B ``TRAIN_B`` x S ``TRAIN_S``, fp32, one
+    device) counted once while the card runs it and once on ``meta``
+    through ``launch/build`` with a one-device plan.  Gates: FLOPs equal,
+    bytes within ``ROOFLINE_BYTES_RTOL`` (the ops that differ named),
+    each kernel's recorded calls equal to its launches over the step,
+    the FLOPs at least the cost model's (less the input embedding's
+    lookup).  The roofline at the data sheet's bf16 rate and at the fp32
+    CUDA-core rate the step runs at, beside phase 8's measured ms a step
+    and peak memory.  Then ``launch.dryrun --arch dbrx-132b --shape
+    train_4k --both-meshes`` and ``launch.train --arch internlm2-1.8b
+    --production`` as subprocesses: exit 0, their rows ``ok`` with
+    ``useful_ratio`` in (0, 1.05]."""
+    from repro_torch.analysis import roofline as roof
+    from repro_torch.analysis.count import StepCounter
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import cost_model
+    from repro_torch.launch import build as buildlib
+    from repro_torch.launch import dryrun
+    t0 = time.time()
+    cfg = rt["get_config"]("internlm2-1.8b")
+    shape = ShapeConfig("phase8_train", "train", TRAIN_S, TRAIN_B)
+    params = rt["init_params"](rt["model_defs"](cfg), 0, device=DEV,
+                               trainable=True)
+    tc = rt["TrainerConfig"](steps=2, batch=TRAIN_B, seq_len=TRAIN_S)
+    tr = rt["Trainer"](cfg, tc, device=DEV, params=params)
+    batch = rt["to_device"](tr.data.batch_at(0), torch.device(DEV))
+    tr.train_step(batch)                 # warm: the kernels loaded
+    torch.cuda.synchronize()
+    before = {name: getattr(fa, attr) for name, attr in ROOFLINE_KERNELS}
+    t1 = time.time()
+    with StepCounter() as card_count:
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+    card_s = time.time() - t1
+    launched = {name: getattr(fa, attr) - before[name]
+                for name, attr in ROOFLINE_KERNELS}
+    args_bytes = sum({x.untyped_storage()._cdata:
+                      x.untyped_storage().nbytes()
+                      for x in rt["tree_leaves"](
+                          [tr.state["params"], tr.state["opt"],
+                           tr.state["step"], batch])}.values())
+    card_mem = card_count.memory_stats(argument_bytes=args_bytes)
+    del tr, params, batch
+    free(torch)
+
+    t1 = time.time()
+    plan, mesh = buildlib.one_device()
+    built = buildlib.build(cfg, shape, plan=plan, mesh=mesh,
+                           param_dtype=torch.float32)
+    meta_count, meta_mem = built.count()
+    meta_s = time.time() - t1
+
+    card_ops, meta_ops = card_count.ops(), meta_count.ops()
+    differ = {op: {"card": card_ops.get(op), "meta": meta_ops.get(op)}
+              for op in sorted(set(card_ops) | set(meta_ops))
+              if card_ops.get(op) != meta_ops.get(op)}
+    bytes_rel = abs(card_count.bytes - meta_count.bytes) / meta_count.bytes
+    bound = roofline_lower_bound(cfg, shape, cost_model)
+    fp32 = dataclasses.replace(cost_model.H100, name="h100-fp32-cuda-cores",
+                               peak_flops=FP32_FLOPS)
+    measured_s = train["ms_per_step_median_after_first"] / 1e3
+    rows = {}
+    for hw in (cost_model.H100, fp32):
+        r = roof.analyze(cfg, shape, arch=cfg.name, mesh_name="one-card",
+                         setting="one_device", chips=1,
+                         cost=meta_count.cost(), collectives=[],
+                         memory_stats=meta_mem, hw=hw).row()
+        r["measured_step_s"] = measured_s
+        r["measured_over_estimate"] = measured_s / r["step_s"]
+        rows[hw.name] = r
+    rec = {"arch": cfg.name, "batch": [TRAIN_B, TRAIN_S], "card": card,
+           "card_flops": card_count.flops, "meta_flops": meta_count.flops,
+           "card_bytes": card_count.bytes, "meta_bytes": meta_count.bytes,
+           "bytes_rel_diff": bytes_rel, "ops_that_differ": differ,
+           "card_families": card_count.families(),
+           "meta_families": meta_count.families(),
+           "launches": launched, **bound,
+           "counted_over_model_plus_attention":
+               meta_count.flops / bound["model_plus_attention_flops"],
+           "counted_over_lower_bound":
+               meta_count.flops / bound["lower_bound_flops"],
+           "card_memory": card_mem, "meta_memory": meta_mem,
+           "meta_argument_plus_temp_bytes":
+               meta_mem["argument_size_in_bytes"]
+               + meta_mem["temp_size_in_bytes"],
+           "card_argument_plus_temp_bytes":
+               card_mem["argument_size_in_bytes"]
+               + card_mem["temp_size_in_bytes"],
+           "measured_ms_per_step": train["ms_per_step_median_after_first"],
+           "measured_peak_memory_bytes": train["peak_memory_bytes"],
+           "roofline": rows, "count_card_s": card_s, "count_meta_s": meta_s}
+    emit("roofline", **rec)
+    check(card_count.flops == meta_count.flops,
+          f"roofline: card FLOPs {card_count.flops} != meta "
+          f"{meta_count.flops}; ops that differ {differ}")
+    check(bytes_rel <= ROOFLINE_BYTES_RTOL,
+          f"roofline: bytes card {card_count.bytes} meta "
+          f"{meta_count.bytes} ({bytes_rel:.2e}); ops that differ {differ}")
+    for name, n in launched.items():
+        for what, fam in (("card", card_count.families()),
+                          ("meta", meta_count.families())):
+            got = fam.get(name, {}).get("calls", 0)
+            check(got == n, f"roofline: {what} count {name} {got} calls, "
+                            f"{n} launched")
+    check(launched["flash_attention"] == cfg.num_layers,
+          f"roofline: flash launches {launched}")
+    check(meta_count.flops >= bound["lower_bound_flops"],
+          f"roofline: counted {meta_count.flops} FLOPs under the cost "
+          f"model's {bound['lower_bound_flops']}")
+
+    # the launchers, as a user runs them: both at once (host-bound)
+    launchers = {
+        "dryrun_dbrx": (["repro_torch.launch.dryrun", "--arch", "dbrx-132b",
+                         "--shape", "train_4k", "--both-meshes"],
+                        "launch.dryrun dbrx-132b"),
+        "production_internlm2": (["repro_torch.launch.train", "--arch",
+                                  "internlm2-1.8b", "--production"],
+                                 "launch.train --production internlm2-1.8b")}
+    with ThreadPoolExecutor(len(launchers)) as pool:
+        futures = {name: pool.submit(dryrun_subprocess, *job)
+                   for name, job in launchers.items()}
+        runs = {name: f.result() for name, f in futures.items()}
+    launcher_rows = {}
+    for name in ("dbrx-132b__train_4k__single__guideline",
+                 "dbrx-132b__train_4k__multi__guideline",
+                 "internlm2-1.8b__train_4k__single__guideline"):
+        row = json.loads((dryrun.RESULTS / f"{name}.json").read_text())
+        launcher_rows[name] = {k: row[k] for k in (
+            "ok", "useful_ratio", "dominant", "roofline_frac", "step_s",
+            "flops_per_device", "memory_per_device_bytes", "count_s")}
+        check(row["ok"] and 0 < row["useful_ratio"] <= 1.05,
+              f"roofline: {name} row {launcher_rows[name]}")
+    emit("roofline_launcher_rows", rows=launcher_rows,
+         seconds=time.time() - t0)
+    rec.update(launchers=runs, launcher_rows=launcher_rows,
+               seconds=time.time() - t0)
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5642,6 +5842,8 @@ def main() -> int:
                              il2)
         train = timed_phase("train_full", phase_train_full, torch, ops,
                             train_ops, rt, card)
+        # the dry-run's counter and roofline on phase 8's step
+        timed_phase("roofline", phase_roofline, torch, fa, rt, card, train)
         train_scans = phase_train_scans(torch, ops, train_ops, rt, card)
         train_launcher = timed_phase("train_launcher", phase_train_launcher,
                                      torch)

@@ -9,7 +9,8 @@ Prints ``name,us_per_call,derived`` CSV rows (``benchmarks/common.emit``).
 A selection picks every module whose name contains one of its words.
 ``--device`` goes to every figure (the card by default); the analytic
 ones (fig06, fig18, fig04's cost half) ignore it.
-The reference's figures the port lacks are listed as waiting, not run.
+fig16 and the roofline report read the dry-run's rows
+(``python -m repro_torch.launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -29,10 +30,10 @@ MODULES = [
     "fig11_fused_prep",
     "fig13_library",
     "fig14_dispatch_overhead",
+    "fig16_multipod",
     "fig18_guideline_eval",
+    "roofline_report",
 ]
-# the reference's figures that read XLA's compiled cost analysis
-WAITING = ["fig16_multipod", "roofline_report"]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -44,11 +45,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     fig_argv = [] if args.device is None else ["--device", args.device]
     print("name,us_per_call,derived", flush=True)
     failures = []
-    for name in MODULES + WAITING:
+    for name in MODULES:
         if args.sel and not any(s in name for s in args.sel):
-            continue
-        if name in WAITING:
-            print(f"# {name}: waiting, not ported", file=sys.stderr)
             continue
         mod = importlib.import_module(f"repro_torch.benchmarks.{name}")
         t0 = time.time()

@@ -26,6 +26,13 @@ dK = dSᵀ Q · scale, dK and dV summed over each GQA group — in fp32 with
 TF32 off, a slab of (batch, kv head) pairs at a time so that one score
 tensor stays under ``BWD_SCORE_ELEMS``.  ``bwd_launches`` counts backward
 calls on CUDA tensors.  It is not a kernel of its own yet.
+
+A ``meta`` tensor (the dry-run, ``launch/build``) launches nothing: the
+op returns an output of the right shape and records ``work(...)``, the
+kernel's FLOPs and bytes from shapes, on the active
+``analysis/count.StepCounter``; a CUDA launch records the same while a
+counter is active.  The backward runs its explicit products on ``meta``
+as on the card, inside ``scope("flash_attention_bwd")``.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, active, record_kernel, scope
 from repro_torch.kernels.flash_attention.ref import NEG_INF, \
     flash_attention_ref
 from repro_torch.kernels.fused_matmul.ref import tf32_off
@@ -69,6 +76,30 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=4096)
+def live_scores(sq: int, skv: int, causal: bool,
+                window: Optional[int]) -> int:
+    """The unmasked (query row, key) pairs of one head: query ``i`` sits
+    at key position ``i``; causal keeps keys <= i, a window keys > i -
+    window."""
+    live = 0
+    for i in range(sq):
+        hi = min(i + 1, skv) if causal else skv
+        lo = max(0, i - window + 1) if window is not None else 0
+        live += max(0, hi - lo)
+    return live
+
+
+def work(q_shape, kv_shape, elem_bytes: int, causal: bool = True,
+         window: Optional[int] = None):
+    """(flops, bytes) of one call, PERF.md's bound: q, k, v read once and
+    the output written once; 4 dh flops per (query head, live score)."""
+    b, h, sq, dh = q_shape
+    hkv, skv = kv_shape[1], kv_shape[2]
+    nbytes = elem_bytes * (2 * b * h * sq * dh + 2 * b * hkv * skv * dh)
+    return 4 * b * h * live_scores(sq, skv, causal, window) * dh, nbytes
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -113,13 +144,18 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
-                         f"{q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta "
+                         f"tensors, got {q.device}")
     _check(q, k, v, causal)
     b, h, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    if active() is not None:
+        record_kernel("flash_attention", *work(
+            q.shape, k.shape, q.element_size(), causal, window))
+    if q.device.type == "meta":
+        return out
     vp = ctypes.c_void_p
     lib = _lib()
     rc = lib.flash_attention_fwd(
@@ -147,7 +183,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, **ctx.opts)
+        with scope("flash_attention_bwd"):
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, do, **ctx.opts)
         if do.device.type == "cuda":
             global bwd_launches
             bwd_launches += 1

@@ -28,6 +28,11 @@ reference's backward has no Pallas kernel either).
 ``launches`` counts kernel launches (one per call on a CUDA tensor), so
 a run can show that its main path went through the kernel.
 ``supported()`` runs the smallest real launch; tests use it to skip.
+
+A ``meta`` tensor (the dry-run) launches nothing: the op returns an
+output of the right shape and records ``work(...)`` on the active
+``analysis/count.StepCounter``; a CUDA launch records the same while a
+counter is active.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, active, record_kernel
 from repro_torch.kernels.fused_matmul.ref import matmul1, prep, tf32_off
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_matmul.cu"
@@ -65,6 +70,15 @@ def _lib() -> ctypes.CDLL:
     lib.fused_matmul_error_string.argtypes = [ctypes.c_int]
     lib.fused_matmul_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def work(m: int, k: int, n: int, x_bytes: int, w_bytes: int,
+         out_bytes: int, scaled: bool):
+    """(flops, bytes) of one call: x, its row scale and w read once, the
+    output written once; 2 M N K flops."""
+    nbytes = m * k * x_bytes + (4 * m if scaled else 0) + k * n * w_bytes \
+        + m * n * out_bytes
+    return 2 * m * n * k, nbytes
 
 
 def _check(x: torch.Tensor, w: torch.Tensor,
@@ -105,15 +119,21 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor,
     ``out_dtype`` (default w's dtype); ``x_scale`` [M,1] fp32 applies the
     per-row dequantization as the fused prep; fp32 accumulation."""
     out_dtype = out_dtype or w.dtype
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"fused_matmul runs on cuda or cpu tensors, got "
-                         f"{x.device}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"fused_matmul runs on cuda, cpu or meta tensors, "
+                         f"got {x.device}")
     _check(x, w, x_scale, out_dtype)
     if x.device.type == "cpu":
         return matmul1(x, w, x_scale, out_dtype=out_dtype)
     m, k = x.shape
     n = w.shape[1]
     out = torch.empty(m, n, dtype=out_dtype, device=x.device)
+    if active() is not None:
+        record_kernel("fused_matmul", *work(
+            m, k, n, x.element_size(), w.element_size(), out.element_size(),
+            x_scale is not None))
+    if x.device.type == "meta":
+        return out
     vp = ctypes.c_void_p
     lib = _lib()
     rc = lib.fused_matmul_fwd(

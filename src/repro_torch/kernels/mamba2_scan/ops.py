@@ -36,6 +36,13 @@ the per-step reverse recurrence, is the card's yardstick.
 ``bwd_launches`` counts backward calls on CUDA tensors.  There is no
 fallback: a backward that fails to build or launch raises.  The plain
 version on the CPU differentiates through autograd.
+
+A ``meta`` tensor (the dry-run, ``launch/build``) takes the kernel's
+path, checks included, and launches nothing: each call returns outputs
+of the right shape and records ``work(...)`` (``work_bwd(...)`` for the
+backward), the FLOPs of the chunked form's products and the bytes of
+PERF.md's bound, on the active ``analysis/count.StepCounter``; a CUDA
+launch records the same while a counter is active.
 """
 
 from __future__ import annotations
@@ -47,8 +54,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
+from repro_torch.kernels import build, active, causal_pairs, record_kernel
+from repro_torch.kernels.mamba2_scan.ref import CHUNK_ROWS, mamba2_scan_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba2_scan.cu"
 MAX_STATE = 128
@@ -82,6 +89,42 @@ def _lib() -> ctypes.CDLL:
     lib.mamba2_scan_error_string.argtypes = [ctypes.c_int]
     lib.mamba2_scan_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=1024)
+def work(B: int, H: int, S: int, P: int, N: int, layout: str,
+         h0: bool):
+    """(flops, bytes) of one forward call over the geometry's B*H
+    streams, PERF.md's bound: x and dt read, y and the final state
+    written, b/c read once (a [B,S,N] pair), h0 read when given, fp32;
+    the chunked form's products (chunks of ``CHUNK_ROWS``): C B^T on the
+    causal pairs once per b/c stream, and per stream the masked scores
+    times X (causal pairs x P), (exp(cum) C) h_prev and the decayed B^T X
+    (2 q N P each), 2 flops a multiply-add."""
+    bh = B * H
+    nbytes = 4 * (2 * bh * S * P + bh * S + 2 * B * S * N
+                  + bh * N * P * (2 if h0 else 1))
+    pairs = causal_pairs(S, CHUNK_ROWS)
+    flops = 2 * pairs * N * B + bh * (2 * pairs * P + 4 * S * N * P)
+    return flops, nbytes
+
+
+@functools.lru_cache(maxsize=1024)
+def work_bwd(B: int, H: int, S: int, P: int, N: int, a_numel: int,
+             h0: bool):
+    """(flops, bytes) of one backward call, PERF.md's bound: the
+    forward's operands, dy (and dh_final and h0 when given) read once,
+    the gradients written once, fp32; the chunked backward's products:
+    C B^T on the causal pairs once per b/c stream, and per stream dM =
+    dY X^T, M^T dY, dSc B and dSc^T C on the causal pairs (x P, P, N, N)
+    and U, Z, B G, dY h^T and X G^T (q N P each)."""
+    bh = B * H
+    per_call = 2 * bh * S * P + bh * S + 2 * B * S * N + a_numel
+    nbytes = 4 * (2 * per_call - bh * S * P + (3 if h0 else 0) * bh * N * P)
+    pairs = causal_pairs(S, CHUNK_ROWS)
+    flops = 2 * pairs * N * B + bh * (2 * pairs * (2 * P + 2 * N)
+                                      + 10 * S * N * P)
+    return flops, nbytes
 
 
 def _check(named: Sequence[Tuple[str, Optional[torch.Tensor]]],
@@ -145,6 +188,11 @@ def _launch(x, dt, b, c, a, h0, *, B: int, H: int, S: int, P: int, N: int,
         raise ValueError(f"B*H = {B * H} exceeds the grid's 65535")
     y = torch.empty_like(x)
     hout = torch.empty((B * H, N, P), dtype=torch.float32, device=x.device)
+    if active() is not None:
+        record_kernel("mamba2_scan", *work(B, H, S, P, N, layout,
+                                                 h0 is not None))
+    if x.device.type == "meta":
+        return y, hout
     vp = ctypes.c_void_p
     lib = _lib()
     rc = lib.mamba2_scan_fwd(
@@ -178,6 +226,11 @@ def _launch_bwd(x, dt, b, c, a, h0, dy, dh_final, *, B: int, H: int,
     da = torch.empty(a.shape, dtype=torch.float32, device=dev)
     dh0 = None if h0 is None else torch.empty(
         (B * H, N, P), dtype=torch.float32, device=dev)
+    if active() is not None:
+        record_kernel("mamba2_scan_bwd", *work_bwd(
+            B, H, S, P, N, a.numel(), h0 is not None))
+    if dev.type == "meta":
+        return dx, ddt, db, dc, da, dh0
     vp = ctypes.c_void_p
     lib = _lib()
     n = lib.mamba2_scan_bwd_scratch_floats(B, H, S, P, N)
@@ -222,11 +275,13 @@ class _Scan(torch.autograd.Function):
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
+    """True for the kernel's path: a CUDA tensor, or a ``meta`` one (the
+    dry-run: checked and counted, never launched)."""
     if x.device.type == "cpu":
         return False
-    if x.device.type != "cuda":
-        raise ValueError(f"mamba2_scan runs on cuda or cpu tensors, got "
-                         f"{x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"mamba2_scan runs on cuda, cpu or meta tensors, "
+                         f"got {x.device}")
     return True
 
 

@@ -24,6 +24,14 @@ zeroed at rows at or past ``row_counts`` (those rows of the output are
 constants), so they get a zero dx and add nothing to dw.  fp32
 products with TF32 off.  ``bwd_launches`` counts backward calls on
 CUDA tensors; it is not a kernel of its own yet.
+
+A ``meta`` tensor (the dry-run, ``launch/build``) launches nothing: the
+op returns an output of the right shape and records ``work(...)`` on the
+active ``analysis/count.StepCounter``; a CUDA launch records the same
+while a counter is active.  The work is counted from shapes, every row
+of every expert's capacity (a count on ``meta`` has no value), so the
+card and ``meta`` count alike; PERF.md's bound counts live rows only.
+The backward's products run inside ``scope("moe_gmm_bwd")``.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, active, record_kernel, scope
 from repro_torch.kernels.fused_matmul.ref import tf32_off
 from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 
@@ -60,6 +68,18 @@ def _lib() -> ctypes.CDLL:
     lib.moe_gmm_error_string.argtypes = [ctypes.c_int]
     lib.moe_gmm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def work(x_shape, w_shape, elem_bytes: int, counted: bool):
+    """(flops, bytes) of one call from shapes: every row of x [G,E,C,D]
+    times its expert's w [E,D,F] (2 D F flops a row), x and w read once
+    (and the [G,E] int32 counts when ``counted``), the output written
+    once."""
+    g, e, c, d = x_shape
+    f = w_shape[2]
+    nbytes = elem_bytes * (g * e * c * d + e * d * f + g * e * c * f) \
+        + (4 * g * e if counted else 0)
+    return 2 * g * e * c * d * f, nbytes
 
 
 def _check(x: torch.Tensor, w: torch.Tensor,
@@ -99,8 +119,8 @@ def _forward(x: torch.Tensor, w: torch.Tensor,
              row_counts: Optional[torch.Tensor]) -> torch.Tensor:
     if x.device.type == "cpu":
         return moe_gmm_ref(x, w, row_counts)
-    if x.device.type != "cuda":
-        raise ValueError(f"moe_gmm runs on cuda or cpu tensors, got "
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"moe_gmm runs on cuda, cpu or meta tensors, got "
                          f"{x.device}")
     squeeze = x.dim() == 3
     x4 = x.unsqueeze(0) if squeeze else x
@@ -111,6 +131,11 @@ def _forward(x: torch.Tensor, w: torch.Tensor,
     g, e, c, d = x4.shape
     f = w.shape[2]
     out = torch.empty(g, e, c, f, dtype=x.dtype, device=x.device)
+    if active() is not None:
+        record_kernel("moe_gmm", *work(
+            x4.shape, w.shape, x.element_size(), counts is not None))
+    if x.device.type == "meta":
+        return out.squeeze(0) if squeeze else out
     vp = ctypes.c_void_p
     lib = _lib()
     rc = lib.moe_gmm_fwd(
@@ -135,7 +160,8 @@ class _MoeGmm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w, row_counts = ctx.saved_tensors
-        dx, dw = moe_gmm_bwd(x, w, row_counts, dy)
+        with scope("moe_gmm_bwd"):
+            dx, dw = moe_gmm_bwd(x, w, row_counts, dy)
         if dy.device.type == "cuda":
             global bwd_launches
             bwd_launches += 1

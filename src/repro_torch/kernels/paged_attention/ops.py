@@ -24,6 +24,13 @@ its main path went through the kernel.
 dtype; tests use it to skip.
 Serving only: on a CUDA tensor the wrapper raises under autograd (the
 kernel has no backward).
+
+A ``meta`` tensor (the dry-run) launches nothing: the op returns an
+output of the right shape and records ``work(...)`` on the active
+``analysis/count.StepCounter``; a CUDA launch records the same while a
+counter is active.  The work is counted from shapes (every page of the
+table, every query row against the whole ring or window), since a
+length on ``meta`` has no value; PERF.md's bound counts live pages.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, refuse_autograd
+from repro_torch.kernels import build, active, record_kernel, refuse_autograd
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
@@ -75,6 +82,23 @@ def _scratch_floats(*shape: int) -> int:
     """The library's scratch size for these shapes (B, S, H, Hkv, dh, P,
     nb), asked once per shape."""
     return _lib().paged_attention_scratch_floats(*shape)
+
+
+def work(q_shape, pool_shape, page_table_shape, kv_bytes: int,
+         quantized: bool, window: Optional[int] = None):
+    """(flops, bytes) of one call from shapes: q [B,S,H,dh] read and the
+    output written (fp32), every page of the table read at its stored
+    width (8-bit pages with their fp32 scale per kv head, K and V), the
+    table and the lengths; 4 dh flops per (query head, row, position of
+    the ring, or of the window when it is shorter)."""
+    b, s, h, dh = q_shape
+    _npg, p, hkv, _ = pool_shape
+    nb = page_table_shape[1]
+    page = p * hkv * dh * kv_bytes * 2 + (hkv * 4 * 2 if quantized else 0)
+    ring = nb * p
+    span = min(ring, window) if window else ring
+    nbytes = 2 * b * s * h * dh * 4 + b * nb * page + b * nb * 4 + b * 4
+    return 4 * dh * h * b * s * span, nbytes
 
 
 def _check(q, pool_k, pool_v, page_table, cache_len, k_scale,
@@ -136,9 +160,9 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
         return paged_attention_ref(q, pool_k, pool_v, page_table, cache_len,
                                    window=window, softcap=softcap,
                                    k_scale=k_scale, v_scale=v_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention runs on cuda or cpu tensors, "
-                         f"got {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"paged_attention runs on cuda, cpu or meta "
+                         f"tensors, got {q.device}")
     refuse_autograd("paged_attention", q, pool_k, pool_v)
     squeeze = q.dim() == 3
     q4 = q.unsqueeze(1) if squeeze else q
@@ -147,6 +171,12 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     npg, page_size, hkv, _ = pool_k.shape
     nb = page_table.shape[1]
     out = torch.empty_like(q4)
+    if active() is not None:
+        record_kernel("paged_attention", *work(
+            q4.shape, pool_k.shape, page_table.shape,
+            pool_k.element_size(), k_scale is not None, window))
+    if q.device.type == "meta":
+        return out.squeeze(1) if squeeze else out
     n = _scratch_floats(b, s, h, hkv, dh, page_size, nb)
     scratch = torch.empty(n, device=q.device) if n else None
     vp = ctypes.c_void_p

@@ -41,6 +41,14 @@ exp(min(lw, 0)), so dlw is 0 where lw > 0.
 backward calls on CUDA tensors.  There is no fallback: a backward that
 fails to build or launch raises.  The plain version on the CPU
 differentiates through autograd.
+
+A ``meta`` tensor (the dry-run, ``launch/build``) takes the kernels'
+path, checks included, and launches nothing: each call returns outputs
+of the right shape (and the forward's kept scratch, sized as the
+library sizes it) and records ``work(...)`` (``work_bwd(...)`` for the
+backward), the FLOPs of the chunked form's tensor-core products and the
+bytes of PERF.md's bound, on the active ``analysis/count.StepCounter``;
+a CUDA call records the same while a counter is active.
 """
 
 from __future__ import annotations
@@ -52,8 +60,9 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
+from repro_torch.kernels import build, active, causal_pairs, record_kernel
+from repro_torch.kernels.rwkv6_wkv.ref import (CHUNK_ROWS, SUB_ROWS,
+                                               rwkv6_wkv_ref)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_wkv.cu"
 MAX_HEAD = 128
@@ -91,6 +100,56 @@ def _lib() -> ctypes.CDLL:
     lib.rwkv6_wkv_error_string.argtypes = [ctypes.c_int]
     lib.rwkv6_wkv_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def scratch_floats(B: int, H: int, S: int, K: int) -> int:
+    """The forward call's scratch, as ``rwkv6_wkv_scratch_floats`` sizes
+    it: each chunk's starting state and exp(c_end), K^2 + K floats a
+    stream and chunk."""
+    if B < 1 or H < 1 or S < 0 or K < 1:
+        return 0
+    return B * H * (-(-S // CHUNK_ROWS)) * (K * K + K)
+
+
+@functools.lru_cache(maxsize=1024)
+def work(B: int, H: int, S: int, K: int, u_rows: int, h0: bool):
+    """(flops, bytes) of one forward call over B*H streams, PERF.md's
+    bound: r, k, v, lw and u (``u_rows`` rows of K) read, y and the final
+    state written, h0 read when given, fp32; the chunked form's
+    tensor-core products (chunks of ``CHUNK_ROWS`` in sub-blocks of
+    ``SUB_ROWS``): A left of the diagonal and in each diagonal
+    sub-block's lower-left quadrant, the causal part of A V, r h_prev and
+    the update (q K^2 each), 2 flops a multiply-add."""
+    bh = B * H
+    nbytes = 4 * (5 * bh * S * K + u_rows * K
+                  + bh * K * K * (2 if h0 else 1))
+    macs = 0
+    half = SUB_ROWS // 2
+    for t0 in range(0, S, CHUNK_ROWS):
+        q = min(CHUNK_ROWS, S - t0)
+        for b0 in range(0, q, SUB_ROWS):
+            rows = min(SUB_ROWS, q - b0)
+            macs += rows * b0 * K
+            macs += max(0, rows - half) * min(half, rows) * K
+        macs += q * (q + 1) // 2 * K + 2 * q * K * K
+    return 2 * bh * macs, nbytes
+
+
+@functools.lru_cache(maxsize=1024)
+def work_bwd(B: int, H: int, S: int, K: int, u_rows: int, h0: bool):
+    """(flops, bytes) of one backward call, PERF.md's bound: the
+    forward's operands, dy (and dh_final and h0 when given) read once,
+    the gradients written once, fp32; the chunked backward's products per
+    stream: A, dA = dY V^T and A^T dY on the causal pairs and dR's and
+    dK's pivot products on the pairs below the diagonal (x K each), and
+    R~^T dY, K~ G, dY h^T and V G^T (q K^2 each)."""
+    bh = B * H
+    nbytes = 4 * (9 * bh * S * K + 2 * u_rows * K
+                  + (3 if h0 else 0) * bh * K * K)
+    flops = 2 * bh * K * (3 * causal_pairs(S, CHUNK_ROWS)
+                          + 2 * causal_pairs(S, CHUNK_ROWS, True)
+                          + 4 * S * K)
+    return flops, nbytes
 
 
 def _check(named: Sequence[Tuple[str, Optional[torch.Tensor]]],
@@ -138,6 +197,13 @@ def _launch(r, k, v, lw, u, h0, *, B: int, H: int, S: int, K: int,
         raise ValueError(f"B*H = {B * H} exceeds the grid's 65535")
     y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     hout = torch.empty((B * H, K, K), dtype=torch.float32, device=r.device)
+    if active() is not None:
+        record_kernel("rwkv6_wkv", *work(
+            B, H, S, K, u.numel() // K, h0 is not None))
+    if r.device.type == "meta":
+        n = scratch_floats(B, H, S, K)
+        return y, hout, (torch.empty(n, dtype=torch.float32,
+                                     device=r.device) if n else None)
     vp = ctypes.c_void_p
     lib = _lib()
     n = lib.rwkv6_wkv_scratch_floats(B, H, S, K)
@@ -174,6 +240,11 @@ def _launch_bwd(r, k, v, lw, u, h0, fwd_scratch, dy, dh_final, *, B: int,
     du = torch.empty(u.shape, dtype=torch.float32, device=dev)
     dh0 = None if h0 is None else torch.empty(
         (B * H, K, K), dtype=torch.float32, device=dev)
+    if active() is not None:
+        record_kernel("rwkv6_wkv_bwd", *work_bwd(
+            B, H, S, K, u.numel() // K, h0 is not None))
+    if dev.type == "meta":
+        return dr, dk, dv, dlw, du, dh0
     vp = ctypes.c_void_p
     lib = _lib()
     n = lib.rwkv6_wkv_bwd_scratch_floats(B, H, S, K)
@@ -221,11 +292,13 @@ class _Wkv(torch.autograd.Function):
 
 
 def _on_cuda(r: torch.Tensor) -> bool:
+    """True for the kernels' path: a CUDA tensor, or a ``meta`` one (the
+    dry-run: checked and counted, never launched)."""
     if r.device.type == "cpu":
         return False
-    if r.device.type != "cuda":
-        raise ValueError(f"rwkv6_wkv runs on cuda or cpu tensors, got "
-                         f"{r.device}")
+    if r.device.type not in ("cuda", "meta"):
+        raise ValueError(f"rwkv6_wkv runs on cuda, cpu or meta tensors, "
+                         f"got {r.device}")
     return True
 
 

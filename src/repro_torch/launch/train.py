@@ -9,8 +9,13 @@ It prints the reference's lines: one per logged step (``step N loss X
 (T ms)``) and a final ``final loss: ...  stragglers flagged: N``.
 
 ``--production`` (with ``--shape``, ``--multi-pod``, ``--setting``) is
-the reference's dry-run of the 256/512-chip configuration; the port has
-no dry-run yet (ROADMAP A16), so it exits with status 2 and says so.
+the dry-run of the 256- or 512-chip configuration, as the reference's:
+one device's share of the step counted on ``meta`` tensors
+(``launch/dryrun.run_cell``), its roofline line printed and its row
+written to ``results/dryrun_torch/``; it needs no device:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b \
+        --shape train_4k --production --multi-pod
 """
 
 from __future__ import annotations
@@ -41,10 +46,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
     if args.production:
-        print(f"--production: the port has no dry-run of the "
-              f"{args.shape} configuration yet; it waits for ROADMAP A16 "
-              "(launch/dryrun.py, launch/build.py)", file=sys.stderr)
-        return 2
+        from repro_torch.launch.dryrun import run_cell
+        run_cell(args.arch, args.shape, multi_pod=args.multi_pod,
+                 setting=args.setting)
+        return 0
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.train.trainer import Trainer, TrainerConfig

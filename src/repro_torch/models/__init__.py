@@ -5,7 +5,7 @@ and channel-mix, the decoder stack and whisper's encoder (counterpart of
 
 from repro_torch.models import (attention, layers, mamba2, module, moe,
                                 rwkv6, transformer)
-from repro_torch.models.transformer import (forward_decode,
+from repro_torch.models.transformer import (cache_structure, forward_decode,
                                             forward_dense_logits,
                                             forward_prefill, forward_train,
                                             forward_verify, model_defs,
@@ -15,4 +15,4 @@ __all__ = ["attention", "layers", "mamba2", "module", "moe", "rwkv6",
            "transformer",
            "model_defs", "forward_train", "forward_dense_logits",
            "forward_prefill", "forward_decode", "forward_verify",
-           "prepare_decode_cache"]
+           "prepare_decode_cache", "cache_structure"]

@@ -108,8 +108,9 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     size), differentiable through its backward kernel.  CPU tensors: the reference's chunked algorithm, chunk ``q`` =
     the largest power-of-two divisor of S not above ``chunk``."""
     if x.device.type != "cpu":
-        y, h_final = scan_ops.scan_model_layout(x, dt, b_in, c_in, a_log,
-                                                h0)
+        # the kernel takes fp32 (a no-op on fp32 operands, strides kept)
+        y, h_final = scan_ops.scan_model_layout(
+            x.float(), dt.float(), b_in.float(), c_in.float(), a_log, h0)
         return y.to(x.dtype), h_final
     bsz, s, h, p = x.shape
     n = b_in.shape[-1]
@@ -175,7 +176,10 @@ def apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "dense",
     if mode not in ("dense", "prefill", "decode"):
         raise ValueError(f"unknown mamba2 mode {mode!r}")
     ssm = cfg.ssm
-    d_inner, nheads, n, p = dims(cfg)
+    # widths from the weights, so a shard of the inner dim (the dry-run's
+    # per-device view, ``launch/build``) runs as the whole does
+    d_inner, nheads = params["wx"].shape[1], params["a_log"].shape[0]
+    n, p = params["wbc"].shape[1] // 2, d_inner // nheads
     bsz, s, d = x.shape
     x2 = x.reshape(bsz * s, d)
     z = torch.matmul(x2, params["wz"].to(x.dtype)).view(bsz, s, d_inner)

@@ -121,7 +121,9 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     size), differentiable through its backward kernel.  CPU tensors: the reference's chunked algorithm, chunk ``q``
     = the largest power-of-two divisor of S not above ``CHUNK_Q``."""
     if r.device.type != "cpu":
-        y, h_final = wkv_ops.wkv_model_layout(r, k, v, lw, u, h0)
+        # the kernels take fp32 (a no-op on fp32 operands, strides kept)
+        y, h_final = wkv_ops.wkv_model_layout(r.float(), k.float(),
+                                              v.float(), lw.float(), u, h0)
         return y.to(r.dtype), h_final
     b, s, h, kk = r.shape
     f32 = torch.float32
@@ -195,7 +197,10 @@ def time_mix(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     exact as of ``length - 1``."""
     if mode not in ("dense", "prefill", "decode"):
         raise ValueError(f"unknown rwkv6 mode {mode!r}")
-    nh, hd = hdims(cfg)
+    # heads from the weights, so a shard of the inner dim (the dry-run's
+    # per-device view, ``launch/build``) runs as the whole does
+    hd = cfg.rwkv.head_dim
+    nh = params["wr"].shape[1] // hd
     b, s, d = x.shape
     dt = x.dtype
     prev = _token_shift(x, state["tshift"] if state is not None else None)
@@ -238,12 +243,12 @@ def time_mix(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         y = torch.einsum("bhk,bhkv->bhv", r1, h_prev + uh[None, :, :, None]
                          * kv)
         h_new = w1[..., None] * h_prev + kv
-        y = y[:, None].to(dt).reshape(b, 1, d)
+        y = y[:, None].to(dt).reshape(b, 1, nh * hd)
         new_state = {"tshift": x[:, -1:], "wkv": h_new}
     else:
         h0 = state["wkv"] if state is not None else None
         yh, h_final = wkv_chunked(rh, kh, vh, lwh, uh, h0)
-        y = yh.reshape(b, s, d)
+        y = yh.reshape(b, s, nh * hd)
         if mode == "prefill":
             new_state = {"tshift": _state_at(x, length), "wkv": h_final}
 

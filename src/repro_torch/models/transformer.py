@@ -52,6 +52,7 @@ from repro_torch.configs.base import (ATTN, FFN_DENSE, FFN_MOE, FFN_NONE,
                                       BlockSpec, ModelConfig)
 from repro_torch.models import attention, layers, mamba2, moe, rwkv6
 from repro_torch.models.module import EMBED, ParamDef
+from repro_torch.parallel import sharding as sh
 
 def _block_defs(cfg: ModelConfig, block: BlockSpec) -> Dict:
     """The reference's per-layer keys: a shared attention layer keeps
@@ -527,6 +528,43 @@ def prepare_decode_cache(cfg: ModelConfig, cache: Dict,
     return dict(cache, layers=new_layers)
 
 
+def cache_structure(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
+    """The dense decode cache as nested ``{name: (shape, logical axes)}``
+    (the reference's): per layer ``{"k","v"}`` [B,Hkv,ring,dh] (ring =
+    ``min(max_len, window)``; the sequence on ``KV_SEQ``), a Mamba2
+    layer's ``{"conv","ssm"}``, an rwkv6 layer's
+    ``{"tshift","wkv","cshift"}``, ``len`` [B] and, for a
+    cross-attention arch, ``enc_kv`` per layer [B,Hkv,F,dh]."""
+    per_layer: List[Optional[Dict]] = []
+    for block in cfg.blocks:
+        if block.mixer in (ATTN, SHARED_ATTN):
+            shape = attention.init_cache_shape(
+                cfg, batch, min(max_len, block.window or max_len))
+            axes = (sh.BATCH, None, sh.KV_SEQ, None)
+            entry = {"k": (shape, axes), "v": (shape, axes)}
+        elif block.mixer == MAMBA2:
+            st = mamba2.state_shapes(cfg, batch)
+            entry = {"conv": (st["conv"], (sh.BATCH, None, None)),
+                     "ssm": (st["ssm"], (sh.BATCH, sh.HEADS, None, None))}
+        elif block.mixer == RWKV6:
+            st = rwkv6.state_shapes(cfg, batch)
+            entry = {"tshift": (st["tshift"], (sh.BATCH, None, None)),
+                     "wkv": (st["wkv"], (sh.BATCH, sh.HEADS, None, None)),
+                     "cshift": (st["cshift"], (sh.BATCH, None, None))}
+        else:
+            entry = None
+        per_layer.append(entry)
+    out: Dict = {"layers": per_layer, "len": ((batch,), (sh.BATCH,))}
+    if cfg.cross_attention:
+        kv_shape = (batch, cfg.num_kv_heads, cfg.frontend_len,
+                    cfg.resolved_head_dim)
+        kv_axes = (sh.BATCH, None, None, None)
+        out["enc_kv"] = [{"k": (kv_shape, kv_axes), "v": (kv_shape, kv_axes)}
+                         for _ in range(cfg.num_layers)]
+    return out
+
+
 __all__ = ["model_defs", "forward_train", "forward_dense_logits",
            "forward_prefill", "forward_decode", "forward_verify",
-           "prefill_hidden", "verify_hidden", "prepare_decode_cache"]
+           "prefill_hidden", "verify_hidden", "prepare_decode_cache",
+           "cache_structure"]

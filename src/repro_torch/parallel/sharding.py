@@ -95,6 +95,19 @@ class Rules:
             entries.pop()
         return tuple(entries)
 
+    def local_shape(self, spec: Spec, dims: Sequence[int]
+                    ) -> Tuple[int, ...]:
+        """Each of ``dims`` over the mesh size of its ``spec`` entry: a
+        tensor's per-device shape."""
+        return tuple(d // self.mesh_size(spec[i] if i < len(spec) else None)
+                     for i, d in enumerate(dims))
+
+    def shard_shape(self, logical_axes: Sequence[Optional[str]],
+                    dims: Sequence[int]) -> Tuple[int, ...]:
+        """The per-device shape of a tensor with these logical axes and
+        dims (the divisibility fallback applied)."""
+        return self.local_shape(self.spec_for(logical_axes, dims), dims)
+
     def sharding_for(self, logical_axes, dims=None) -> None:
         """No device placement yet: a ``DeviceMesh`` sharding is the
         multi-device work still to come, so every tensor stays whole."""

@@ -42,6 +42,32 @@ from repro_torch.models.module import init_params
 from repro_torch.optim import adamw, schedule
 
 
+def train_step(state: Dict, batch: Dict[str, torch.Tensor],
+               cfg: ModelConfig, ocfg: adamw.AdamWConfig, total: int, *,
+               remat: bool = False, update=None) -> Dict[str, torch.Tensor]:
+    """One step on ``state`` (``{"params", "opt", "step"}``): forward,
+    backward, the schedule, then ``adamw.update`` in place on the params,
+    or ``update(opt, lr)`` (returning the optimizer's metrics) where the
+    caller steps other tensors (the dry-run's ZeRO-1 shards).  Returns
+    the metrics as 0-d device tensors (``loss``, the MoE aux values,
+    ``grad_norm``, ``lr``)."""
+    params = state["params"]
+    for p in params.parameters():
+        p.grad = None
+    loss, metrics = forward_train(params, cfg, batch, remat=remat)
+    loss.backward()
+    lr = schedule.linear_warmup_cosine(state["step"], peak_lr=ocfg.lr,
+                                       warmup=10, total=total)
+    if update is None:
+        _, _, om = adamw.update(None, state["opt"], params, ocfg, lr)
+    else:
+        om = update(state["opt"], lr)
+    for p in params.parameters():
+        p.grad = None
+    state["step"].add_(1)
+    return {**{k: v.detach() for k, v in metrics.items()}, **om, "lr": lr}
+
+
 @dataclasses.dataclass
 class TrainerConfig:
     steps: int = 100
@@ -86,24 +112,9 @@ class Trainer:
     # ------------------------------------------------------------------
     def train_step(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-        """One step on a device batch; returns its metrics as 0-d device
-        tensors (``loss``, the MoE aux values, ``grad_norm``, ``lr``)."""
-        params = self.state["params"]
-        for p in params.parameters():
-            p.grad = None
-        loss, metrics = forward_train(params, self.cfg, batch,
-                                      remat=self.tc.remat)
-        loss.backward()
-        lr = schedule.linear_warmup_cosine(
-            self.state["step"], peak_lr=self.ocfg.lr, warmup=10,
-            total=self.tc.steps)
-        _, _, om = adamw.update(None, self.state["opt"], params, self.ocfg,
-                                lr)
-        for p in params.parameters():
-            p.grad = None
-        self.state["step"].add_(1)
-        return {**{k: v.detach() for k, v in metrics.items()}, **om,
-                "lr": lr}
+        """One step on a device batch (``train_step``)."""
+        return train_step(self.state, batch, self.cfg, self.ocfg,
+                          self.tc.steps, remat=self.tc.remat)
 
     def maybe_restore(self) -> int:
         if not self.tc.ckpt_dir:
@@ -154,4 +165,4 @@ class Trainer:
         self.step_times.append(dt)
 
 
-__all__ = ["TrainerConfig", "Trainer"]
+__all__ = ["TrainerConfig", "Trainer", "train_step"]

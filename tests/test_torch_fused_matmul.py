@@ -29,8 +29,10 @@ The Hopper kernel against its plain version runs only where
 
 import ctypes
 import re
+import types
 
 import numpy as np
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -216,8 +218,10 @@ def _bad_calls():
          (x, w, sc), {"out_dtype": torch.float16}),
         ("scale_float64", TypeError, "x_scale must be",
          (x, w, sc.double()), {}),
-        ("x_on_meta", ValueError, "cuda or cpu",
-         (x.to(meta), w.to(meta), None), {}),
+        # meta tensors are the dry-run's (counted, never launched): a
+        # device the port does not run on stands in for "other"
+        ("x_on_meta", ValueError, "cuda, cpu or meta",
+         (types.SimpleNamespace(device=torch.device("xla")), w, None), {}),
         ("w_on_meta", ValueError, "w is on", (x, w.to(meta), sc), {}),
         ("scale_on_meta", ValueError, "x_scale is on", (x, w, sc.to(meta)),
          {}),

@@ -10,8 +10,8 @@
   does both halves;
 * fig01 at ``reduced(internlm2-1.8b)`` and fig13 at n = 256 emit finite
   rows;
-* the aggregator ``repro_torch.benchmarks.run`` runs one selected figure
-  and lists the figures still to port as waiting.
+* the aggregator ``repro_torch.benchmarks.run`` runs the selected
+  figures (fig16 without dry-run rows: its cost-model half only).
 """
 
 import contextlib
@@ -30,6 +30,7 @@ from repro_torch.benchmarks import fig01_breakdown as fig01  # noqa: E402
 from repro_torch.benchmarks import fig04_scheduling as fig04  # noqa: E402
 from repro_torch.benchmarks import fig06_heatmap as fig06  # noqa: E402
 from repro_torch.benchmarks import fig13_library as fig13  # noqa: E402
+from repro_torch.benchmarks import fig16_multipod as fig16  # noqa: E402
 from repro_torch.benchmarks import fig18_guideline_eval as fig18  # noqa: E402
 from repro_torch.benchmarks import run as bench_run  # noqa: E402
 from repro_torch.configs import ARCH_IDS  # noqa: E402
@@ -135,11 +136,13 @@ def test_fig13_emits_finite_rows(monkeypatch):
         assert math.isfinite(r["gflops"]) and r["gflops"] > 0
 
 
-def test_run_selects_one_figure(capsys):
+def test_run_selects_one_figure(capsys, tmp_path, monkeypatch):
+    monkeypatch.setattr(fig16, "RESULTS", tmp_path)   # no dry-run rows
     assert bench_run.main(["fig06", "fig16"]) == 0
     out, err = capsys.readouterr()
     rows = _rows(out)
     assert out.splitlines()[0] == "name,us_per_call,derived"
-    assert rows and all(name.startswith("fig06.") for name in rows)
-    assert "fig16_multipod: waiting" in err
-    assert set(bench_run.MODULES).isdisjoint(bench_run.WAITING)
+    assert rows and all(name.startswith(("fig06.", "fig16.model."))
+                        for name in rows)
+    assert "fig16.model.dbrx-132b" in rows
+    assert "# fig16_multipod done in" in err

@@ -26,8 +26,10 @@ Same numpy inputs on both sides (fp32, TF32 off), at these tolerances:
 import ctypes
 import dataclasses
 import re
+import types
 
 import numpy as np
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -474,9 +476,11 @@ def test_ctypes_signature_of_scratch_size():
 
 
 def test_wrapper_refuses_other_devices():
-    r = torch.zeros(1, 2, 4, device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        ops.rwkv6_wkv(r, r, r, r, torch.zeros(1, 4, device="meta"))
+    # meta tensors are the dry-run's (counted, never launched): a device
+    # the port does not run on stands in for "other"
+    r = types.SimpleNamespace(device=torch.device("xla"))
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        ops.rwkv6_wkv(r, r, r, r, r)
 
 
 # ---------------------------------------------------------------------------

@@ -19,11 +19,12 @@ off, on the CPU).
   the aux loss, the load-balance term).
 * ``launch.train``: ``--smoke --steps 2 --device cpu`` prints the
   reference's lines; ``--resume`` picks up the checkpoint; ``--production``
-  is refused.
+  counts the cell on ``meta`` tensors and prints its roofline line.
 * ``refuse_autograd``'s rule, which only ``paged_attention`` (it never
   trains) still uses.
 """
 
+import json
 import re
 
 import numpy as np
@@ -47,6 +48,7 @@ from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels import refuse_autograd  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import forward_train, model_defs  # noqa: E402
 from repro_torch.models.layers import grad_fence, logits  # noqa: E402
@@ -266,7 +268,8 @@ def test_trainer_three_steps_vs_jax(arch):
 LINE = re.compile(r"^step +(\d+) loss (\d+\.\d{4}) \((\d+) ms\)$")
 
 
-def test_launch_train_smoke_resume_and_production(tmp_path, capsys):
+def test_launch_train_smoke_resume_and_production(tmp_path, capsys,
+                                                  monkeypatch):
     def args(steps):
         return ["--arch", "internlm2-1.8b", "--smoke", "--steps", steps,
                 "--batch", "2", "--seq", "16", "--device", "cpu",
@@ -281,9 +284,14 @@ def test_launch_train_smoke_resume_and_production(tmp_path, capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0] == "resumed from step 2"
     assert [int(LINE.match(ln).group(1)) for ln in lines[1:-1]] == [3]
+    monkeypatch.setattr(dryrun, "RESULTS", tmp_path / "dryrun")
     assert launch_train.main(["--arch", "dbrx-132b", "--production",
-                              "--multi-pod"]) == 2
-    assert "A16" in capsys.readouterr().err
+                              "--multi-pod", "--shape", "decode_32k"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("[dbrx-132b x decode_32k x multi x guideline] ")
+    row = json.loads((tmp_path / "dryrun" / "dbrx-132b__decode_32k__multi__"
+                      "guideline.json").read_text())
+    assert row["ok"] and row["chips"] == 512
 
 
 # ---------------------------------------------------------------------------
