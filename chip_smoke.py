@@ -9,7 +9,8 @@ launcher on full-width, full-depth internlm2-1.8b, with the backwards of
 rwkv6-7b cut in depth, with the scans' backward kernels), the fused
 chunked-prefill engine serving full-width internlm2-1.8b (random
 weights from a seed) from fp32, int8 and fp8_e4m3 KV page pools, the
-two-executable engine (bucketed,
+same engine as a data-parallel rank (``rules=``, a one-rank NCCL mesh)
+beside the paper's branch schedules, the two-executable engine (bucketed,
 suffix and segmented prefill, S = 1 decode) serving it from fp32 and
 int8 pools, both engines serving it speculatively (n-gram and model
 drafters), the serving launcher serving it as a user would start it,
@@ -23,7 +24,7 @@ window ring that wraps, full-width, full-depth zamba2-7b (Mamba2 + shared
 attention) and rwkv6-7b (attention-free) through the two-executable
 engine, then full-width dbrx-132b (MoE, depth cut to 4 layers) from
 fp32 pools, then the last four archs one at a time (whisper-medium's
-encoder and cross-attention, gemma3-12b, mistral-large-123b cut to 4
+encoder and cross-attention, gemma3-12b, mistral-large-123b cut to 2
 layers, pixtral-12b's patch frontend) — the paper's §5 operator
 study (fig09 and fig11, the fused-prep matmul) and its tuning machinery
 with figs 01, 04, 06, 13 and 18, and holds every CUDA kernel on them
@@ -130,6 +131,17 @@ printing JSON lines:
 5. paths, on the fp32 and the int8 engine: full-width ``forward_verify``
    logits through the kernel against the gather path on the same mid-run
    cache state (<= 1e-3).
+5a. sharded_serve: the fp32 phase's 12 requests through
+   ``Engine(rules=...)`` (``BATCH`` and ``PAGES`` on ``"data"``) on a
+   one-rank NCCL ``("data", "pool")`` mesh joined through a
+   ``file://`` store in a temporary directory: the rank holds every slot
+   and page, and each drain all-gathers its packed tensor over
+   ``"data"``.  Gates: tokens equal the fp32 phase's, a chunk free of
+   host syncs, paged launches == 24 x micro-steps, 0 leaked pages,
+   prefix hits, ``Rules.fallbacks`` printed (none expected).  Then ``core/scheduler``'s ``run_async`` (1
+   branch) and ``hybrid_pools`` (4 branches) over ``"pool"`` at dbrx's
+   expert-FFN width (d 6144, F 10752, 256 tokens), each within 1e-4 x
+   max|want| of ``run_sync``, timed once each.  Its seconds printed.
 5b. legacy, once on fp32 and once on int8 pools: the same 12 requests
    through ``Engine(chunked_prefill=False)`` (buckets 8..1024): 32 tokens
    each, 0 leaked pages, prefix hits with CoW, ``flash_attention``
@@ -300,8 +312,8 @@ printing JSON lines:
    launches).  gemma3-12b with nothing cut (48 layers, ~47 GB) at
    ``max_len`` 4096: a 1500-token prompt (its 1024-window rings wrap)
    beside 7 of the main traffic's; mistral-large-123b, every width kept,
-   depth 88 -> 4 (~23.8 GB; 4 layers keep the whole run near 900 s
-   beside the training phases): the main traffic.  Each fused and on two
+   depth 88 -> 2 (~12.7 GB; cut from 4 so that the whole run keeps its
+   time with the sharded_serve phase): the main traffic.  Each fused and on two
    executables, each through the paged kernel and the gather path:
    greedy tokens equal between the two, every kernel-path token
    teacher-forced, 0 leaked pages, paged launches == layers x
@@ -396,10 +408,10 @@ printing JSON lines:
    lookup; ``analysis/roofline`` at the data sheet's bf16 rate and at
    the fp32 CUDA-core rate printed beside phase 8's ms a step and peak
    memory.  Then ``python -m repro_torch.launch.dryrun --arch dbrx-132b
-   --shape train_4k --both-meshes`` and ``python -m
-   repro_torch.launch.train --arch internlm2-1.8b --production`` as
-   subprocesses: exit 0, their rows ``ok`` with ``useful_ratio`` in
-   (0, 1.05].
+   --shape train_4k`` (once a mesh: as is and with ``--multi-pod``) and
+   ``python -m repro_torch.launch.train --arch internlm2-1.8b
+   --production`` as three concurrent subprocesses: exit 0, their rows
+   ``ok`` with ``useful_ratio`` in (0, 1.05].
 
 The last three lines are the card's name and power limit (again), the
 kernel table (paged attention per pool dtype, with its S = 1 rows under
@@ -663,8 +675,14 @@ GEMMA2_MAX_LEN = 8192   # gemma2's 4096 windows wrap within it
 GEMMA2_LONG = 4600      # the long prompt: wider than the window
 GEMMA3_MAX_LEN = 4096
 GEMMA3_LONG = 1500      # wider than gemma3's 1024 windows
-MISTRAL_DEPTH = 4       # of 88 layers: ~23.8 GB of fp32 weights; the run
-                        # stays near 900 s beside the training phases
+MISTRAL_DEPTH = 2       # of 88 layers: ~12.7 GB of fp32 weights; cut from
+                        # 4 to pay for the sharded_serve phase
+# the scans' plain forwards (a Python loop a step: 36-385 ms a call) are
+# timed over 5 calls, not 30: cut with MISTRAL_DEPTH for sharded_serve
+SCAN_FWD_PLAIN_ITERS = 5
+SCHED_TOL = 1e-4        # x max|want|: run_async / hybrid_pools vs run_sync
+SCHED_BRANCHES = 4      # hybrid_pools' branches at dbrx's expert width
+SCHED_TOKENS = 256
 
 
 class SmokeFailure(Exception):
@@ -1323,7 +1341,8 @@ def phase_mamba_kernels(torch, mops):
             rec["device_ms"], rec["calls_traced"] = device_ms(
                 torch, lambda: op(*call), flush)
             rec["plain_ms"] = cuda_ms(
-                torch, lambda: mops.mamba2_scan_ref(*plain), flush=flush)
+                torch, lambda: mops.mamba2_scan_ref(*plain), flush=flush,
+                iters=SCAN_FWD_PLAIN_ITERS)
             rec["library_ms"] = None
             roofline(rec, f"mamba2 {name}")
             timed[name] = rec
@@ -1459,7 +1478,8 @@ def phase_rwkv6_kernels(torch, wops):
             rec["device_ms"], rec["calls_traced"] = device_ms(
                 torch, lambda: op(*call), flush)
             rec["plain_ms"] = cuda_ms(
-                torch, lambda: wops.rwkv6_wkv_ref(*plain), flush=flush)
+                torch, lambda: wops.rwkv6_wkv_ref(*plain), flush=flush,
+                iters=SCAN_FWD_PLAIN_ITERS)
             rec["library_ms"] = None
             roofline(rec, f"rwkv6 {name}")
             timed[name] = rec
@@ -1895,6 +1915,129 @@ def phase_paths(torch, eng, cfg, rt):
     eng.run(max_steps=10 ** 6)
     check(eng.leaked_pages() == 0,
           f"{eng.kv_dtype}: leaked pages after the second wave")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5a: the engine under rules= on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+def expert_ffn(torch, p, x):
+    """One dbrx expert's FFN: silu(x wg) * (x wu), then wd."""
+    return (torch.nn.functional.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+def phase_schedules(torch, rt, mesh) -> dict:
+    """``run_sync`` / ``run_async`` / ``hybrid_pools`` of
+    ``core/scheduler`` over the mesh's one-rank ``"pool"`` axis at dbrx's
+    expert-FFN width: ``run_async`` takes one branch (the pool size),
+    ``hybrid_pools`` four in turn; each against ``run_sync`` of the same
+    branches, timed once (CUDA events)."""
+    from repro_torch.core import scheduler
+    dbrx = rt["get_config"]("dbrx-132b")
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    D, F = dbrx.d_model, dbrx.d_ff
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen, device=DEV) / math.sqrt(
+            shape[-2])
+
+    stacked = {"wg": w(SCHED_BRANCHES, D, F), "wu": w(SCHED_BRANCHES, D, F),
+               "wd": w(SCHED_BRANCHES, F, D)}
+    x = torch.randn((SCHED_TOKENS, D), generator=gen, device=DEV)
+    fn = lambda p, v: expert_ffn(torch, p, v)      # noqa: E731
+    first = {k: v[:1] for k, v in stacked.items()}
+    out = {}
+    for name, call, ref_params in (
+            ("run_async", lambda: scheduler.run_async(
+                fn, first, x, mesh=mesh, pool_axis="pool"), first),
+            ("hybrid_pools", lambda: scheduler.hybrid_pools(
+                fn, stacked, x, mesh=mesh, pool_axis="pool"), stacked)):
+        want = scheduler.run_sync(fn, ref_params, x)
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        got = call()
+        end.record()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max() / want.abs().max())
+        out[name] = {"branches": ref_params["wg"].shape[0],
+                     "rel_err": err, "ms": start.elapsed_time(end)}
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+        check(err <= SCHED_TOL, f"{name} vs run_sync: {err} > {SCHED_TOL}")
+    del stacked, first, x
+    return out
+
+
+def phase_sharded_serve(torch, ops, rt, cfg, params, fused_tokens) -> dict:
+    """The 12 requests through ``Engine(rules=...)`` on a one-rank NCCL
+    mesh (``("data", "pool")``, sizes 1 x 1): tokens equal to the fused
+    fp32 phase's (``fused_tokens``), a sync-free chunk, paged launches
+    == layers x micro-steps; then the branch schedules over ``"pool"``.
+    The process group is destroyed before it returns."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.parallel import sharding as sh
+    store = tempfile.mkdtemp()
+    mesh_lib.join_process_group("nccl", rank=0, world_size=1,
+                                init_method=f"file://{store}/store")
+    try:
+        mesh = mesh_lib.device_mesh((1, 1), ("data", "pool"))
+        rules = sh.Rules(table={sh.BATCH: "data", sh.PAGES: "data"},
+                         mesh=mesh)
+        eng = rt["Engine"](cfg, params, slots=8, max_len=1024, page_size=16,
+                           device=DEV, rules=rules)
+        check(eng.paged_kernel, "sharded: paged_kernel='auto' did not pick "
+              "the kernel")
+        check(eng._dp_group is not None and eng.shards == 1,
+              "sharded: the slots are not placed on the data axis")
+        eng.warmup()
+        reqs = make_requests(rt["Request"], cfg.vocab_size, 12, seed=7,
+                             rid0=0)
+        steps0 = eng.steps
+        ops.launches = 0
+        for k in ops.launches_by_dtype:
+            ops.launches_by_dtype[k] = 0
+        served = serve_fused(torch, eng, reqs)
+        launches, micro = ops.launches, eng.steps - steps0
+        tokens = {r.rid: list(r.out_tokens) for r in reqs}
+        pstats = eng.prefix_stats()
+        mem = eng.memory_stats()
+        emit("sharded_serve", mesh=mesh_lib.describe(mesh),
+             placements={"len": repr(eng.spec.shardings(rules)["len"])},
+             fallbacks=rules.fallbacks, micro_steps=micro,
+             chunks=eng.chunks, host_syncs=eng.host_syncs,
+             wall_s=served["wall_s"],
+             ms_per_micro_step=served["wall_s"] / micro * 1e3,
+             kernel_launches=launches,
+             sync_free_chunk=served["sync_free_chunk"],
+             tokens_equal=same_tokens(fused_tokens, tokens),
+             tokens_total=sum(len(v) for v in fused_tokens.values()),
+             prefix_stats=pstats, rank_share=mem["rank"],
+             leaked_pages=eng.leaked_pages())
+        check(tokens == fused_tokens,
+              "sharded: tokens differ from the fused fp32 phase's")
+        check(served["sync_free_chunk"], "sharded: no chunk ran under sync "
+              "debug mode")
+        check(launches == cfg.num_layers * micro,
+              f"sharded: paged launches {launches} != {cfg.num_layers} x "
+              f"{micro}")
+        check(eng.leaked_pages() == 0, "sharded: leaked pages")
+        check(pstats["prefix_hits"] > 0, "sharded: no prefix hits")
+        check(eng.host_syncs == eng.chunks, "sharded: more than one host "
+              "sync a chunk")
+        del eng
+        torch.cuda.empty_cache()
+        schedules = phase_schedules(torch, rt, mesh)
+        emit("schedules", **schedules)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "micro_steps": micro,
+            "schedules": schedules}
 
 
 # ---------------------------------------------------------------------------
@@ -5223,37 +5366,44 @@ def phase_train_resume(torch, rt, cfg) -> dict:
     return rec
 
 
+def train_launcher_run(env, arch: str) -> dict:
+    """One ``launch.train --smoke`` subprocess: its lines and seconds."""
+    argv = ["--arch", arch, "--smoke", "--steps", "4"]
+    t0 = time.time()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *argv],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=TRAIN_LAUNCHER_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"train launcher {arch}: no exit within "
+                           f"{TRAIN_LAUNCHER_TIMEOUT_S} s")
+    return {"argv": argv, "rc": proc.returncode,
+            "lines": proc.stdout.strip().splitlines(),
+            "seconds": time.time() - t0,
+            "stderr_tail": proc.stderr.splitlines()[-20:]}
+
+
 def phase_train_launcher(torch) -> dict:
     """``python -m repro_torch.launch.train --arch ARCH --smoke --steps 4``
     as a subprocess on the card for internlm2-1.8b, zamba2-7b and
-    rwkv6-7b (the scans' backward kernels under the launcher): exit 0,
-    its step lines and its final line, each."""
+    rwkv6-7b (the scans' backward kernels under the launcher), the three
+    at once (each mostly its start-up): exit 0, its step lines and its
+    final line, each."""
     env = port_env()
-    out = {}
-    for arch in TRAIN_LAUNCHER_ARCHS:
-        argv = ["--arch", arch, "--smoke", "--steps", "4"]
-        t0 = time.time()
-        try:
-            proc = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.train", *argv],
-                cwd=ROOT, env=env, capture_output=True, text=True,
-                timeout=TRAIN_LAUNCHER_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            raise SmokeFailure(f"train launcher {arch}: no exit within "
-                               f"{TRAIN_LAUNCHER_TIMEOUT_S} s")
-        lines = proc.stdout.strip().splitlines()
-        rec = {"argv": argv, "rc": proc.returncode, "lines": lines,
-               "seconds": time.time() - t0,
-               "stderr_tail": proc.stderr.splitlines()[-20:]}
+    with ThreadPoolExecutor(len(TRAIN_LAUNCHER_ARCHS)) as pool:
+        futures = {arch: pool.submit(train_launcher_run, env, arch)
+                   for arch in TRAIN_LAUNCHER_ARCHS}
+        out = {arch: f.result() for arch, f in futures.items()}
+    for arch, rec in out.items():
+        lines = rec["lines"]
         emit("train_launcher", **rec)
-        check(proc.returncode == 0,
-              f"train launcher {arch}: exit {proc.returncode}")
+        check(rec["rc"] == 0, f"train launcher {arch}: exit {rec['rc']}")
         check(bool(lines) and re.match(
             r"^final loss: \d+\.\d{4}  stragglers flagged: \d+$",
             lines[-1]), f"train launcher {arch}: last line {lines[-1:]!r}")
         check(sum(bool(re.match(r"^step +\d+ loss ", ln)) for ln in lines)
               == 2, f"train launcher {arch}: step lines {lines}")
-        out[arch] = rec
     return out
 
 
@@ -5612,11 +5762,14 @@ def phase_roofline(torch, fa, rt, card, train: dict) -> dict:
           f"roofline: counted {meta_count.flops} FLOPs under the cost "
           f"model's {bound['lower_bound_flops']}")
 
-    # the launchers, as a user runs them: both at once (host-bound)
+    # the launchers, as a user runs them, all at once (host-bound): the
+    # dry-run's two meshes as two processes
+    dry = ["repro_torch.launch.dryrun", "--arch", "dbrx-132b", "--shape",
+           "train_4k"]
     launchers = {
-        "dryrun_dbrx": (["repro_torch.launch.dryrun", "--arch", "dbrx-132b",
-                         "--shape", "train_4k", "--both-meshes"],
-                        "launch.dryrun dbrx-132b"),
+        "dryrun_dbrx": (dry, "launch.dryrun dbrx-132b"),
+        "dryrun_dbrx_multi_pod": (dry + ["--multi-pod"],
+                                  "launch.dryrun dbrx-132b --multi-pod"),
         "production_internlm2": (["repro_torch.launch.train", "--arch",
                                   "internlm2-1.8b", "--production"],
                                  "launch.train --production internlm2-1.8b")}
@@ -5762,6 +5915,9 @@ def main() -> int:
                 phase_paths(torch, eng, cfg, rt)
             del eng
             torch.cuda.empty_cache()
+        # the same traffic through Engine(rules=...) on a one-rank mesh
+        sharded = timed_phase("sharded_serve", phase_sharded_serve, torch,
+                              ops, rt, cfg, params, tokens["fp32"])
         # the two-executable path on the same model, before it is freed
         phase_prefill_vs_fused(torch, rt, cfg, params)
         phase_quantized_splice(torch, rt, cfg, params)
@@ -5895,6 +6051,7 @@ def main() -> int:
     entries[0]["launches_gemma2_fused_spec"] = verify_launches[
         "gemma2_fused_spec"]
     entries[0]["launches_dbrx"] = dbrx_launches
+    entries[0]["launches_sharded_serve"] = sharded["launches"]
     entries[0]["launches_fig14"] = fig14_launches["paged"]
     entries[1]["launches_fig14_qp"] = fig14_qp["paged_attention_int8_launches"]
     entries[0]["launches_launcher"] = {

@@ -3,9 +3,10 @@ and its per-device inputs on ``meta`` tensors, counted op by op
 (counterpart of ``repro/launch/build.py``).
 
 The reference builds a jit-able step with abstract sharded inputs and
-lowers it for 256 or 512 devices.  PyTorch places nothing on a mesh yet
-(``parallel/sharding.Rules.sharding_for`` returns None), so the port
-runs **one device's share** of the step on ``meta`` tensors inside an
+lowers it for 256 or 512 devices.  The dry-run's meshes are descriptors
+(``parallel/sharding.Rules.sharding_for`` returns None on them: nothing
+is placed), so the port runs **one device's share** of the step on
+``meta`` tensors inside an
 ``analysis/count.StepCounter`` (``Built.count()``, in place of
 ``Built.lower()``):
 
@@ -56,7 +57,8 @@ from repro_torch.core import tuner
 from repro_torch.launch import mesh as meshlib
 from repro_torch.models import (attention, layers, mamba2, moe, rwkv6,
                                 cache_structure, forward_decode,
-                                forward_prefill, model_defs)
+                                forward_prefill, is_structure_leaf,
+                                map_structure, model_defs)
 from repro_torch.models import module as m
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as sh
@@ -320,18 +322,6 @@ def _build_prefill(cfg, shape, plan, mesh, rules, dtype) -> Built:
                  alias_bytes=0.0, param_bytes=param_bytes, notes=plan.notes)
 
 
-def _cache_leaves(struct, fn):
-    """Map ``fn(shape, axes)`` over a ``cache_structure`` tree."""
-    if isinstance(struct, tuple) and len(struct) == 2 \
-            and isinstance(struct[0], tuple):
-        return fn(*struct)
-    if isinstance(struct, dict):
-        return {k: _cache_leaves(v, fn) for k, v in struct.items()}
-    if isinstance(struct, list):
-        return [None if v is None else _cache_leaves(v, fn) for v in struct]
-    return struct
-
-
 def _build_decode(cfg, shape, plan, mesh, rules, dtype) -> Built:
     params, defs, local, view = abstract_model_params(cfg, rules, dtype)
     param_bytes = coll.shard_bytes(defs, rules, dtype)
@@ -344,14 +334,12 @@ def _build_decode(cfg, shape, plan, mesh, rules, dtype) -> Built:
 
     # storage: the reference's cache, each leaf at its shard shape
     stored = 0.0
-    for shp, axes in m.tree_leaves(
-            cache_structure(cfg, b, t),
-            is_leaf=lambda x: isinstance(x, tuple) and len(x) == 2
-            and isinstance(x[0], tuple)):
+    for shp, axes in m.tree_leaves(cache_structure(cfg, b, t),
+                                   is_leaf=is_structure_leaf):
         stored += math.prod(rules.shard_shape(axes, shp)) \
             * leaf_dtype(axes, shp).itemsize
     # compute: the local view's cache at the device's rows
-    cache = _cache_leaves(cache_structure(local, b_loc, t), lambda shp, ax:
+    cache = map_structure(cache_structure(local, b_loc, t), lambda shp, ax:
                           torch.empty(shp, dtype=leaf_dtype(ax, shp),
                                       device=META))
     for entry, block, lp in zip(cache["layers"], cfg.blocks,

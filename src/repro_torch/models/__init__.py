@@ -8,11 +8,13 @@ from repro_torch.models import (attention, layers, mamba2, module, moe,
 from repro_torch.models.transformer import (cache_structure, forward_decode,
                                             forward_dense_logits,
                                             forward_prefill, forward_train,
-                                            forward_verify, model_defs,
+                                            forward_verify, is_structure_leaf,
+                                            map_structure, model_defs,
                                             prepare_decode_cache)
 
 __all__ = ["attention", "layers", "mamba2", "module", "moe", "rwkv6",
            "transformer",
            "model_defs", "forward_train", "forward_dense_logits",
            "forward_prefill", "forward_decode", "forward_verify",
-           "prepare_decode_cache", "cache_structure"]
+           "prepare_decode_cache", "cache_structure", "map_structure",
+           "is_structure_leaf"]

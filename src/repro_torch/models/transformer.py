@@ -564,7 +564,27 @@ def cache_structure(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
     return out
 
 
+def is_structure_leaf(node) -> bool:
+    """Whether ``node`` is a ``(shape, logical axes)`` leaf of a
+    ``cache_structure`` (or ``serve/cache.CacheSpec.structure``) tree."""
+    return isinstance(node, tuple) and len(node) == 2 \
+        and isinstance(node[0], tuple)
+
+
+def map_structure(struct, fn):
+    """``fn(shape, axes)`` over the leaves of a ``cache_structure`` (or
+    ``CacheSpec.structure``) tree, rebuilding its dicts and lists;
+    ``None`` entries stay ``None``."""
+    if is_structure_leaf(struct):
+        return fn(*struct)
+    if isinstance(struct, dict):
+        return {k: map_structure(v, fn) for k, v in struct.items()}
+    if isinstance(struct, list):
+        return [map_structure(v, fn) for v in struct]
+    return struct
+
+
 __all__ = ["model_defs", "forward_train", "forward_dense_logits",
            "forward_prefill", "forward_decode", "forward_verify",
            "prefill_hidden", "verify_hidden", "prepare_decode_cache",
-           "cache_structure"]
+           "cache_structure", "map_structure", "is_structure_leaf"]

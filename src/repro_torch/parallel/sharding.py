@@ -14,9 +14,14 @@ dimension shrinks to the longest prefix of its mesh axes that does, and
 is dropped (and logged in ``Rules.fallbacks``) when none does, e.g.
 gemma2's 8 query heads on a 16-wide model axis.
 
-The mesh is a descriptor (``launch/mesh``): ``.shape`` maps axis names to
-sizes.  ``sharding_for`` returns ``None`` without a device mesh: placing
-tensors on a ``DeviceMesh`` is not ported yet.
+The mesh is a descriptor (``launch/mesh.MeshDescriptor``: the dry-run's,
+with no devices) or a ``torch.distributed.device_mesh.DeviceMesh``
+(``launch/mesh.device_mesh``).  ``sharding_for`` returns the placements
+of a tensor on a ``DeviceMesh`` (``Shard(d)`` or ``Replicate()`` per mesh
+dim) and ``None`` on a descriptor.  The port runs SPMD ranks whose
+kernels take plain local tensors, so a rank reads its part of a sharded
+dim with ``local_range`` and its place on an axis with ``coordinate``;
+the serving engine (``serve/engine.Engine(rules=...)``) is their caller.
 """
 
 from __future__ import annotations
@@ -43,6 +48,20 @@ MeshAxis = Union[str, Tuple[str, ...], None]
 Spec = Tuple[MeshAxis, ...]
 
 
+def is_device_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a ``DeviceMesh`` (it names its dims
+    ``mesh_dim_names``; a descriptor names them ``axis_names``)."""
+    return hasattr(mesh, "mesh_dim_names")
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """Axis name -> size of a descriptor (its ``shape`` is that dict) or
+    a ``DeviceMesh`` (its ``shape`` a tuple in ``mesh_dim_names`` order)."""
+    if is_device_mesh(mesh):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return dict(mesh.shape)
+
+
 @dataclasses.dataclass
 class Rules:
     """logical axis -> mesh axis (or tuple of mesh axes, or None)."""
@@ -57,9 +76,10 @@ class Rules:
     def mesh_size(self, axis: MeshAxis) -> int:
         if axis is None or self.mesh is None:
             return 1
+        sizes = axis_sizes(self.mesh)
         if isinstance(axis, tuple):
-            return math.prod(int(self.mesh.shape[a]) for a in axis)
-        return int(self.mesh.shape[axis])
+            return math.prod(int(sizes[a]) for a in axis)
+        return int(sizes[axis])
 
     def spec_for(self, logical_axes: Sequence[Optional[str]],
                  dims: Optional[Sequence[int]] = None) -> Spec:
@@ -108,11 +128,45 @@ class Rules:
         dims (the divisibility fallback applied)."""
         return self.local_shape(self.spec_for(logical_axes, dims), dims)
 
-    def sharding_for(self, logical_axes, dims=None) -> None:
-        """No device placement yet: a ``DeviceMesh`` sharding is the
-        multi-device work still to come, so every tensor stays whole."""
-        del logical_axes, dims
-        return None
+    def sharding_for(self, logical_axes, dims=None):
+        """The placements of a tensor on the ``DeviceMesh``: one per mesh
+        dim, ``Shard(d)`` where tensor dim ``d``'s spec entry names that
+        mesh axis, else ``Replicate()`` (with ``dims``, under the
+        divisibility fallback of ``spec_for``).  ``None`` when the mesh
+        is a descriptor or absent: nothing is placed."""
+        if not is_device_mesh(self.mesh):
+            return None
+        from torch.distributed.tensor import Replicate, Shard
+
+        names = list(self.mesh.mesh_dim_names)
+        placements = [Replicate()] * len(names)
+        for d, entry in enumerate(self.spec_for(logical_axes, dims)):
+            for ax in (entry if isinstance(entry, tuple) else (entry,)):
+                if ax is not None:
+                    placements[names.index(ax)] = Shard(d)
+        return tuple(placements)
+
+    def coordinate(self, axis: MeshAxis) -> int:
+        """This rank's index along ``axis`` of the ``DeviceMesh`` (a tuple
+        of axes counts row-major, first axis slowest); 0 for ``None``."""
+        if axis is None:
+            return 0
+        axes = axis if isinstance(axis, tuple) else (axis,)
+        idx = 0
+        for ax in axes:
+            idx = idx * self.mesh_size(ax) + int(self.mesh.get_local_rank(ax))
+        return idx
+
+    def local_range(self, spec: Spec, dims: Sequence[int],
+                    dim: int = 0) -> Tuple[int, int]:
+        """The ``[lo, hi)`` rows of tensor dim ``dim`` this rank holds
+        under ``spec`` (a ``spec_for`` result): its coordinate's equal
+        share of a sharded dim, all of a replicated one."""
+        entry = spec[dim] if dim < len(spec) else None
+        n = self.mesh_size(entry)
+        rows = dims[dim] // n
+        lo = self.coordinate(entry) * rows
+        return lo, lo + rows
 
 
 _ctx = threading.local()

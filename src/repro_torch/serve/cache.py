@@ -35,6 +35,16 @@ cross-attention caches are not ported (ROADMAP A13).
 ``empty_batch_cache`` (``CacheSpec.init_dense_cache``) is the dense
 pre-paging layout ``serve/reference.ReferenceEngine`` decodes on: one
 ``max_len``-or-window KV row per slot per attention layer.
+
+Sharding: every buffer carries logical axes (``TABLE_AXES``,
+``POOL_AXES``, ``SCALE_AXES``; ``structure()``), so a
+``parallel/sharding.Rules`` table mapping ``BATCH`` and ``PAGES`` to a
+data axis places them (``shardings(rules)``).  A rank of the sharded
+engine holds ``rank_spec(n)``'s cache: its ``slots / n`` slot rows and,
+per pool group, ``num_pages / n`` pages plus a trash page of its own.
+Because of that trash page the port tests ``PAGES`` for divisibility on
+``num_pages``; the reference tests its ``num_pages + 1`` pool rows and
+replicates a pool that the port shards (ROADMAP C).
 """
 
 from __future__ import annotations
@@ -50,6 +60,8 @@ from repro_torch.configs.base import (ATTN, MAMBA2, RWKV6, SHARED_ATTN,
 from repro_torch.device import host_to_device
 from repro_torch.models import attention, mamba2, rwkv6
 from repro_torch.models.attention import page_group_key
+from repro_torch.models.transformer import map_structure
+from repro_torch.parallel import sharding as sh
 
 PAGED_KV = "paged_kv"    # block-paged KV ring (attention mixers)
 STATE = "state"          # constant-size recurrent state (mamba2, rwkv6)
@@ -240,6 +252,10 @@ class CacheSpec:
         """Per-page, per-kv-head scale pool parallel to the page pool."""
         return (group.num_pages + 1, self.cfg.num_kv_heads)
 
+    POOL_AXES = (sh.PAGES, None, None, None)
+    SCALE_AXES = (sh.PAGES, None)
+    TABLE_AXES = (sh.BATCH, None)
+
     def blocks_needed(self, plen: int, max_new: int) -> Dict[str, int]:
         """Worst-case page-table entries a request ever touches, per pool
         group (reserved up-front at admission)."""
@@ -311,6 +327,68 @@ class CacheSpec:
         return {"layers": layer_caches,
                 "len": torch.zeros((self.slots,), dtype=torch.int32,
                                    device=device)}
+
+    # ---------------------------------------------------------- structure
+    def structure(self) -> Dict[str, Any]:
+        """Nested ``{name: (shape, logical_axes)}`` mirroring the paged
+        cache of ``init_paged_cache`` (the reference's field for field; a
+        state leaf names ``BATCH`` on its slot dim only)."""
+        per_layer: List[Optional[Dict]] = []
+        for ls in self.layers:
+            if ls.kind == STATE:
+                per_layer.append({
+                    k: (shape, (sh.BATCH,) + (None,) * (len(shape) - 1))
+                    for k, shape in ls.state.items()})
+                continue
+            group = self.groups[ls.group]
+            shape = self.pool_shape_for(group)
+            entry = {"pk": (shape, self.POOL_AXES),
+                     "pv": (shape, self.POOL_AXES)}
+            if self.quantized:
+                sshape = self.scale_shape_for(group)
+                entry["ks"] = (sshape, self.SCALE_AXES)
+                entry["vs"] = (sshape, self.SCALE_AXES)
+            per_layer.append(entry)
+        return {
+            "layers": per_layer,
+            "page_tables": {
+                g.key: ((self.slots, g.ring_blocks), self.TABLE_AXES)
+                for g in self.groups},
+            "len": ((self.slots,), (sh.BATCH,)),
+        }
+
+    def shardings(self, rules: sh.Rules) -> Any:
+        """``rules.sharding_for`` of every leaf of ``structure()``: the
+        placements on a ``DeviceMesh``, ``None`` leaves on a descriptor.
+        A pool's page dim is tested for divisibility on ``num_pages``
+        (each rank adds its own trash page)."""
+        def place(shape, axes):
+            if axes[0] == sh.PAGES:
+                shape = (shape[0] - 1,) + tuple(shape[1:])
+            return rules.sharding_for(axes, shape)
+
+        return map_structure(self.structure(), place)
+
+    def rank_spec(self, n: int) -> "CacheSpec":
+        """The spec one of ``n`` data-parallel ranks holds: ``slots / n``
+        slots and, per pool group, ``num_pages / n`` pages (its trash
+        page is its own, ``pool_shape_for`` adds it).  ``n`` must divide
+        the slots and every group's pages."""
+        if n == 1:
+            return self
+        bad = [self.slots] + [g.num_pages for g in self.groups]
+        if any(v % n for v in bad):
+            raise ValueError(f"{n} ranks do not divide {self.slots} slots "
+                             f"and pool pages {bad[1:]}")
+        layers = [dataclasses.replace(ls, state={
+            k: (shape[0] // n,) + tuple(shape[1:])
+            for k, shape in ls.state.items()}) if ls.kind == STATE else ls
+            for ls in self.layers]
+        return dataclasses.replace(
+            self, slots=self.slots // n, num_pages=self.num_pages // n,
+            layers=layers,
+            groups=[dataclasses.replace(g, num_pages=g.num_pages // n)
+                    for g in self.groups])
 
     # ------------------------------------------------------- memory stats
     def group_page_bytes(self, group: PoolGroup,

@@ -54,9 +54,9 @@ queue limits with the ``reject``, ``block``, ``evict-lru-prefix`` and
 prefill-budget throttle, seeded fault injection (``serve/chaos``), the
 lifecycle tracer (``serve/trace``) and the metric registry
 (``serve/metrics``).  All of it runs on the host at chunk boundaries:
-the chunk stays free of host synchronization.  Sharded serving
-(``rules=``, ROADMAP A14) raises ``NotImplementedError``, and so does a
-cross-attention arch (whisper), as in the reference.  A patch-frontend
+the chunk stays free of host synchronization.  A cross-attention arch
+(whisper) raises ``NotImplementedError``, as in the reference.  A
+patch-frontend
 arch (pixtral) serves on two executables, as in the reference: each
 prefill takes zero frontend embeddings in its first ``frontend_len``
 positions, and prefix sharing stays off.  A prompt whose bucket is
@@ -77,6 +77,30 @@ functions above ``Executor``), ``observe`` (stable dotted names),
 ``export_trace``, ``explain`` and the shape counters
 ``prefill_compiles``, ``suffix_prefill_compiles``, ``decode_compiles``
 and ``admit_compiles``.
+
+Data-parallel serving (``rules=``: a ``parallel/sharding.Rules`` whose
+mesh is a ``DeviceMesh`` and whose table maps ``BATCH`` and ``PAGES`` to
+one mesh axis).  The reference shards the cache with GSPMD; the port's
+kernels take plain local tensors, so it runs SPMD ranks instead.  Every
+rank builds the same ``Engine`` (replicated weights) and receives the
+same ``submit`` calls in the same order; the host scheduler runs on
+every rank, replicated and deterministic.  A rank at coordinate ``r`` of
+``n`` along the axis holds the device state of slots ``r * slots/n ..``
+only (tables, ``len``, sampling state) and, per pool group, pages ``r *
+num_pages/n ..`` plus a trash page of its own (``CacheSpec.rank_spec``);
+a slot leases pages of its own rank only (``serve/scheduler``), so every
+paged-attention launch reads local pages.  Admissions, prefills,
+splices and copies of a slot run on its rank; the chunk runs on each
+rank's ``[slots/n, S]`` rows; the drain all-gathers the packed tensor
+over the axis (``all_gather_into_tensor``) before its one
+device-to-host copy, so every rank's scheduler sees every slot.  A
+``BATCH`` rule that does not divide ``slots`` falls back (logged in
+``Rules.fallbacks``, as the reference's) and every rank then serves
+every slot.  MoE archs, recurrent archs and speculation raise under
+``rules=`` (ROADMAP A19, A20).  So do, across more than one rank, the
+decisions that read the clock: each rank reads its own, so they could
+part (``policy="slo"``, ``shed_policy="shed-lowest-class"``, a request's
+``ttl`` or ``deadline``; ROADMAP A22).
 """
 
 from __future__ import annotations
@@ -101,7 +125,8 @@ from repro_torch.serve import cache as cache_mod
 from repro_torch.serve import metrics as metrics_mod
 from repro_torch.serve import sampling
 from repro_torch.serve import trace as trace_mod
-from repro_torch.serve.cache import CacheSpec
+from repro_torch.parallel import sharding as sh
+from repro_torch.serve.cache import STATE, CacheSpec
 from repro_torch.serve.chaos import ChaosMonkey, GarbageDrafter
 from repro_torch.serve.scheduler import (PagePoolExhausted, Request,
                                          RequestRejected, RequestStatus,
@@ -606,8 +631,13 @@ class Engine:
             raise NotImplementedError(
                 "Engine serves decoder-only archs; whisper runs through "
                 "forward_prefill, prepare_decode_cache and forward_decode")
-        if rules is not None:
-            raise _unsupported("sharded serving (rules=)", "A14")
+        if rules is not None and not isinstance(rules, sh.Rules):
+            raise TypeError(f"rules must be a parallel.sharding.Rules, got "
+                            f"{rules!r}")
+        if rules is not None and any(b.ffn == "moe" for b in cfg.blocks):
+            # a rank's dispatch would drop other tokens than the
+            # reference's global dispatch at a binding capacity
+            raise _unsupported("an MoE arch under rules=", "A19")
         if shed_policy not in ("reject", "block", "evict-lru-prefix",
                                "shed-lowest-class"):
             raise ValueError(f"shed_policy must be 'reject', 'block', "
@@ -656,6 +686,8 @@ class Engine:
         if prefill_budget < 1:
             raise ValueError(
                 f"prefill_budget must be >= 1, got {prefill_budget}")
+        if rules is not None and spec_cfg is not None:
+            raise _unsupported("speculative decoding under rules=", "A20")
         self.device = resolve_device(device)
         pdev = next(params.parameters()).device
         if pdev.type != self.device.type:
@@ -715,6 +747,23 @@ class Engine:
         self.spec = CacheSpec.from_config(
             cfg, slots, max_len, page_size=page_size, num_pages=num_pages,
             spec_tokens=cache_slack, kv_dtype=self.kv_dtype)
+        # data-parallel placement: this rank's shard of the slots and pages
+        self.rules = rules
+        self.shards, self.shard, self._dp_group = 1, 0, None
+        # this rank's first slot and, per pool group, its first page id
+        self._slot_lo, self._page_lo = 0, {g.key: 0 for g in self.spec.groups}
+        if rules is not None:
+            self._place(rules)
+        if self.shards > 1:
+            # every rank must take the same host decisions, and these
+            # read the rank's own clock
+            if policy == "slo":
+                raise _unsupported("policy='slo' across ranks", "A22")
+            if shed_policy == "shed-lowest-class":
+                raise _unsupported(
+                    "shed_policy='shed-lowest-class' across ranks", "A22")
+        self.local_spec = self.spec.rank_spec(self.shards)
+        self._lslots = self.local_spec.slots
         if paged_kernel == "auto":
             paged_kernel = self.device.type == "cuda"
         # an arch with no paged layer (rwkv6) has no pools to read
@@ -725,8 +774,8 @@ class Engine:
         self.policy = policy
         self.scheduler = Scheduler(self.spec, prefix_sharing=prefix_sharing,
                                    defer_radix_insert=self.chunked_prefill,
-                                   policy=policy)
-        self.executor = Executor(cfg, self.spec, top_k=self.top_k,
+                                   policy=policy, shards=self.shards)
+        self.executor = Executor(cfg, self.local_spec, top_k=self.top_k,
                                  sync_interval=self.sync_interval,
                                  paged_kernel=self.paged_kernel,
                                  chunked=self.chunked_prefill,
@@ -734,21 +783,25 @@ class Engine:
                                  device=self.device, drafter=self.drafter,
                                  draft_params=self.draft_params)
         self._slot_req: List[Optional[Request]] = [None] * slots
-        # two executables: each slot's prefill-sampled first token, on the
-        # device until the drain fetches it with the chunk's history
-        self._slot_first_tok: List[Optional[torch.Tensor]] = [None] * slots
+        # two executables: whether a slot's prefill-sampled first token
+        # waits in ``_first_tok`` (its rank's row, on the device) for the
+        # drain to fetch it with the chunk's history
+        self._slot_first: List[bool] = [False] * slots
+        self._first_tok = torch.full((self._lslots,), -1, dtype=torch.int32,
+                                     device=self.device)
         # drains in a row without progress (the stall watchdog's count)
         self._slot_stale: List[int] = [0] * slots
         # host-visible prefill cursor (trails the device's cache["len"] by
         # one drain) and the admission-time prompt length it counts toward
         self._slot_seen_len: List[int] = [0] * slots
         self._slot_plen: List[int] = [0] * slots
-        self.cache = self.spec.init_paged_cache(self.device)
+        self.cache = self.local_spec.init_paged_cache(self.device)
         if self.drafter is not None and self.drafter.kind == "model":
             self.cache["draft"] = self.drafter.init_cache(slots, self.device)
         S = self.executor.chunk_rows
         self.state = sampling.make_slot_state(
-            slots, self.device, max_len if self.chunked_prefill else 0,
+            self._lslots, self.device,
+            max_len if self.chunked_prefill else 0,
             hist_cap=self._hist_cap, spec=spec_cfg is not None,
             prefill_budget=S if self.chunked_prefill else 0)
         # host mirror of state["pbudget"]: the SLO boundary policy uploads
@@ -757,7 +810,7 @@ class Engine:
             [S] * slots if self.chunked_prefill else None)
         self.budget_throttles = 0
         self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(seed)
+        self.gen.manual_seed(seed + self.shard)
         self._clock = clock if clock is not None else time.monotonic
         self.finished: List[Request] = []
         self.rejected: List[Request] = []
@@ -796,6 +849,70 @@ class Engine:
         # of the other preemptable slots live at that instant
         self.preemption_log: List[Dict[str, Any]] = []
 
+    # ------------------------------------------------------------ placement
+    def _place(self, rules: sh.Rules) -> None:
+        """Read this rank's shard off the cache's placements
+        (``CacheSpec.shardings``): the mesh axis ``len``'s slot dim shards
+        on, its size and this rank's coordinate, and the data group the
+        drain gathers over.  Every pool must shard on that axis too;
+        when the slot dim falls back to replicated, every pool is
+        replicated with it (logged)."""
+        from torch.distributed.tensor import Shard
+
+        if any(ls.kind == STATE for ls in self.spec.layers):
+            raise _unsupported("a recurrent arch under rules=", "A20")
+        if not sh.is_device_mesh(rules.mesh):
+            raise ValueError("rules= needs a DeviceMesh "
+                             "(launch/mesh.device_mesh); a descriptor "
+                             "places nothing")
+        placed = self.spec.shardings(rules)
+        names = list(rules.mesh.mesh_dim_names)
+
+        def axes(placement) -> List[str]:
+            return [names[i] for i, p in enumerate(placement)
+                    if isinstance(p, Shard)]
+
+        batch = axes(placed["len"])
+        pools = {(g, k): axes(leaf[k]) for g, leaf in enumerate(
+            placed["layers"]) for k in leaf}
+        if not batch:
+            if any(pools.values()):
+                rules.fallbacks.append(
+                    f"{sh.PAGES}: the slots are replicated, so is every "
+                    "pool")
+            return
+        for (layer, key), got in pools.items():
+            if got != batch:
+                raise ValueError(
+                    f"layer {layer} {key}: a pool shards on {got}, the "
+                    f"slots on {batch}; a rank's kernels read only its "
+                    f"own pages (Rules.fallbacks: {rules.fallbacks})")
+        axis = batch[0]
+        self.shards = rules.mesh_size(axis)
+        self.shard = rules.coordinate(axis)
+        self._dp_group = rules.mesh.get_group(axis)
+        self._slot_lo = rules.local_range((axis,), (self.spec.slots,))[0]
+        self._page_lo = {g.key: rules.local_range((axis,), (g.num_pages,))[0]
+                         for g in self.spec.groups}
+
+    def _local_slot(self, slot: int) -> Optional[int]:
+        """``slot``'s row on this rank, or None when another rank's."""
+        ls = slot - self._slot_lo
+        return ls if 0 <= ls < self._lslots else None
+
+    def _local_rows(self, rows: Dict[str, np.ndarray]
+                    ) -> Dict[str, np.ndarray]:
+        """Page-table rows in this rank's page ids: its pages from 0, the
+        trash page its own."""
+        if self.shards == 1:
+            return rows
+        out = {}
+        for g, lg in zip(self.spec.groups, self.local_spec.groups):
+            row = np.asarray(rows[g.key])
+            out[g.key] = np.where(row == g.trash_page, lg.trash_page,
+                                  row - self._page_lo[g.key]).astype(np.int32)
+        return out
+
     # ------------------------------------------------------ shape counters
     @property
     def prefill_compiles(self) -> int:
@@ -833,7 +950,8 @@ class Engine:
 
     def memory_stats(self) -> Dict[str, Any]:
         """Paged-cache memory telemetry (per-group page occupancy and
-        pool bytes per live token at the current instant)."""
+        pool bytes per live token at the current instant), over every
+        rank; under ``rules=`` also ``"rank"``, this rank's share."""
         live = sum(len(r.out_tokens) + len(r.prompt)
                    for r in self._slot_req if r is not None)
         stats = self.spec.memory_stats(
@@ -841,6 +959,18 @@ class Engine:
         stats["peak_pages_in_use"] = self.scheduler.peak_pages_in_use
         stats["live_slots"] = sum(r is not None for r in self._slot_req)
         stats["peak_live_slots"] = self.peak_live_slots
+        if self.rules is not None:
+            mine = self.scheduler.pages_in_use_in(self.shard)
+            stats["rank"] = {
+                "shard": self.shard, "shards": self.shards,
+                "slots": self._lslots,
+                "live_slots": sum(self._local_slot(s) is not None
+                                  for s, r in enumerate(self._slot_req)
+                                  if r is not None),
+                "num_pages": self.local_spec.total_pages(),
+                "pages_in_use": sum(mine.values()),
+                "pages_in_use_by_group": mine,
+                "paged_kv_bytes": self.local_spec.paged_kv_bytes()}
         return stats
 
     def prefix_stats(self) -> Dict[str, Any]:
@@ -911,11 +1041,7 @@ class Engine:
             for lease in sched._leases.values():
                 accounted.update(lease.get(key, ()))
             if sched.radix is not None and key == sched.share_key:
-                stack = list(sched.radix.root.children.values())
-                while stack:
-                    node = stack.pop()
-                    stack.extend(node.children.values())
-                    accounted.add(node.page)
+                accounted.update(node.page for node in sched.radix.nodes())
             leaked += pool.in_use - len(accounted)
         return leaked
 
@@ -978,6 +1104,9 @@ class Engine:
         to ``deadline = clock() + ttl`` here.  Returns ``None`` when the
         request was accepted.  A request breaking the ``max_len``
         contract still raises ``ValueError``: a caller bug, not load."""
+        if self.shards > 1 and (req.ttl is not None
+                                or req.deadline is not None):
+            raise _unsupported("a ttl or deadline across ranks", "A22")
         if not req.prompt and self.chunked_prefill:
             # two executables admit an empty prompt as the reference
             # does: a fresh slot state, len 0
@@ -1131,12 +1260,12 @@ class Engine:
 
     def _ctx_row(self, adm, s: int) -> np.ndarray:
         """The ``ceil(s/P)`` context pages a suffix prefill at offset
-        ``s`` gathers, from the slot's page row.  The reference pads the
-        row to a power of two of trash pages to bound its executables;
-        eager torch compiles nothing per shape."""
+        ``s`` gathers, from the slot's page row (in its rank's page ids).
+        The reference pads the row to a power of two of trash pages to
+        bound its executables; eager torch compiles nothing per shape."""
         nctx = -(-s // self.spec.page_size)
-        return np.asarray(adm.rows[self.spec.share_group_key][:nctx],
-                          np.int32)
+        key = self.spec.share_group_key
+        return np.asarray(self._local_rows(adm.rows)[key][:nctx], np.int32)
 
     @property
     def _chunked_ok(self) -> bool:
@@ -1157,19 +1286,26 @@ class Engine:
         return host_to_device(padded, self.device), length
 
     def _prefill_at(self, adm, toks: List[int], s: int,
-                    temp: torch.Tensor):
+                    temp: Optional[torch.Tensor]):
         """Prefill ``toks`` at positions ``s..``: a full prefill from 0,
-        else a suffix prefill against the slot's first ``s`` tokens."""
-        tokens, length = self._bucketed(toks)
-        bucket, bmax = tokens.shape[1], self.buckets[-1]
+        else a suffix prefill against the slot's first ``s`` tokens.
+        ``temp`` None: the slot is another rank's, so only the shape
+        counters move (every rank's host state stays the same) and
+        ``(None, None)`` comes back."""
+        bucket, bmax = self.bucket_for(len(toks)), self.buckets[-1]
         if s == 0:
             self._shapes["prefill"].add((bucket, bmax))
+        else:
+            ctx_row = self._ctx_row(adm, s)
+            ring = self.spec.group_of(self.spec.share_group_key).ring_blocks
+            self._shapes["suffix"].add(
+                (bucket, min(_next_pow2(len(ctx_row)), ring), bmax))
+        if temp is None:
+            return None, None
+        tokens, length = self._bucketed(toks)
+        if s == 0:
             return self.executor.prefill(self.params, tokens, length, temp,
                                          self.gen)
-        ctx_row = self._ctx_row(adm, s)
-        ring = self.spec.group_of(self.spec.share_group_key).ring_blocks
-        self._shapes["suffix"].add(
-            (bucket, min(_next_pow2(len(ctx_row)), ring), bmax))
         row = host_to_device(ctx_row, self.device)
         return self.executor.prefill_suffix(self.params, tokens, length, s,
                                             row, self.cache, temp, self.gen)
@@ -1177,18 +1313,22 @@ class Engine:
     def _chunked_prefill(self, adm, s: int) -> int:
         """Run all but the final ``<= Bmax`` prompt tokens of an overlong
         prompt as ``Bmax``-token segments, each attending to the pages the
-        earlier ones spliced, and return the final segment's start."""
+        earlier ones spliced, and return the final segment's start
+        (another rank's slot: the host's part only)."""
         prompt = adm.req.effective_prompt
         bmax = self.buckets[-1]
-        temp = torch.zeros((1,), dtype=torch.float32, device=self.device)
+        owned = self._local_slot(adm.slot) is not None
+        temp = (torch.zeros((1,), dtype=torch.float32, device=self.device)
+                if owned else None)
         cur = s
         while len(prompt) - cur > bmax:
             _tok, one = self._prefill_at(adm, list(prompt[cur:cur + bmax]),
                                          cur, temp)
-            # the slot's table row and len are installed once, at its
-            # final admission; later segments read these pages by row
-            cache_mod.splice_prefill(self.spec, self.cache, one, cur, bmax,
-                                     adm.rows)
+            if owned:
+                # the slot's table row and len are installed once, at its
+                # final admission; later segments read these pages by row
+                cache_mod.splice_prefill(self.local_spec, self.cache, one,
+                                         cur, bmax, self._local_rows(adm.rows))
             cur += bmax
         return cur
 
@@ -1199,36 +1339,45 @@ class Engine:
         admission before the next is planned keeps the reference's rule
         that an admission reading pool pages (a CoW source, a prefix
         context) sees every earlier admission's splice.  No host
-        synchronization: the first token stays on the device."""
+        synchronization: the first token stays on the device.  Another
+        rank's slot takes the host's part only."""
         req, slot = adm.req, adm.slot
+        local = self._local_slot(slot)
         prompt = req.effective_prompt
         plen = len(prompt)
         temp_v = self._req_temp(req)
-        temp = torch.full((1,), temp_v, dtype=torch.float32,
-                          device=self.device)
-        if adm.cow is not None:
+        temp = None
+        if local is not None:
+            temp = torch.full((1,), temp_v, dtype=torch.float32,
+                              device=self.device)
+        if adm.cow is not None and local is not None:
             # the slot will write into a shared page: a private copy
             # before any prefill reads it or the splice writes it
             _blk, src, dst = adm.cow
-            self.executor.copy_page(self.cache, src, dst,
-                                    self.scheduler.share_key)
+            key = self.scheduler.share_key
+            lo = self._page_lo[key]
+            self.executor.copy_page(self.cache, src - lo, dst - lo, key)
         s = adm.suffix_start
         if plen - s > self.buckets[-1] and self._chunked_ok:
             s = self._chunked_prefill(adm, s)
         tok, one = self._prefill_at(adm, list(prompt[s:]), s, temp)
+        self._slot_req[slot] = req
+        self._slot_first[slot] = True
+        if local is None:
+            return
         draft = None
         if self.draft_params is not None:
             draft = self.executor.draft_prefill(*self._bucketed(list(prompt)))
         self.executor.admit_prefilled(self.cache, self.state, {
-            "slot": slot, "start": s, "plen": plen, "rows": adm.rows,
+            "slot": local, "start": s, "plen": plen,
+            "rows": self._local_rows(adm.rows),
             "tok": tok, "one_cache": one, "draft": draft,
             "prompt": list(prompt),
             "out_len0": len(req.out_tokens) + 1,
             "max_new": req.max_new_tokens,
             "eos": -1 if req.eos_id is None else int(req.eos_id),
             "temp": temp_v})
-        self._slot_req[slot] = req
-        self._slot_first_tok[slot] = tok
+        self._first_tok[local:local + 1].copy_(tok)
 
     def _admit(self) -> None:
         """Chunk-boundary admission with pool-pressure preemption: admit
@@ -1247,7 +1396,7 @@ class Engine:
         guard = 0
         while self.scheduler.queue and guard < self.slots \
                 and any(r is None for r in self._slot_req):
-            victim = self._pick_victim()
+            victim = self._pick_victim(pressure=True)
             if victim is None:
                 return
             guard += 1
@@ -1257,16 +1406,23 @@ class Engine:
             if len(self.scheduler.queue) > qlen:
                 return   # eviction did not unblock the head; stop churning
 
-    def _pick_victim(self) -> Optional[int]:
+    def _pick_victim(self, pressure: bool = False) -> Optional[int]:
         """Victim policy: lowest SLO-class priority first, then fewest
         tokens decoded (least work lost), then most radix-recoverable
         pages (cheapest to resume), then lowest slot.  Slots at their
-        preemption cap are never picked."""
+        preemption cap are never picked.  ``pressure``: pool pressure is
+        a shard's, so only slots of a shard with a free slot (whose pages,
+        not slots, hold the head back) are candidates."""
         best, best_score = None, None
         P = self.spec.page_size
+        shard_of = self.scheduler.shard_of_slot
+        free = {shard_of(s) for s, r in enumerate(self._slot_req)
+                if r is None}
         for slot in range(self.slots):
             req = self._slot_req[slot]
             if req is None or req.preemptions >= req.max_preemptions:
+                continue
+            if pressure and shard_of(slot) not in free:
                 continue
             valid = len(req.effective_prompt) - (1 if req.out_tokens else 0)
             recoverable = valid // P if self.scheduler.radix is not None \
@@ -1282,15 +1438,17 @@ class Engine:
         drop page references, trash the table rows, clear the active flag
         so the next chunk's dead-tail steps neither sample nor write."""
         self._slot_req[slot] = None
-        self._slot_first_tok[slot] = None
+        self._slot_first[slot] = False
         self._slot_stale[slot] = 0
         self._slot_seen_len[slot] = 0
         self._slot_plen[slot] = 0
         if self.chaos is not None:
             self.chaos.clear_stall(slot)
         self.scheduler.release(slot)
-        self.executor.free_slot(self.cache, slot)
-        self.executor.deactivate(self.state, slot)
+        local = self._local_slot(slot)
+        if local is not None:
+            self.executor.free_slot(self.cache, local)
+            self.executor.deactivate(self.state, local)
 
     def _finish_terminal(self, req: Request, status: str) -> None:
         req.status = status
@@ -1410,24 +1568,28 @@ class Engine:
             if not self.chunked_prefill:
                 self._admit_prefilled(adm)
                 continue
+            self._slot_req[slot] = req
+            self._slot_seen_len[slot] = adm.suffix_start
+            self._slot_plen[slot] = plen
+            local = self._local_slot(slot)
+            if local is None:
+                continue            # another rank's slot
             if adm.cow is not None:
                 # the slot will write into a shared page: give it a
                 # private copy before the generator drops the source pin
                 _blk, src, dst = adm.cow
-                self.executor.copy_page(self.cache, src, dst,
-                                        self.scheduler.share_key)
+                key = self.scheduler.share_key
+                lo = self._page_lo[key]
+                self.executor.copy_page(self.cache, src - lo, dst - lo, key)
             pbuf = np.zeros((self.max_len,), np.int32)
             pbuf[:plen] = prompt
             entries.append({
-                "slot": slot, "start": adm.suffix_start, "plen": plen,
-                "rows": adm.rows, "prompt": pbuf,
+                "slot": local, "start": adm.suffix_start, "plen": plen,
+                "rows": self._local_rows(adm.rows), "prompt": pbuf,
                 "out_len0": len(req.out_tokens),
                 "max_new": req.max_new_tokens,
                 "eos": -1 if req.eos_id is None else int(req.eos_id),
                 "temp": self._req_temp(req)})
-            self._slot_req[slot] = req
-            self._slot_seen_len[slot] = adm.suffix_start
-            self._slot_plen[slot] = plen
         self.executor.admit(self.cache, self.state, entries)
         self.peak_live_slots = max(
             self.peak_live_slots, sum(r is not None for r in self._slot_req))
@@ -1459,7 +1621,9 @@ class Engine:
             if pressure:
                 self.budget_throttles += 1
             self._budget_vec = vec
-            self.state["pbudget"] = host_to_device(vec, self.device)
+            lo = self._slot_lo
+            self.state["pbudget"] = host_to_device(
+                vec[lo:lo + self._lslots], self.device)
 
     def step_chunk(self) -> torch.Tensor:
         """Launch one chunk.  No host synchronization: safe under
@@ -1471,26 +1635,34 @@ class Engine:
 
     def _drain(self, toks: torch.Tensor) -> None:
         """One batched device-to-host transfer: token history, generated
-        counts, active flags, and the prefill cursors (fused) or the
-        prefill-sampled first tokens (two executables).  Each slot's new
-        tokens are the non-negative entries of its history column;
-        finished slots are evicted (page references dropped, table rows
-        trashed).  A chaos-stalled slot reports nothing, and a slot that
-        reports no progress for ``stall_patience`` drains is preempted by
-        the watchdog."""
-        n_tok = toks.numel()
-        s = self.slots
-        firsts = [i for i in range(s) if self._slot_first_tok[i] is not None]
+        counts, active flags, the prefill cursors (fused) and the
+        prefill-sampled first tokens (two executables), packed into one
+        tensor; under ``rules=`` every rank's tensor, all-gathered over
+        the data axis first.  Each slot's new tokens are the non-negative
+        entries of its history column; finished slots are evicted (page
+        references dropped, table rows trashed).  A chaos-stalled slot
+        reports nothing, and a slot that reports no progress for
+        ``stall_patience`` drains is preempted by the watchdog."""
+        ls = self._lslots
         packed = torch.cat(
             [toks.reshape(-1), self.state["out_len"],
-             self.state["active"].to(torch.int32), self.cache["len"]]
-            + [self._slot_first_tok[i] for i in firsts]).cpu().numpy()
+             self.state["active"].to(torch.int32), self.cache["len"],
+             self._first_tok])
+        if self._dp_group is not None:
+            import torch.distributed as dist
+            every = packed.new_empty((self.shards * packed.numel(),))
+            dist.all_gather_into_tensor(every, packed, group=self._dp_group)
+            packed = every
+        parts = packed.cpu().numpy().reshape(self.shards, -1)
         self.host_syncs += 1
-        toks_np = packed[:n_tok].reshape(toks.shape)
-        out_len = packed[n_tok:n_tok + s]
-        active = packed[n_tok + s:n_tok + 2 * s]
-        cache_len = packed[n_tok + 2 * s:n_tok + 3 * s]
-        first = dict(zip(firsts, packed[n_tok + 3 * s:].tolist()))
+        n_tok = toks.numel()
+        toks_np = np.concatenate(
+            [p[:n_tok].reshape(-1, ls) for p in parts], axis=1)
+        out_len, active, cache_len, first_tok = (
+            np.concatenate([p[n_tok + i * ls:n_tok + (i + 1) * ls]
+                            for p in parts]) for i in range(4))
+        first = {i: int(first_tok[i]) for i in range(self.slots)
+                 if self._slot_first[i]}
         now = self._clock()     # one clock read stamps every token
         self.chunks += 1
         if self.tracer is not None:
@@ -1532,7 +1704,7 @@ class Engine:
                         self.scheduler.index_slot(slot, req, plen0)
             if slot in first:
                 # the prefill-sampled token, counted by out_len already
-                self._slot_first_tok[slot] = None
+                self._slot_first[slot] = False
                 req.out_tokens.append(first[slot])
                 req.token_times.append(now)
                 req.token_chunks.append(self.chunks)
@@ -1566,7 +1738,9 @@ class Engine:
                 self._slot_req[slot] = None
                 self._slot_stale[slot] = 0
                 self.scheduler.release(slot)
-                self.executor.free_slot(self.cache, slot)
+                local = self._local_slot(slot)
+                if local is not None:
+                    self.executor.free_slot(self.cache, local)
         for slot in watchdog:
             # straggler recovery: treat the unresponsive slot as lost and
             # resume its request from the last drained token

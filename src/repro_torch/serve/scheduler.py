@@ -47,6 +47,15 @@ popular prefixes survive their originating request; when allocation runs
 dry the scheduler evicts **only refcount-1 leaves** (pages no live slot
 references) in LRU order, cascading up the tree as parents become
 leaves.
+
+**Shards** (``Engine(rules=...)``, data-parallel ranks): with
+``shards = n`` the slots split into ``n`` contiguous ranges and every
+group's page ids into ``n`` contiguous ranges, one of each a rank.  A
+slot leases pages of its own shard only, radix hits match only pages of
+the admitting slot's shard, and pool pressure (eviction, preemption) is
+decided per shard.  The head of the queue goes to the shard with the
+longest cached prefix among those with a free slot (the lowest free slot
+on ties).  With one shard every decision is the unsharded one.
 """
 
 from __future__ import annotations
@@ -236,32 +245,52 @@ class PagePool:
     page-table entries point at it so stray writes are discarded.  A page
     may be referenced by several slot tables at once (prefix sharing) and
     by the radix index; it returns to the free list only when the last
-    reference drops."""
+    reference drops.
 
-    def __init__(self, num_pages: int):
+    ``shards`` splits the ids into that many contiguous ranges of
+    ``per_shard = num_pages / shards`` (shard ``k`` owns ``k * per_shard
+    ..``), each with its own free list; ``alloc`` leases from one."""
+
+    def __init__(self, num_pages: int, shards: int = 1):
+        if num_pages % shards:
+            raise ValueError(f"{shards} shards do not divide {num_pages} "
+                             "pages")
         self.num_pages = num_pages
         self.trash = num_pages
-        self._free: List[int] = list(range(num_pages - 1, -1, -1))
+        self.per_shard = per = num_pages // shards
+        self._free: List[List[int]] = [
+            list(range((k + 1) * per - 1, k * per - 1, -1))
+            for k in range(shards)]
         self._rc: List[int] = [0] * num_pages
         self.peak_in_use = 0
 
     @property
     def free_pages(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free)
+
+    def free_in(self, shard: int) -> int:
+        return len(self._free[shard])
+
+    def shard_of(self, page: int) -> int:
+        return page // self.per_shard
 
     @property
     def in_use(self) -> int:
-        return self.num_pages - len(self._free)
+        return self.num_pages - self.free_pages
+
+    def in_use_by_shard(self) -> List[int]:
+        return [self.per_shard - len(f) for f in self._free]
 
     def refcount(self, page: int) -> int:
         return self._rc[page]
 
-    def alloc(self, n: int) -> Optional[List[int]]:
-        """Lease ``n`` fresh pages at refcount 1, or None (backpressure)
-        if not enough free."""
-        if n > len(self._free):
+    def alloc(self, n: int, shard: int = 0) -> Optional[List[int]]:
+        """Lease ``n`` fresh pages of ``shard`` at refcount 1, or None
+        (backpressure) if not enough of them are free."""
+        free = self._free[shard]
+        if n > len(free):
             return None
-        pages = [self._free.pop() for _ in range(n)]
+        pages = [free.pop() for _ in range(n)]
         for p in pages:
             self._rc[p] = 1
         self.peak_in_use = max(self.peak_in_use, self.in_use)
@@ -277,7 +306,7 @@ class PagePool:
         assert self._rc[page] > 0, f"release of free page {page}"
         self._rc[page] -= 1
         if self._rc[page] == 0:
-            self._free.append(page)
+            self._free[self.shard_of(page)].append(page)
             return True
         return False
 
@@ -306,21 +335,34 @@ class RadixIndex:
     keyed by its token content; a root-to-node path spells a cached
     prompt prefix.  The tree holds one pool reference per node, so
     indexed pages outlive the request that prefilled them; eviction
-    (LRU, leaves only, refcount-1 only) is how that memory comes back."""
+    (LRU, leaves only, refcount-1 only) is how that memory comes back.
 
-    def __init__(self, page_size: int):
+    ``shards`` keeps one tree a shard (``roots``): a prefix cached on one
+    shard is no hit on another, whose slots cannot read its pages."""
+
+    def __init__(self, page_size: int, shards: int = 1):
         self.page_size = page_size
-        self.root = _RadixNode((), -1, None)
+        self.roots = [_RadixNode((), -1, None) for _ in range(shards)]
         self._tick = 0
         self.node_count = 0
+
+    def nodes(self) -> Iterator[_RadixNode]:
+        """Every node of every shard's tree."""
+        stack = [c for r in self.roots for c in r.children.values()]
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            yield node
 
     def _touch(self, node: _RadixNode) -> None:
         self._tick += 1
         node.last_use = self._tick
 
     # ------------------------------------------------------------- match
-    def match(self, prompt: List[int]) -> List[Tuple[int, int, int]]:
-        """Longest cached prefix of ``prompt``, page-by-page.
+    def match(self, prompt: List[int], shard: int = 0,
+              touch: bool = True) -> List[Tuple[int, int, int]]:
+        """Longest cached prefix of ``prompt`` in ``shard``'s tree,
+        page-by-page (``touch=False``: a probe that leaves LRU as it is).
 
         Returns ``[(block, page, matched_tokens)]``: every entry but the
         last matches a full page (``matched_tokens == page_size``); the
@@ -331,14 +373,15 @@ class RadixIndex:
         block)."""
         P = self.page_size
         out: List[Tuple[int, int, int]] = []
-        node = self.root
+        node = self.roots[shard]
         nblocks = -(-len(prompt) // P) if prompt else 0
         for b in range(nblocks):
             page_toks = tuple(prompt[b * P:(b + 1) * P])
             child = (node.children.get(page_toks)
                      if len(page_toks) == P else None)
             if child is not None:
-                self._touch(child)
+                if touch:
+                    self._touch(child)
                 out.append((b, child.page, P))
                 node = child
                 continue
@@ -355,20 +398,21 @@ class RadixIndex:
                                   and cand.last_use > best.last_use):
                     best, best_n = cand, n
             if best is not None and best_n > 0:
-                self._touch(best)
+                if touch:
+                    self._touch(best)
                 out.append((b, best.page, best_n))
             break
         return out
 
     # ------------------------------------------------------------ insert
     def insert(self, prompt: List[int], row: np.ndarray,
-               pool: PagePool) -> int:
-        """Index every *full* page of ``prompt`` (partial tail pages are
-        still written by their owner, so they are never shared).  New
-        nodes take a pool reference; existing nodes just refresh LRU.
-        Returns the number of nodes created."""
+               pool: PagePool, shard: int = 0) -> int:
+        """Index every *full* page of ``prompt`` in ``shard``'s tree
+        (partial tail pages are still written by their owner, so they
+        are never shared).  New nodes take a pool reference; existing
+        nodes just refresh LRU.  Returns the number of nodes created."""
         P = self.page_size
-        node, created = self.root, 0
+        node, created = self.roots[shard], 0
         for b in range(len(prompt) // P):
             key = tuple(prompt[b * P:(b + 1) * P])
             child = node.children.get(key)
@@ -383,8 +427,9 @@ class RadixIndex:
         return created
 
     # ---------------------------------------------------------- eviction
-    def _leaves(self) -> Iterator[_RadixNode]:
-        stack = list(self.root.children.values())
+    def _leaves(self, shard: Optional[int]) -> Iterator[_RadixNode]:
+        roots = self.roots if shard is None else [self.roots[shard]]
+        stack = [c for r in roots for c in r.children.values()]
         while stack:
             n = stack.pop()
             if n.children:
@@ -392,13 +437,15 @@ class RadixIndex:
             else:
                 yield n
 
-    def evict_one(self, pool: PagePool) -> Optional[int]:
-        """Drop the least-recently-used *leaf* whose page has no live
-        slot reference (refcount 1 — the tree's own).  Shared nodes are
-        denied until every borrowing slot releases.  Returns the freed
-        page id, or None when nothing is evictable."""
+    def evict_one(self, pool: PagePool,
+                  shard: Optional[int] = None) -> Optional[int]:
+        """Drop the least-recently-used *leaf* (of ``shard``'s tree, or
+        of any) whose page has no live slot reference (refcount 1 — the
+        tree's own).  Shared nodes are denied until every borrowing slot
+        releases.  Returns the freed page id, or None when nothing is
+        evictable."""
         victim: Optional[_RadixNode] = None
-        for leaf in self._leaves():
+        for leaf in self._leaves(shard):
             if pool.refcount(leaf.page) != 1:
                 continue
             if victim is None or leaf.last_use < victim.last_use:
@@ -410,11 +457,11 @@ class RadixIndex:
         pool.release(victim.page)
         return victim.page
 
-    def reclaimable(self, pool: PagePool) -> int:
-        """Pages the eviction loop could recover right now (refcount-1
-        nodes; a chain of them frees leaf-by-leaf as parents become
-        leaves)."""
-        stack = list(self.root.children.values())
+    def reclaimable(self, pool: PagePool, shard: int = 0) -> int:
+        """Pages of ``shard`` the eviction loop could recover right now
+        (refcount-1 nodes; a chain of them frees leaf-by-leaf as parents
+        become leaves)."""
+        stack = list(self.roots[shard].children.values())
         n = 0
         while stack:
             node = stack.pop()
@@ -439,17 +486,26 @@ class Scheduler:
       same-class requests keep FIFO order.  The first candidate that
       does not fit still blocks admission (pages it is waiting on must
       not be nibbled away by lower-priority work); victim selection for
-      pressure preemption is the Engine's, also class-aware."""
+      pressure preemption is the Engine's, also class-aware.
+
+    ``shards``: the data-parallel ranks the slots and every group's pages
+    split over (module docstring); 1 for one device."""
 
     def __init__(self, spec: CacheSpec, *, prefix_sharing: bool = True,
-                 defer_radix_insert: bool = False, policy: str = "fifo"):
+                 defer_radix_insert: bool = False, policy: str = "fifo",
+                 shards: int = 1):
         if policy not in ("fifo", "slo"):
             raise ValueError(
                 f"policy must be 'fifo' or 'slo', got {policy!r}")
+        if spec.slots % shards:
+            raise ValueError(f"{shards} shards do not divide {spec.slots} "
+                             "slots")
         self.policy = policy
         self.spec = spec
+        self.shards = shards
+        self.slots_per_shard = spec.slots // shards
         self.pools: Dict[str, PagePool] = {
-            g.key: PagePool(g.num_pages) for g in spec.groups
+            g.key: PagePool(g.num_pages, shards) for g in spec.groups
         } if spec.has_paged else {}
         # fused chunked prefill defers radix indexing to prefill
         # COMPLETION (Engine calls index_slot): at admission time none of
@@ -460,7 +516,7 @@ class Scheduler:
             spec.share_group_key
             if prefix_sharing and spec.prefix_sharing_capable else None)
         self.radix: Optional[RadixIndex] = (
-            RadixIndex(spec.page_size) if self.share_key else None)
+            RadixIndex(spec.page_size, shards) if self.share_key else None)
         self.queue: List[Request] = []
         self._leases: Dict[int, Dict[str, List[int]]] = {}
         self._rows: Dict[int, Dict[str, np.ndarray]] = {}
@@ -497,6 +553,9 @@ class Scheduler:
         source)."""
         return self.pools[self.spec.widest_group.key]
 
+    def shard_of_slot(self, slot: int) -> int:
+        return slot // self.slots_per_shard
+
     # ---------------------------------------------------------- admission
     def validate(self, req: Request) -> None:
         """Raise ``PagePoolExhausted`` when the request's worst-case page
@@ -504,7 +563,7 @@ class Scheduler:
         this config, so queueing it would wedge the head of the line."""
         need = self.spec.blocks_needed(len(req.prompt), req.max_new_tokens)
         for key, n in need.items():
-            budget = self.pools[key].num_pages
+            budget = self.pools[key].per_shard     # one shard's pages
             if n > budget:
                 raise PagePoolExhausted(
                     f"request rid={req.rid} needs {n} pages of pool group "
@@ -528,21 +587,21 @@ class Scheduler:
         req.status = RequestStatus.PREEMPTED
         self.queue.append(req)
 
-    def _alloc(self, key: str, n: int) -> Optional[List[int]]:
-        """Group alloc with radix eviction pressure: when the sharing
-        group runs dry, evict LRU refcount-1 leaves until the request
-        fits or nothing more is evictable."""
+    def _alloc(self, key: str, n: int, shard: int) -> Optional[List[int]]:
+        """Group alloc in ``shard`` with radix eviction pressure: when the
+        sharing group's shard runs dry, evict its LRU refcount-1 leaves
+        until the request fits or nothing more is evictable."""
         pool = self.pools[key]
-        pages = pool.alloc(n)
+        pages = pool.alloc(n, shard)
         while pages is None and self.radix is not None \
                 and key == self.share_key:
-            if self.radix.evict_one(pool) is None:
+            if self.radix.evict_one(pool, shard) is None:
                 return None
             self.radix_evictions += 1
-            pages = pool.alloc(n)
+            pages = pool.alloc(n, shard)
         return pages
 
-    def _plan(self, req: Request) -> Optional[Admission]:
+    def _plan(self, req: Request, shard: int = 0) -> Optional[Admission]:
         """Build the admission (match, retain, allocate, rows) for the
         queue head, or None on backpressure.  On None every side effect
         is rolled back.
@@ -559,13 +618,13 @@ class Scheduler:
         share = self.radix is not None
         if share and self.chaos is not None and self.chaos.sharing_fault():
             share = False
-        adm = self._plan_once(req, use_sharing=share)
+        adm = self._plan_once(req, share, shard)
         if adm is None and share:
-            adm = self._plan_once(req, use_sharing=False)
+            adm = self._plan_once(req, False, shard)
         return adm
 
-    def _plan_once(self, req: Request,
-                   use_sharing: bool) -> Optional[Admission]:
+    def _plan_once(self, req: Request, use_sharing: bool,
+                   shard: int) -> Optional[Admission]:
         # a resumed (preempted) request replays its generated-so-far
         # tokens as prompt tail; total pages needed are invariant under
         # preemption (orig prompt + orig max_new), so a request that fit
@@ -581,7 +640,7 @@ class Scheduler:
         spool = self.pools.get(self.share_key) if self.share_key else None
         if use_sharing and self.radix is not None \
                 and need.get(self.share_key):
-            matched = self.radix.match(prompt)
+            matched = self.radix.match(prompt, shard)
             m = sum(nt for _, _, nt in matched)
             # always re-prefill >= 1 token: first-token logits come from
             # the suffix prefill, so a fully-matched prompt keeps its
@@ -612,7 +671,7 @@ class Scheduler:
         allocs: Dict[str, List[int]] = {}
         for key, n in need.items():
             n_fresh = n - (len(shared) if key == self.share_key else 0)
-            pages = self._alloc(key, n_fresh)
+            pages = self._alloc(key, n_fresh, shard)
             if pages is None:                    # rollback, backpressure
                 for k2, ps in allocs.items():
                     self.pools[k2].free(ps)
@@ -652,7 +711,7 @@ class Scheduler:
         if self.radix is not None and self.share_key in rows \
                 and not self.defer_radix_insert:
             self.radix.insert(prompt, rows[self.share_key],
-                              self.pools[self.share_key])
+                              self.pools[self.share_key], shard)
 
         self.admissions_total += 1
         self._peak_pages = max(self._peak_pages, self.pages_in_use)
@@ -681,19 +740,39 @@ class Scheduler:
         return sorted(self.queue,
                       key=lambda r: (r.priority, r.ttft_slack(now), r._seq))
 
+    def _shard_order(self, req: Request, free_slots: List[int]) -> List[int]:
+        """The shards to try ``req`` on: those with a free slot, longest
+        cached prefix of its prompt first (a probe that leaves LRU as it
+        is), then lowest free slot."""
+        shards: List[int] = []
+        for slot in free_slots:
+            k = self.shard_of_slot(slot)
+            if k not in shards:
+                shards.append(k)
+        if self.radix is not None and len(shards) > 1:
+            prompt = req.effective_prompt
+            shards.sort(key=lambda k: -sum(
+                nt for _, _, nt in self.radix.match(prompt, k, touch=False)))
+        return shards
+
     def admissions(self, free_slots: List[int],
                    now: float = 0.0) -> Iterator[Admission]:
         """Yield admissions while the next request in admission order
-        fits.  When it does not fit, later (smaller) requests do NOT
-        jump it — head-of-line backpressure keeps the order fair (FIFO)
-        and keeps lower-priority work from nibbling away the pages a
-        blocked urgent request is waiting on (SLO)."""
+        fits (in some shard with a free slot).  When it does not fit,
+        later (smaller) requests do NOT jump it — head-of-line
+        backpressure keeps the order fair (FIFO) and keeps lower-priority
+        work from nibbling away the pages a blocked urgent request is
+        waiting on (SLO)."""
         free_slots = list(free_slots)
         self._boundary += 1
         order = self.admission_order(now)
         while order and free_slots:
             head = order[0]
-            adm = self._plan(head)
+            adm = None
+            for shard in self._shard_order(head, free_slots):
+                adm = self._plan(head, shard)
+                if adm is not None:
+                    break
             if adm is None:
                 return                       # wait for an eviction
             order.pop(0)
@@ -701,7 +780,9 @@ class Scheduler:
             self.admission_log.append(
                 (self._boundary, head.rid, head.priority,
                  head.ttft_slack(now), self.current_chunk))
-            adm.slot = free_slots.pop(0)
+            adm.slot = next(s for s in free_slots
+                            if self.shard_of_slot(s) == shard)
+            free_slots.remove(adm.slot)
             self._leases[adm.slot] = adm.lease
             self._rows[adm.slot] = adm.rows
             adm.req.status = RequestStatus.RUNNING
@@ -747,7 +828,8 @@ class Scheduler:
         elif req.out_tokens:
             valid = valid[:-1]
         return self.radix.insert(valid, rows[self.share_key],
-                                 self.pools[self.share_key])
+                                 self.pools[self.share_key],
+                                 self.shard_of_slot(slot))
 
     def index_slot(self, slot: int, req: Request, plen: int) -> int:
         """Deferred radix indexing for fused chunked prefill: called by
@@ -763,25 +845,30 @@ class Scheduler:
             return 0
         return self.radix.insert(req.effective_prompt[:plen],
                                  rows[self.share_key],
-                                 self.pools[self.share_key])
+                                 self.pools[self.share_key],
+                                 self.shard_of_slot(slot))
 
     def can_progress(self, live_slots: int, now: float = 0.0) -> bool:
         """False when the engine is wedged: nothing is running and the
-        admission-order head still cannot be admitted even after draining
-        every evictable radix page (should be impossible given the
-        submit() capacity check — a guard, not a policy)."""
+        admission-order head still cannot be admitted in any shard even
+        after draining every evictable radix page (should be impossible
+        given the submit() capacity check — a guard, not a policy)."""
         if not self.queue or live_slots:
             return True
         head = self.admission_order(now)[0]
         need = self.spec.blocks_needed(len(head.effective_prompt),
                                        head.effective_max_new)
-        for key, n in need.items():
-            avail = self.pools[key].free_pages
-            if self.radix is not None and key == self.share_key:
-                avail += self.radix.reclaimable(self.pools[key])
-            if n > avail:
-                return False
-        return True
+
+        def fits(shard: int) -> bool:
+            for key, n in need.items():
+                avail = self.pools[key].free_in(shard)
+                if self.radix is not None and key == self.share_key:
+                    avail += self.radix.reclaimable(self.pools[key], shard)
+                if n > avail:
+                    return False
+            return True
+
+        return any(fits(k) for k in range(self.shards))
 
     # ---------------------------------------------------------- telemetry
     @property
@@ -791,6 +878,10 @@ class Scheduler:
     @property
     def pages_in_use_by_group(self) -> Dict[str, int]:
         return {k: p.in_use for k, p in self.pools.items()}
+
+    def pages_in_use_in(self, shard: int) -> Dict[str, int]:
+        """Pages in use per group in ``shard`` alone."""
+        return {k: p.in_use_by_shard()[shard] for k, p in self.pools.items()}
 
     @property
     def peak_pages_in_use(self) -> int:
