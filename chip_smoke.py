@@ -24,8 +24,8 @@ window ring that wraps, full-width, full-depth zamba2-7b (Mamba2 + shared
 attention) and rwkv6-7b (attention-free) through the two-executable
 engine, then full-width dbrx-132b (MoE, depth cut to 4 layers) from
 fp32 pools, then the last four archs one at a time (whisper-medium's
-encoder and cross-attention, gemma3-12b, mistral-large-123b cut to 2
-layers, pixtral-12b's patch frontend) — the paper's §5 operator
+encoder and cross-attention, gemma3-12b cut to 36 layers,
+mistral-large-123b cut to 2 layers, pixtral-12b's patch frontend) — the paper's §5 operator
 study (fig09 and fig11, the fused-prep matmul) and its tuning machinery
 with figs 01, 04, 06, 13 and 18, and holds every CUDA kernel on them
 against its plain PyTorch version.  Phases, each
@@ -309,11 +309,12 @@ printing JSON lines:
    + 24 (decoder) + 24 (cross prefill) + 24 x 48 (cross decode), no
    paged launch, every step's logits within 1e-3 x max|logit| of
    ``forward_dense_logits`` over prompt + generated tokens (its own 72
-   launches).  gemma3-12b with nothing cut (48 layers, ~47 GB) at
-   ``max_len`` 4096: a 1500-token prompt (its 1024-window rings wrap)
-   beside 7 of the main traffic's; mistral-large-123b, every width kept,
-   depth 88 -> 2 (~12.7 GB; cut from 4 so that the whole run keeps its
-   time with the sharded_serve phase): the main traffic.  Each fused and on two
+   launches).  gemma3-12b, every width kept, depth 48 -> 36 (its first
+   36 layers, six global; ~37 GB; cut so that the whole run keeps its
+   time with flash_offset and sharded_train) at ``max_len`` 4096: a
+   1500-token prompt (its 1024-window rings wrap) beside 7 of the main
+   traffic's; mistral-large-123b, every width kept, depth 88 -> 2 (~12.7
+   GB; cut to 2 for the sharded_serve phase): the main traffic.  Each fused and on two
    executables, each through the paged kernel and the gather path:
    greedy tokens equal between the two, every kernel-path token
    teacher-forced, 0 leaked pages, paged launches == layers x
@@ -412,13 +413,29 @@ printing JSON lines:
    ``python -m repro_torch.launch.train --arch internlm2-1.8b
    --production`` as three concurrent subprocesses: exit 0, their rows
    ``ok`` with ``useful_ratio`` in (0, 1.05].
+11. sharded_train, after roofline: the same full-size internlm2 step as
+   SPMD ranks, ``Trainer`` built inside ``axis_rules`` of the tuner's
+   guideline plan at ``data = model = 1`` on a one-rank NCCL ``("data",
+   "model")`` mesh (params ``place``d, ZeRO-1 moments, the vocab-parallel
+   loss, each collective on its one-rank group): 3 steps of phase 8's
+   schedule on its seed and data, each loss and grad_norm within 1e-5 of
+   phase 8's, flash launches 24 + 24 a step, ms a step printed beside
+   phase 8's.  Earlier, after flash_grads, flash_offset: the flash
+   kernel with ``q_offset`` (context-parallel attention's queries) at
+   internlm2's training shape (B 4, 16:8, dh 128, S 1024, causal) split
+   into 2 and 4 query shards and gemma2's (dh 256, window 4096, softcap
+   50, S 4608) into 2, 4 and 16 (where the window drops keys): each
+   shard = its plain version, the shards = the unsharded kernel, their
+   backwards = the unsharded backward; each shard timed, the last beside
+   its plain version, SDPA and its bound.
 
 The last three lines are the card's name and power limit (again), the
 kernel table (paged attention per pool dtype, with its S = 1 rows under
 ``by_case``, ``moe_gmm``,
 ``flash_attention`` at dh 128, at zamba2's dh 112, at whisper's
 encoder and at gemma3's dh 256 window, ``mamba2_scan``, ``rwkv6_wkv``,
-``fused_matmul`` at fig11's n = 1024 with its launches in fig11; each
+``fused_matmul`` at fig11's n = 1024 with its launches in fig11,
+``flash_attention_q_offset`` (its shards' times); each
 with ``has_backward``, and ``flash_attention``, ``moe_gmm``,
 ``mamba2_scan`` and ``rwkv6_wkv`` with their backward's times, bound
 and launches on the training path, and their launches in fig01 and
@@ -675,6 +692,8 @@ GEMMA2_MAX_LEN = 8192   # gemma2's 4096 windows wrap within it
 GEMMA2_LONG = 4600      # the long prompt: wider than the window
 GEMMA3_MAX_LEN = 4096
 GEMMA3_LONG = 1500      # wider than gemma3's 1024 windows
+GEMMA3_DEPTH = 36       # of 48 layers (6 global, each after 5 windowed):
+                        # cut for flash_offset and sharded_train
 MISTRAL_DEPTH = 2       # of 88 layers: ~12.7 GB of fp32 weights; cut from
                         # 4 to pay for the sharded_serve phase
 # the scans' plain forwards (a Python loop a step: 36-385 ms a call) are
@@ -689,8 +708,13 @@ class SmokeFailure(Exception):
     pass
 
 
+T0 = time.time()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``t`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, "t": round(time.time() - T0, 1),
+                      **kw}), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1125,11 +1149,13 @@ def phase_gmm_kernels(torch, gmm):
 # Phase 3, flash_attention: prefill attention against its plain version
 # ---------------------------------------------------------------------------
 
-def flash_need(B, H, Hkv, Sq, Skv, dh, causal=True, window=None, **_kw):
+def flash_need(B, H, Hkv, Sq, Skv, dh, causal=True, window=None, q_offset=0,
+               **_kw):
     """Bytes and flops this call needs: q, k, v read once and the output
     written once (fp32); 4*dh flops per (head, live score), the live
-    scores being the unmasked (row, key) pairs."""
-    rows = list(range(Sq))
+    scores being the unmasked (row, key) pairs, query i at key position
+    q_offset + i."""
+    rows = list(range(q_offset, q_offset + Sq))
     live = 0
     for i in rows:
         lo, hi = 0, Skv
@@ -4328,13 +4354,19 @@ def serve_four_ways(torch, ops, fa, rt, cfg, params, make_reqs, *,
 
 
 def phase_gemma3(torch, ops, fa, rt) -> dict:
-    """gemma3-12b with nothing cut (48 layers, five 1024-window layers
-    for every global one, dh 256, vocab 262144; ~47 GB of fp32 weights)
-    at ``max_len`` 4096: one 1500-token prompt, whose 1024-window rings
-    wrap, beside 7 of the main traffic's requests, each 32 new tokens,
-    served four ways (``serve_four_ways``)."""
+    """gemma3-12b at every width, its depth cut 48 -> ``GEMMA3_DEPTH``
+    (its first 36 layers: five 1024-window layers for every global one,
+    dh 256, vocab 262144; ~37 GB of fp32 weights) at ``max_len`` 4096:
+    one 1500-token prompt, whose 1024-window rings wrap, beside 7 of the
+    main traffic's requests, each 32 new tokens, served four ways
+    (``serve_four_ways``)."""
     import numpy as np
-    cfg = rt["get_config"]("gemma3-12b")
+    full = rt["get_config"]("gemma3-12b")
+    cfg = cut_depth(full, GEMMA3_DEPTH)
+    emit("depth_cut", arch=full.name, layers_full=full.num_layers,
+         layers=cfg.num_layers,
+         kept=f"the first {cfg.num_layers} of {full.num_layers} layers "
+              "(the 5:1 window pattern whole); every width kept")
     torch.cuda.reset_peak_memory_stats()
     params = new_params(torch, rt, cfg,
                         windows=sorted({b.window or 0 for b in cfg.blocks}))
@@ -4513,6 +4545,15 @@ FLASH_BWD_CASES = [
      dict(causal=False)),
 ]
 GMM_BWD_SHAPE = dict(E=16, C=80, D=6144, F=10752)   # dbrx's gate/up
+# the query offset of context-parallel attention: the training shapes
+# split into 2 and 4 query shards, each against the keys it attends to
+# (gemma2 also in 16: only a shard under 512 queries leaves keys out)
+FLASH_OFFSET_CASES = [
+    ("internlm2_train", dict(B=4, H=16, Hkv=8, S=1024, dh=128), {}, (2, 4)),
+    ("gemma2_w4096_cap50", dict(B=1, H=8, Hkv=4, S=4608, dh=256),
+     dict(window=4096, softcap=50.0), (2, 4, 16)),
+]
+SHARDED_TRAIN_STEPS = 3
 
 
 def rel_err(torch, got, want) -> float:
@@ -4597,6 +4638,119 @@ def phase_flash_grads(torch, fa) -> dict:
         out[name] = rec
         del q, k, v, do, o, o_lib, qs, ks, vs, qk
         free(torch)
+    return out
+
+
+def phase_flash_offset(torch, fa, cp_kv_slice) -> dict:
+    """``flash_attention`` with ``q_offset`` at ``FLASH_OFFSET_CASES``:
+    each shape split into 2 and 4 query shards as
+    ``models/attention.cp_attention`` splits it (each shard's queries at
+    their offset against the keys ``cp_kv_slice`` keeps), gemma2's also
+    into 16, where its 4096 window drops keys from the slice.  Each shard's kernel output = its plain version
+    (``KERNEL_TOL``); the shards' outputs concatenated = the unsharded
+    kernel's (``KERNEL_TOL``), and their backwards (dq concatenated, dk
+    and dv summed into the keys each shard got) = the unsharded
+    backward's (``TRAIN_GRAD_TOL`` x max|want|).  Every shard call is
+    timed beside the unsharded call (offset 0); the last shard (the
+    largest offset) also beside its plain version, SDPA with the
+    offset's mask and its bound.  These launches compare the kernel
+    with its plain version and count on no path."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(8642)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    out = {}
+    worst = 0.0
+    for name, shape, opts, splits in FLASH_OFFSET_CASES:
+        B, H, Hkv, S, dh = (shape[k] for k in ("B", "H", "Hkv", "S", "dh"))
+        q = torch.randn(B, H, S, dh, generator=gen, device=DEV)
+        k = torch.randn(B, Hkv, S, dh, generator=gen, device=DEV)
+        v = torch.randn(B, Hkv, S, dh, generator=gen, device=DEV)
+        do = torch.randn(B, H, S, dh, generator=gen, device=DEV)
+        want = fa.flash_attention(q, k, v, **opts)
+        want_g = fa.flash_attention_bwd(q, k, v, want, do, **opts)
+        rec = {"case": name, "shape": shape, "options": opts,
+               "ms_unsharded": cuda_ms(torch, lambda: fa.flash_attention(
+                   q, k, v, **opts), flush=flush)}
+        for n in splits:
+            s_loc = S // n
+            got = torch.empty_like(want)
+            got_g = [torch.zeros_like(t) for t in (q, k, v)]
+            ms, errs = [], []
+            for i in range(n):
+                start, klen = cp_kv_slice(i * s_loc, s_loc, S, True,
+                                          opts.get("window"))
+                off = i * s_loc - start
+                rows = slice(i * s_loc, (i + 1) * s_loc)
+                qs = q[:, :, rows].contiguous()
+                ks = k[:, :, start:start + klen].contiguous()
+                vs = v[:, :, start:start + klen].contiguous()
+                o = fa.flash_attention(qs, ks, vs, q_offset=off, **opts)
+                plain = fa.flash_attention_ref(qs, ks, vs, q_offset=off,
+                                               **opts)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(o).all()),
+                      f"flash offset {name} {n}/{i}: non-finite output")
+                errs.append(float((o - plain).abs().max()))
+                got[:, :, rows] = o
+                dq, dk, dv = fa.flash_attention_bwd(
+                    qs, ks, vs, o, do[:, :, rows].contiguous(),
+                    q_offset=off, **opts)
+                got_g[0][:, :, rows] = dq
+                got_g[1][:, :, start:start + klen] += dk
+                got_g[2][:, :, start:start + klen] += dv
+                ms.append(cuda_ms(torch, lambda: fa.flash_attention(
+                    qs, ks, vs, q_offset=off, **opts), flush=flush))
+                del plain
+            nbytes, flops, live = flash_need(
+                B, H, Hkv, s_loc, klen, dh, window=opts.get("window"),
+                q_offset=off)
+            band = (torch.arange(klen, device=DEV)[None, :]
+                    <= off + torch.arange(s_loc, device=DEV)[:, None])
+            if opts.get("window") is not None:
+                band &= (torch.arange(klen, device=DEV)[None, :]
+                         > off + torch.arange(s_loc, device=DEV)[:, None]
+                         - opts["window"])
+            g = H // Hkv
+            kr = ks.repeat_interleave(g, dim=1).contiguous()
+            vr = vs.repeat_interleave(g, dim=1).contiguous()
+            last = {"q_offset": off, "Sq": s_loc, "Skv": klen,
+                    "ms": ms[-1], "plain_ms": cuda_ms(
+                        torch, lambda: fa.flash_attention_ref(
+                            qs, ks, vs, q_offset=off, **opts), flush=flush),
+                    "library_ms": cuda_ms(
+                        torch, lambda: F.scaled_dot_product_attention(
+                            qs, kr, vr, attn_mask=band), flush=flush),
+                    "library": "scaled_dot_product_attention, the offset's "
+                               "band as a mask" + (" (no softcap)" if
+                                                   opts.get("softcap")
+                                                   else ""),
+                    "bytes": nbytes, "flops": flops, "live_scores": live,
+                    **bounds(nbytes, flops, 3)}
+            roofline(last, f"flash offset {name} {n} shards")
+            err_sharded = float((got - want).abs().max())
+            gerr = {nm: rel_err(torch, a, b) for nm, a, b in
+                    zip(("dq", "dk", "dv"), got_g, want_g)}
+            rec[f"shards_{n}"] = {
+                "ms_each": ms, "ms_sum": sum(ms), "last": last,
+                "max_abs_err_vs_plain": max(errs),
+                "max_abs_err_vs_unsharded": err_sharded,
+                "grad_rel_err_vs_unsharded": gerr}
+            worst = max(worst, max(errs), err_sharded)
+            check(max(errs) <= KERNEL_TOL, f"flash offset {name} {n} "
+                  f"shards: {max(errs)} from plain > {KERNEL_TOL}")
+            check(err_sharded <= KERNEL_TOL, f"flash offset {name} {n} "
+                  f"shards: {err_sharded} from unsharded > {KERNEL_TOL}")
+            check(max(gerr.values()) <= TRAIN_GRAD_TOL,
+                  f"flash offset {name} {n} shards: backward {gerr} x "
+                  f"max|want| > {TRAIN_GRAD_TOL}")
+            del got, got_g, qs, ks, vs, kr, vr, band, o
+        rec["tol"] = KERNEL_TOL
+        rec["grad_tol_relative"] = TRAIN_GRAD_TOL
+        emit("kernel_check", kernel="flash_attention_q_offset", **rec)
+        out[name] = rec
+        del q, k, v, do, want, want_g
+        free(torch)
+    out["max_abs_err"] = worst
     return out
 
 
@@ -5295,6 +5449,96 @@ def phase_train_full(torch, ops, kernel_ops: dict, rt, card) -> dict:
                       {"flash_attention": cfg.num_layers})
 
 
+def phase_sharded_train(torch, fa, rt, card, train: dict) -> dict:
+    """The sharded step on a one-rank NCCL mesh: internlm2-1.8b uncut
+    under the tuner's guideline plan at ``data = model = 1`` (its rules
+    from ``core/tuner.make_rules`` on a ``("data", "model")``
+    ``DeviceMesh``), a ``Trainer`` built inside ``axis_rules`` (the
+    params placed, ZeRO-1 moments), ``SHARDED_TRAIN_STEPS`` steps of the
+    schedule ``train_full`` ran, on its seed and data.  Gates: each
+    step's loss and grad_norm within ``TRAIN_LOSS_RTOL`` of
+    ``train_full``'s, flash forward and backward launched once a layer a
+    step (counts zeroed just before ``run``), every param and moment
+    placed.  Records ms a step beside ``train_full``'s.  The process
+    group is destroyed before it returns."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tuner
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.parallel import sharding as sh
+    store = tempfile.mkdtemp()
+    mesh_lib.join_process_group("nccl", rank=0, world_size=1,
+                                init_method=f"file://{store}/store")
+    try:
+        cfg = rt["get_config"]("internlm2-1.8b")
+        mesh = mesh_lib.device_mesh((1, 1), ("data", "model"))
+        plan = tuner.guideline_plan(cfg, ShapeConfig(
+            "phase8_train", "train", TRAIN_S, TRAIN_B), model_axis=1,
+            data_axis=1)
+        rules = tuner.make_rules(plan, mesh)
+        params = rt["init_params"](rt["model_defs"](cfg), 0, device=DEV,
+                                   trainable=True)
+        tc = rt["TrainerConfig"](steps=TRAIN_STEPS, batch=TRAIN_B,
+                                 seq_len=TRAIN_S, log_every=1)
+        with sh.axis_rules(rules):
+            tr = rt["Trainer"](cfg, tc, device=DEV, params=params)
+        del params
+        free(torch)
+        leaves = rt["tree_leaves"](tr.state["params"])
+        moments = rt["tree_leaves"](tr.state["opt"]["m"])
+        check(all(sh.placement(x) is not None for x in leaves + moments),
+              "sharded_train: a param or moment is not placed")
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.bwd_launches = 0
+        t0 = time.time()
+        res = tr.run(steps=SHARDED_TRAIN_STEPS)
+        wall = time.time() - t0
+        launched = [fa.launches, fa.bwd_launches]
+        hist = res["history"]
+        n = len(hist)
+        losses = [r["loss"] for r in hist]
+        norms = [r["grad_norm"] for r in hist]
+        want_l, want_n = train["losses"][:n], train["grad_norms"][:n]
+        rel = {"loss": max(abs(a - b) / abs(b) for a, b in
+                           zip(losses, want_l)),
+               "grad_norm": max(abs(a - b) / abs(b) for a, b in
+                                zip(norms, want_n))}
+        step_ms = sorted(r["step_time_s"] * 1e3 for r in hist[1:])
+        rec = {"arch": cfg.name, "layers": cfg.num_layers, "steps": n,
+               "batch": [TRAIN_B, TRAIN_S], "mesh": mesh_lib.describe(mesh),
+               "plan": {k: getattr(plan, k) for k in (
+                   "name", "data", "pools", "intra", "fsdp", "seq_shard",
+                   "cp")},
+               "rules_fallbacks": rules.fallbacks,
+               "losses": losses, "grad_norms": norms,
+               "train_full_losses": want_l, "train_full_grad_norms": want_n,
+               "rel_err_vs_train_full": rel, "tol_relative": TRAIN_LOSS_RTOL,
+               "step_ms": [r["step_time_s"] * 1e3 for r in hist],
+               "ms_per_step_median_after_first": step_ms[len(step_ms) // 2],
+               "train_full_ms_per_step_median_after_first":
+                   train["ms_per_step_median_after_first"],
+               "wall_s": wall,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "launches": {"flash_attention": launched}, "card": card}
+        emit("sharded_train", **rec)
+        check(n == SHARDED_TRAIN_STEPS, f"sharded_train: {n} logged steps")
+        check(max(rel.values()) <= TRAIN_LOSS_RTOL,
+              f"sharded_train: {rel} from train_full > {TRAIN_LOSS_RTOL}")
+        want = cfg.num_layers * n
+        check(launched == [want, want],
+              f"sharded_train: flash launches {launched} != [{want}, "
+              f"{want}]")
+        del tr, res, leaves, moments
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    free(torch)
+    return rec
+
+
 def phase_train_scans(torch, ops, kernel_ops: dict, rt, card) -> dict:
     """zamba2-7b and rwkv6-7b at full width, cut in depth to fit fp32
     params, grads, m and v (16 bytes a parameter) beside their
@@ -5817,7 +6061,8 @@ def main() -> int:
         from repro_torch.models import (forward_decode, forward_dense_logits,
                                         forward_prefill, forward_verify,
                                         model_defs, prepare_decode_cache)
-        from repro_torch.models.attention import quantize_pages
+        from repro_torch.models.attention import (cp_kv_slice,
+                                                  quantize_pages)
         from repro_torch.models.layers import logits
         from repro_torch.models.transformer import prefill_hidden
         from repro_torch.models.module import init_params
@@ -5893,6 +6138,8 @@ def main() -> int:
         # among them), and paged attention's refusal under autograd
         flash_grads = timed_phase("flash_grads", phase_flash_grads, torch,
                                   fa)
+        flash_offset = timed_phase("flash_offset", phase_flash_offset,
+                                   torch, fa, cp_kv_slice)
         gmm_grads = timed_phase("gmm_grads", phase_gmm_grads, torch, gmm)
         scan_grads = timed_phase("scan_grads", phase_scan_grads, torch, mops,
                                  wops, ops, mamba_timed, rwkv_timed)
@@ -6000,6 +6247,10 @@ def main() -> int:
                             train_ops, rt, card)
         # the dry-run's counter and roofline on phase 8's step
         timed_phase("roofline", phase_roofline, torch, fa, rt, card, train)
+        # the same step under the guideline plan's rules on a one-rank
+        # NCCL mesh, on train_full's seed and data
+        sharded_train = timed_phase("sharded_train", phase_sharded_train,
+                                    torch, fa, rt, card, train)
         train_scans = phase_train_scans(torch, ops, train_ops, rt, card)
         train_launcher = timed_phase("train_launcher", phase_train_launcher,
                                      torch)
@@ -6277,6 +6528,33 @@ def main() -> int:
                      "causal fp32 S=1024",
             "by_case": {n: {k: r[k] for k in bwd_keys}
                         for n, r in flash_grads.items()}})
+    by_name["flash_attention"]["launches_sharded_train"] = \
+        sharded_train["launches"]["flash_attention"]
+    # the query offset (context-parallel attention): its calls at 2, 4
+    # (and gemma2's 16) shards; one card holds one sequence shard, so the
+    # sharded step's launches are the offset-0 form
+    off_last = flash_offset["internlm2_train"]["shards_4"]["last"]
+    entries.append({
+        "name": "flash_attention_q_offset", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
+        "launches": sharded_train["launches"]["flash_attention"][0],
+        "launches_q_offset_positive": 0,
+        "max_abs_err": flash_offset["max_abs_err"],
+        **{key: off_last[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_fp32_cores_ms", "roofline_share", "q_offset")},
+        "by_case": {name: {key: (val if key == "ms_unsharded" else {
+            k: val[k] for k in ("ms_each", "ms_sum", "max_abs_err_vs_plain",
+                                "max_abs_err_vs_unsharded",
+                                "grad_rel_err_vs_unsharded")})
+            for key, val in rec.items()
+            if key == "ms_unsharded" or key.startswith("shards_")}
+            for name, rec in flash_offset.items() if name != "max_abs_err"},
+        "shape": "internlm2-1.8b training, the last of 4 query shards: "
+                 "B=4 H=16 Hkv=8 dh=128 causal fp32 Sq=256 Skv=1024 "
+                 "q_offset=768"})
     gmm_par = parity["dbrx_reduced"]["launches"]["moe_gmm"]
     by_name["moe_gmm"].update(
         launches_train_dbrx_reduced=gmm_par[0],

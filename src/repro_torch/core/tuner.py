@@ -59,9 +59,10 @@ def make_rules(plan: Plan, mesh) -> sh.Rules:
     Works with both the production meshes (("data","model") and
     ("pod","data","model")) and the tuner's factored meshes
     (("data","pool","intra") / ("pod","data","pool","intra")), as the
-    descriptors of ``launch/mesh`` give them.
+    descriptors of ``launch/mesh`` give them or as ``DeviceMesh``es of
+    their shapes (``launch/mesh.device_mesh``: sharded training).
     """
-    names = tuple(mesh.axis_names)
+    names = tuple(sh.axis_sizes(mesh))
     has_pod = "pod" in names
     factored = "pool" in names
 

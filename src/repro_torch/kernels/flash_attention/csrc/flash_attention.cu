@@ -6,8 +6,10 @@
 //   q    [B, H, Sq, dh]     float or bf16
 //   k, v [B, Hkv, Skv, dh]  same type;  kvh = h / (H / Hkv)  (GQA)
 //   out  [B, H, Sq, dh]     q's type; the softmax and every sum in fp32
-// Query i sits at key position i: the causal mask keeps cols <= rows, a
-// window keeps cols > rows - window.  The softcap comes before the mask,
+// Query i sits at key position q_off + i (q_off is 0 but for a
+// context-parallel rank, whose queries start q_off keys into the keys it
+// was given): the causal mask keeps cols <= q_off + i, a window keeps
+// cols > q_off + i - window.  The softcap comes before the mask,
 // and the mask is the finite -1e30 of the Pallas kernel, with its
 // arithmetic: a row that sees no valid key in a tile while its running
 // max is still -1e30 takes p = exp(0) = 1 on that tile's masked columns,
@@ -34,7 +36,10 @@
 // head L % (B H).  Causal query tiles differ in work up to n_qt-fold, so
 // the longer half is issued first, longest first, then the shorter half
 // shortest first: a wave that puts blocks k and k + 132 on one SM pairs a
-// long tile with a short one, and the last blocks to start are short.  Each
+// long tile with a short one, and the last blocks to start are short.
+// With q_off > 0 a tile's work is q_off / 32 + its own tiles: still
+// growing with the tile index, so the same order still pairs long with
+// short (the pairs' sums stay equal; only their spread shrinks).  Each
 // warp owns 16 query rows (q in shared memory as fp32) and their running
 // max, denominator and output fragments.  The block walks the KV tiles of
 // 32 keys that the causal or window structure does not mask for every row
@@ -96,7 +101,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            int H, int Hkv, int Sq, int Skv, int causal,
-                           int window, float softcap, float scale, int n_qt) {
+                           int window, int q_off, float softcap, float scale,
+                           int n_qt) {
   using L = Smem<T, DH>;
   constexpr int NT = DH / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -130,13 +136,14 @@ __global__ void __launch_bounds__(kThreads)
                 : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  // the KV tiles some row of the block needs
+  // the KV tiles some row of the block needs (rows at key positions
+  // q_off + q_lo .. q_off + q_hi)
   const int q_hi = min(Sq, q_lo + kBQ) - 1;
   int kt_end = (Skv + kBK - 1) / kBK;
-  if (causal) kt_end = min(kt_end, q_hi / kBK + 1);
+  if (causal) kt_end = min(kt_end, (q_off + q_hi) / kBK + 1);
   int kt_begin = 0;
   if (window > 0) {
-    const int x = q_lo - window - kBK + 1;  // needed: kt * kBK > x
+    const int x = q_off + q_lo - window - kBK + 1;  // needed: kt * kBK > x
     kt_begin = x < 0 ? 0 : x / kBK + 1;
   }
   const int n_tiles = kt_end - kt_begin;
@@ -160,7 +167,8 @@ __global__ void __launch_bounds__(kThreads)
   };
 
   const bool warp_live = q_lo + warp * 16 < Sq;
-  const int ra = q_lo + warp * 16 + g, rb = ra + 8;
+  const int ra = q_lo + warp * 16 + g, rb = ra + 8;  // local rows
+  const int pa = q_off + ra, pb = q_off + rb;        // their key positions
   float o[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -189,7 +197,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = k_lo + n * 8 + 2 * t4 + (e & 1);
-          const int row = e < 2 ? ra : rb;
+          const int row = e < 2 ? pa : pb;
           float x = sc[n][e] * scale;
           if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
           bool ok = col < Skv;
@@ -260,7 +268,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int H, int Hkv, int Sq, int Skv, int causal,
-                   int window, float softcap, float scale,
+                   int window, int q_off, float softcap, float scale,
                    cudaStream_t stream) {
   constexpr size_t bytes = Smem<T, DH>::bytes;
   static bool opted_in = false;  // the dynamic shared-memory opt-in, once
@@ -277,34 +285,34 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   flash_attention_kernel<T, DH><<<(unsigned)blocks, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), H, Hkv, Sq, Skv,
-      causal, window, softcap, scale, n_qt);
+      causal, window, q_off, softcap, scale, n_qt);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                      int B, int H, int Hkv, int Sq, int Skv, int dh,
-                     int causal, int window, float softcap, float scale,
-                     cudaStream_t st) {
+                     int causal, int window, int q_off, float softcap,
+                     float scale, cudaStream_t st) {
   switch (dh) {
     case 16:
       return launch<T, 16>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window,
-                           softcap, scale, st);
+                           q_off, softcap, scale, st);
     case 32:
       return launch<T, 32>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window,
-                           softcap, scale, st);
+                           q_off, softcap, scale, st);
     case 64:
       return launch<T, 64>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window,
-                           softcap, scale, st);
+                           q_off, softcap, scale, st);
     case 112:
       return launch<T, 112>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window,
-                            softcap, scale, st);
+                            q_off, softcap, scale, st);
     case 128:
       return launch<T, 128>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window,
-                            softcap, scale, st);
+                            q_off, softcap, scale, st);
     case 256:
       return launch<T, 256>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, window,
-                            softcap, scale, st);
+                            q_off, softcap, scale, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -316,14 +324,16 @@ extern "C" {
 
 // Element types (dtype): 0 float, 1 bf16 (q, k, v and out share it).
 // dh is 16, 32, 64, 112, 128 or 256; window <= 0 means none, softcap <= 0
-// none.
+// none; q_off >= 0 is the key position of query row 0 (causal: q_off + Sq
+// <= Skv).
 // Returns a cudaError_t: cudaErrorInvalidValue for a dtype code or
 // shapes the kernel does not take, else the launch's cudaGetLastError().
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, int B, int H, int Hkv, int Sq, int Skv,
-                        int dh, int dtype, int causal, int window,
+                        int dh, int dtype, int causal, int window, int q_off,
                         float softcap, float scale, void* stream) {
   if (B < 0 || H < 1 || Hkv < 1 || H % Hkv || Sq < 0 || Skv < 1 ||
+      q_off < 0 || (causal && (long long)q_off + Sq > Skv) ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if ((long long)B * H > 65535) return (int)cudaErrorInvalidValue;
@@ -331,9 +341,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return (int)dispatch<__nv_bfloat16>(q, k, v, out, B, H, Hkv, Sq, Skv, dh,
-                                        causal, window, softcap, scale, st);
+                                        causal, window, q_off, softcap,
+                                        scale, st);
   return (int)dispatch<float>(q, k, v, out, B, H, Hkv, Sq, Skv, dh, causal,
-                              window, softcap, scale, st);
+                              window, q_off, softcap, scale, st);
 }
 
 const char* flash_attention_error_string(int err) {

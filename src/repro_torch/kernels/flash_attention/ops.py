@@ -11,11 +11,12 @@ by where ``q`` lies, and nothing else:
 
 q [B,H,Sq,dh], k/v [B,Hkv,Skv,dh], fp32 or bf16 alike, contiguous; the
 output is in q's dtype.  The kernel takes dh in {16, 32, 64, 112, 128, 256}
-and, when causal, Sq <= Skv (query i sits at key position i, so every
-row sees a key).  ``launches`` counts kernel launches (one per call on a
-CUDA tensor), so a run can show that its main path went through the
-kernel.  ``supported()`` runs the smallest real launch; tests use it to
-skip.
+and, when causal, q_offset + Sq <= Skv: query i sits at key position
+q_offset + i (0 unless a context-parallel rank passes the position of
+its first query within its keys), so every row sees a key.
+``launches`` counts kernel launches (one per call on a CUDA tensor), so
+a run can show that its main path went through the kernel.
+``supported()`` runs the smallest real launch; tests use it to skip.
 
 The op is differentiable (``forward_train`` runs it in every attention
 layer): its backward, ``flash_attention_bwd``, is the flash backward in
@@ -62,9 +63,9 @@ bwd_launches = 0   # backward calls on CUDA tensors (callers may reset it)
 BWD_SCORE_ELEMS = 1 << 26
 
 # the C signature of csrc's flash_attention_fwd: 4 tensor pointers, B, H,
-# Hkv, Sq, Skv, dh, the dtype code, causal and window, softcap and
-# scale, the stream
-FWD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+# Hkv, Sq, Skv, dh, the dtype code, causal, window and q_offset, softcap
+# and scale, the stream
+FWD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
 
@@ -80,12 +81,12 @@ def _lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=4096)
 def live_scores(sq: int, skv: int, causal: bool,
-                window: Optional[int]) -> int:
+                window: Optional[int], q_offset: int = 0) -> int:
     """The unmasked (query row, key) pairs of one head: query ``i`` sits
-    at key position ``i``; causal keeps keys <= i, a window keys > i -
-    window."""
+    at key position ``q_offset + i``; causal keeps keys at or before it,
+    a window keys less than ``window`` before it."""
     live = 0
-    for i in range(sq):
+    for i in range(q_offset, q_offset + sq):
         hi = min(i + 1, skv) if causal else skv
         lo = max(0, i - window + 1) if window is not None else 0
         live += max(0, hi - lo)
@@ -93,17 +94,18 @@ def live_scores(sq: int, skv: int, causal: bool,
 
 
 def work(q_shape, kv_shape, elem_bytes: int, causal: bool = True,
-         window: Optional[int] = None):
+         window: Optional[int] = None, q_offset: int = 0):
     """(flops, bytes) of one call, PERF.md's bound: q, k, v read once and
     the output written once; 4 dh flops per (query head, live score)."""
     b, h, sq, dh = q_shape
     hkv, skv = kv_shape[1], kv_shape[2]
     nbytes = elem_bytes * (2 * b * h * sq * dh + 2 * b * hkv * skv * dh)
-    return 4 * b * h * live_scores(sq, skv, causal, window) * dh, nbytes
+    return 4 * b * h * live_scores(sq, skv, causal, window,
+                                   q_offset) * dh, nbytes
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool) -> None:
+           causal: bool, q_offset: int = 0) -> None:
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must be one of {list(DTYPE_CODES)} and "
@@ -123,37 +125,41 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     skv = k.shape[2]
     if dh not in HEAD_DIMS:
         raise ValueError(f"the kernel takes dh in {HEAD_DIMS}, got {dh}")
-    if skv < 1 or (causal and sq > skv):
-        raise ValueError(f"the kernel takes Skv >= 1 and, causal, Sq <= "
-                         f"Skv; got Sq={sq}, Skv={skv}")
+    if skv < 1 or q_offset < 0 or (causal and q_offset + sq > skv):
+        raise ValueError(f"the kernel takes Skv >= 1, q_offset >= 0 and, "
+                         f"causal, q_offset + Sq <= Skv; got Sq={sq}, "
+                         f"Skv={skv}, q_offset={q_offset}")
     if b * h > 65535:
         raise ValueError(f"B*H = {b * h} exceeds the grid's 65535")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
+                    softcap: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """q [B,H,Sq,dh]; k,v [B,Hkv,Skv,dh] -> [B,H,Sq,dh] in q's dtype,
-    differentiable in q, k and v."""
-    return _FlashAttention.apply(q, k, v, causal, window, softcap)
+    differentiable in q, k and v; query ``i`` at key position
+    ``q_offset + i``."""
+    return _FlashAttention.apply(q, k, v, causal, window, softcap,
+                                 int(q_offset))
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              causal: bool, window: Optional[int],
-             softcap: Optional[float]) -> torch.Tensor:
+             softcap: Optional[float], q_offset: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
+                                   softcap=softcap, q_offset=q_offset)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention runs on cuda, cpu or meta "
                          f"tensors, got {q.device}")
-    _check(q, k, v, causal)
+    _check(q, k, v, causal, q_offset)
     b, h, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if active() is not None:
         record_kernel("flash_attention", *work(
-            q.shape, k.shape, q.element_size(), causal, window))
+            q.shape, k.shape, q.element_size(), causal, window, q_offset))
     if q.device.type == "meta":
         return out
     vp = ctypes.c_void_p
@@ -161,8 +167,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = lib.flash_attention_fwd(
         vp(q.data_ptr()), vp(k.data_ptr()), vp(v.data_ptr()),
         vp(out.data_ptr()), b, h, hkv, sq, skv, dh, DTYPE_CODES[q.dtype],
-        int(bool(causal)), int(window or 0), float(softcap or 0.0),
-        float(dh ** -0.5),
+        int(bool(causal)), int(window or 0), q_offset,
+        float(softcap or 0.0), float(dh ** -0.5),
         vp(torch.cuda.current_stream(q.device).cuda_stream))
     if rc != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
@@ -174,10 +180,11 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
-        out = _forward(q, k, v, causal, window, softcap)
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset):
+        out = _forward(q, k, v, causal, window, softcap, q_offset)
         ctx.save_for_backward(q, k, v, out)
-        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        q_offset=q_offset)
         return out
 
     @staticmethod
@@ -188,18 +195,19 @@ class _FlashAttention(torch.autograd.Function):
         if do.device.type == "cuda":
             global bwd_launches
             bwd_launches += 1
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
-                        softcap: Optional[float] = None):
+                        softcap: Optional[float] = None,
+                        q_offset: int = 0):
     """The flash backward in explicit products: (dq, dk, dv) in the
     dtypes of q, k and v, for q [B,H,Sq,dh], k,v [B,Hkv,Skv,dh], the
     forward's output ``out`` and its cotangent ``do`` [B,H,Sq,dh].
-    Query ``i`` sits at key position ``i`` for the masks, as in the
-    forward."""
+    Query ``i`` sits at key position ``q_offset + i`` for the masks, as
+    in the forward."""
     b, h, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -210,7 +218,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dof = do.reshape(n_all, g, sq, dh)
     kf = k.reshape(n_all, skv, dh)
     vf = v.reshape(n_all, skv, dh)
-    rows = torch.arange(sq, device=q.device)[:, None]
+    rows = q_offset + torch.arange(sq, device=q.device)[:, None]
     cols = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:

@@ -1,7 +1,9 @@
 """Plain PyTorch version of flash attention (the oracle of
 ``repro/kernels/flash_attention/ref.py``): direct full-softmax attention
 in fp32, kv heads repeated by the GQA group, the kernel's mask rule
-(finite ``-1e30``), the output cast to q's dtype."""
+(finite ``-1e30``), the output cast to q's dtype.  ``q_offset`` places
+query ``i`` at key position ``q_offset + i`` (a context-parallel rank's
+queries against its gathered keys)."""
 
 from __future__ import annotations
 
@@ -14,9 +16,11 @@ NEG_INF = -1e30
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
-                        softcap: Optional[float] = None) -> torch.Tensor:
+                        softcap: Optional[float] = None,
+                        q_offset: int = 0) -> torch.Tensor:
     """q [B,H,Sq,dh]; k,v [B,Hkv,Skv,dh] -> [B,H,Sq,dh].  Query ``i``
-    sits at key position ``i`` for the causal and window masks."""
+    sits at key position ``q_offset + i`` for the causal and window
+    masks."""
     _b, h, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -26,7 +30,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * dh ** -0.5
     if softcap is not None:
         s = torch.tanh(s / softcap) * softcap
-    rows = torch.arange(sq, device=q.device)[:, None]
+    rows = q_offset + torch.arange(sq, device=q.device)[:, None]
     cols = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:

@@ -61,6 +61,7 @@ from repro_torch.models import (attention, layers, mamba2, moe, rwkv6,
                                 map_structure, model_defs)
 from repro_torch.models import module as m
 from repro_torch.optim import adamw
+from repro_torch.optim.adamw import zero1_sharding_fn
 from repro_torch.parallel import sharding as sh
 from repro_torch.train.trainer import TrainerConfig, train_step
 
@@ -212,22 +213,17 @@ def abstract_model_params(cfg: ModelConfig, rules: sh.Rules,
     return _meta_tree(cdefs, dtype, trainable), model_defs(cfg), local, view
 
 
-def zero1_sharding_fn(cfg: ModelConfig, rules: sh.Rules, defs):
-    """Optimizer-state specs: the param rules with the d_model axis
-    forced onto the data axis (ZeRO-1); ``fn(shape)`` gives the spec of
-    the first param of that shape, as the reference's looks it up."""
-    del cfg
-    zrules = sh.Rules(table={**rules.table, m.EMBED: rules.table.get(
-        sh.BATCH)}, mesh=rules.mesh)
-    by_shape: Dict[Tuple[int, ...], Tuple] = {}
-    for d in m.tree_leaves(defs):
-        by_shape.setdefault(tuple(d.shape), d.axes)
-
-    def fn(shape) -> Optional[Tuple]:
-        ax = by_shape.get(tuple(shape))
-        return None if ax is None else zrules.spec_for(ax, tuple(shape))
-
-    return fn
+def storage_shapes(cfg: ModelConfig, rules: sh.Rules, defs=None):
+    """(each parameter's, each optimizer moment's) per-device storage
+    shape in flatten order: the param rules' shards and the ZeRO-1
+    shards (``optim/adamw.zero1_sharding_fn``), the shapes that the
+    sharded step's ranks hold (``parallel/sharding.place``,
+    ``adamw.init``)."""
+    defs = model_defs(cfg) if defs is None else defs
+    zfn = zero1_sharding_fn(cfg, rules, defs)
+    leaves = m.tree_leaves(defs)
+    return ([rules.shard_shape(d.axes, d.shape) for d in leaves],
+            [rules.local_shape(zfn(d.shape), d.shape) for d in leaves])
 
 
 # ---------------------------------------------------------------------------
@@ -271,10 +267,8 @@ def _build_train(cfg, shape, plan, mesh, rules, dtype) -> Built:
                                                       trainable=True)
     param_bytes = coll.shard_bytes(defs, rules, dtype)
     ocfg = adamw.AdamWConfig(quantize_v=m.param_count(defs) > 50e9)
-    zfn = zero1_sharding_fn(cfg, rules, defs)
     leaves = m.tree_leaves(params)
-    zshapes = [rules.local_shape(zfn(d.shape), d.shape)
-               for d in m.tree_leaves(defs)]
+    zshapes = storage_shapes(cfg, rules, defs)[1]
     on_params = all(tuple(p.shape) == z for p, z in zip(leaves, zshapes))
     if on_params:          # one device: the update steps the params
         upd_params = None
@@ -375,4 +369,4 @@ def _build_decode(cfg, shape, plan, mesh, rules, dtype) -> Built:
 
 __all__ = ["PARAM_DTYPE", "SETTINGS", "Built", "abstract_model_params",
            "batch_specs", "build", "local_view", "one_device",
-           "zero1_sharding_fn"]
+           "storage_shapes", "zero1_sharding_fn"]

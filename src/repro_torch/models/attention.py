@@ -36,6 +36,19 @@ output once into ``{"k","v": [B,Hkv,Senc,dh]}``, the flash kernel's
 layout, and ``cross_apply`` attends to it, non-causal, through
 ``kernels/flash_attention``.
 
+Under a sharded training step (``parallel/sharding.current_layout()``)
+the dense mode is head-parallel: ``wq``/``wk``/``wv`` hold this rank's
+heads and ``wo`` its rows, between ``tp_in`` and ``tp_out`` (no-ops
+without a layout).  When the
+model axis does not divide the KV heads, ``KV_HEADS`` falls back to
+replicated weights and a rank computes the ``max(1, Hkv * H_local / H)``
+KV heads its query heads group to (``launch/build.local_view``'s rule)
+from its slice of them; the leaf's gradient is then summed over the
+model axes it is not sharded on (``optim/adamw``).  Under context
+parallelism ``cp_attention`` keeps q on this rank's sequence shard,
+all-gathers K and V once and runs ``kernels/flash_attention`` with a
+query offset on the keys that the causal and window masks leave.
+
 Every function here is free of host synchronization: no ``.item()``,
 no boolean-mask indexing, no Python branch on a tensor value.
 """
@@ -53,6 +66,7 @@ from repro_torch.kernels.paged_attention.ref import take_pages
 from repro_torch.models.layers import rope
 from repro_torch.models.module import (EMBED, HEAD_DIM, HEADS, KV_HEADS,
                                         ParamDef)
+from repro_torch.parallel import sharding as sh
 
 NEG_INF = -1e30
 
@@ -132,6 +146,44 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
         v.transpose(1, 2).contiguous(), causal=causal, window=window,
         softcap=softcap)
+    return out.transpose(1, 2)
+
+
+def cp_kv_slice(offset: int, s_loc: int, skv: int, causal: bool,
+                window: Optional[int]) -> Tuple[int, int]:
+    """(first key, key count) that context-parallel queries at positions
+    ``offset .. offset + s_loc - 1`` attend to among ``skv`` gathered
+    keys: a causal windowed layer keeps ``window + s_loc`` of them from
+    ``clip(offset + s_loc - klen, 0, skv - klen)``, as the reference
+    slices them; every other layer keeps all."""
+    klen = min((window or skv) + s_loc, skv) if causal else skv
+    if not causal or klen >= skv:
+        return 0, skv
+    return min(max(offset + s_loc - klen, 0), skv - klen), klen
+
+
+def cp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool, window: Optional[int] = None,
+                 softcap: Optional[float] = None) -> torch.Tensor:
+    """Context-parallel attention (the reference's ``cp_attention``):
+    q, k, v [B,s_loc,H(kv),dh] hold this rank's sequence shard (rank
+    ``i`` of the ``SEQ`` axes: rows ``i s_loc .. (i+1) s_loc - 1``); K and
+    V are all-gathered once (the backward reduce-scatters their
+    cotangents), sliced to ``cp_kv_slice``'s keys and attended through
+    ``kernels/flash_attention`` with ``q_offset`` = the shard's first
+    position within them -> [B,s_loc,H,dh]."""
+    lay = sh.current_layout()
+    s_loc = q.shape[1]
+    offset = lay.rules.coordinate(lay.seq) * s_loc
+    k_all = sh.gather_along(k, 1, lay.seq, lay.rules)
+    v_all = sh.gather_along(v, 1, lay.seq, lay.rules)
+    start, klen = cp_kv_slice(offset, s_loc, k_all.shape[1], causal, window)
+    out = flash_ops.flash_attention(
+        q.transpose(1, 2).contiguous(),
+        k_all[:, start:start + klen].transpose(1, 2).contiguous(),
+        v_all[:, start:start + klen].transpose(1, 2).contiguous(),
+        causal=causal, window=window, softcap=softcap,
+        q_offset=offset - start)
     return out.transpose(1, 2)
 
 
@@ -448,14 +500,26 @@ def apply(params, x: torch.Tensor, *, cfg: ModelConfig,
     passes ``causal=False``) and returns no cache."""
     if mode not in ("dense", "prefill", "decode"):
         raise ValueError(f"unknown attention mode {mode!r}")
+    lay = sh.current_layout()
+    if lay is not None and (mode != "dense" or ctx is not None):
+        raise NotImplementedError(
+            "a sharded step runs the dense mode only (training)")
+    wq, wk = sh.full(params["wq"]), sh.full(params["wk"])
+    wv, wo = sh.full(params["wv"]), sh.full(params["wo"])
+    pl = sh.placement(params["wq"])
+    entry = None if pl is None else pl.entry(1)
+    x = sh.tp_in(x, entry, "the query heads")
+    h = wq.shape[1]                 # this rank's query heads
+    if lay is not None and entry is not None and \
+            wk.shape[1] * cfg.num_heads != cfg.num_kv_heads * h:
+        sl = _local_kv(params["wk"], cfg, entry, h, lay.rules)
+        wk, wv = wk[:, sl], wv[:, sl]
     b, s, d = x.shape
-    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    hkv, dh = wk.shape[1], cfg.resolved_head_dim
     x2 = x.reshape(b * s, d)
-    q = torch.matmul(x2, params["wq"].reshape(d, h * dh)).view(b, s, h, dh)
-    kk = torch.matmul(x2, params["wk"].reshape(d, hkv * dh)).view(
-        b, s, hkv, dh)
-    vv = torch.matmul(x2, params["wv"].reshape(d, hkv * dh)).view(
-        b, s, hkv, dh)
+    q = torch.matmul(x2, wq.reshape(d, h * dh)).view(b, s, h, dh)
+    kk = torch.matmul(x2, wk.reshape(d, hkv * dh)).view(b, s, hkv, dh)
+    vv = torch.matmul(x2, wv.reshape(d, hkv * dh)).view(b, s, hkv, dh)
     q = rope(q, positions, cfg.rope_theta)
     kk = rope(kk, positions, cfg.rope_theta)
     if mode == "decode" and "pk" in cache:
@@ -494,14 +558,35 @@ def apply(params, x: torch.Tensor, *, cfg: ModelConfig,
         out = prefix_prefill_attention(q, kk, vv, ck, cv, ctx["off"],
                                        softcap=cfg.attn_softcap)
         new_cache = {"k": kk.transpose(1, 2), "v": vv.transpose(1, 2)}
+    elif lay is not None and lay.cp:
+        out = cp_attention(q, kk, vv, causal=causal, window=window,
+                           softcap=cfg.attn_softcap)
+        new_cache = None
     else:
         out = chunked_attention(q, kk, vv, causal=causal, window=window,
                                 softcap=cfg.attn_softcap, q_chunk=q_chunk)
         new_cache = None if mode == "dense" else {
             "k": kk.transpose(1, 2), "v": vv.transpose(1, 2)}
     y = torch.matmul(out.reshape(b * s, h * dh),
-                     params["wo"].reshape(h * dh, d)).view(b, s, d)
-    return y, new_cache
+                     wo.reshape(h * dh, d)).view(b, s, d)
+    return sh.tp_out(y, entry, "the query heads"), new_cache
+
+
+def _local_kv(wk: torch.Tensor, cfg: ModelConfig, entry, h_loc: int,
+              rules) -> slice:
+    """The slice of ``wk``'s (local) KV heads that this rank's ``h_loc``
+    query heads (its coordinate on ``entry``) group to, when the model
+    axis does not shard the KV heads as it shards the query heads."""
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    g = h // hkv
+    want = max(1, hkv * h_loc // h)
+    if h_loc < g and g % h_loc:
+        raise NotImplementedError(
+            f"{h_loc} query heads a rank straddle groups of {g}")
+    first = rules.coordinate(entry) * h_loc // g
+    pl = sh.placement(wk)
+    stored = rules.local_range(pl.spec, pl.shape, 1)[0]
+    return slice(first - stored, first - stored + want)
 
 
 def init_cache_shape(cfg: ModelConfig, batch: int,

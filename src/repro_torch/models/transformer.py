@@ -37,6 +37,17 @@ in place and returns new state tensors for the Mamba2 and rwkv6 layers.
 speculative verify).  Every layer returns its MoE router's aux values;
 ``_decoder`` averages them over the layers in the dense mode, and only
 ``forward_train`` reads them.
+
+Under ``parallel/sharding.axis_rules(rules)`` on a ``DeviceMesh`` (a
+tuner plan's rules, ``core/tuner.make_rules``), ``forward_train`` runs
+this rank's share of the step on parameters placed by
+``sharding.place``: the batch rows of its ``BATCH`` range, the residual
+stream sequence-sharded under ``seq_shard`` and ``cp`` (``Layout``), the
+layers tensor-parallel (``models/layers``, ``models/attention``), and
+the loss the global masked mean.  Dense attention archs only: a MoE arch
+raises (ROADMAP A19: global-capacity dispatch), Mamba2 / rwkv6 stacks
+(A20) and encoder or frontend archs (A23) too.  The other entry points
+run on one device.
 """
 
 from __future__ import annotations
@@ -292,6 +303,77 @@ def forward_dense_logits(params, cfg: ModelConfig,
     return layers.logits(params["embed"], cfg, h)
 
 
+def refuse_under_plan(cfg: ModelConfig) -> None:
+    """Raise for an arch that the sharded step does not run, naming the
+    ROADMAP item that lifts it."""
+    if any(b.ffn == FFN_MOE for b in cfg.blocks):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE under a plan needs the global-capacity "
+            "dispatch (ROADMAP A19)")
+    if any(b.mixer in (MAMBA2, RWKV6, SHARED_ATTN) for b in cfg.blocks):
+        raise NotImplementedError(
+            f"{cfg.name}: recurrent layers under a plan (ROADMAP A20)")
+    if cfg.enc_layers or cfg.frontend or cfg.cross_attention:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder and frontend archs under a plan "
+            "(ROADMAP A23)")
+
+
+def _layout(params, cfg: ModelConfig, rules: sh.Rules, b: int, s: int
+            ) -> sh.Layout:
+    """How this step lays out its activations on ``rules``' mesh."""
+    data = rules.table.get(sh.BATCH)
+    if rules.spec_for((sh.BATCH,), (b,)) != ((data,) if data else ()):
+        raise ValueError(f"batch {b} does not divide the data axes "
+                         f"{sh.axes_of(data)}")
+    seq = rules.table.get(sh.SEQ)
+    split = seq is not None and rules.spec_for((sh.SEQ,), (s,)) == (seq,)
+    model = rules.table.get(sh.HEADS)
+    if seq is not None and not split and not rules.context_parallel:
+        raise ValueError(f"sequence {s} does not divide the sequence axes "
+                         f"{sh.axes_of(seq)} of Megatron-SP")
+    cp = rules.context_parallel and split
+    head = params["embed"]["table"] if cfg.tie_embeddings \
+        else params["embed"]["head"]
+    vocab = sh.placement(head).entry(0 if cfg.tie_embeddings else 1)
+    loss = sh.axes_of(data) + (sh.axes_of(seq) if cp else ())
+    scale = 1.0
+    if rules.context_parallel and not split:
+        # the model axes hold copies of one sequence; the weights'
+        # gradients sum over them
+        scale = 1.0 / rules.mesh_size(seq)
+    return sh.Layout(rules=rules, seq=seq if split else None,
+                     cp=cp, model=model, vocab=vocab, loss=loss,
+                     grad_scale=scale)
+
+
+def _forward_train_sharded(params, cfg: ModelConfig, batch: Dict,
+                           rules: sh.Rules, remat: bool
+                           ) -> Tuple[torch.Tensor, Dict]:
+    """``forward_train`` on this rank's shards (``batch`` the global
+    one): see the module docstring."""
+    refuse_under_plan(cfg)
+    tokens, labels = batch["tokens"], batch["labels"]
+    b, s = tokens.shape
+    lay = _layout(params, cfg, rules, b, s)
+    axes = (sh.BATCH, sh.SEQ if lay.cp else None)
+    tokens, labels = sh.shard(tokens, *axes), sh.shard(labels, *axes)
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = sh.shard(mask, *axes)
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    if lay.cp:
+        positions = sh.shard(positions, None, sh.SEQ)
+    with sh.step_layout(lay):
+        h = layers.embed(params["embed"], cfg, tokens)
+        h, _, _ = _decoder(params, cfg, h, mode="dense",
+                           positions=positions, caches=None,
+                           cache_len=None, remat=remat)
+        lg = layers.logits(params["embed"], cfg, h)
+        loss = layers.cross_entropy(lg, labels, mask)
+    return loss, {"loss": loss}
+
+
 def forward_train(params, cfg: ModelConfig, batch: Dict, *,
                   q_chunk: Optional[int] = None, remat: bool = False
                   ) -> Tuple[torch.Tensor, Dict]:
@@ -304,8 +386,13 @@ def forward_train(params, cfg: ModelConfig, batch: Dict, *,
     loss averaged over the layers.  ``metrics`` holds ``loss`` and the
     averaged aux values.  ``remat``: recompute each block in the
     backward.  ``q_chunk`` is accepted for the reference's signature:
-    the flash kernel picks its own tiles."""
+    the flash kernel picks its own tiles.  Under live sharding rules
+    (``parallel/sharding.live_rules``) ``batch`` is the global batch and
+    the step is this rank's share of it (the module docstring)."""
     del q_chunk
+    rules = sh.live_rules()
+    if rules is not None:
+        return _forward_train_sharded(params, cfg, batch, rules, remat)
     tokens, labels = batch["tokens"], batch["labels"]
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None, :]

@@ -18,6 +18,13 @@ layout (counterpart of ``repro/train/checkpoint.py``):
 * ``AsyncCheckpointer`` copies the state to the host, then writes it on
   a background thread; at most one write is pending, and ``wait()``
   joins it and raises its error.
+* **Sharded state** (leaves placed by ``parallel/sharding.place`` or
+  ``optim/adamw.init`` on a live mesh): every rank calls ``save``, which
+  all-gathers each placed leaf whole; global rank 0 writes the same
+  layout as one device would, and the ranks meet at a barrier after it.
+  ``restore`` gives each placed target leaf its slice of the whole
+  array, so a checkpoint written on one mesh restores onto another
+  mesh's placement (elastic restore), or onto one device.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.module import tree_leaves, tree_map
+from repro_torch.parallel import sharding as sh
 
 SHARD_BYTES = 512 << 20
 
@@ -43,6 +51,22 @@ def _host(t) -> np.ndarray:
     return np.asarray(t)
 
 
+def _whole(t):
+    """A leaf on the host, whole: a placed leaf all-gathered first (a
+    collective)."""
+    return _host(sh.gather_tensor(t) if isinstance(t, torch.Tensor) else t)
+
+
+def _sharded_writer(state) -> Tuple[bool, bool]:
+    """(the state holds placed leaves, this process writes): with placed
+    leaves only global rank 0 writes."""
+    placed = any(sh.placement(x) is not None for x in tree_leaves(state))
+    if not placed:
+        return False, True
+    import torch.distributed as dist
+    return True, dist.get_rank() == 0
+
+
 def _skeleton(tree) -> Any:
     """The tree's structure with every leaf as ``*`` (the manifest's
     ``treedef``)."""
@@ -50,15 +74,28 @@ def _skeleton(tree) -> Any:
 
 
 def save(ckpt_dir: str, state, step: int) -> Path:
-    """Write ``state`` (a tree of tensors or arrays) as step ``step``."""
+    """Write ``state`` (a tree of tensors or arrays) as step ``step``.
+    Placed leaves are gathered whole; then global rank 0 writes and
+    every rank waits at a barrier for it."""
     d = Path(ckpt_dir)
+    final = d / f"step_{step:08d}"
+    placed, writes = _sharded_writer(state)
+    arrays = [_whole(x) for x in tree_leaves(state)]
+    if writes:
+        _write(d, final, state, step, arrays)
+    if placed:
+        import torch.distributed as dist
+        dist.barrier()
+    return final
+
+
+def _write(d: Path, final: Path, state, step: int,
+           arrays: List[np.ndarray]) -> None:
     d.mkdir(parents=True, exist_ok=True)
     tmp = d / f"step_{step:08d}.tmp"
-    final = d / f"step_{step:08d}"
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
-    arrays = [_host(x) for x in tree_leaves(state)]
     manifest: Dict[str, Any] = {
         "step": step,
         "treedef": json.dumps(_skeleton(state)),
@@ -91,7 +128,6 @@ def save(ckpt_dir: str, state, step: int) -> Path:
     if final.exists():
         shutil.rmtree(final)
     os.rename(tmp, final)  # atomic commit
-    return final
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -116,9 +152,9 @@ def load_arrays(ckpt_dir: str, step: Optional[int] = None
     with open(d / "manifest.json") as f:
         manifest = json.load(f)
     flat: Dict[str, np.ndarray] = {}
-    for sh in manifest["shards"]:
-        with np.load(d / sh["file"]) as z:
-            for k in sh["keys"]:
+    for part in manifest["shards"]:
+        with np.load(d / part["file"]) as z:
+            for k in part["keys"]:
                 flat[k] = z[k]
     return [flat[f"leaf_{i}"] for i in range(manifest["num_leaves"])], step
 
@@ -126,18 +162,23 @@ def load_arrays(ckpt_dir: str, step: Optional[int] = None
 @torch.no_grad()
 def restore(ckpt_dir: str, target_state, step: Optional[int] = None):
     """Load a checkpoint into ``target_state`` (a tree of tensors: each
-    leaf is overwritten in place, cast to its dtype, on its device) ->
-    (target_state, step)."""
+    leaf is overwritten in place, cast to its dtype, on its device; a
+    placed leaf with its slice of the whole) -> (target_state, step)."""
     arrays, step = load_arrays(ckpt_dir, step)
     leaves = tree_leaves(target_state)
     if len(leaves) != len(arrays):
         raise ValueError(f"checkpoint step {step} holds {len(arrays)} "
                          f"leaves, the target {len(leaves)}")
     for i, (t, a) in enumerate(zip(leaves, arrays)):
-        if tuple(t.shape) != a.shape:
+        pl = sh.placement(t)
+        want = tuple(t.shape) if pl is None else pl.shape
+        if want != a.shape:
             raise ValueError(f"leaf {i}: checkpoint {a.shape}, target "
-                             f"{tuple(t.shape)}")
-        t.copy_(torch.as_tensor(np.array(a)))
+                             f"{want}")
+        src = torch.as_tensor(np.array(a))
+        if pl is not None:
+            src = sh.local_part(src, pl.spec, pl.rules)
+        t.copy_(src)
     return target_state, step
 
 
@@ -150,8 +191,14 @@ class AsyncCheckpointer:
         self.last_error: Optional[BaseException] = None
 
     def save(self, state, step: int) -> None:
+        """Copy ``state`` to the host (placed leaves gathered whole: every
+        rank calls this) and write it in the background (placed: global
+        rank 0 only)."""
         self.wait()
-        host_state = tree_map(_host, state)
+        _, writes = _sharded_writer(state)
+        host_state = tree_map(_whole, state)
+        if not writes:
+            return
 
         def work():
             try:

@@ -23,10 +23,24 @@ Runs on the card unless ``device="cpu"``; there the attention and MoE
 products and the Mamba2 and rwkv6 scans run and differentiate through
 their plain versions.  On the card every arch trains through the
 kernels: the scans' gradients come from their backward kernels.
+
+**Sharded** (the counterpart of the reference's ``with mesh,
+axis_rules(rules)``): a ``Trainer`` built inside
+``parallel/sharding.axis_rules(rules)`` on a ``DeviceMesh`` (a tuner
+plan's rules) keeps those rules for every step and holds its state as
+this rank's shards: the params ``sharding.place``d (from ``params=``,
+full, or ``init_params``), the moments ZeRO-1 shards (``adamw.init``).
+Each step feeds the global ``SyntheticLM`` batch; ``forward_train``
+takes this rank's ``BATCH`` rows, and the metrics are global values
+(the loss the global masked mean, ``grad_norm`` the full gradient's).
+The watchdog times each rank's own steps; a checkpoint gathers the
+shards and global rank 0 writes it (``train/checkpoint``).  Dense
+attention archs only (``transformer.refuse_under_plan``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import statistics
 import time
@@ -39,7 +53,9 @@ from repro_torch.data.pipeline import SyntheticLM, to_device
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import forward_train, model_defs
 from repro_torch.models.module import init_params
+from repro_torch.models.transformer import refuse_under_plan
 from repro_torch.optim import adamw, schedule
+from repro_torch.parallel import sharding as sh
 
 
 def train_step(state: Dict, batch: Dict[str, torch.Tensor],
@@ -87,15 +103,23 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, tc: TrainerConfig,
                  device: DeviceLike = None, params=None):
         """``params``: the trainable ``ParamTree`` to train (default:
-        ``init_params`` of the config from ``tc.seed`` on ``device``)."""
+        ``init_params`` of the config from ``tc.seed`` on ``device``);
+        inside live sharding rules, full or already placed."""
         self.cfg = cfg
         self.tc = tc
         self.device = resolve_device(device)
         self.ocfg = adamw.AdamWConfig(lr=tc.peak_lr)
+        self.rules = sh.live_rules()
+        if self.rules is not None:
+            refuse_under_plan(cfg)
         if params is None:
             params = init_params(model_defs(cfg), tc.seed,
                                  tc.param_dtype or torch.float32,
                                  device=self.device, trainable=True)
+        if self.rules is not None and sh.placement(
+                next(params.parameters())) is None:
+            params = sh.place(params, model_defs(cfg), self.rules,
+                              trainable=True)
         self.state = {"params": params,
                       "opt": adamw.init(params, self.ocfg),
                       "step": torch.zeros((), dtype=torch.int32,
@@ -110,11 +134,19 @@ class Trainer:
             self._ckpt = AsyncCheckpointer(tc.ckpt_dir)
 
     # ------------------------------------------------------------------
+    def _rules(self):
+        """The rules this trainer was built under (none: a no-op)."""
+        if self.rules is None:
+            return contextlib.nullcontext()
+        return sh.axis_rules(self.rules)
+
     def train_step(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-        """One step on a device batch (``train_step``)."""
-        return train_step(self.state, batch, self.cfg, self.ocfg,
-                          self.tc.steps, remat=self.tc.remat)
+        """One step on a device batch (``train_step``; sharded: the
+        global batch)."""
+        with self._rules():
+            return train_step(self.state, batch, self.cfg, self.ocfg,
+                              self.tc.steps, remat=self.tc.remat)
 
     def maybe_restore(self) -> int:
         if not self.tc.ckpt_dir:
@@ -126,6 +158,10 @@ class Trainer:
         return step
 
     def run(self, steps: Optional[int] = None) -> Dict:
+        with self._rules():
+            return self._run(steps)
+
+    def _run(self, steps: Optional[int]) -> Dict:
         steps = steps or self.tc.steps
         start = int(self.state["step"])
         for step in range(start, steps):

@@ -253,6 +253,94 @@ def test_apply_unported_modes_raise(layer):
 
 
 # ---------------------------------------------------------------------------
+# the query offset: a context-parallel rank's queries against its keys
+# ---------------------------------------------------------------------------
+
+# (shards, options): causal, a window that slices the keys, a softcap
+OFFSET_CASES = [(2, {}), (4, {}), (4, {"window": 24}),
+                (2, {"window": 40, "softcap": 20.0}), (4, {"softcap": 20.0})]
+
+
+def _shard_calls(n, s, window, causal=True):
+    """Each query shard's (rows, key start, key count, q_offset), as
+    ``models/attention.cp_attention`` slices them."""
+    s_loc = s // n
+    out = []
+    for i in range(n):
+        start, klen = tatt.cp_kv_slice(i * s_loc, s_loc, s, causal, window)
+        out.append((slice(i * s_loc, (i + 1) * s_loc), start, klen,
+                    i * s_loc - start))
+    return out
+
+
+@pytest.mark.parametrize("n,kw", OFFSET_CASES)
+def test_query_offset_shards_equal_unsharded(n, kw):
+    """The shards' outputs, concatenated, equal the unsharded call, and
+    their gradients (dk, dv summed into the keys each shard was given)
+    equal its gradients: the plain version forward, the explicit-product
+    backward, and the meta work count (live scores) summed."""
+    b, h, hkv, s, dh = 2, 4, 2, 96, 32
+    q, k, v = (torch.as_tensor(a) for a in _qkv(b, h, hkv, s, s, dh, 11))
+    do = torch.as_tensor(np.random.RandomState(12).randn(b, h, s, dh)
+                         .astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = ops.flash_attention(*leaves, **kw)
+    want_g = torch.autograd.grad(want, leaves, do)
+    got = torch.empty_like(want)
+    got_g = [torch.zeros_like(t) for t in (q, k, v)]
+    live = 0
+    for rows, start, klen, off in _shard_calls(n, s, kw.get("window")):
+        qs = q[:, :, rows].contiguous().requires_grad_()
+        ks = k[:, :, start:start + klen].contiguous().requires_grad_()
+        vs = v[:, :, start:start + klen].contiguous().requires_grad_()
+        out = ops.flash_attention(qs, ks, vs, q_offset=off, **kw)
+        np.testing.assert_array_equal(
+            out.detach().numpy(),
+            flash_attention_ref(qs, ks, vs, q_offset=off, **kw)
+            .detach().numpy())
+        got[:, :, rows] = out.detach()
+        dq, dk, dv = torch.autograd.grad(out, (qs, ks, vs), do[:, :, rows])
+        got_g[0][:, :, rows] += dq
+        got_g[1][:, :, start:start + klen] += dk
+        got_g[2][:, :, start:start + klen] += dv
+        live += ops.live_scores(rows.stop - rows.start, klen, True,
+                                kw.get("window"), off)
+    np.testing.assert_allclose(got.numpy(), want.detach().numpy(),
+                               rtol=1e-6, atol=1e-6)
+    for name, g, w in zip("qkv", got_g, want_g):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=f"d{name}")
+    assert live == ops.live_scores(s, s, True, kw.get("window"))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_query_offset_zero_is_the_old_call(mode):
+    """``q_offset=0`` gives the very bits of the call without it, forward
+    and backward."""
+    q, k, v = (torch.as_tensor(a) for a in _qkv(1, 4, 2, 37, 37, 32, 3))
+    kw = MODES[mode]
+    out = flash_attention_ref(q, k, v, **kw)
+    np.testing.assert_array_equal(
+        flash_attention_ref(q, k, v, q_offset=0, **kw).numpy(), out.numpy())
+    do = torch.ones_like(out)
+    for a, b in zip(ops.flash_attention_bwd(q, k, v, out, do, **kw),
+                    ops.flash_attention_bwd(q, k, v, out, do, q_offset=0,
+                                            **kw)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_check_refuses_query_offset_past_the_keys():
+    q = torch.zeros(1, 4, 8, 32)
+    k = torch.zeros(1, 2, 16, 32)
+    ops._check(q, k, k, causal=True, q_offset=8)
+    with pytest.raises(ValueError, match="q_offset"):
+        ops._check(q, k, k, causal=True, q_offset=9)
+    with pytest.raises(ValueError, match="q_offset"):
+        ops._check(q, k, k, causal=True, q_offset=-1)
+    ops._check(q, k, k, causal=False, q_offset=9)
+
+
+# ---------------------------------------------------------------------------
 # the wrapper's contract
 # ---------------------------------------------------------------------------
 
@@ -338,3 +426,31 @@ def test_cuda_kernel_vs_plain(cuda_device, b, h, hkv, sq, skv, dh, kw,
     bound = 1e-4 if dtype == "float32" \
         else 2e-2 * float(want.float().abs().max())
     assert err <= bound
+
+
+# (B, H, Hkv, S, dh, shards, options): the query offset on the card
+CUDA_OFFSET_CASES = [
+    (2, 8, 4, 256, 64, 4, {}),
+    (1, 4, 2, 320, 128, 2, {"window": 100}),
+    (1, 4, 2, 288, 256, 8, {"window": 64, "softcap": 20.0}),
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,dh,n,kw", CUDA_OFFSET_CASES)
+def test_cuda_kernel_query_offset_vs_plain(cuda_device, b, h, hkv, s, dh, n,
+                                           kw):
+    """Each query shard's kernel output at its offset = its plain
+    version, and the shards concatenated = the unsharded kernel's."""
+    q, k, v = (torch.as_tensor(x).to(cuda_device)
+               for x in _qkv(b, h, hkv, s, s, dh, seed=s))
+    want = ops.flash_attention(q, k, v, **kw)
+    got = torch.empty_like(want)
+    for rows, start, klen, off in _shard_calls(n, s, kw.get("window")):
+        qs = q[:, :, rows].contiguous()
+        ks = k[:, :, start:start + klen].contiguous()
+        vs = v[:, :, start:start + klen].contiguous()
+        got[:, :, rows] = ops.flash_attention(qs, ks, vs, q_offset=off, **kw)
+        plain = flash_attention_ref(qs, ks, vs, q_offset=off, **kw)
+        assert float((got[:, :, rows] - plain).abs().max()) <= 1e-4
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-4
